@@ -1,10 +1,12 @@
 """softbodyunity_torch — the soft-body engine on PyTorch and CUDA.
 
 A port of ``softbodyunity_tpu`` (JAX on a TPU) to PyTorch on an NVIDIA H100,
-with the same module layout and names.  This slice covers the grid-cloth
-semi-implicit Euler path with plane and sphere contact; its hot loop is the
-hand-written CUDA kernel ``kernels/csrc/grid_euler.cu``, built with nvcc at
-first use.  On the CPU the same API runs the kernel's plain PyTorch version.
+with the same module layout and names.  The port covers grid cloth under
+the semi-implicit Euler, Verlet and XPBD solvers with plane and sphere
+contact; each solver's hot loop is a hand-written CUDA kernel
+(``kernels/csrc/grid_euler.cu``, ``grid_verlet.cu``, ``grid_xpbd.cu``), built
+with nvcc at first use.  On the CPU the same API runs the kernels' plain
+PyTorch versions.
 
     import softbodyunity_torch as sb
 

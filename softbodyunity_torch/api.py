@@ -1,6 +1,7 @@
 """Public API: ``init`` / ``step`` / ``rollout`` / ``normals``.
 
-Counterpart of ``softbodyunity_tpu/api.py`` for the grid-cloth Euler slice.
+Counterpart of ``softbodyunity_tpu/api.py`` for the grid-cloth slices (Euler,
+Verlet, XPBD; the solver is ``cfg.solver``).
 ``init`` builds the device topology and rest state once; ``step`` advances one
 frame of ``n_substeps`` substeps.  PyTorch runs eagerly, so where the JAX
 package compiles one executable per config, this module builds one step
@@ -111,7 +112,9 @@ def step(
     dt: Optional[float] = None,
     n_substeps: Optional[int] = None,
 ) -> State:
-    """Advance one frame: ``n_substeps`` substeps of size ``dt``."""
+    """Advance one frame: ``n_substeps`` substeps of size ``dt``.  Verlet
+    reads ``state.x_prev`` as its history (so a state handed over from a
+    running scene keeps its motion); Euler and XPBD read ``state.v``."""
     dt = cfg.dt if dt is None else float(dt)
     n = cfg.n_substeps if n_substeps is None else int(n_substeps)
     return _dispatch_step(top, cfg, state, dt, n)

@@ -19,10 +19,10 @@ class State:
     """Per-vertex dynamic tensors, shape ``[N, 3]``.
 
     ``x_prev`` is the previous-substep position, the Verlet integrator's
-    history term; the Euler path returns ``x - dt * v`` there, as the JAX
-    package's fast paths do.  The optional fields (tear liveness, plastic
+    history term; the Euler and XPBD paths return ``x - dt * v`` there, as
+    the JAX package's fast paths do.  The optional fields (tear liveness, plastic
     rest scale, shape-matching quaternions) belong to features later slices
-    port; the Euler grid path leaves them ``None``.
+    port; the grid paths leave them ``None``.
     """
 
     x: torch.Tensor        # [N, 3] positions

@@ -7,7 +7,7 @@ register its device pytree, so the port carries the NumPy parts itself and
 
 :class:`Topology` is the device side, built by
 :func:`softbodyunity_torch.api.device_topology`: a frozen dataclass of
-tensors holding what the grid-cloth Euler path reads.  Later slices add the
+tensors holding what the grid-cloth paths read.  Later slices add the
 fields their paths need; ``HostTopology`` already carries all of them.
 """
 

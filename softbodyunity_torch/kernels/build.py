@@ -10,6 +10,7 @@ falls back to another path.  The wrapper of each kernel declares the
 
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import functools
 import hashlib
@@ -48,6 +49,13 @@ def library_path(name: str) -> Path:
         h.update(p.name.encode())
         h.update(p.read_bytes())
     return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
+
+
+def load_libraries(names) -> None:
+    """Build every named library that does not exist yet, one nvcc per
+    source, all started together, then load them."""
+    with concurrent.futures.ThreadPoolExecutor(max(len(names), 1)) as pool:
+        list(pool.map(load_library, names))
 
 
 @functools.cache

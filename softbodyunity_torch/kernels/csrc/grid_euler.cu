@@ -23,7 +23,8 @@
 // Spring forces are a gather.  For each offset o a vertex adds the force of
 // the edge it owns (to p + o) and subtracts the force of the edge owned by
 // p - o, recomputed rather than scattered: no atomics, a deterministic sum,
-// and both copies of an edge force come from one function, so they are
+// and both copies of an edge force come from one function
+// (grid_common.cuh::edge_force, shared with grid_verlet.cu), so they are
 // identical.  Grid bounds checks replace the TPU kernel's wrap-around roll
 // and edge-ownership masks.
 //
@@ -43,11 +44,9 @@
 
 #include <cuda_runtime.h>
 
-namespace {
+#include "grid_common.cuh"
 
-struct Vec3 {
-  float x, y, z;
-};
+namespace {
 
 // Scalars of one substep, computed by the wrapper in double from SimConfig
 // and rounded once to float, as the plain version's Python scalars are.
@@ -60,25 +59,6 @@ struct Params {
   float restitution1;   // 1 + restitution (sphere bounce)
   float keep;           // 1 - friction
 };
-
-__device__ __forceinline__ Vec3 load3(const float* __restrict__ p, int idx,
-                                      int plane) {
-  return {p[idx], p[plane + idx], p[2 * plane + idx]};
-}
-
-// Hooke + axial damper force on endpoint a of the edge a -> b, toward b.
-__device__ __forceinline__ Vec3 edge_force(Vec3 xa, Vec3 va, Vec3 xb,
-                                           Vec3 vb, float k, float rest,
-                                           float damping) {
-  const float dx = xb.x - xa.x, dy = xb.y - xa.y, dz = xb.z - xa.z;
-  const float len = sqrtf(dx * dx + dy * dy + dz * dz);
-  const float inv_len = 1.0f / fmaxf(len, 1e-12f);
-  const float nx = dx * inv_len, ny = dy * inv_len, nz = dz * inv_len;
-  const float rel_v =
-      (vb.x - va.x) * nx + (vb.y - va.y) * ny + (vb.z - va.z) * nz;
-  const float fmag = k * (len - rest) + damping * rel_v;
-  return {fmag * nx, fmag * ny, fmag * nz};
-}
 
 // One thread per vertex (i, j) of the [ny, nx] grid.  x, v, x_out and v_out
 // are [3, ny, nx] component planes; offsets is [n_off, 4] rows of

@@ -1,0 +1,154 @@
+// Fused position-Verlet substep for structured grid cloth, for Hopper
+// (sm_90a).  Built by softbodyunity_torch/kernels/build.py, wrapped by
+// softbodyunity_torch/kernels/grid_verlet.py; its plain PyTorch version is
+// softbodyunity_torch/kernels/stencil.py::verlet_substep_grid.
+//
+// Replaces the TPU kernel softbodyunity_tpu/kernels/pallas_substep.py
+// ::_make_verlet_kernel, launched by ::_pallas_verlet_substeps through
+// pl.pallas_call, for the branches the grid-cloth Verlet path runs: the
+// six-offset spring stencil on the velocity estimate (x - xp) / dt, the
+// damped position update, pinning, position-only plane and sphere contact,
+// and the plane and sphere friction.  Its wind, strain-limit, capsule/box,
+// plastic and tear branches are not ported yet; the wrapper refuses configs
+// that enable them.
+//
+// Design.  As grid_euler.cu: one launch per substep, one thread per vertex,
+// the state in L2 between launches, no vertex cap.  The damper reads each
+// neighbour's velocity estimate, so a neighbour's xp is read while the owner
+// writes its new position: writing the new x over xp would race.  The
+// wrapper therefore rotates three buffers: read (x, xp), write out, then
+// (x, xp, out) <- (out, x, xp).  Spring forces are the same gather as the
+// Euler kernel's, from the shared grid_common.cuh::edge_force (owned edge
+// plus the recomputed reaction of the edge owned by p - o).  Contact and
+// friction read only the vertex's own data.
+//
+// What bounds it.  Per vertex and substep it reads x, xp and inv_mass and
+// writes x: 40 bytes, 2.6 MB at 64k vertices, ~0.8 us at 3.35 TB/s, and
+// ~300 flops.  As with the Euler kernel, launch overhead and the serial
+// chain of 12 neighbour gathers bound it at 64k, not bandwidth.
+//
+// Rounding.  sqrtf and IEEE divides (the velocity estimate is a divide by
+// dt) in the plain version's order; FMA contraction makes the agreement one
+// of rounding.  Pinned vertices keep x bit for bit.
+
+#include <cuda_runtime.h>
+
+#include "grid_common.cuh"
+
+namespace {
+
+// Scalars of one substep, computed by the wrapper in double from SimConfig
+// and rounded once to float, as the plain version's Python scalars are.
+struct Params {
+  float dt;
+  float damping;      // spring-axis damper coefficient
+  float gx, gy, gz;   // gravity
+  float decay;        // 1 - global_damping * dt
+  float mu;           // friction
+  float keep;         // 1 - friction
+  float shell;        // SPHERE_CONTACT_SHELL
+};
+
+__device__ __forceinline__ Vec3 velocity_estimate(Vec3 x, Vec3 xp, float dt) {
+  return {(x.x - xp.x) / dt, (x.y - xp.y) / dt, (x.z - xp.z) / dt};
+}
+
+// One thread per vertex (i, j).  x, xp, out are [3, ny, nx] planes; offsets
+// is [n_off, 4] rows of (di, dj, k, rest); plane is (height, surface
+// velocity xyz); spheres is [n_spheres, 7] rows (center, radius, velocity).
+// plane_fric / sphere_fric are 0 when friction is 0 or the collider is off.
+__global__ void __launch_bounds__(256) grid_verlet_substep_kernel(
+    const float* __restrict__ x, const float* __restrict__ xp,
+    float* __restrict__ out, const float* __restrict__ inv_mass,
+    const float* __restrict__ offsets, int n_off,
+    const float* __restrict__ plane, int plane_on, int plane_fric,
+    const float* __restrict__ spheres, int n_spheres, int sphere_fric,
+    int ny, int nx, Params p) {
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  const int i = blockIdx.y * blockDim.y + threadIdx.y;
+  if (i >= ny || j >= nx) return;
+  const int ps = ny * nx;
+  const int idx = i * nx + j;
+  const Vec3 xi = load3(x, idx, ps);
+  const Vec3 pi = load3(xp, idx, ps);
+  const Vec3 vi = velocity_estimate(xi, pi, p.dt);
+
+  float fx = 0.0f, fy = 0.0f, fz = 0.0f;
+  for (int o = 0; o < n_off; ++o) {
+    const int di = static_cast<int>(offsets[4 * o]);
+    const int dj = static_cast<int>(offsets[4 * o + 1]);
+    const float k = offsets[4 * o + 2];
+    const float rest = offsets[4 * o + 3];
+    // the edge this vertex owns, to (i + di, j + dj)
+    int ii = i + di, jj = j + dj;
+    if (ii >= 0 && ii < ny && jj >= 0 && jj < nx) {
+      const int nb = ii * nx + jj;
+      const Vec3 xn = load3(x, nb, ps);
+      const Vec3 e = edge_force(
+          xi, vi, xn, velocity_estimate(xn, load3(xp, nb, ps), p.dt), k,
+          rest, p.damping);
+      fx += e.x;
+      fy += e.y;
+      fz += e.z;
+    }
+    // the reaction of the edge owned by (i - di, j - dj)
+    ii = i - di;
+    jj = j - dj;
+    if (ii >= 0 && ii < ny && jj >= 0 && jj < nx) {
+      const int nb = ii * nx + jj;
+      const Vec3 xn = load3(x, nb, ps);
+      const Vec3 e = edge_force(
+          xn, velocity_estimate(xn, load3(xp, nb, ps), p.dt), xi, vi, k,
+          rest, p.damping);
+      fx -= e.x;
+      fy -= e.y;
+      fz -= e.z;
+    }
+  }
+
+  const float im = inv_mass[idx];
+  if (!(im > 0.0f)) {          // pinned: x stays, bit for bit
+    store3(out, idx, ps, xi);
+    return;
+  }
+  const float ax = p.gx + fx * im, ay = p.gy + fy * im, az = p.gz + fz * im;
+  Vec3 xnew = {xi.x + (xi.x - pi.x) * p.decay + ax * p.dt * p.dt,
+               xi.y + (xi.y - pi.y) * p.decay + ay * p.dt * p.dt,
+               xi.z + (xi.z - pi.z) * p.decay + az * p.dt * p.dt};
+  const bool contact =
+      project_plane_spheres(xnew, plane, plane_on, spheres, n_spheres);
+  if (plane_fric && contact) {
+    // toward the substep start moved with the plane's surface velocity
+    const float tx = xi.x + plane[1] * p.dt;
+    const float tz = xi.z + plane[3] * p.dt;
+    xnew.x = tx + (xnew.x - tx) * p.keep;
+    xnew.z = tz + (xnew.z - tz) * p.keep;
+  }
+  if (sphere_fric)
+    xnew = sphere_friction(xnew, xi, spheres, n_spheres, p.mu, p.dt, p.shell);
+  store3(out, idx, ps, xnew);
+}
+
+}  // namespace
+
+// Launch one substep on `stream`; returns the cudaError_t of the launch
+// (0 = cudaSuccess).  Allocates nothing and does not synchronise.
+extern "C" int grid_verlet_substep(
+    const float* x, const float* xp, float* out, const float* inv_mass,
+    const float* offsets, int n_off, const float* plane, int plane_on,
+    int plane_fric, const float* spheres, int n_spheres, int sphere_fric,
+    int ny, int nx, float dt, float damping, float gx, float gy, float gz,
+    float decay, float mu, float keep, float shell, void* stream) {
+  const Params p{dt, damping, gx, gy, gz, decay, mu, keep, shell};
+  const dim3 block(32, 8);
+  const dim3 grid((nx + block.x - 1) / block.x, (ny + block.y - 1) / block.y);
+  grid_verlet_substep_kernel<<<grid, block, 0,
+                               static_cast<cudaStream_t>(stream)>>>(
+      x, xp, out, inv_mass, offsets, n_off, plane, plane_on, plane_fric,
+      spheres, n_spheres, sphere_fric, ny, nx, p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" const char* grid_verlet_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}

@@ -1,0 +1,259 @@
+// Fused XPBD substep for structured grid cloth, for Hopper (sm_90a).  Built
+// by softbodyunity_torch/kernels/build.py, wrapped by
+// softbodyunity_torch/kernels/grid_xpbd.py; its plain PyTorch version is
+// softbodyunity_torch/kernels/stencil.py::xpbd_substep_grid.
+//
+// Replaces the TPU kernel softbodyunity_tpu/kernels/pallas_xpbd.py
+// ::_make_kernel, launched by ::_pallas_xpbd_substeps through
+// pl.pallas_call, for the branches the grid-cloth XPBD path runs: predict
+// (gravity, global damping, pinning), n_iterations Jacobi sweeps of
+// distance constraints with compliance over the six grid offsets, with
+// per-offset lambda planes, count-averaged and under-relaxed, plane and
+// sphere contact projected inside the loop, plane and sphere friction once
+// after it, and the velocity recovered from the position change.  Its wind,
+// strain-limit, capsule/box, plastic and tear branches are not ported yet;
+// the wrapper refuses configs that enable them.
+//
+// Design.  A Jacobi sweep reads every neighbour's evaluation point, so each
+// sweep needs a grid-wide barrier; here that barrier is a kernel boundary.
+// A substep is 1 + n_iterations launches, one thread per vertex each:
+//   predict   v <- (v + dt g)(1 - gdamp dt), 0 on pins; delta <- dt v; the
+//             lambda planes and the contact flag <- 0.  x is the substep's
+//             start position xp and stays read-only until the next substep.
+//   sweep     (n_iterations launches) evaluate xe = xp + delta at the
+//             vertex and its 12 neighbours; per offset, dlam of the edge the
+//             vertex owns and, from the same device function, argument order
+//             and old lambda, dlam of the edge owned by p - o; write only the
+//             vertex's own new lambdas; delta += dx * inv_cnt; then the
+//             plane clamp in ``plane - xp`` form (OR'd into the contact
+//             flag) and the sphere push-out as a delta.  delta and the
+//             lambda planes ping-pong between sweeps (an in-place update
+//             would let thread p - o overwrite the lambda thread p still
+//             reads); the contact flag is the vertex's own and stays put.
+//   epilogue  run by the last sweep for its own vertex: plane friction on
+//             the OR'd flag, sphere friction, pins masked, x = xp + delta
+//             written to the other x buffer, v = delta / dt in place.
+// Delta form: the loop carries the substep's position change and never a
+// rounded x (the f32 drift bound depends on it).  inv_cnt = relaxation /
+// max(count, 1) is computed once per scene, as pallas_xpbd.py does.
+//
+// What bounds it.  At 64k vertices one substep must read x, v and inv_mass
+// and write x and v (3.4 MB, ~1.0 us at 3.35 TB/s), and does ~36 flops per
+// edge and sweep: 8 sweeps over 391k edges are ~120 MFLOP, ~1.8 us at the
+// 67 TFLOP/s float32 peak, so the work is bound by operations.  Each sweep
+// launch moves ~6 MB through L2 (xp, delta, lambdas), and 9 launches per
+// substep each cost several microseconds of launch latency: at 64k the path
+// is bound by launches, not by the card.  A cooperative single-launch form
+// or a CUDA graph is later work.
+//
+// Rounding.  sqrtf and IEEE divides in the plain version's order (the
+// divide-form norm d / max(len, 1e-12)); FMA contraction and the folded
+// relaxation make the agreement one of rounding.  Pinned vertices keep x
+// bit for bit (their delta is masked to 0 and xp + 0 == xp).
+
+#include <cuda_runtime.h>
+
+#include "grid_common.cuh"
+
+namespace {
+
+// Scalars of one substep, computed by the wrapper in double from SimConfig
+// and rounded once to float, as the plain version's Python scalars are.
+struct Params {
+  float dt;
+  float gx, gy, gz;   // gravity
+  float decay;        // 1 - global_damping * dt
+  float mu;           // friction
+  float keep;         // 1 - friction
+  float shell;        // SPHERE_CONTACT_SHELL
+};
+
+__global__ void __launch_bounds__(256) grid_xpbd_predict_kernel(
+    const float* __restrict__ v, float* __restrict__ delta,
+    float* __restrict__ lam, int n_off, unsigned char* __restrict__ flag,
+    const float* __restrict__ inv_mass, int ny, int nx, Params p) {
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  const int i = blockIdx.y * blockDim.y + threadIdx.y;
+  if (i >= ny || j >= nx) return;
+  const int ps = ny * nx;
+  const int idx = i * nx + j;
+  Vec3 vi = load3(v, idx, ps);
+  vi = {(vi.x + p.dt * p.gx) * p.decay, (vi.y + p.dt * p.gy) * p.decay,
+        (vi.z + p.dt * p.gz) * p.decay};
+  if (!(inv_mass[idx] > 0.0f)) vi = {0.0f, 0.0f, 0.0f};
+  store3(delta, idx, ps, {p.dt * vi.x, p.dt * vi.y, p.dt * vi.z});
+  for (int o = 0; o < n_off; ++o) lam[o * ps + idx] = 0.0f;
+  flag[idx] = 0;
+}
+
+// Lambda change of the distance constraint on the edge a -> b with the
+// compliance term at = alpha / dt^2; n is the unit direction a -> b
+// (stencil.py::xpbd_substep_grid, divide-form norm).
+__device__ __forceinline__ float xpbd_dlam(Vec3 xa, Vec3 xb, float wa,
+                                           float wb, float at, float rest,
+                                           float lam, Vec3& n) {
+  const Vec3 d = {xb.x - xa.x, xb.y - xa.y, xb.z - xa.z};
+  const float len = sqrtf(dot3(d, d));
+  const float m = fmaxf(len, 1e-12f);
+  n = {d.x / m, d.y / m, d.z / m};
+  const float c = len - rest;
+  const float denom = fmaxf(wa + wb + at, 1e-12f);
+  return -(c + at * lam) / denom;
+}
+
+__device__ __forceinline__ Vec3 eval_point(const float* __restrict__ xp,
+                                           const float* __restrict__ delta,
+                                           int idx, int ps) {
+  const Vec3 a = load3(xp, idx, ps), b = load3(delta, idx, ps);
+  return {a.x + b.x, a.y + b.y, a.z + b.z};
+}
+
+// One Jacobi sweep (project = 1) and, on the last sweep (last = 1), the
+// substep's epilogue.  xp, delta_*, x_out, v are [3, ny, nx] planes;
+// lam_* are [n_off, ny, nx]; offsets is [n_off, 4] rows of
+// (di, dj, alpha / dt^2, rest); plane is (height, surface velocity xyz);
+// spheres is [n_spheres, 7] rows (center, radius, velocity).  With
+// n_iterations = 0 the wrapper launches one sweep with project = 0, which
+// runs only the epilogue.
+__global__ void __launch_bounds__(256) grid_xpbd_sweep_kernel(
+    const float* __restrict__ xp, const float* __restrict__ delta_in,
+    float* __restrict__ delta_out, const float* __restrict__ lam_in,
+    float* __restrict__ lam_out, unsigned char* __restrict__ flag,
+    const float* __restrict__ inv_mass, const float* __restrict__ inv_cnt,
+    const float* __restrict__ offsets, int n_off,
+    const float* __restrict__ plane, int plane_on, int plane_fric,
+    const float* __restrict__ spheres, int n_spheres, int sphere_fric,
+    int project, int last, float* __restrict__ x_out, float* __restrict__ v,
+    int ny, int nx, Params p) {
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  const int i = blockIdx.y * blockDim.y + threadIdx.y;
+  if (i >= ny || j >= nx) return;
+  const int ps = ny * nx;
+  const int idx = i * nx + j;
+  const Vec3 xpi = load3(xp, idx, ps);
+  Vec3 dl = load3(delta_in, idx, ps);
+  const float wi = inv_mass[idx];
+  const bool movable = wi > 0.0f;
+
+  if (project) {
+    const Vec3 xe = {xpi.x + dl.x, xpi.y + dl.y, xpi.z + dl.z};
+    float dx = 0.0f, dy = 0.0f, dz = 0.0f;
+    for (int o = 0; o < n_off; ++o) {
+      const int di = static_cast<int>(offsets[4 * o]);
+      const int dj = static_cast<int>(offsets[4 * o + 1]);
+      const float at = offsets[4 * o + 2];
+      const float rest = offsets[4 * o + 3];
+      Vec3 n;
+      // the edge this vertex owns, to (i + di, j + dj): lambda and -w dlam n
+      float lam = lam_in[o * ps + idx];
+      int ii = i + di, jj = j + dj;
+      if (ii >= 0 && ii < ny && jj >= 0 && jj < nx) {
+        const int nb = ii * nx + jj;
+        const float dlam = xpbd_dlam(xe, eval_point(xp, delta_in, nb, ps),
+                                     wi, inv_mass[nb], at, rest, lam, n);
+        lam += dlam;
+        const float s = -(wi * dlam);
+        dx += s * n.x;
+        dy += s * n.y;
+        dz += s * n.z;
+      }
+      lam_out[o * ps + idx] = lam;
+      // the edge owned by (i - di, j - dj), recomputed: +w dlam n here
+      ii = i - di;
+      jj = j - dj;
+      if (ii >= 0 && ii < ny && jj >= 0 && jj < nx) {
+        const int nb = ii * nx + jj;
+        const float dlam = xpbd_dlam(eval_point(xp, delta_in, nb, ps), xe,
+                                     inv_mass[nb], wi, at, rest,
+                                     lam_in[o * ps + nb], n);
+        const float s = wi * dlam;
+        dx += s * n.x;
+        dy += s * n.y;
+        dz += s * n.z;
+      }
+    }
+    const float c = inv_cnt[idx];
+    dl = {dl.x + dx * c, dl.y + dy * c, dl.z + dz * c};
+    if (movable) {
+      if (plane_on && xpi.y + dl.y < plane[0]) {
+        dl.y = plane[0] - xpi.y;
+        flag[idx] = 1;
+      }
+      if (n_spheres > 0) {
+        const Vec3 e = {xpi.x + dl.x, xpi.y + dl.y, xpi.z + dl.z};
+        const Vec3 q = push_out_spheres(e, spheres, n_spheres);
+        dl = {dl.x + (q.x - e.x), dl.y + (q.y - e.y), dl.z + (q.z - e.z)};
+      }
+    }
+    if (!last) {
+      store3(delta_out, idx, ps, dl);
+      return;
+    }
+  }
+
+  // epilogue: friction once, pins masked, x and v out
+  if (!movable) {
+    dl = {0.0f, 0.0f, 0.0f};
+  } else {
+    if (plane_fric && flag[idx]) {
+      const float wdx = plane[1] * p.dt, wdz = plane[3] * p.dt;
+      dl.x = wdx + (dl.x - wdx) * p.keep;
+      dl.z = wdz + (dl.z - wdz) * p.keep;
+    }
+    if (sphere_fric) {
+      const Vec3 e = {xpi.x + dl.x, xpi.y + dl.y, xpi.z + dl.z};
+      const Vec3 f =
+          sphere_friction(e, xpi, spheres, n_spheres, p.mu, p.dt, p.shell);
+      dl = {dl.x + (f.x - e.x), dl.y + (f.y - e.y), dl.z + (f.z - e.z)};
+    }
+  }
+  store3(x_out, idx, ps, {xpi.x + dl.x, xpi.y + dl.y, xpi.z + dl.z});
+  store3(v, idx, ps, {dl.x / p.dt, dl.y / p.dt, dl.z / p.dt});
+}
+
+dim3 grid_of(int ny, int nx, dim3 block) {
+  return dim3((nx + block.x - 1) / block.x, (ny + block.y - 1) / block.y);
+}
+
+}  // namespace
+
+// Launch the predict pass of one substep on `stream`; returns the
+// cudaError_t of the launch (0 = cudaSuccess).  Allocates nothing and does
+// not synchronise.
+extern "C" int grid_xpbd_predict(const float* v, float* delta, float* lam,
+                                 int n_off, unsigned char* flag,
+                                 const float* inv_mass, int ny, int nx,
+                                 float dt, float gx, float gy, float gz,
+                                 float decay, void* stream) {
+  const Params p{dt, gx, gy, gz, decay, 0.0f, 1.0f, 1.0f};
+  const dim3 block(32, 8);
+  grid_xpbd_predict_kernel<<<grid_of(ny, nx, block), block, 0,
+                             static_cast<cudaStream_t>(stream)>>>(
+      v, delta, lam, n_off, flag, inv_mass, ny, nx, p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Launch one Jacobi sweep (and, with last = 1, the epilogue) on `stream`;
+// returns the cudaError_t of the launch.  Allocates nothing and does not
+// synchronise.
+extern "C" int grid_xpbd_sweep(
+    const float* xp, const float* delta_in, float* delta_out,
+    const float* lam_in, float* lam_out, unsigned char* flag,
+    const float* inv_mass, const float* inv_cnt, const float* offsets,
+    int n_off, const float* plane, int plane_on, int plane_fric,
+    const float* spheres, int n_spheres, int sphere_fric, int project,
+    int last, float* x_out, float* v, int ny, int nx, float dt, float mu,
+    float keep, float shell, void* stream) {
+  const Params p{dt, 0.0f, 0.0f, 0.0f, 1.0f, mu, keep, shell};
+  const dim3 block(32, 8);
+  grid_xpbd_sweep_kernel<<<grid_of(ny, nx, block), block, 0,
+                           static_cast<cudaStream_t>(stream)>>>(
+      xp, delta_in, delta_out, lam_in, lam_out, flag, inv_mass, inv_cnt,
+      offsets, n_off, plane, plane_on, plane_fric, spheres, n_spheres,
+      sphere_fric, project, last, x_out, v, ny, nx, p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" const char* grid_xpbd_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}

@@ -1,15 +1,18 @@
 """Backend dispatch: pick the step function for a scene.
 
 Counterpart of ``softbodyunity_tpu/kernels/dispatch.py::maybe_fast_step``
-for the paths ported so far.  The device the topology's tensors live on
-decides: CUDA runs the hand-written kernel, the CPU runs its plain PyTorch
-version.  Anything else raises ``NotImplementedError`` naming the ROADMAP
-item that ports it; nothing degrades to another path.
+for the paths ported so far: grid cloth under the Euler, Verlet and XPBD
+solvers.  The device the topology's tensors live on decides: CUDA runs the
+solver's hand-written kernel (``grid_euler``, ``grid_verlet``,
+``grid_xpbd``), the CPU runs the plain PyTorch version
+(:func:`.stencil.make_stencil_step`).  Anything else raises
+``NotImplementedError`` naming the ROADMAP item that ports it; nothing
+degrades to another path.
 """
 
 from __future__ import annotations
 
-from ..core.config import SimConfig
+from ..core.config import SimConfig, Solver
 from ..core.topology import Topology
 from .stencil import check_ported
 
@@ -25,8 +28,12 @@ def maybe_fast_step(top: Topology, cfg: SimConfig):
             "path for non-grid scenes or backend='jnp' (ROADMAP Queue 1 "
             "item 3)")
     if top.device.type == "cuda":
-        from .grid_euler import make_cuda_step
-
+        if cfg.solver == Solver.XPBD:
+            from .grid_xpbd import make_cuda_step
+        elif cfg.solver == Solver.VERLET:
+            from .grid_verlet import make_cuda_step
+        else:
+            from .grid_euler import make_cuda_step
         return make_cuda_step(top, cfg)
     if top.device.type == "cpu":
         from .stencil import make_stencil_step

@@ -1,7 +1,7 @@
 """Wrapper of the hand-written fused Euler grid substep, ``csrc/grid_euler.cu``.
 
-Counterpart of ``softbodyunity_tpu/kernels/pallas_substep.py::make_pallas_step``
-and its ``_pack_plane``/``_pack_spheres``.  The plain PyTorch version is
+Counterpart of ``softbodyunity_tpu/kernels/pallas_substep.py::make_pallas_step``.
+The plain PyTorch version is
 :func:`.stencil.make_stencil_step`; :mod:`.dispatch` takes it for tensors on
 the CPU and this wrapper for tensors on a CUDA device, where it launches the
 kernel or raises.
@@ -14,10 +14,11 @@ import functools
 
 import torch
 
-from ..core.config import SimConfig
+from ..core.config import SimConfig, Solver
 from ..core.state import State
 from ..core.topology import EDGE_BEND, EDGE_SHEAR, Topology
-from .stencil import _offsets, check_ported, from_planes, to_planes
+from .grid_scene import check_input, check_launch, pack_grid_scene
+from .stencil import _offsets, from_planes, to_planes
 
 _launches = 0
 
@@ -54,34 +55,6 @@ def _launcher():
     return fn, lib.grid_euler_error_string
 
 
-def _pack_plane(top: Topology) -> torch.Tensor:
-    """[1, 4] row: plane height, plane surface (conveyor) velocity."""
-    return torch.cat([top.plane_height.reshape(1),
-                      top.plane_velocity.reshape(3)]).reshape(1, 4).contiguous()
-
-
-def _pack_spheres(top: Topology) -> torch.Tensor:
-    """[S, 7] rows: center (3), radius, kinematic velocity (3)."""
-    return torch.cat([top.sphere_centers, top.sphere_radii[:, None],
-                      top.sphere_velocities], dim=1).contiguous()
-
-
-def _check_input(name: str, t: torch.Tensor, shape, device) -> None:
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, the topology on {device}")
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name} is {t.dtype}; the kernel takes float32 only")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
-                         f"{tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} is not contiguous")
-    if t.requires_grad:
-        raise NotImplementedError(
-            f"{name} requires grad; the backward kernel is not ported yet "
-            "(ROADMAP Queue 1 item 9)")
-
-
 def make_cuda_step(top: Topology, cfg: SimConfig):
     """Build ``fn(state, dt, n_substeps) -> state`` that runs each substep as
     one launch of the fused Euler grid kernel.
@@ -89,35 +62,21 @@ def make_cuda_step(top: Topology, cfg: SimConfig):
     The collider geometry and the offset table (di, dj, k, rest) are packed
     once, here, into float32 rows on the device; the kernel reads them from
     device memory, so a frame makes no host round trip."""
-    check_ported(cfg)
-    if top.grid_shape is None or top.grid_spacing is None:
-        raise ValueError("make_cuda_step needs a structured grid topology")
-    device = top.device
-    if device.type != "cuda":
-        raise ValueError(f"make_cuda_step needs a topology on a CUDA device, "
-                         f"not {device}")
-    ny, nx = top.grid_shape
+    sc = pack_grid_scene(top, cfg, Solver.SEMI_IMPLICIT_EULER, "grid_euler")
+    ny, nx, device = sc.ny, sc.nx, sc.device
     n = ny * nx
     offsets = _offsets(cfg, top.grid_spacing,
                        EDGE_SHEAR in top.edge_classes_present,
                        EDGE_BEND in top.edge_classes_present)
     table = torch.tensor(offsets, dtype=torch.float32, device=device)
-    inv_mass = top.inv_mass.reshape(ny, nx)
-    plane = _pack_plane(top)
-    spheres = _pack_spheres(top)
-    for name, t, shape in (("inv_mass", inv_mass, (ny, nx)),
-                           ("plane", plane, (1, 4)),
-                           ("spheres", spheres, (top.n_spheres, 7))):
-        _check_input(name, t, shape, device)
     col = cfg.collision
-    n_spheres = top.n_spheres if col.enable_spheres else 0
     gx, gy, gz = cfg.gravity
     launch, error_string = _launcher()
 
     def fn(state: State, dt: float, n_substeps: int) -> State:
         global _launches
-        _check_input("state.x", state.x, (n, 3), device)
-        _check_input("state.v", state.v, (n, 3), device)
+        check_input("state.x", state.x, (n, 3), device)
+        check_input("state.v", state.v, (n, 3), device)
         dt = float(dt)
         scalars = (dt, cfg.springs.damping, gx, gy, gz,
                    1.0 - cfg.global_damping * dt, col.restitution,
@@ -131,15 +90,12 @@ def make_cuda_step(top: Topology, cfg: SimConfig):
         with torch.cuda.device(device):
             stream = torch.cuda.current_stream(device).cuda_stream
             for _ in range(n_substeps):
-                err = launch(
+                check_launch(launch(
                     xa.data_ptr(), va.data_ptr(), xb.data_ptr(), vb.data_ptr(),
-                    inv_mass.data_ptr(), table.data_ptr(), len(offsets),
-                    plane.data_ptr(), int(col.enable_plane),
-                    spheres.data_ptr(), n_spheres, ny, nx, *scalars, stream)
-                if err != 0:
-                    raise RuntimeError(
-                        f"grid_euler launch failed: cudaError {err} "
-                        f"({error_string(err).decode()})")
+                    sc.inv_mass.data_ptr(), table.data_ptr(), len(offsets),
+                    sc.plane.data_ptr(), sc.plane_on, sc.spheres.data_ptr(),
+                    sc.n_spheres, ny, nx, *scalars, stream),
+                    "grid_euler", error_string)
                 _launches += 1
                 xa, xb, va, vb = xb, xa, vb, va
         x = from_planes(xa)

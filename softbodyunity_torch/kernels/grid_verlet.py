@@ -1,0 +1,108 @@
+"""Wrapper of the hand-written fused Verlet grid substep, ``csrc/grid_verlet.cu``.
+
+Counterpart of
+``softbodyunity_tpu/kernels/pallas_substep.py::make_pallas_verlet_step``.  The
+plain PyTorch version is :func:`.stencil.make_stencil_step` (its Verlet
+branch, :func:`.stencil.verlet_substep_grid`); :mod:`.dispatch` takes it for
+tensors on the CPU and this wrapper for tensors on a CUDA device, where it
+launches the kernel or raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from ..core.config import SimConfig, Solver
+from ..core.state import State
+from ..core.topology import EDGE_BEND, EDGE_SHEAR, Topology
+from ..solver.collide import SPHERE_CONTACT_SHELL
+from .grid_scene import check_input, check_launch, pack_grid_scene
+from .stencil import _offsets, from_planes, to_planes
+
+_launches = 0
+
+
+def launch_count() -> int:
+    """Kernel launches since the last :func:`reset_launch_count`."""
+    return _launches
+
+
+def reset_launch_count() -> None:
+    global _launches
+    _launches = 0
+
+
+@functools.cache
+def _launcher():
+    from .build import load_library
+
+    lib = load_library("grid_verlet")
+    fn = lib.grid_verlet_substep
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    fn.argtypes = [
+        p, p, p,               # x, xp, out
+        p, p, i,               # inv_mass, offsets, n_off
+        p, i, i,               # plane, plane_on, plane_fric
+        p, i, i,               # spheres, n_spheres, sphere_fric
+        i, i,                  # ny, nx
+        f, f, f, f, f,         # dt, damping, gx, gy, gz
+        f, f, f, f,            # decay, mu, keep, shell
+        p,                     # stream
+    ]
+    fn.restype = ctypes.c_int
+    lib.grid_verlet_error_string.argtypes = [ctypes.c_int]
+    lib.grid_verlet_error_string.restype = ctypes.c_char_p
+    return fn, lib.grid_verlet_error_string
+
+
+def make_cuda_step(top: Topology, cfg: SimConfig):
+    """Build ``fn(state, dt, n_substeps) -> state`` that runs each substep as
+    one launch of the fused Verlet grid kernel.  ``state.x_prev`` is the
+    Verlet history; the result carries ``x_prev`` = the last substep's start
+    and ``v = (x - x_prev) / dt``.
+
+    The collider rows and the offset table (di, dj, k, rest) are packed
+    once, here, into float32 rows on the device."""
+    sc = pack_grid_scene(top, cfg, Solver.VERLET, "grid_verlet")
+    ny, nx, device = sc.ny, sc.nx, sc.device
+    n = ny * nx
+    offsets = _offsets(cfg, top.grid_spacing,
+                       EDGE_SHEAR in top.edge_classes_present,
+                       EDGE_BEND in top.edge_classes_present)
+    table = torch.tensor(offsets, dtype=torch.float32, device=device)
+    mu = cfg.collision.friction
+    gx, gy, gz = cfg.gravity
+    launch, error_string = _launcher()
+
+    def fn(state: State, dt: float, n_substeps: int) -> State:
+        global _launches
+        check_input("state.x", state.x, (n, 3), device)
+        check_input("state.x_prev", state.x_prev, (n, 3), device)
+        dt = float(dt)
+        scalars = (dt, cfg.springs.damping, gx, gy, gz,
+                   1.0 - cfg.global_damping * dt, mu, 1.0 - mu,
+                   SPHERE_CONTACT_SHELL)
+        x = torch.empty((3, ny, nx), dtype=torch.float32, device=device)
+        xp = torch.empty_like(x)
+        out = torch.empty_like(x)
+        x.copy_(to_planes(state.x, ny, nx))
+        xp.copy_(to_planes(state.x_prev, ny, nx))
+        with torch.cuda.device(device):
+            stream = torch.cuda.current_stream(device).cuda_stream
+            for _ in range(n_substeps):
+                check_launch(launch(
+                    x.data_ptr(), xp.data_ptr(), out.data_ptr(),
+                    sc.inv_mass.data_ptr(), table.data_ptr(), len(offsets),
+                    sc.plane.data_ptr(), sc.plane_on, sc.plane_fric,
+                    sc.spheres.data_ptr(), sc.n_spheres, sc.sphere_fric, ny,
+                    nx, *scalars, stream), "grid_verlet", error_string)
+                _launches += 1
+                # the new position, the new history, the next output
+                x, xp, out = out, x, xp
+        x3, xp3 = from_planes(x), from_planes(xp)
+        return State(x=x3, v=(x3 - xp3) / dt, x_prev=xp3)
+
+    return fn

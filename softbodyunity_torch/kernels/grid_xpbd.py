@@ -1,0 +1,156 @@
+"""Wrapper of the hand-written fused XPBD grid substep, ``csrc/grid_xpbd.cu``.
+
+Counterpart of ``softbodyunity_tpu/kernels/pallas_xpbd.py::make_pallas_xpbd_step``.
+The plain PyTorch version is :func:`.stencil.make_stencil_step` (its XPBD
+branch, :func:`.stencil.xpbd_substep_grid`); :mod:`.dispatch` takes it for
+tensors on the CPU and this wrapper for tensors on a CUDA device, where it
+launches the kernels or raises.
+
+A substep is ``1 + max(n_iterations, 1)`` launches: one predict pass, then
+one launch per Jacobi sweep, the grid-wide barrier between sweeps (with no
+sweep, one launch runs the epilogue alone).  Each launch counts once.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from ..core.config import SimConfig, Solver
+from ..core.state import State
+from ..core.topology import EDGE_BEND, EDGE_SHEAR, Topology
+from ..solver.collide import SPHERE_CONTACT_SHELL
+from .grid_scene import check_input, check_launch, pack_grid_scene
+from .stencil import (_valid_mask, _xpbd_offsets, from_planes, jacobi_count,
+                      to_planes)
+
+_launches = 0
+
+
+def launch_count() -> int:
+    """Kernel launches (predict and sweep) since the last
+    :func:`reset_launch_count`."""
+    return _launches
+
+
+def reset_launch_count() -> None:
+    global _launches
+    _launches = 0
+
+
+def launches_per_substep(cfg: SimConfig) -> int:
+    """Predict plus one launch per sweep (at least one, for the epilogue)."""
+    return 1 + max(cfg.xpbd.n_iterations, 1)
+
+
+@functools.cache
+def _launchers():
+    from .build import load_library
+
+    lib = load_library("grid_xpbd")
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    predict = lib.grid_xpbd_predict
+    predict.argtypes = [
+        p, p, p, i, p, p,      # v, delta, lam, n_off, flag, inv_mass
+        i, i,                  # ny, nx
+        f, f, f, f, f,         # dt, gx, gy, gz, decay
+        p,                     # stream
+    ]
+    predict.restype = ctypes.c_int
+    sweep = lib.grid_xpbd_sweep
+    sweep.argtypes = [
+        p, p, p,               # xp, delta_in, delta_out
+        p, p, p,               # lam_in, lam_out, flag
+        p, p, p, i,            # inv_mass, inv_cnt, offsets, n_off
+        p, i, i,               # plane, plane_on, plane_fric
+        p, i, i,               # spheres, n_spheres, sphere_fric
+        i, i, p, p,            # project, last, x_out, v
+        i, i,                  # ny, nx
+        f, f, f, f,            # dt, mu, keep, shell
+        p,                     # stream
+    ]
+    sweep.restype = ctypes.c_int
+    lib.grid_xpbd_error_string.argtypes = [ctypes.c_int]
+    lib.grid_xpbd_error_string.restype = ctypes.c_char_p
+    return predict, sweep, lib.grid_xpbd_error_string
+
+
+def make_cuda_step(top: Topology, cfg: SimConfig):
+    """Build ``fn(state, dt, n_substeps) -> state`` that runs each substep as
+    a predict launch and one launch per Jacobi sweep of the fused XPBD grid
+    kernels.  The result carries ``x_prev = x - dt * v``, as the plain
+    version's.
+
+    The collider rows and ``inv_cnt = relaxation / max(count, 1)`` are
+    packed once, here; the offset table (di, dj, alpha / dt^2, rest) once
+    per substep size ``dt``."""
+    sc = pack_grid_scene(top, cfg, Solver.XPBD, "grid_xpbd")
+    ny, nx, device = sc.ny, sc.nx, sc.device
+    n = ny * nx
+    xoffsets = _xpbd_offsets(cfg, top.grid_spacing,
+                             EDGE_SHEAR in top.edge_classes_present,
+                             EDGE_BEND in top.edge_classes_present)
+    n_off = len(xoffsets)
+    masks = [_valid_mask(ny, nx, di, dj, device, torch.float32)
+             for di, dj, _, _ in xoffsets]
+    inv_cnt = (cfg.xpbd.relaxation / jacobi_count(xoffsets, masks)).contiguous()
+    mu = cfg.collision.friction
+    n_sweeps = max(cfg.xpbd.n_iterations, 1)
+    project = int(cfg.xpbd.n_iterations > 0)
+    gx, gy, gz = cfg.gravity
+    tables = {}
+    predict, sweep, error_string = _launchers()
+
+    def fn(state: State, dt: float, n_substeps: int) -> State:
+        global _launches
+        check_input("state.x", state.x, (n, 3), device)
+        check_input("state.v", state.v, (n, 3), device)
+        dt = float(dt)
+        if dt not in tables:
+            tables[dt] = torch.tensor(
+                [(di, dj, alpha / (dt * dt), rest)
+                 for di, dj, alpha, rest in xoffsets],
+                dtype=torch.float32, device=device)
+        table = tables[dt]
+        x = torch.empty((3, ny, nx), dtype=torch.float32, device=device)
+        x_out = torch.empty_like(x)
+        v = torch.empty_like(x)
+        d_in = torch.empty_like(x)
+        d_out = torch.empty_like(x)
+        lam_in = torch.empty((n_off, ny, nx), dtype=torch.float32,
+                             device=device)
+        lam_out = torch.empty_like(lam_in)
+        flag = torch.empty((ny, nx), dtype=torch.uint8, device=device)
+        x.copy_(to_planes(state.x, ny, nx))
+        v.copy_(to_planes(state.v, ny, nx))
+        with torch.cuda.device(device):
+            stream = torch.cuda.current_stream(device).cuda_stream
+            for _ in range(n_substeps):
+                check_launch(predict(
+                    v.data_ptr(), d_in.data_ptr(), lam_in.data_ptr(), n_off,
+                    flag.data_ptr(), sc.inv_mass.data_ptr(), ny, nx, dt, gx,
+                    gy, gz, 1.0 - cfg.global_damping * dt, stream),
+                    "grid_xpbd predict", error_string)
+                _launches += 1
+                for it in range(n_sweeps):
+                    check_launch(sweep(
+                        x.data_ptr(), d_in.data_ptr(), d_out.data_ptr(),
+                        lam_in.data_ptr(), lam_out.data_ptr(),
+                        flag.data_ptr(), sc.inv_mass.data_ptr(),
+                        inv_cnt.data_ptr(), table.data_ptr(), n_off,
+                        sc.plane.data_ptr(), sc.plane_on, sc.plane_fric,
+                        sc.spheres.data_ptr(), sc.n_spheres, sc.sphere_fric,
+                        project, int(it == n_sweeps - 1), x_out.data_ptr(),
+                        v.data_ptr(), ny, nx, dt, mu, 1.0 - mu,
+                        SPHERE_CONTACT_SHELL, stream),
+                        "grid_xpbd sweep", error_string)
+                    _launches += 1
+                    d_in, d_out = d_out, d_in
+                    lam_in, lam_out = lam_out, lam_in
+                x, x_out = x_out, x
+        x3, v3 = from_planes(x), from_planes(v)
+        return State(x=x3, v=v3, x_prev=x3 - dt * v3)
+
+    return fn

@@ -1,10 +1,12 @@
-"""Stencil (shift-based) Euler path for structured grid cloth, in plain PyTorch.
+"""Stencil (shift-based) grid-cloth paths in plain PyTorch: Euler, Verlet, XPBD.
 
-This is the plain version of the hand-written fused Euler substep kernel
-(``csrc/grid_euler.cu``, wrapped by :mod:`.grid_euler`): the CPU runs it, and
-``chip_smoke.py`` holds the kernel to it on the card.  It ports the Euler
-branch of ``softbodyunity_tpu/kernels/stencil.py``, the XLA twin of the TPU
-kernel, with the same operations in the same order.
+These are the plain versions of the hand-written fused substep kernels
+(``csrc/grid_euler.cu``, ``csrc/grid_verlet.cu``, ``csrc/grid_xpbd.cu``,
+wrapped by :mod:`.grid_euler`, :mod:`.grid_verlet` and :mod:`.grid_xpbd`):
+the CPU runs them, and ``chip_smoke.py`` holds each kernel to its plain
+version on the card.  They port the three solver branches of
+``softbodyunity_tpu/kernels/stencil.py``, the XLA twin of the TPU kernels,
+with the same operations in the same order.
 
 A cloth grid has regular topology: every spring class is a constant offset
 ``(di, dj)`` on the grid —
@@ -25,10 +27,12 @@ import torch
 from ..core.config import SimConfig, Solver
 from ..core.state import State
 from ..core.topology import EDGE_BEND, EDGE_SHEAR, Topology
+from ..solver.collide import SPHERE_CONTACT_SHELL
 
-# Config branches of the fused Euler grid kernel that the port does not run
-# yet, each with the ROADMAP item that ports it.  Both the kernel and this
-# plain version refuse them, so a scene never silently loses a feature.
+# Config branches of the fused grid kernels that the port does not run yet,
+# for every solver, each with the ROADMAP item that ports it.  The kernels
+# and these plain versions refuse them, so a scene never silently loses a
+# feature.
 _UNPORTED = (
     ("wind", lambda c: c.wind.enabled, "Queue 1 item 6, Queue 2 item 1"),
     ("strain limit", lambda c: c.strain_limit.enabled,
@@ -53,9 +57,6 @@ def check_ported(cfg: SimConfig) -> None:
     that the port does not run yet, and its ROADMAP item."""
     missing = [f"{name} (ROADMAP {item})" for name, on, item in _UNPORTED
                if on(cfg)]
-    if cfg.solver != Solver.SEMI_IMPLICIT_EULER:
-        missing.append(f"the {cfg.solver.value} solver "
-                       "(ROADMAP Queue 1 item 4, Queue 2 items 2-3)")
     if missing:
         raise NotImplementedError(
             "not ported to softbodyunity_torch yet: " + ", ".join(missing))
@@ -92,6 +93,35 @@ def _offsets(cfg: SimConfig, spacing: float, has_shear: bool, has_bend: bool):
     if has_bend:
         offs += [(0, 2, s.k_bend, 2 * spacing), (2, 0, s.k_bend, 2 * spacing)]
     return offs
+
+
+def _xpbd_offsets(cfg: SimConfig, spacing: float, has_shear: bool,
+                  has_bend: bool):
+    """(di, dj, compliance, rest_length) per spring class, mirroring the
+    per-edge compliance of ``core/topology._edge_arrays``; the offset order
+    is :func:`_offsets`'."""
+    xp = cfg.xpbd
+    offs = [
+        (0, 1, xp.compliance_distance, spacing),
+        (1, 0, xp.compliance_distance, spacing),
+    ]
+    if has_shear:
+        r2 = spacing * float(np.sqrt(2.0))
+        offs += [(1, 1, xp.compliance_distance, r2),
+                 (1, -1, xp.compliance_distance, r2)]
+    if has_bend:
+        offs += [(0, 2, xp.compliance_bend, 2 * spacing),
+                 (2, 0, xp.compliance_bend, 2 * spacing)]
+    return offs
+
+
+def jacobi_count(offsets, masks) -> torch.Tensor:
+    """Per-vertex XPBD constraint count, at least 1: the edges a vertex owns
+    plus the edges that own it (the Jacobi average's divisor)."""
+    cnt = torch.zeros_like(masks[0])
+    for (di, dj, _, _), m in zip(offsets, masks):
+        cnt = cnt + m + _shift(m, -di, -dj)
+    return torch.clamp_min(cnt, 1.0)
 
 
 def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -176,6 +206,165 @@ def euler_substep_grid(x3, v3, inv_mass2, offsets, masks, gravity,
     return x3, v3
 
 
+# --- position-level contact (Verlet and XPBD) --------------------------------
+
+def _push_out_spheres(x3, movable, top: Topology):
+    """Move each movable vertex inside a sphere out to its surface, sphere
+    by sphere (``_project_positions_grid``'s sphere loop)."""
+    for s in range(top.n_spheres):
+        c = top.sphere_centers[s].reshape(3, 1, 1)
+        d = x3 - c
+        dist = torch.sqrt(_dot(d, d))
+        pen = top.sphere_radii[s] - dist
+        contact = (pen > 0.0) & movable[0]
+        n = d / torch.clamp_min(dist, 1e-12)
+        x3 = x3 + torch.where(contact, pen, 0.0) * n
+    return x3
+
+
+def _project_positions_grid(x3, movable, cfg: SimConfig, top: Topology):
+    """Position-only contact: clamp to the plane, then push out of the
+    spheres.  Capsules, boxes and SDFs are refused by :func:`check_ported`."""
+    col = cfg.collision
+    if col.enable_plane:
+        ph = top.plane_height
+        contact = (x3[1] < ph) & movable[0]
+        x3 = torch.stack([x3[0], torch.where(contact, ph, x3[1]), x3[2]])
+    if col.enable_spheres:
+        x3 = _push_out_spheres(x3, movable, top)
+    return x3
+
+
+def _plane_friction_grid(x3, x_start3, cfg: SimConfig, dt: float, contact,
+                         top: Topology):
+    """Damp the substep's tangential displacement, relative to the plane's
+    surface velocity, by ``1 - friction`` where the final projection's
+    pre-clamp ``contact`` mask is set.  Once per substep."""
+    mu = cfg.collision.friction
+    if contact is None or not cfg.collision.enable_plane or mu == 0.0:
+        return x3
+    out = [x3[0], x3[1], x3[2]]
+    for ax in (0, 2):
+        target = x_start3[ax] + top.plane_velocity[ax] * dt
+        out[ax] = torch.where(
+            contact, target + (x3[ax] - target) * (1.0 - mu), x3[ax])
+    return torch.stack(out)
+
+
+def _sphere_friction_grid(x3, x_start3, cfg: SimConfig, dt: float, movable,
+                          top: Topology):
+    """Damp the tangential substep displacement, relative to each sphere's
+    kinematic velocity, by ``1 - friction`` for vertices ending the substep
+    within the contact shell ``radius * SPHERE_CONTACT_SHELL``.  Once per
+    substep, after the plane friction."""
+    mu = cfg.collision.friction
+    if not cfg.collision.enable_spheres or mu == 0.0 or top.n_spheres == 0:
+        return x3
+    for s in range(top.n_spheres):
+        c = top.sphere_centers[s].reshape(3, 1, 1)
+        d = x3 - c
+        dist = torch.sqrt(_dot(d, d))
+        n = d / torch.clamp_min(dist, 1e-12)
+        contact = ((dist <= top.sphere_radii[s] * SPHERE_CONTACT_SHELL)
+                   & movable[0])
+        w = top.sphere_velocities[s].reshape(3, 1, 1)
+        rel = (x3 - x_start3) - w * dt
+        rel_t = rel - _dot(rel, n) * n
+        x3 = torch.where(contact, x3 - mu * rel_t, x3)
+    return x3
+
+
+def verlet_substep_grid(x3, xp3, inv_mass2, offsets, masks, gravity,
+                        cfg: SimConfig, dt: float, top: Topology):
+    """One position-Verlet substep on grid planes (oracle ``substep_verlet``
+    semantics): springs on the velocity estimate ``(x - xp) / dt``, the
+    damped position update, pinning, then position-only plane and sphere
+    contact and their friction.  Returns ``(x_new, x3)``: the new position
+    and the new history ``x_prev``."""
+    movable = inv_mass2 > 0.0
+    v_est = (x3 - xp3) / dt
+    f = stencil_spring_forces(x3, v_est, offsets, masks, cfg.springs.damping)
+    accel = gravity + f * inv_mass2
+    x_new = (x3 + (x3 - xp3) * (1.0 - cfg.global_damping * dt)
+             + accel * dt * dt)
+    x_new = torch.where(movable, x_new, x3)
+    contact = ((x_new[1] < top.plane_height) & movable[0]
+               if cfg.collision.enable_plane else None)
+    x_new = _project_positions_grid(x_new, movable, cfg, top)
+    x_new = _plane_friction_grid(x_new, x3, cfg, dt, contact, top)
+    x_new = _sphere_friction_grid(x_new, x3, cfg, dt, movable, top)
+    return x_new, x3
+
+
+def xpbd_substep_grid(x3, v3, inv_mass2, xoffsets, masks, cnt, gravity,
+                      cfg: SimConfig, dt: float, top: Topology):
+    """One XPBD substep on grid planes (oracle ``substep_xpbd`` semantics):
+    predict, then ``n_iterations`` Jacobi sweeps of distance-constraint
+    projection with compliance, count-averaged and under-relaxed, contact
+    projected inside the loop, friction once after it, and the velocity
+    recovered from the position change.  ``cnt`` is
+    :func:`jacobi_count` of ``masks``.  Returns ``(x_new, v_new)``.
+
+    Delta form: the loop carries the substep's accumulated position change
+    ``delta`` and never a rounded ``x``; only the evaluation point
+    ``x_prev + delta`` rounds large plus small, and it is never stored.  The
+    f32 drift bound rests on this (``tests/test_oracle_parity.py``)."""
+    col = cfg.collision
+    movable = inv_mass2 > 0.0
+    w = inv_mass2[0]
+    v3 = (v3 + dt * gravity) * (1.0 - cfg.global_damping * dt)
+    v3 = torch.where(movable, v3, 0.0)
+    x_prev = x3
+    delta = dt * v3
+    lams = [torch.zeros_like(w) for _ in xoffsets]
+    contact = torch.zeros_like(movable[0])
+    for _ in range(cfg.xpbd.n_iterations):
+        xe = x_prev + delta            # evaluation point, never stored
+        dx = torch.zeros_like(xe)
+        for o, ((di, dj, alpha, rest), m) in enumerate(zip(xoffsets, masks)):
+            d = _shift(xe, di, dj) - xe
+            length = torch.sqrt(_dot(d, d))
+            n = d / torch.clamp_min(length, 1e-12)   # divide form
+            c_val = length - rest
+            alpha_t = alpha / (dt * dt)
+            wn = _shift(w, di, dj)
+            denom = torch.clamp_min(w + wn + alpha_t, 1e-12)
+            dlam = -(c_val + alpha_t * lams[o]) / denom * m
+            lams[o] = lams[o] + dlam
+            # -w * dlam * n at the owner, +wn * dlam * n at the neighbour
+            # (scattered by the reverse shift)
+            contrib_a = -(w * dlam) * n
+            contrib_b = (wn * dlam) * n
+            dx = dx + contrib_a + _shift(contrib_b, -di, -dj)
+        delta = delta + cfg.xpbd.relaxation * dx / cnt
+        # contact inside the loop, in delta form: the plane clamp as
+        # ``plane - x_prev``, the spheres as the push-out displacement
+        if col.enable_plane:
+            ph = top.plane_height
+            pc = ((x_prev[1] + delta[1]) < ph) & movable[0]
+            delta = torch.stack(
+                [delta[0], torch.where(pc, ph - x_prev[1], delta[1]), delta[2]])
+            contact = contact | pc
+        if col.enable_spheres and top.n_spheres > 0:
+            xe = x_prev + delta
+            delta = delta + (_push_out_spheres(xe, movable, top) - xe)
+    # plane friction once per substep, on the OR of the iterations'
+    # pre-clamp contact masks
+    mu = col.friction
+    if col.enable_plane and mu != 0.0:
+        out = [delta[0], delta[1], delta[2]]
+        for ax in (0, 2):
+            wdt = top.plane_velocity[ax] * dt
+            out[ax] = torch.where(
+                contact, wdt + (delta[ax] - wdt) * (1.0 - mu), delta[ax])
+        delta = torch.stack(out)
+    xe = x_prev + delta
+    xf = _sphere_friction_grid(xe, x_prev, cfg, dt, movable, top)
+    delta = delta + (xf - xe)
+    delta = torch.where(movable, delta, 0.0)
+    return x_prev + delta, delta / dt
+
+
 def to_planes(a: torch.Tensor, ny: int, nx: int) -> torch.Tensor:
     """[N, 3] -> [3, ny, nx]."""
     return a.t().reshape(3, ny, nx)
@@ -187,28 +376,45 @@ def from_planes(a: torch.Tensor) -> torch.Tensor:
 
 
 def make_stencil_step(top: Topology, cfg: SimConfig):
-    """Build ``fn(state, dt, n_substeps) -> state`` for a grid-cloth Euler
-    scene, in plain PyTorch on whatever device ``top`` lives on."""
+    """Build ``fn(state, dt, n_substeps) -> state`` for a grid-cloth scene
+    under ``cfg.solver`` (Euler, Verlet or XPBD), in plain PyTorch on
+    whatever device ``top`` lives on."""
     check_ported(cfg)
     ny, nx = top.grid_shape
-    offsets = _offsets(cfg, top.grid_spacing,
-                       EDGE_SHEAR in top.edge_classes_present,
-                       EDGE_BEND in top.edge_classes_present)
+    has_shear = EDGE_SHEAR in top.edge_classes_present
+    has_bend = EDGE_BEND in top.edge_classes_present
+    offsets = _offsets(cfg, top.grid_spacing, has_shear, has_bend)
     masks = [_valid_mask(ny, nx, di, dj, top.device, top.dtype)
              for di, dj, _, _ in offsets]
     gravity = torch.tensor(cfg.gravity, dtype=top.dtype,
                            device=top.device).reshape(3, 1, 1)
     inv_mass2 = top.inv_mass.reshape(1, ny, nx)
+    if cfg.solver == Solver.XPBD:
+        # the same (di, dj) order as offsets, so the masks serve both
+        xoffsets = _xpbd_offsets(cfg, top.grid_spacing, has_shear, has_bend)
+        cnt = jacobi_count(xoffsets, masks)
 
     def fn(state: State, dt: float, n_substeps: int) -> State:
         x3 = to_planes(state.x, ny, nx)
-        v3 = to_planes(state.v, ny, nx)
-        for _ in range(n_substeps):
-            x3, v3 = euler_substep_grid(x3, v3, inv_mass2, offsets, masks,
-                                        gravity, cfg, dt, top)
-        # the Euler solver never reads x_prev; rebuild the natural value
-        # (position before the final integrate) as the JAX fast paths do
-        xp3 = x3 - dt * v3
+        if cfg.solver == Solver.VERLET:
+            xp3 = to_planes(state.x_prev, ny, nx)
+            for _ in range(n_substeps):
+                x3, xp3 = verlet_substep_grid(x3, xp3, inv_mass2, offsets,
+                                              masks, gravity, cfg, dt, top)
+            v3 = (x3 - xp3) / dt
+        else:
+            v3 = to_planes(state.v, ny, nx)
+            for _ in range(n_substeps):
+                if cfg.solver == Solver.XPBD:
+                    x3, v3 = xpbd_substep_grid(x3, v3, inv_mass2, xoffsets,
+                                               masks, cnt, gravity, cfg, dt,
+                                               top)
+                else:
+                    x3, v3 = euler_substep_grid(x3, v3, inv_mass2, offsets,
+                                                masks, gravity, cfg, dt, top)
+            # neither solver reads x_prev; rebuild the natural value (the
+            # position before the final integrate) as the JAX fast paths do
+            xp3 = x3 - dt * v3
         return State(x=from_planes(x3), v=from_planes(v3),
                      x_prev=from_planes(xp3))
 

@@ -1,5 +1,5 @@
-"""Workload presets of the grid-cloth Euler slice, under the JAX package's
-names (``softbodyunity_tpu/models/presets.py``).
+"""Workload presets of the grid-cloth slices (Euler, Verlet, XPBD), under the
+JAX package's names (``softbodyunity_tpu/models/presets.py``).
 
 Each preset returns ``(HostTopology, SimConfig)``; feed the topology to
 :func:`softbodyunity_torch.api.init` and the pair to ``step``.  The other
@@ -12,7 +12,8 @@ from typing import Callable, Dict, Tuple
 
 import numpy as np
 
-from ..core.config import CollisionParams, SimConfig, Solver, SpringParams
+from ..core.config import (CollisionParams, SimConfig, Solver, SpringParams,
+                           XPBDParams)
 from ..core.topology import HostTopology, cloth_grid
 
 _REGISTRY: Dict[str, Callable[[], Tuple[HostTopology, SimConfig]]] = {}
@@ -74,6 +75,30 @@ def cloth_hanging_sphere():
     return top, cfg
 
 
+@register("cloth_xpbd")
+def cloth_xpbd():
+    """BASELINE.json:9 — 'XPBD cloth: distance + bending constraints with
+    compliance, substepped Jacobi solver'."""
+    cfg = SimConfig(
+        solver=Solver.XPBD,
+        xpbd=XPBDParams(
+            compliance_distance=1e-6,
+            compliance_bend=5e-4,
+            n_iterations=8,
+            relaxation=1.0,
+        ),
+        collision=CollisionParams(enable_plane=True),
+        global_damping=0.2,
+    )
+    top = cloth_grid(
+        32, 32, spacing=0.05, shear=True, bend=True,
+        pinned=("tl", "tr"),
+        springs=cfg.springs, xpbd=cfg.xpbd,
+        plane_height=-3.0, origin=(0.0, 0.0, 0.0), orientation="xy",
+    )
+    return top, cfg
+
+
 @register("cloth_bench_64k")
 def cloth_bench_64k():
     """Headline benchmark scene: 256x256 = 65,536-vertex curtain pinned along
@@ -86,6 +111,55 @@ def cloth_bench_64k():
     cfg = SimConfig(
         solver=Solver.SEMI_IMPLICIT_EULER,
         springs=SpringParams(k_structural=800.0, k_shear=400.0, k_bend=150.0, damping=0.8),
+        collision=CollisionParams(enable_plane=True, friction=0.2),
+        global_damping=2.0,
+        backend="auto",
+    )
+    top = cloth_grid(
+        256, 256, spacing=0.01, mass=0.01, shear=True, bend=True,
+        pinned=("top",),
+        springs=cfg.springs, xpbd=cfg.xpbd,
+        plane_height=-8.0, origin=(0.0, 0.0, 0.0), orientation="xy",
+    )
+    return top, cfg
+
+
+@register("cloth_bench_64k_xpbd")
+def cloth_bench_64k_xpbd():
+    """XPBD variant of the headline 64k benchmark scene (BASELINE.json:9
+    constraints at BASELINE.json:5 scale): distance + bending compliance,
+    8 Jacobi iterations per substep."""
+    cfg = SimConfig(
+        solver=Solver.XPBD,
+        xpbd=XPBDParams(
+            compliance_distance=1e-6,
+            compliance_bend=5e-4,
+            n_iterations=8,
+            relaxation=1.0,
+        ),
+        collision=CollisionParams(enable_plane=True),
+        global_damping=0.2,
+        backend="auto",
+    )
+    top = cloth_grid(
+        256, 256, spacing=0.01, mass=0.01, shear=True, bend=True,
+        pinned=("top",),
+        springs=cfg.springs, xpbd=cfg.xpbd,
+        plane_height=-8.0, origin=(0.0, 0.0, 0.0), orientation="xy",
+    )
+    return top, cfg
+
+
+@register("cloth_bench_64k_verlet")
+def cloth_bench_64k_verlet():
+    """Verlet variant of the headline 64k benchmark scene (BASELINE.json:5
+    'Euler / Verlet').  Axial damping 0.1: the v-estimate damper
+    destabilizes explicit Verlet beyond ~0.2 (the JAX package's docstring
+    gives the measurement); global damping carries the dissipation
+    instead."""
+    cfg = SimConfig(
+        solver=Solver.VERLET,
+        springs=SpringParams(k_structural=800.0, k_shear=400.0, k_bend=150.0, damping=0.1),
         collision=CollisionParams(enable_plane=True, friction=0.2),
         global_damping=2.0,
         backend="auto",

@@ -1,7 +1,7 @@
 """softbodyunity_torch's public path as a whole, on the CPU: golden replay,
-the hand-off of a running JAX scene to the port, dispatch and its refusals,
-and the kernel build's keying.  The kernel itself is tested on the card by
-tests/test_torch_cuda.py."""
+the hand-off of a running JAX scene to the port, the step contract of each
+solver, dispatch and its refusals, and the kernel build's keying.  The
+kernels themselves are tested on the card by tests/test_torch_cuda.py."""
 
 import dataclasses
 import os
@@ -11,6 +11,11 @@ import pytest
 import torch
 
 from softbodyunity_tpu import api as japi
+from softbodyunity_tpu.core.config import CollisionParams as JCollisionParams
+from softbodyunity_tpu.core.config import SimConfig as JSimConfig
+from softbodyunity_tpu.core.config import Solver as JSolver
+from softbodyunity_tpu.core.config import SpringParams as JSpringParams
+from softbodyunity_tpu.core.topology import cloth_grid as j_cloth_grid
 from softbodyunity_tpu.models import presets as jpresets
 
 import softbodyunity_torch as tsb
@@ -20,7 +25,8 @@ from softbodyunity_torch.core.config import (CollisionParams,
                                              SelfCollisionParams, Solver,
                                              StrainLimitParams, TearParams,
                                              WindParams)
-from softbodyunity_torch.kernels import build, grid_euler
+from softbodyunity_torch.kernels import (build, dispatch, grid_euler,
+                                        grid_verlet, grid_xpbd, stencil)
 
 torch.set_num_threads(1)
 
@@ -50,17 +56,48 @@ def test_golden_replay(name, tol, first_tol):
         assert drift < bound, f"{name}: drift {drift:.3e} at frame {(r + 1) * every}"
 
 
+def _verlet_16x8():
+    """A 16x8 Verlet curtain (tests/test_pallas.py's Verlet sphere scene
+    without the sphere: plane out of reach, axial damping 0.1), built by the
+    JAX package."""
+    cfg = JSimConfig(
+        solver=JSolver.VERLET,
+        springs=JSpringParams(k_structural=500.0, k_shear=250.0,
+                              k_bend=100.0, damping=0.1),
+        collision=JCollisionParams(enable_plane=True, friction=0.2),
+        global_damping=0.3,
+    )
+    host = j_cloth_grid(
+        16, 8, spacing=0.05, shear=True, bend=True, pinned=("tl", "tr"),
+        springs=cfg.springs, xpbd=cfg.xpbd, plane_height=-2.5,
+        orientation="xy",
+    )
+    return host, cfg
+
+
+_JAX_SCENES = {"verlet_16x8": _verlet_16x8}
+
+
 # Both packages run the same stencil ops on the same f32 inputs; XLA may
 # fuse and reorder, so agreement is to rounding (measured 0 on the smooth
 # scene; 7.7e-7 x / 5.9e-5 v on the sphere scene, amplified by contact).
+# cloth_xpbd: v = delta/dt turns x rounding into ~1e3 times as much v error.
+# verlet_16x8 carries its x_prev history across; its velocity estimate
+# (x - x_prev)/dt differs by an ulp between the packages after one substep
+# and the damper carries that on (measured 4.5e-6 x / 1.7e-4 v).  With
+# sphere contact the friction shell's knife edge turns it into 2e-3 within
+# 10 frames, so the sphere is covered by tests/test_torch_xpbd_verlet.py.
 @pytest.mark.parametrize("name,atol_x,atol_v", [
     ("cloth_32_euler", 1e-6, 1e-5),
     ("cloth_hanging_sphere", 1e-5, 1e-3),
+    ("cloth_xpbd", 1e-5, 1e-3),
+    ("verlet_16x8", 1e-5, 1e-3),
 ])
 def test_handoff_from_running_jax_scene(name, atol_x, atol_v):
     """JAX steps 10 frames, the state crosses to the port as numpy arrays,
     then both step 10 more frames."""
-    jhost, jcfg = jpresets.build(name)
+    jhost, jcfg = (_JAX_SCENES[name]() if name in _JAX_SCENES
+                   else jpresets.build(name))
     jtop, js = japi.init(jhost)
     for _ in range(10):
         js = japi.step(jtop, jcfg, js)
@@ -79,29 +116,73 @@ def test_handoff_from_running_jax_scene(name, atol_x, atol_v):
                                atol=atol_x)
 
 
-def test_step_contract_on_cpu():
-    """Pinned vertices stay bit-frozen, x_prev = x - dt*v, rollout equals
-    repeated step, and the CPU path never launches the kernel."""
+def _verlet_hanging_sphere():
+    """cloth_hanging_sphere under Verlet, with the axial damping of the
+    Verlet presets (the velocity-estimate damper destabilises explicit
+    Verlet beyond ~0.2)."""
     host, cfg = tsb.presets.build("cloth_hanging_sphere")
+    springs = dataclasses.replace(cfg.springs, damping=0.1)
+    return host, cfg.replace(solver=Solver.VERLET, springs=springs)
+
+
+_CONTRACT_SCENES = {
+    "euler": lambda: tsb.presets.build("cloth_hanging_sphere"),
+    "verlet": _verlet_hanging_sphere,
+    "xpbd": lambda: tsb.presets.build("cloth_xpbd"),
+}
+
+
+@pytest.mark.parametrize("solver", sorted(_CONTRACT_SCENES))
+def test_step_contract_on_cpu(solver):
+    """Pinned vertices stay bit-frozen, x_prev and v agree as the solver
+    defines them, rollout equals repeated step, and the CPU path never
+    launches a kernel."""
+    host, cfg = _CONTRACT_SCENES[solver]()
+    assert cfg.solver.value == solver
     top, s0 = tsb.init(host, device="cpu")
-    grid_euler.reset_launch_count()
+    counters = (grid_euler, grid_verlet, grid_xpbd)
+    for k in counters:
+        k.reset_launch_count()
     s = s0
     for _ in range(3):
         s = tsb.step(top, cfg, s)
-    assert grid_euler.launch_count() == 0
+    assert [k.launch_count() for k in counters] == [0, 0, 0]
     pinned = torch.from_numpy(host.inv_mass == 0.0)
     assert int(pinned.sum()) == 2
     assert torch.equal(s.x[pinned], s0.x[pinned])
-    assert torch.equal(s.x_prev, s.x - cfg.dt * s.v)
+    if cfg.solver == Solver.VERLET:
+        # x_prev is the Verlet history; v is recovered from it
+        assert torch.equal(s.v, (s.x - s.x_prev) / cfg.dt)
+    else:
+        assert torch.equal(s.x_prev, s.x - cfg.dt * s.v)
     s_roll, xs = tsb.rollout(top, cfg, s0, 3)
     assert xs.shape == (3, host.positions0.shape[0], 3)
     assert torch.equal(xs[-1], s.x) and torch.equal(s_roll.v, s.v)
+    assert torch.equal(s_roll.x_prev, s.x_prev)
     assert s.x.is_contiguous() and s.v.is_contiguous()
 
 
+@pytest.mark.parametrize("solver", [Solver.XPBD, Solver.VERLET])
+def test_ported_solver_runs_on_cpu(solver):
+    """XPBD and Verlet grid scenes run on the CPU through the plain
+    make_stencil_step, bit for bit."""
+    host, cfg = tsb.presets.build("cloth_32_euler")
+    cfg = cfg.replace(solver=solver)
+    top, state = tsb.init(host, device="cpu")
+    fn = dispatch.maybe_fast_step(top, cfg)
+    assert fn.__qualname__ == "make_stencil_step.<locals>.fn"
+    got = tsb.step(top, cfg, state)
+    want = stencil.make_stencil_step(top, cfg)(state, cfg.dt, cfg.n_substeps)
+    assert torch.equal(got.x, want.x) and torch.equal(got.v, want.v)
+    assert bool(torch.isfinite(got.x).all())
+    assert not torch.equal(got.x, state.x)
+
+
 _UNPORTED = {
-    "xpbd": dict(solver=Solver.XPBD),
-    "verlet": dict(solver=Solver.VERLET),
+    "xpbd+wind": dict(solver=Solver.XPBD,
+                      wind=WindParams(velocity=(1.0, 0.0, 0.0), drag=0.2)),
+    "verlet+capsules": dict(solver=Solver.VERLET,
+                            collision=CollisionParams(enable_capsules=True)),
     "wind": dict(wind=WindParams(velocity=(1.0, 0.0, 0.0), drag=0.2)),
     "strain_limit": dict(strain_limit=StrainLimitParams(enabled=True)),
     "tear": dict(tear=TearParams(enabled=True)),
@@ -143,6 +224,23 @@ def test_cuda_step_refuses_cpu_topology():
     top, _ = tsb.init(host, device="cpu")
     with pytest.raises(ValueError, match="CUDA"):
         grid_euler.make_cuda_step(top, cfg)
+
+
+@pytest.mark.parametrize("solver", [Solver.VERLET, Solver.XPBD])
+def test_solver_cuda_step_refuses_cpu_topology_and_other_solvers(solver):
+    """Each kernel wrapper takes only its own solver, and only on the card:
+    no wrapper runs another solver's scene or falls back to the CPU."""
+    wrapper = grid_verlet if solver == Solver.VERLET else grid_xpbd
+    host, cfg = tsb.presets.build("cloth_32_euler")
+    top, _ = tsb.init(host, device="cpu")
+    with pytest.raises(ValueError, match="CUDA"):
+        wrapper.make_cuda_step(top, cfg.replace(solver=solver))
+    for other in Solver:
+        if other != solver:
+            with pytest.raises(ValueError, match=other.value):
+                wrapper.make_cuda_step(top, cfg.replace(solver=other))
+    with pytest.raises(ValueError, match=solver.value):
+        grid_euler.make_cuda_step(top, cfg.replace(solver=solver))
 
 
 def test_build_key_follows_sources(tmp_path, monkeypatch):

@@ -1,18 +1,21 @@
-"""The hand-written grid_euler CUDA kernel against its plain PyTorch version,
-on the card.  These tests skip without a CUDA device: the kernel has no CPU
-mode.  The file imports no jax, so it runs where JAX is absent; there run it
+"""The hand-written grid CUDA kernels (grid_euler, grid_verlet, grid_xpbd)
+against their plain PyTorch versions, on the card.  These tests skip without
+a CUDA device: the kernels have no CPU mode.  The file imports no jax, so it runs where JAX is absent; there run it
 without the repository's conftest (which sets JAX up):
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
 import torch
 
 import softbodyunity_torch as tsb
-from softbodyunity_torch.core.config import CollisionParams
-from softbodyunity_torch.kernels import grid_euler, stencil
+from softbodyunity_torch.core.config import CollisionParams, Solver, XPBDParams
+from softbodyunity_torch.kernels import (dispatch, grid_euler, grid_verlet,
+                                        grid_xpbd, stencil)
 
 torch.set_num_threads(1)
 
@@ -20,8 +23,8 @@ torch.set_num_threads(1)
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the grid_euler kernel runs only "
-                    "on the card")
+        pytest.skip("needs a CUDA device: the grid kernels run only on the "
+                    "card")
     return torch.device("cuda")
 
 
@@ -79,3 +82,118 @@ def test_kernel_refuses_what_it_does_not_take(cuda):
     top64, _ = tsb.init(host, device=cuda, dtype=torch.float64)
     with pytest.raises(TypeError, match="float32"):
         grid_euler.make_cuda_step(top64, cfg)
+
+
+def _scene16_solver(solver, sphere_center=None, verlet_sphere=False):
+    """tests/test_pallas.py's 16x8 Verlet and XPBD scenes."""
+    cfg = tsb.SimConfig(
+        solver=solver,
+        springs=tsb.SpringParams(k_structural=500.0, k_shear=250.0,
+                                 k_bend=100.0,
+                                 damping=0.1 if verlet_sphere else 0.6),
+        xpbd=XPBDParams(compliance_distance=1e-6, compliance_bend=5e-4,
+                        n_iterations=6, relaxation=1.0),
+        collision=CollisionParams(enable_plane=True,
+                                  enable_spheres=sphere_center is not None,
+                                  friction=0.2),
+        global_damping=0.3,
+    )
+    host = tsb.cloth_grid(
+        16, 8, spacing=0.05, shear=True, bend=True, pinned=("tl", "tr"),
+        springs=cfg.springs, xpbd=cfg.xpbd,
+        plane_height=-2.5 if verlet_sphere else -0.25, orientation="xy",
+        sphere_centers=(np.array([sphere_center]) if sphere_center
+                        else None),
+        sphere_radii=np.array([0.15]) if sphere_center else None,
+    )
+    return host, cfg
+
+
+_WRAPPERS = {Solver.SEMI_IMPLICIT_EULER: grid_euler,
+             Solver.VERLET: grid_verlet, Solver.XPBD: grid_xpbd}
+
+
+# tests/test_pallas.py's kernel-vs-twin tolerances on x; v = position
+# change / dt carries x rounding ~1e3-fold, and the Verlet drape flips the
+# discrete plane-friction mask on a few vertices
+@pytest.mark.cuda
+@pytest.mark.parametrize("solver,center,verlet_sphere,n_sub,atol_x,atol_v", [
+    (Solver.XPBD, None, False, 64, 1e-5, 1e-3),
+    (Solver.XPBD, (0.375, -0.3, 0.0), False, 96, 2e-5, 5e-2),
+    (Solver.VERLET, None, False, 64, 1e-3, 5e-2),
+    (Solver.VERLET, (0.375, -0.45, 0.0), True, 240, 2e-5, 5e-2),
+])
+def test_solver_kernel_matches_plain_on_card(cuda, solver, center,
+                                             verlet_sphere, n_sub, atol_x,
+                                             atol_v):
+    host, cfg = _scene16_solver(solver, center, verlet_sphere)
+    wrapper = _WRAPPERS[solver]
+    top, s0 = tsb.init(host, device=cuda)
+    want = stencil.make_stencil_step(top, cfg)(s0, cfg.dt, n_sub)
+    for w in _WRAPPERS.values():
+        w.reset_launch_count()
+    got = wrapper.make_cuda_step(top, cfg)(s0, cfg.dt, n_sub)
+    torch.cuda.synchronize()
+    per_sub = (grid_xpbd.launches_per_substep(cfg) if solver == Solver.XPBD
+               else 1)
+    assert wrapper.launch_count() == n_sub * per_sub
+    assert sum(w.launch_count() for w in _WRAPPERS.values()) == n_sub * per_sub
+    torch.testing.assert_close(got.x, want.x, atol=atol_x, rtol=0)
+    torch.testing.assert_close(got.v, want.v, atol=atol_v, rtol=0)
+    torch.testing.assert_close(got.x_prev, want.x_prev, atol=atol_x, rtol=0)
+    pinned = torch.from_numpy(host.inv_mass == 0.0).to(cuda)
+    assert torch.equal(got.x[pinned], s0.x[pinned])
+
+
+@pytest.mark.cuda
+def test_xpbd_kernel_without_sweeps_matches_plain(cuda):
+    """n_iterations = 0: the predict launch and one launch that runs only
+    the epilogue (friction, pins, x and v out)."""
+    host, cfg = _scene16_solver(Solver.XPBD)
+    cfg = cfg.replace(xpbd=dataclasses.replace(cfg.xpbd, n_iterations=0))
+    top, s0 = tsb.init(host, device=cuda)
+    want = stencil.make_stencil_step(top, cfg)(s0, cfg.dt, 32)
+    grid_xpbd.reset_launch_count()
+    got = grid_xpbd.make_cuda_step(top, cfg)(s0, cfg.dt, 32)
+    torch.cuda.synchronize()
+    assert grid_xpbd.launch_count() == 32 * 2
+    torch.testing.assert_close(got.x, want.x, atol=1e-5, rtol=0)
+    torch.testing.assert_close(got.v, want.v, atol=1e-3, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("solver", [Solver.VERLET, Solver.XPBD])
+def test_solver_kernel_refuses_what_it_does_not_take(cuda, solver):
+    host, cfg = _scene16_solver(solver)
+    top, s0 = tsb.init(host, device=cuda)
+    step = _WRAPPERS[solver].make_cuda_step(top, cfg)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+        step(s0.replace(x=s0.x.clone().requires_grad_()), cfg.dt, 1)
+    with pytest.raises(ValueError, match="contiguous"):
+        step(s0.replace(x=s0.x.t().contiguous().t()), cfg.dt, 1)
+    with pytest.raises(TypeError, match="float32"):
+        step(s0.replace(x=s0.x.double()), cfg.dt, 1)
+    top64, _ = tsb.init(host, device=cuda, dtype=torch.float64)
+    with pytest.raises(TypeError, match="float32"):
+        _WRAPPERS[solver].make_cuda_step(top64, cfg)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("solver", list(_WRAPPERS))
+def test_dispatch_takes_each_solver_kernel_on_card(cuda, solver):
+    """On a CUDA topology the public step goes through the solver's kernel
+    (and no other); on CPU tensors through the plain version."""
+    host, cfg = _scene16_solver(solver)
+    top, s0 = tsb.init(host, device=cuda)
+    fn = dispatch.maybe_fast_step(top, cfg)
+    assert fn.__module__ == _WRAPPERS[solver].__name__
+    for w in _WRAPPERS.values():
+        w.reset_launch_count()
+    tsb.step(top, cfg, s0)
+    torch.cuda.synchronize()
+    assert _WRAPPERS[solver].launch_count() > 0
+    assert sum(w.launch_count() for w in _WRAPPERS.values()
+               if w is not _WRAPPERS[solver]) == 0
+    top_cpu, _ = tsb.init(host, device="cpu")
+    assert (dispatch.maybe_fast_step(top_cpu, cfg).__qualname__
+            == "make_stencil_step.<locals>.fn")

@@ -25,7 +25,9 @@ from softbodyunity_torch.solver.normals import vertex_normals
 
 torch.set_num_threads(1)
 
-SLICE_PRESETS = ["cloth_32_euler", "cloth_hanging_sphere", "cloth_bench_64k"]
+SLICE_PRESETS = ["cloth_32_euler", "cloth_hanging_sphere", "cloth_bench_64k",
+                 "cloth_xpbd", "cloth_bench_64k_xpbd",
+                 "cloth_bench_64k_verlet"]
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
@@ -140,6 +142,9 @@ def test_vertex_normals_match_jax(dtype, atol):
 def test_package_imports_no_jax():
     code = ("import sys, softbodyunity_torch\n"
             "import softbodyunity_torch.kernels.grid_euler\n"
+            "import softbodyunity_torch.kernels.grid_verlet\n"
+            "import softbodyunity_torch.kernels.grid_xpbd\n"
+            "import softbodyunity_torch.solver.collide\n"
             "import softbodyunity_torch.kernels.dispatch\n"
             "import softbodyunity_torch.convert\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith(("
