@@ -3,39 +3,49 @@
 
 Run from a checkout, with one card:  python3 chip_smoke.py
 
-The port's grid-cloth paths, one hand-written CUDA kernel each:
+The port's paths, one hand-written CUDA kernel each:
 
-    Euler   cloth_bench_64k          grid_euler   1 launch per substep
-    Verlet  cloth_bench_64k_verlet   grid_verlet  1 launch per substep
-    XPBD    cloth_bench_64k_xpbd     grid_xpbd    1 + n_iterations per substep
+    Euler   cloth_bench_64k           grid_euler      1 launch per substep
+    Verlet  cloth_bench_64k_verlet    grid_verlet     1 launch per substep
+    XPBD    cloth_bench_64k_xpbd      grid_xpbd       1 + n_iterations
+    Euler   softbody_cube_64k         lattice_euler   2 (integrate, volume)
+    Verlet  softbody_cube_64k_verlet  lattice_verlet  2 (integrate, volume)
+    XPBD    softbody_cube_64k_xpbd    lattice_xpbd    1 + n_iterations
 
 Phases, each printed as one JSON line; any failure raises and exits nonzero:
 
 1. device     the card's name and power limit (nvidia-smi) and torch's view;
-2. build      nvcc builds the three kernels from kernels/csrc at first use,
+              then the host build time of each preset (tet_cube(40) is
+              seconds of Python loops);
+2. build      nvcc builds the six kernels from kernels/csrc at first use,
               one nvcc per source, all started together;
 3. compare    each kernel against its plain PyTorch version, both float32 on
-              the card: 16x8 cloths (the scenes of tests/test_pallas.py)
-              and one frame of its 64k preset;
+              the card: 16x8 cloths (the scenes of tests/test_pallas.py),
+              6^3 and 7^3 tet cubes (tests/test_pallas_lattice.py), and one
+              frame of its 64k preset;
 4. main_path  each 64k preset through init(device="cuda") and 300 frames of
               step(), every launch count set to 0 just before and read just
               after: the path's kernel launched frames x substeps x launches
               per substep times and no other kernel launched; x finite,
               pinned rows bit-equal to the initial state, nothing below the
-              plane, unit normals, peak device memory;
+              plane (and the cubes resting on it), unit normals, the path's
+              own peak device memory from init on;
 5. sphere     cloth_hanging_sphere (Euler), 120 frames: the pins hold, no
               vertex inside the sphere;
 6. golden     the float64 oracle trajectories of tests/golden replayed
               through step() at tests/test_golden.py's tolerances;
-7. fidelity   each kernel in float32 against its plain version in float64
-              on its 64k preset: Euler and Verlet over 1000 frames, XPBD over
-              200 (its float64 plain version runs ~1,600 eager ops per
-              substep);
+7. fidelity   each kernel in float32 against its plain version in float64:
+              grid Euler and Verlet over 500 frames of their 64k presets,
+              grid XPBD over 100; softbody_cube over 1000 frames; the 64k
+              cubes over 200 frames (Euler, Verlet) and 60 (XPBD);
 8. timing     per 64k preset, ms per substep of the kernel path and of the
               plain version with CUDA events, in turns plain/kernel/kernel/
               plain; then, after all of them (a profiler session slows the
               launches that follow it), each kernel's device time per
-              launch from torch.profiler.
+              launch from torch.profiler.  The lattice kernels are timed
+              from rest (the cube in free fall, the work bound_per_substep
+              counts) and again from the main path's last state (the cube
+              deformed and resting on the plane).
 
 Then a JSON line of the kernels (launches on the main path, error against
 the plain version, times, bound), the nvidia-smi line, and as the last line
@@ -70,12 +80,35 @@ PEAK_F32_PER_S = 67e12
 # epilogue 6 once, evaluation point, averaged update and plane test 12 per
 # sweep.  Contact and friction work is data-dependent and the 64k presets
 # make none (their plane lies below the cloth's reach), so it counts 0.
+#
+# The lattice kernels' functions, counted from their plain versions
+# (solver/banded.py, solver/step.py) the same way:
+# - a banded spring edge: as a grid edge, with a divide for each of the 3
+#   components of n in place of a reciprocal and 3 multiplies: 34;
+# - a tet of the PBD volume projection: edges 9, three cross products 27
+#   (e1 x e2 counted once, though the plain version forms it twice), /6 on
+#   the 9 gradient components 9, g0 9, volume dot 5 and /6 1, C 1, the
+#   denominator (4 squared norms 20, times w 4, summed 3) 27, max 1, scale
+#   -C/max 2, the 4 corners' w s 4 and times g 12, added into dx 12 = 119;
+# - an XPBD volume constraint in one sweep: the same plus alpha lambda 1,
+#   C + 1, denominator + alpha 1 and the lambda update 1 = 123.
+# Per vertex: Euler's volume step stiffness dx / count, x + dx, v + dx/dt 15;
+# Verlet's 9; per XPBD sweep evaluation point 3, relaxation dx / count 6,
+# delta + 3 and the plane test 2 = 14.  Plane and sphere contact work is
+# data-dependent; the timed windows start from rest and end before the
+# cubes reach the plane (20 frames of a 1 m drop), so they count 0.
 OPS_SPRING_EDGE = 35
 OPS_XPBD_EDGE = 36
 OPS_EULER_VERTEX = 22
 OPS_VERLET_VERTEX = 31
 OPS_XPBD_VERTEX_ONCE = 18
 OPS_XPBD_VERTEX_SWEEP = 12
+OPS_BANDED_EDGE = 34
+OPS_TET = 119
+OPS_XPBD_TET = 123
+OPS_EULER_VOLUME_VERTEX = 15
+OPS_VERLET_VOLUME_VERTEX = 9
+OPS_LATTICE_XPBD_VERTEX_SWEEP = 14
 
 
 class SmokeFailure(Exception):
@@ -98,6 +131,8 @@ def bound_per_substep(name, top, cfg):
     float32 rate."""
     n = top.n_vertices
     e = int(top.edges.shape[0])
+    if name.startswith("lattice_"):
+        return _lattice_bound(name, top, cfg, n, e)
     n_off = len(top.edge_classes_present) * 2
     consts = 16 * n_off + 16 + 28 * top.n_spheres   # table, plane, spheres
     if name == "grid_euler":      # x, v, inv_mass in; x, v out
@@ -111,9 +146,41 @@ def bound_per_substep(name, top, cfg):
         nbytes = 4 * n * (3 + 3 + 1 + 1 + 3 + 3)
         ops = (it * (OPS_XPBD_EDGE * e + OPS_XPBD_VERTEX_SWEEP * n)
                + OPS_XPBD_VERTEX_ONCE * n)
-    t_bytes = (nbytes + consts) / PEAK_BYTES_PER_S * 1e3
+    return _bound(nbytes + consts, ops)
+
+
+def _bound(nbytes, ops):
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_F32_PER_S * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def _lattice_bound(name, top, cfg, n, e):
+    """bound_per_substep of a tet-lattice kernel: the ownership word and the
+    count plane (4 B each) stand for the edge and tet masks."""
+    from softbodyunity_torch.kernels.lattice import use_volume
+
+    volume = use_volume(top, cfg)
+    t = top.n_tets if volume else 0
+    n_groups = len(top.offset_groups.deltas)
+    t_groups = len(top.tet_groups.deltas) if volume else 0
+    consts = 12 * n_groups + 16 * t_groups + 16 + 28 * top.n_spheres
+    per_vertex = 4 * (1 + 1 + int(volume or name == "lattice_xpbd"))
+    if name == "lattice_euler":     # x, v in; x, v out
+        nbytes = n * (4 * 12 + per_vertex)
+        ops = (OPS_BANDED_EDGE * e + OPS_TET * t + OPS_EULER_VERTEX * n
+               + (OPS_EULER_VOLUME_VERTEX * n if volume else 0))
+    elif name == "lattice_verlet":  # x, x_prev in; x out
+        nbytes = n * (4 * 9 + per_vertex)
+        ops = (OPS_BANDED_EDGE * e + OPS_TET * t + OPS_VERLET_VERTEX * n
+               + (OPS_VERLET_VOLUME_VERTEX * n if volume else 0))
+    else:                           # x, v in; x, v out
+        it = cfg.xpbd.n_iterations
+        nbytes = n * (4 * 12 + per_vertex)
+        ops = (it * (OPS_XPBD_EDGE * e + OPS_XPBD_TET * t
+                     + OPS_LATTICE_XPBD_VERTEX_SWEEP * n)
+               + OPS_XPBD_VERTEX_ONCE * n)
+    return _bound(nbytes + consts, ops)
 
 
 def main() -> int:
@@ -128,8 +195,10 @@ def main() -> int:
 
     import softbodyunity_torch as sb
     from softbodyunity_torch.kernels import (build, grid_euler, grid_verlet,
-                                            grid_xpbd)
+                                            grid_xpbd, lattice_euler,
+                                            lattice_verlet, lattice_xpbd)
     from softbodyunity_torch.kernels.stencil import make_stencil_step
+    from softbodyunity_torch.solver.step import make_plain_step
 
     cuda = torch.device("cuda")
     t_start = time.perf_counter()
@@ -155,12 +224,30 @@ def main() -> int:
             replaces="softbodyunity_tpu/kernels/pallas_xpbd.py:334",
             device_names=("grid_xpbd_predict_kernel",
                           "grid_xpbd_sweep_kernel")),
+        "lattice_euler": dict(
+            module=lattice_euler, preset="softbody_cube_64k",
+            replaces="softbodyunity_tpu/kernels/pallas_lattice.py:363",
+            device_names=("lattice_euler_integrate_kernel",
+                          "lattice_euler_volume_kernel")),
+        "lattice_verlet": dict(
+            module=lattice_verlet, preset="softbody_cube_64k_verlet",
+            replaces="softbodyunity_tpu/kernels/pallas_lattice.py:901",
+            device_names=("lattice_verlet_integrate_kernel",
+                          "lattice_verlet_volume_kernel")),
+        "lattice_xpbd": dict(
+            module=lattice_xpbd, preset="softbody_cube_64k_xpbd",
+            replaces="softbodyunity_tpu/kernels/pallas_lattice.py:699",
+            device_names=("lattice_xpbd_predict_kernel",
+                          "lattice_xpbd_sweep_kernel")),
     }
     for name, k in kernels.items():
-        k["host"], k["cfg"] = sb.presets.build(k["preset"])
         k["source"] = f"softbodyunity_torch/kernels/csrc/{name}.cu"
+        k["lattice"] = name.startswith("lattice_")
+        k["plain"] = make_plain_step if k["lattice"] else make_stencil_step
 
-    def launches_per_substep(name, cfg):
+    def launches_per_substep(name, top, cfg):
+        if kernels[name]["lattice"]:
+            return kernels[name]["module"].launches_per_substep(top, cfg)
         return (grid_xpbd.launches_per_substep(cfg) if name == "grid_xpbd"
                 else 1)
 
@@ -179,6 +266,14 @@ def main() -> int:
     emit("device", kind=kind, count=torch.cuda.device_count(),
          nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda,
          python=sys.version.split()[0], seconds=phase_seconds())
+    for name, k in kernels.items():
+        t = time.perf_counter()
+        k["host"], k["cfg"] = sb.presets.build(k["preset"])
+        emit("host_build", preset=k["preset"],
+             vertices=k["host"].positions0.shape[0],
+             tets=k["host"].tets.shape[0], edges=k["host"].edges.shape[0],
+             seconds=time.perf_counter() - t)
+    phase_seconds()
 
     # 2. build --------------------------------------------------------------
     fresh = {n: not build.library_path(n).exists() for n in kernels}
@@ -221,9 +316,33 @@ def main() -> int:
         )
         return host, cfg
 
+    def cube(solver=sb.Solver.SEMI_IMPLICIT_EULER, n=6, volume_stiffness=0.5,
+             sphere=False, pins=0):
+        """tests/test_pallas_lattice.py's tet-cube scenes: on the plane, or
+        (sphere) dropped onto a sphere with the plane out of reach."""
+        cfg = sb.SimConfig(
+            solver=solver,
+            springs=sb.SpringParams(k_structural=1200.0, damping=1.5),
+            xpbd=sb.XPBDParams(compliance_distance=1e-6,
+                               compliance_volume=1e-7, n_iterations=4,
+                               relaxation=1.0),
+            collision=sb.CollisionParams(enable_plane=True,
+                                         enable_spheres=sphere, friction=0.4),
+            global_damping=0.5,
+            volume_stiffness=volume_stiffness,
+        )
+        host = sb.tet_cube(n, spacing=0.08, springs=cfg.springs,
+                           xpbd=cfg.xpbd, plane_height=-5.0 if sphere else 0.0,
+                           origin=(0.0, 0.25 if sphere else 0.01, 0.0))
+        if sphere:
+            host.sphere_centers = np.array([[0.2, -0.02, 0.2]])
+            host.sphere_radii = np.array([0.3])
+        host.inv_mass[:pins] = 0.0
+        return host, cfg
+
     def compare(name, scene, host, cfg, n_sub, atol_x, atol_v, why):
         top, s0 = sb.init(host, device=cuda)
-        plain = make_stencil_step(top, cfg)(s0, cfg.dt, n_sub)
+        plain = kernels[name]["plain"](top, cfg)(s0, cfg.dt, n_sub)
         kern = kernels[name]["module"].make_cuda_step(top, cfg)(
             s0, cfg.dt, n_sub)
         torch.cuda.synchronize()
@@ -264,6 +383,30 @@ def main() -> int:
     compare("grid_xpbd", "16x8 no sweeps", host,
             cfg.replace(xpbd=dataclasses.replace(cfg.xpbd, n_iterations=0)),
             32, 1e-5, 1e-3, twin + "; n_iterations = 0: the epilogue alone")
+    # tests/test_torch_cuda.py's lattice bounds: x 1e-5 (FMA contraction
+    # only; tests/test_pallas_lattice.py allows its rsqrt kernel 2e-5), v
+    # 2e-3 (v carries x's rounding over dt)
+    fma = "kernel vs plain, FMA contraction only"
+    for name, solver, label, kw, n_sub in (
+            ("lattice_euler", None, "6^3 on the plane", dict(n=6), 48),
+            ("lattice_euler", None, "7^3 on the plane", dict(n=7), 48),
+            ("lattice_euler", None, "6^3 no volume",
+             dict(volume_stiffness=0.0), 48),
+            ("lattice_euler", None, "6^3 pinned corner", dict(pins=8), 64),
+            ("lattice_euler", None, "6^3 sphere", dict(sphere=True), 96),
+            ("lattice_verlet", V, "6^3 on the plane", dict(n=6), 48),
+            ("lattice_verlet", V, "6^3 sphere, pins",
+             dict(sphere=True, pins=4), 96),
+            ("lattice_xpbd", X, "6^3 on the plane", dict(n=6), 64),
+            ("lattice_xpbd", X, "7^3 pinned corner", dict(n=7, pins=8), 64),
+            ("lattice_xpbd", X, "6^3 sphere", dict(sphere=True), 64)):
+        compare(name, label,
+                *cube(solver or sb.Solver.SEMI_IMPLICIT_EULER, **kw), n_sub,
+                1e-5, 2e-3, fma)
+    host, cfg = cube(X)
+    compare("lattice_xpbd", "6^3 no sweeps", host,
+            cfg.replace(xpbd=dataclasses.replace(cfg.xpbd, n_iterations=0)),
+            32, 1e-5, 2e-3, fma + "; n_iterations = 0: the epilogue alone")
     for name, k in kernels.items():
         k["err64"] = compare(name, k["preset"], k["host"], k["cfg"],
                              k["cfg"].n_substeps, 1e-5, 1e-3,
@@ -274,11 +417,16 @@ def main() -> int:
     frames = 300
     for name, k in kernels.items():
         host, cfg = k["host"], k["cfg"]
+        # the path's own peak: what it allocates from init on, over what
+        # earlier phases still hold (api.step caches the step functions,
+        # and with them the topologies, of the presets before it)
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
         top, state0 = sb.init(host, device="cuda")
         pinned = torch.from_numpy(host.inv_mass == 0.0).to(cuda)
-        expected = frames * cfg.n_substeps * launches_per_substep(name, cfg)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
+        expected = (frames * cfg.n_substeps
+                    * launches_per_substep(name, top, cfg))
         reset_counts()
         t = time.perf_counter()
         state = state0
@@ -289,27 +437,40 @@ def main() -> int:
         launched = counts()
         k["launches"] = launched[name]
         x = state.x
-        nrm = sb.normals(top, state)
+        # the cubes' surface triangles cover two faces: normals of the
+        # vertices they touch
+        on_surface = torch.zeros(x.shape[0], dtype=torch.bool, device=cuda)
+        on_surface[top.triangles.reshape(-1)] = True
+        nrm = sb.normals(top, state)[on_surface]
         unit_err = float((torch.linalg.vector_norm(nrm, dim=1) - 1.0).abs().max())
+        y_min = float(x[:, 1].min())
         emit("main_path", kernel=name, preset=k["preset"],
              solver=cfg.solver.value, vertices=x.shape[0], frames=frames,
              substeps=frames * cfg.n_substeps, launches=launched,
              expected_launches=expected, seconds=main_s,
-             y_min=float(x[:, 1].min()), plane_height=float(top.plane_height),
+             y_min=y_min, plane_height=float(top.plane_height),
              normal_unit_err=unit_err,
-             peak_mem_bytes=torch.cuda.max_memory_allocated())
+             peak_mem_bytes=torch.cuda.max_memory_allocated() - held)
         require(launched[name] == expected,
                 f"{name} launched {launched[name]} times, expected {expected}")
         require(sum(launched.values()) == expected,
                 f"{k['preset']}: other kernels launched: {launched}")
         require(bool(torch.isfinite(x).all()), f"{name} main path: x not finite")
-        require(int(pinned.sum()) == 256, f"{name} main path: expected 256 pins")
+        require(int(pinned.sum()) == (0 if k["lattice"] else 256),
+                f"{name} main path: {int(pinned.sum())} pins")
         require(torch.equal(x[pinned], state0.x[pinned]),
                 f"{name} main path: pinned rows moved")
         require(bool((x[:, 1] >= top.plane_height).all()),
                 f"{name} main path: vertex below the plane")
+        # the cube dropped from 1 m rests on the plane after 5 s
+        require(not k["lattice"] or y_min <= float(top.plane_height) + 1e-4,
+                f"{name} main path: the cube never reached the plane "
+                f"(y_min {y_min})")
         require(unit_err <= 1e-5,
                 f"{name}: normals off unit length by {unit_err:.3e}")
+        if k["lattice"]:
+            k["settled"] = state
+        del top, state0, state, x, pinned, on_surface, nrm
     emit("main_path", seconds=phase_seconds())
 
     # 5. hanging cloth on a sphere ------------------------------------------
@@ -335,7 +496,8 @@ def main() -> int:
     # frame is also held to 2e-3 (CPU plain path 8.4e-4, JAX f32 1.3e-3)
     for name, tol, first_tol in (("cloth_32_euler", 1e-4, 1e-4),
                                  ("cloth_hanging_sphere", 5e-2, 2e-3),
-                                 ("cloth_xpbd", 2e-3, 2e-3)):
+                                 ("cloth_xpbd", 2e-3, 2e-3),
+                                 ("softbody_cube", 1e-4, 1e-4)):
         data = np.load(os.path.join(ROOT, "tests", "golden", f"{name}.npz"))
         golden = data["positions"]
         every = int(data["record_every"])
@@ -355,9 +517,12 @@ def main() -> int:
     emit("golden", seconds=phase_seconds())
 
     # 7. fidelity bound -----------------------------------------------------
-    # BASELINE.json:5's 1e-3 over 1000 steps.  Verlet: on this scene the JAX
-    # package's own float32 stencil drifts from its float64 run by the
-    # series below, every 50 frames, worst 1.823590e-2 (CPU; python
+    # BASELINE.json:5's 1e-3.  The grid presets run 500 frames (Euler,
+    # Verlet) and 100 (XPBD), the first checkpoints of the 1000 and 200 that
+    # earlier versions of this script ran, so that the six paths fit the
+    # time limit.  Verlet: on this scene the JAX package's own float32
+    # stencil drifts from its float64 run by the series below, every 50
+    # frames, worst 1.823590e-2 at frame 500 (CPU; python
     # tests/test_torch_xpbd_verlet.py cloth_bench_64k_verlet 1000 50):
     # float32 position Verlet keeps moving where float64 settles.  The port
     # is held to that worst drift plus 1e-5, the rounding allowance of the
@@ -365,21 +530,54 @@ def main() -> int:
     # arithmetic), and its difference from the series is printed.
     jax_verlet_drift = [
         4.697062e-04, 9.317698e-04, 1.234884e-03, 2.049689e-03, 4.189502e-03,
-        7.977036e-03, 1.264167e-02, 4.539067e-03, 1.230327e-02, 1.823590e-02,
-        1.263966e-02, 3.930316e-03, 1.707734e-02, 1.797614e-02, 5.664898e-03,
-        1.088965e-02, 1.764441e-02, 1.316370e-02, 2.158719e-03, 1.467907e-02]
-    fidelity = {"grid_euler": (1000, 250, 1e-3, "BASELINE.json:5", None),
-                "grid_verlet": (1000, 50, max(jax_verlet_drift) + 1e-5,
-                                "JAX stencil f32-vs-f64 drift on this scene "
-                                "+ 1e-5 rounding", jax_verlet_drift),
-                "grid_xpbd": (200, 50, 1e-3, "BASELINE.json:5", None)}
-    for name, (n_frames, every, bound, why, ref) in fidelity.items():
+        7.977036e-03, 1.264167e-02, 4.539067e-03, 1.230327e-02, 1.823590e-02]
+    # The cubes: softbody_cube (BASELINE.json:10) over the BASELINE's 1000
+    # frames at 1e-3 (tests/test_oracle_parity.py holds the JAX package's
+    # f32 path to it there).  The 64k cubes drop 1 m and hit the plane near
+    # frame 35; the impact is chaotic in float32, and the JAX package's own
+    # banded f32 path leaves its f64 run by the series below, every 10
+    # frames (CPU; PYTHONPATH=. python tests/test_torch_lattice.py <preset>
+    # <frames> 10): worst 1.951600e-1 (Euler), 2.038528e-1 (Verlet),
+    # 9.033996e-2 (XPBD, 60 frames), against 3e-7 to 3e-4 before impact.
+    # 1e-3 cannot hold there for any float32 implementation; the port is
+    # held to the reference's worst plus the 1e-5 rounding allowance, and
+    # its difference from the series is printed.
+    jax_cube_drift = {
+        "lattice_euler": [
+            3.140061e-07, 6.754022e-07, 3.065103e-05, 6.519001e-02,
+            1.845364e-01, 1.951600e-01, 1.070300e-01, 9.029354e-02,
+            1.066816e-01, 9.386550e-02, 6.355496e-02, 5.988397e-02,
+            7.763131e-02, 7.504255e-02, 8.175739e-02, 8.130445e-02,
+            7.199581e-02, 7.113218e-02, 6.059273e-02, 6.338075e-02],
+        "lattice_verlet": [
+            3.009297e-04, 9.553039e-04, 1.658833e-03, 9.587694e-02,
+            2.038528e-01, 1.039482e-01, 8.655242e-02, 6.008203e-02,
+            8.741652e-02, 1.064603e-01, 9.248460e-02, 8.695215e-02,
+            1.088908e-01, 1.037462e-01, 8.466016e-02, 6.511108e-02,
+            6.505714e-02, 5.596025e-02, 5.942246e-02, 5.366196e-02],
+        "lattice_xpbd": [
+            2.608806e-07, 2.796307e-07, 2.539572e-02, 5.443324e-02,
+            9.033996e-02, 7.973840e-02]}
+    cube_host, cube_cfg = sb.presets.build("softbody_cube")
+    cube_why = ("JAX banded f32-vs-f64 drift on this scene + 1e-5 rounding")
+    fidelity = [
+        ("grid_euler", None, 500, 250, 1e-3, "BASELINE.json:5", None),
+        ("grid_verlet", None, 500, 50, max(jax_verlet_drift) + 1e-5,
+         "JAX stencil f32-vs-f64 drift on this scene + 1e-5 rounding",
+         jax_verlet_drift),
+        ("grid_xpbd", None, 100, 50, 1e-3, "BASELINE.json:5", None),
+        ("lattice_euler", "softbody_cube", 1000, 250, 1e-3,
+         "BASELINE.json:5", None)]
+    fidelity += [(name, None, 10 * len(ref), 10, max(ref) + 1e-5, cube_why,
+                  ref) for name, ref in jax_cube_drift.items()]
+    for name, preset, n_frames, every, bound, why, ref in fidelity:
         k = kernels[name]
-        cfg = k["cfg"]
+        host, cfg = ((cube_host, cube_cfg) if preset == "softbody_cube"
+                     else (k["host"], k["cfg"]))
         t = time.perf_counter()
-        top32, s32 = sb.init(k["host"], device="cuda")
-        top64, s64 = sb.init(k["host"], device="cuda", dtype=torch.float64)
-        plain64 = make_stencil_step(top64, cfg)
+        top32, s32 = sb.init(host, device="cuda")
+        top64, s64 = sb.init(host, device="cuda", dtype=torch.float64)
+        plain64 = k["plain"](top64, cfg)
         checkpoints = []
         for i in range(n_frames):
             s32 = sb.step(top32, cfg, s32)
@@ -388,7 +586,8 @@ def main() -> int:
                 checkpoints.append(float((s32.x.double() - s64.x).abs().max()))
         torch.cuda.synchronize()
         worst = max(checkpoints)
-        emit("fidelity", kernel=name, preset=k["preset"], frames=n_frames,
+        emit("fidelity", kernel=name, preset=preset or k["preset"],
+             frames=n_frames,
              every=every, drift=checkpoints, worst_drift=worst, bound=bound,
              bound_source=why,
              minus_reference=(None if ref is None else
@@ -424,17 +623,19 @@ def main() -> int:
     for name, k in kernels.items():
         cfg = k["cfg"]
         top, s0 = sb.init(k["host"], device="cuda")
-        runs = {"kernel": (k["module"].make_cuda_step(top, cfg), 100),
-                "plain": (make_stencil_step(top, cfg), 5)}
+        # lattices: 20 frames from rest end before the cube reaches the
+        # plane, so the timed work is the one bound_per_substep counts
+        runs = {"kernel": (k["module"].make_cuda_step(top, cfg),
+                           20 if k["lattice"] else 100),
+                "plain": (k["plain"](top, cfg), 2 if k["lattice"] else 5)}
         k["timing_runs"], k["timing_s0"] = runs, s0
         for fn, _ in runs.values():          # warm-up
             for _ in range(2):
                 fn(s0, cfg.dt, cfg.n_substeps)
         torch.cuda.synchronize()
 
-        def timed(which):
+        def timed(which, s=s0):
             fn, n_frames = runs[which]
-            s = s0
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
@@ -447,6 +648,11 @@ def main() -> int:
         ms = {"kernel": [], "plain": []}
         for which in ("plain", "kernel", "kernel", "plain"):
             ms[which].append(timed(which))
+        if k["lattice"]:
+            # the same kernels from the main path's last state, the cube
+            # deformed and resting on the plane
+            ms["kernel_settled"] = [timed("kernel", k["settled"])
+                                    for _ in range(2)]
         k["ms"] = min(ms["kernel"])
         k["plain_ms"] = min(ms["plain"])
         k["bound_ms"], k["bound_by"] = bound_per_substep(name, top, cfg)
@@ -456,15 +662,20 @@ def main() -> int:
              plain_substeps_per_s=1e3 / k["plain_ms"],
              bound_us_per_substep=k["bound_ms"] * 1e3, bound_by=k["bound_by"])
     for name, k in kernels.items():
-        cfg, s0 = k["cfg"], k["timing_s0"]
-        dev = device_us_per_launch(k["timing_runs"]["kernel"][0], s0, cfg, 5,
-                                   k["device_names"])
-        per_sub = (sum(us * count for us, count in dev.values())
-                   / (5 * cfg.n_substeps)
-                   if len(dev) == len(k["device_names"]) else None)
-        emit("timing", kernel=name, profiler_frames=5,
-             device_us_per_launch={n: us for n, (us, _) in dev.items()},
-             device_us_per_substep=per_sub)
+        cfg = k["cfg"]
+        starts = {"": k["timing_s0"]}
+        if k["lattice"]:
+            starts["settled"] = k["settled"]
+        for label, s0 in starts.items():
+            dev = device_us_per_launch(k["timing_runs"]["kernel"][0], s0, cfg,
+                                       5, k["device_names"])
+            per_sub = (sum(us * count for us, count in dev.values())
+                       / (5 * cfg.n_substeps)
+                       if len(dev) == len(k["device_names"]) else None)
+            emit("timing", kernel=name, profiler_frames=5,
+                 start=label or "rest",
+                 device_us_per_launch={n: us for n, (us, _) in dev.items()},
+                 device_us_per_substep=per_sub)
     emit("timing", seconds=phase_seconds())
 
     print(json.dumps({"kernels": [{
@@ -472,7 +683,7 @@ def main() -> int:
         "replaces": k["replaces"], "launches": k["launches"],
         "max_abs_err": k["err64"], "ms": k["ms"], "plain_ms": k["plain_ms"],
         "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
-        "library_ms": None,   # no single PyTorch call computes a stencil substep
+        "library_ms": None,   # no single PyTorch call computes a substep
     } for name, k in kernels.items()]}), flush=True)
     emit("done", seconds=time.perf_counter() - t_start)
     print(smi, flush=True)

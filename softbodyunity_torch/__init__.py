@@ -1,16 +1,17 @@
 """softbodyunity_torch — the soft-body engine on PyTorch and CUDA.
 
 A port of ``softbodyunity_tpu`` (JAX on a TPU) to PyTorch on an NVIDIA H100,
-with the same module layout and names.  The port covers grid cloth under
-the semi-implicit Euler, Verlet and XPBD solvers with plane and sphere
-contact; each solver's hot loop is a hand-written CUDA kernel
-(``kernels/csrc/grid_euler.cu``, ``grid_verlet.cu``, ``grid_xpbd.cu``), built
-with nvcc at first use.  On the CPU the same API runs the kernels' plain
-PyTorch versions.
+with the same module layout and names.  The port covers grid cloth and the
+volumetric tet cube (banded tet lattices) under the semi-implicit Euler,
+Verlet and XPBD solvers with plane and sphere contact; each hot loop is a
+hand-written CUDA kernel (``kernels/csrc/grid_euler.cu``, ``grid_verlet.cu``,
+``grid_xpbd.cu`` for cloth; ``lattice_euler.cu``, ``lattice_verlet.cu``,
+``lattice_xpbd.cu`` for lattices), built with nvcc at first use.  On the CPU
+the same API runs the kernels' plain PyTorch versions.
 
     import softbodyunity_torch as sb
 
-    host, cfg = sb.presets.build("cloth_bench_64k")
+    host, cfg = sb.presets.build("cloth_bench_64k")   # or "softbody_cube_64k"
     top, state = sb.init(host, device="cuda")
     for _ in range(300):
         state = sb.step(top, cfg, state)
@@ -37,7 +38,7 @@ from .core.config import (
     XPBDParams,
 )
 from .core.state import State, make_state
-from .core.topology import HostTopology, Topology, cloth_grid
+from .core.topology import HostTopology, Topology, cloth_grid, tet_cube
 from .models import presets
 
 __version__ = "0.1.0"
@@ -48,5 +49,6 @@ __all__ = [
     "StrainLimitParams", "MotionConstraintParams", "CollisionParams",
     "SelfCollisionParams",
     "State", "make_state", "Topology", "HostTopology", "cloth_grid",
+    "tet_cube",
     "presets",
 ]

@@ -1,7 +1,7 @@
 """Public API: ``init`` / ``step`` / ``rollout`` / ``normals``.
 
-Counterpart of ``softbodyunity_tpu/api.py`` for the grid-cloth slices (Euler,
-Verlet, XPBD; the solver is ``cfg.solver``).
+Counterpart of ``softbodyunity_tpu/api.py`` for the grid-cloth and
+tet-lattice slices (Euler, Verlet, XPBD; the solver is ``cfg.solver``).
 ``init`` builds the device topology and rest state once; ``step`` advances one
 frame of ``n_substeps`` substeps.  PyTorch runs eagerly, so where the JAX
 package compiles one executable per config, this module builds one step
@@ -46,10 +46,26 @@ def suggest_dt(host: HostTopology, cfg: SimConfig, *,
 
 def device_topology(host: HostTopology, device,
                     dtype=torch.float32) -> Topology:
-    """Cast the float64 host topology's fields that the grid path reads to
-    tensors on ``device`` (float32 for the kernel path; the tests also pass
-    float64 to hold the port to the NumPy oracle)."""
+    """Cast the float64 host topology's fields that the grid and lattice
+    paths read to tensors on ``device`` (float32 for the kernel path; the
+    tests also pass float64 to hold the port to the NumPy oracle).
+
+    The banded spring and tet groups (:mod:`.solver.banded`) are built where
+    the JAX package builds them, for every non-grid scene and for grids of
+    at most 65,536 vertices, and moved to the device once, here."""
+    from .solver.banded import build_offset_groups, build_tet_groups
+
     device = torch.device(device)
+    n = host.positions0.shape[0]
+    groups = tgroups = None
+    if host.grid_shape is None or n <= 65536:
+        groups = build_offset_groups(
+            n, np.asarray(host.edges), np.asarray(host.rest_length),
+            np.asarray(host.edge_stiffness),
+            np.asarray(host.edge_compliance)).to(device, dtype)
+        tgroups = build_tet_groups(
+            n, np.asarray(host.tets),
+            np.asarray(host.rest_volume)).to(device, dtype)
 
     def f(a):
         return torch.tensor(np.asarray(a), dtype=dtype, device=device)
@@ -71,10 +87,13 @@ def device_topology(host: HostTopology, device,
         triangles=i(host.triangles),
         edges=i(host.edges),
         rest_length=f(host.rest_length),
-        n_vertices=host.positions0.shape[0],
+        n_vertices=n,
         grid_shape=host.grid_shape,
         grid_spacing=host.grid_spacing,
         edge_classes_present=host.edge_classes_present,
+        offset_groups=groups,
+        tet_groups=tgroups,
+        n_tets=int(np.asarray(host.tets).shape[0]),
     )
 
 

@@ -1,23 +1,28 @@
 """Mesh topology: the host-side NumPy builders and the device ``Topology``.
 
-The builders (``HostTopology``, ``cloth_grid`` and their helpers) are copies
-of ``softbodyunity_tpu/core/topology.py``: that module imports jax to
-register its device pytree, so the port carries the NumPy parts itself and
-``tests/test_torch_port.py`` holds the copies equal to the originals.
+The builders (``HostTopology``, ``cloth_grid``, ``tet_cube`` and their
+helpers) are copies of ``softbodyunity_tpu/core/topology.py``: that module
+imports jax to register its device pytree, so the port carries the NumPy
+parts itself and ``tests/test_torch_port.py`` and
+``tests/test_torch_lattice.py`` hold the copies equal to the originals.
 
 :class:`Topology` is the device side, built by
 :func:`softbodyunity_torch.api.device_topology`: a frozen dataclass of
-tensors holding what the grid-cloth paths read.  Later slices add the
-fields their paths need; ``HostTopology`` already carries all of them.
+tensors holding what the grid-cloth and tet-lattice paths read.  Later
+slices add the fields their paths need; ``HostTopology`` already carries
+all of them.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import TYPE_CHECKING, Optional, Tuple
 
 import numpy as np
 import torch
+
+if TYPE_CHECKING:
+    from ..solver.banded import OffsetGroups, TetGroups
 
 EDGE_STRUCTURAL = 0
 EDGE_SHEAR = 1
@@ -32,7 +37,10 @@ class Topology:
 
     Shapes: N vertices, E edges, F triangles, S spheres.  Float tensors share
     one dtype (float32 on the kernel path; the tests also run float64), index
-    tensors are int64.
+    tensors are int64.  ``offset_groups``/``tet_groups`` are the banded
+    (delta-grouped) springs and tets of :mod:`..solver.banded`, built for
+    every non-grid scene and for grids of at most 65,536 vertices, as the
+    JAX package builds them; the tet-lattice paths read them.
     """
 
     inv_mass: torch.Tensor            # [N]     0.0 for pinned vertices
@@ -48,6 +56,9 @@ class Topology:
     grid_shape: Optional[Tuple[int, int]] = None   # (ny, nx) for grid cloth
     grid_spacing: Optional[float] = None           # uniform rest spacing
     edge_classes_present: Tuple[int, ...] = (0,)   # spring classes present
+    offset_groups: Optional["OffsetGroups"] = None
+    tet_groups: Optional["TetGroups"] = None
+    n_tets: int = 0
 
     @property
     def device(self) -> torch.device:
@@ -409,4 +420,119 @@ def cloth_grid(
         grid_shape=(ny, nx),
         grid_spacing=float(spacing),
         edge_classes_present=tuple(sorted(set(int(c) for c in cls))),
+    )
+
+
+# 5-tet decomposition of a lattice cell, parity-alternated so the diagonals
+# of shared faces match between neighbouring cells.
+_FIVE = [
+    [(0, 0, 0), (1, 0, 0), (0, 1, 0), (0, 0, 1)],
+    [(1, 1, 0), (1, 0, 0), (0, 1, 0), (1, 1, 1)],
+    [(1, 0, 1), (1, 0, 0), (1, 1, 1), (0, 0, 1)],
+    [(0, 1, 1), (0, 1, 0), (0, 0, 1), (1, 1, 1)],
+    [(1, 0, 0), (0, 1, 0), (0, 0, 1), (1, 1, 1)],
+]
+_FIVE_ALT = [
+    [(1, 0, 0), (1, 1, 0), (0, 0, 0), (1, 0, 1)],
+    [(0, 1, 0), (1, 1, 0), (0, 0, 0), (0, 1, 1)],
+    [(0, 0, 1), (0, 0, 0), (1, 0, 1), (0, 1, 1)],
+    [(1, 1, 1), (1, 1, 0), (1, 0, 1), (0, 1, 1)],
+    [(1, 1, 0), (0, 0, 0), (1, 0, 1), (0, 1, 1)],
+]
+
+
+def tet_cube(
+    n: int,
+    *,
+    spacing: float = 0.1,
+    mass: float = 1.0,
+    springs=None,
+    xpbd=None,
+    plane_height: float = 0.0,
+    origin: Tuple[float, float, float] = (0.0, 0.5, 0.0),
+) -> HostTopology:
+    """Volumetric soft-body cube: ``n³`` vertex lattice, each lattice cell
+    split into 5 tetrahedra; tet edges become structural springs and tets
+    carry rest volumes for the volume-preservation constraint
+    (BASELINE.json:10 "tet-mesh edge springs + volume-preservation
+    constraint").
+    """
+    from .config import SpringParams, XPBDParams
+
+    springs = springs or SpringParams()
+    xpbd = xpbd or XPBDParams()
+
+    def vid(i: int, j: int, k: int) -> int:
+        return (i * n + j) * n + k
+
+    nv = n * n * n
+    pos = np.zeros((nv, 3), dtype=np.float64)
+    for i in range(n):
+        for j in range(n):
+            for k in range(n):
+                pos[vid(i, j, k)] = (i * spacing, j * spacing, k * spacing)
+    pos += np.asarray(origin, dtype=np.float64)
+
+    FIVE, FIVE_ALT = _FIVE, _FIVE_ALT
+    tets = []
+    for i in range(n - 1):
+        for j in range(n - 1):
+            for k in range(n - 1):
+                pat = FIVE if (i + j + k) % 2 == 0 else FIVE_ALT
+                for t in pat:
+                    tets.append(
+                        tuple(vid(i + di, j + dj, k + dk) for di, dj, dk in t)
+                    )
+    def tet_vol(t):
+        p = pos[np.asarray(t)]
+        return float(np.dot(np.cross(p[1] - p[0], p[2] - p[0]), p[3] - p[0]) / 6.0)
+
+    # canonicalize orientation: swap two vertices when the signed volume is
+    # negative so every tet has positive rest volume
+    tets = [t if tet_vol(t) > 0 else (t[0], t[1], t[3], t[2]) for t in tets]
+    tets_arr = np.array(tets, dtype=np.int32) if tets else np.zeros((0, 4), np.int32)
+    rest_vol = np.array([tet_vol(t) for t in tets], dtype=np.float64)
+
+    # unique tet edges -> structural springs
+    eset = set()
+    for t in tets:
+        for a in range(4):
+            for b in range(a + 1, 4):
+                u, v = sorted((t[a], t[b]))
+                eset.add((u, v))
+    edge_list = [(a, b, EDGE_STRUCTURAL) for a, b in sorted(eset)]
+    edges, rest, cls, k, alpha = _edge_arrays(edge_list, pos, springs, xpbd)
+    incident, sign = _build_incidence(nv, edges)
+    inv_mass = np.full(nv, 1.0 / mass, dtype=np.float64)  # mass is per-vertex
+
+    # surface triangles: boundary faces of the lattice (for normals)
+    tris = []
+    for i in range(n - 1):
+        for j in range(n - 1):
+            # bottom (k=0) and top (k=n-1) faces in each axis-aligned plane
+            tris.append((vid(i, j, 0), vid(i + 1, j, 0), vid(i, j + 1, 0)))
+            tris.append((vid(i + 1, j, 0), vid(i + 1, j + 1, 0), vid(i, j + 1, 0)))
+            kk = n - 1
+            tris.append((vid(i, j, kk), vid(i, j + 1, kk), vid(i + 1, j, kk)))
+            tris.append((vid(i + 1, j, kk), vid(i, j + 1, kk), vid(i + 1, j + 1, kk)))
+    triangles = np.array(tris, dtype=np.int32) if tris else np.zeros((0, 3), np.int32)
+
+    return HostTopology(
+        positions0=pos,
+        edges=edges,
+        rest_length=rest,
+        edge_class=cls,
+        edge_stiffness=k,
+        edge_compliance=alpha,
+        inv_mass=inv_mass,
+        incident=incident,
+        incident_sign=sign,
+        tets=tets_arr,
+        rest_volume=rest_vol,
+        triangles=triangles,
+        plane_height=float(plane_height),
+        sphere_centers=np.zeros((0, 3), np.float64),
+        sphere_radii=np.zeros((0,), np.float64),
+        grid_shape=None,
+        lattice_shape=(n, n, n),
     )

@@ -118,41 +118,9 @@ __global__ void __launch_bounds__(256) grid_euler_substep_kernel(
   float py = xi.y + p.dt * vy;
   float pz = xi.z + p.dt * vz;
 
-  if (plane_on && movable && py < plane[0]) {
-    const float wx = plane[1], wy = plane[2], wz = plane[3];
-    py = plane[0];
-    const float uy = vy - wy;
-    if (uy < 0.0f) vy = wy - p.restitution * uy;
-    vx = wx + (vx - wx) * p.keep;
-    vz = wz + (vz - wz) * p.keep;
-  }
-
-  for (int s = 0; s < n_spheres && movable; ++s) {
-    const float* sp = spheres + 7 * s;
-    const float dx = px - sp[0], dy = py - sp[1], dz = pz - sp[2];
-    const float dist = sqrtf(dx * dx + dy * dy + dz * dz);
-    const float pen = sp[3] - dist;
-    if (!(pen > 0.0f)) continue;
-    const float m = fmaxf(dist, 1e-12f);
-    const float nx_ = dx / m, ny_ = dy / m, nz_ = dz / m;
-    px += pen * nx_;
-    py += pen * ny_;
-    pz += pen * nz_;
-    const float wx = sp[4], wy = sp[5], wz = sp[6];
-    const float un = (vx - wx) * nx_ + (vy - wy) * ny_ + (vz - wz) * nz_;
-    if (un < 0.0f) {
-      const float r = p.restitution1 * un;
-      vx -= r * nx_;
-      vy -= r * ny_;
-      vz -= r * nz_;
-    }
-    const float ux = vx - wx, uy = vy - wy, uz = vz - wz;
-    const float un2 = ux * nx_ + uy * ny_ + uz * nz_;
-    const float n2x = un2 * nx_, n2y = un2 * ny_, n2z = un2 * nz_;
-    vx = wx + n2x + (ux - n2x) * p.keep;
-    vy = wy + n2y + (uy - n2y) * p.keep;
-    vz = wz + n2z + (uz - n2z) * p.keep;
-  }
+  if (movable)
+    resolve_velocity_contact(px, py, pz, vx, vy, vz, plane, plane_on, spheres,
+                             n_spheres, p.restitution, p.restitution1, p.keep);
 
   x_out[idx] = px;
   x_out[ps + idx] = py;

@@ -49,10 +49,6 @@ struct Params {
   float shell;        // SPHERE_CONTACT_SHELL
 };
 
-__device__ __forceinline__ Vec3 velocity_estimate(Vec3 x, Vec3 xp, float dt) {
-  return {(x.x - xp.x) / dt, (x.y - xp.y) / dt, (x.z - xp.z) / dt};
-}
-
 // One thread per vertex (i, j).  x, xp, out are [3, ny, nx] planes; offsets
 // is [n_off, 4] rows of (di, dj, k, rest); plane is (height, surface
 // velocity xyz); spheres is [n_spheres, 7] rows (center, radius, velocity).

@@ -86,28 +86,6 @@ __global__ void __launch_bounds__(256) grid_xpbd_predict_kernel(
   flag[idx] = 0;
 }
 
-// Lambda change of the distance constraint on the edge a -> b with the
-// compliance term at = alpha / dt^2; n is the unit direction a -> b
-// (stencil.py::xpbd_substep_grid, divide-form norm).
-__device__ __forceinline__ float xpbd_dlam(Vec3 xa, Vec3 xb, float wa,
-                                           float wb, float at, float rest,
-                                           float lam, Vec3& n) {
-  const Vec3 d = {xb.x - xa.x, xb.y - xa.y, xb.z - xa.z};
-  const float len = sqrtf(dot3(d, d));
-  const float m = fmaxf(len, 1e-12f);
-  n = {d.x / m, d.y / m, d.z / m};
-  const float c = len - rest;
-  const float denom = fmaxf(wa + wb + at, 1e-12f);
-  return -(c + at * lam) / denom;
-}
-
-__device__ __forceinline__ Vec3 eval_point(const float* __restrict__ xp,
-                                           const float* __restrict__ delta,
-                                           int idx, int ps) {
-  const Vec3 a = load3(xp, idx, ps), b = load3(delta, idx, ps);
-  return {a.x + b.x, a.y + b.y, a.z + b.z};
-}
-
 // One Jacobi sweep (project = 1) and, on the last sweep (last = 1), the
 // substep's epilogue.  xp, delta_*, x_out, v are [3, ny, nx] planes;
 // lam_* are [n_off, ny, nx]; offsets is [n_off, 4] rows of

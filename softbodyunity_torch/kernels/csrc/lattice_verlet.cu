@@ -1,0 +1,184 @@
+// Fused position-Verlet substep for banded tet lattices, for Hopper
+// (sm_90a).  Built by softbodyunity_torch/kernels/build.py, wrapped by
+// softbodyunity_torch/kernels/lattice_verlet.py; its plain PyTorch version
+// is softbodyunity_torch/solver/step.py::substep_verlet.
+//
+// Replaces the TPU kernel softbodyunity_tpu/kernels/pallas_lattice.py
+// ::_make_verlet_kernel, launched by ::_pallas_lattice_verlet_substeps
+// through pl.pallas_call, for the branches the tet-cube Verlet path runs:
+// banded springs on the velocity estimate (x - xp) / dt, the damped
+// position update, pinning, the banded PBD volume projection, and
+// position-only plane and sphere contact with the plane and sphere
+// friction.  Its wind-drag and capsule/box branches are not ported yet;
+// the wrapper refuses configs that enable them.
+//
+// Design.  As lattice_euler.cu: flat [3, N] planes, one thread per vertex,
+// neighbours at i + delta, and two launches per substep because the volume
+// projection reads the neighbours' integrated positions:
+//   integrate  springs and the damped update from (x, xp), written to a
+//              scratch buffer xs (with no volume projection it also runs
+//              the contact and xs is the substep's result);
+//   volume     the tet corrections over xs, count-averaged and scaled by
+//              volume_stiffness, then the contact and friction against the
+//              substep's start x; written over xp, which no thread of this
+//              launch reads.
+// The damper reads each neighbour's (x - xp) / dt, so nothing may overwrite
+// x or xp during the integrate launch: the wrapper rotates three buffers.
+//
+// What bounds it.  One substep must read x, xp, inv_mass, the ownership
+// word and the tet count and write x: 48 B per vertex, 3.1 MB at 64k,
+// ~0.9 us at 3.35 TB/s, and ~55 MFLOP (~0.8 us): bound by bytes.  As with
+// the Euler kernel the recomputed reactions (2x springs, 4x tets), the
+// neighbour gathers, the velocity-estimate divides and two launches per
+// substep keep it well above that.
+//
+// Rounding.  sqrtf and IEEE divides in the plain version's order; FMA
+// contraction makes the agreement one of rounding.  Pinned vertices keep x
+// bit for bit.
+
+#include <cuda_runtime.h>
+
+#include "lattice_common.cuh"
+
+namespace {
+
+// Scalars of one substep, computed by the wrapper in double from SimConfig
+// and rounded once to float, as the plain version's Python scalars are.
+struct Params {
+  float dt;
+  float damping;      // spring-axis damper coefficient
+  float gx, gy, gz;   // gravity
+  float decay;        // 1 - global_damping * dt
+  float mu;           // friction
+  float keep;         // 1 - friction
+  float shell;        // SPHERE_CONTACT_SHELL
+  float vol_stiff;    // volume_stiffness
+};
+
+struct Colliders {
+  const float* plane;   // (height, surface velocity xyz)
+  int plane_on;
+  int plane_fric;       // position-level plane friction is on
+  const float* spheres; // [n_spheres, 7] (center, radius, velocity)
+  int n_spheres;        // 0 when spheres are off
+  int sphere_fric;
+};
+
+// The position-level contact chain of a movable vertex that ends the
+// substep at x, having started it at x0 (step.py::verlet_contact_project):
+// the plane clamp and sphere push-out, then plane friction where the clamp
+// fired, then sphere friction.
+__device__ __forceinline__ Vec3 contact(Vec3 x, Vec3 x0, const Colliders& c,
+                                        const Params& p) {
+  const bool hit =
+      project_plane_spheres(x, c.plane, c.plane_on, c.spheres, c.n_spheres);
+  if (c.plane_fric && hit) {
+    // toward the substep start moved with the plane's surface velocity
+    const float tx = x0.x + c.plane[1] * p.dt;
+    const float tz = x0.z + c.plane[3] * p.dt;
+    x.x = tx + (x.x - tx) * p.keep;
+    x.z = tz + (x.z - tz) * p.keep;
+  }
+  if (c.sphere_fric)
+    x = sphere_friction(x, x0, c.spheres, c.n_spheres, p.mu, p.dt, p.shell);
+  return x;
+}
+
+// x, xp, xs are [3, n] planes; edges is [n_edge, 3] rows of (delta, k,
+// rest).  finish = 1 when the substep has no volume projection.
+__global__ void __launch_bounds__(256) lattice_verlet_integrate_kernel(
+    const float* __restrict__ x, const float* __restrict__ xp,
+    float* __restrict__ xs, const float* __restrict__ inv_mass,
+    const unsigned* __restrict__ bits, const float* __restrict__ edges,
+    int n_edge, Colliders col, int finish, int n, Params p) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const Vec3 xi = load3(x, i, n);
+  const Vec3 pi = load3(xp, i, n);
+  const Vec3 f = banded_spring_sum(
+      x,
+      [&](int j) {
+        return velocity_estimate(load3(x, j, n), load3(xp, j, n), p.dt);
+      },
+      bits, edges, n_edge, p.damping, i, n, xi,
+      velocity_estimate(xi, pi, p.dt));
+  const float im = inv_mass[i];
+  if (!(im > 0.0f)) {          // pinned: x stays, bit for bit
+    store3(xs, i, n, xi);
+    return;
+  }
+  const float ax = p.gx + f.x * im, ay = p.gy + f.y * im, az = p.gz + f.z * im;
+  Vec3 xn = {xi.x + (xi.x - pi.x) * p.decay + ax * p.dt * p.dt,
+             xi.y + (xi.y - pi.y) * p.decay + ay * p.dt * p.dt,
+             xi.z + (xi.z - pi.z) * p.decay + az * p.dt * p.dt};
+  if (finish) xn = contact(xn, xi, col, p);
+  store3(xs, i, n, xn);
+}
+
+// xs is the integrated plane, x the substep's start; tets is [n_tet, 4]
+// rows of (d1, d2, d3, rest volume); cnt is each vertex's tet count, at
+// least 1.
+__global__ void __launch_bounds__(256) lattice_verlet_volume_kernel(
+    const float* __restrict__ xs, const float* __restrict__ x,
+    float* __restrict__ out, const float* __restrict__ inv_mass,
+    const unsigned* __restrict__ bits, const float* __restrict__ tets,
+    int n_tet, const float* __restrict__ cnt, Colliders col, int n,
+    Params p) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  Vec3 xn = load3(xs, i, n);
+  if (inv_mass[i] > 0.0f) {
+    const Vec3 s = banded_tet_sum(
+        {0.0f, 0.0f, 0.0f}, [&](int j) { return load3(xs, j, n); }, inv_mass,
+        bits, tets, n_tet, 0.0f, nullptr, nullptr, i, n);
+    const float c = cnt[i];
+    xn = {xn.x + p.vol_stiff * s.x / c, xn.y + p.vol_stiff * s.y / c,
+          xn.z + p.vol_stiff * s.z / c};
+    xn = contact(xn, load3(x, i, n), col, p);
+  }
+  store3(out, i, n, xn);
+}
+
+unsigned blocks_of(int n) { return (n + 255) / 256; }
+
+}  // namespace
+
+// Launch the integrate pass of one substep on `stream`; returns the
+// cudaError_t of the launch (0 = cudaSuccess).  Allocates nothing and does
+// not synchronise.
+extern "C" int lattice_verlet_integrate(
+    const float* x, const float* xp, float* xs, const float* inv_mass,
+    const unsigned* bits, const float* edges, int n_edge, const float* plane,
+    int plane_on, int plane_fric, const float* spheres, int n_spheres,
+    int sphere_fric, int finish, int n, float dt, float damping, float gx,
+    float gy, float gz, float decay, float mu, float keep, float shell,
+    void* stream) {
+  const Params p{dt, damping, gx, gy, gz, decay, mu, keep, shell, 0.0f};
+  const Colliders col{plane, plane_on, plane_fric, spheres, n_spheres,
+                      sphere_fric};
+  lattice_verlet_integrate_kernel<<<blocks_of(n), 256, 0,
+                                    static_cast<cudaStream_t>(stream)>>>(
+      x, xp, xs, inv_mass, bits, edges, n_edge, col, finish, n, p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Launch the volume pass of one substep on `stream`; returns the
+// cudaError_t of the launch.  Allocates nothing and does not synchronise.
+extern "C" int lattice_verlet_volume(
+    const float* xs, const float* x, float* out, const float* inv_mass,
+    const unsigned* bits, const float* tets, int n_tet, const float* cnt,
+    const float* plane, int plane_on, int plane_fric, const float* spheres,
+    int n_spheres, int sphere_fric, int n, float dt, float mu, float keep,
+    float shell, float vol_stiff, void* stream) {
+  const Params p{dt, 0.0f, 0.0f, 0.0f, 0.0f, 1.0f, mu, keep, shell, vol_stiff};
+  const Colliders col{plane, plane_on, plane_fric, spheres, n_spheres,
+                      sphere_fric};
+  lattice_verlet_volume_kernel<<<blocks_of(n), 256, 0,
+                                 static_cast<cudaStream_t>(stream)>>>(
+      xs, x, out, inv_mass, bits, tets, n_tet, cnt, col, n, p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" const char* lattice_verlet_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}

@@ -1,13 +1,15 @@
 """Backend dispatch: pick the step function for a scene.
 
 Counterpart of ``softbodyunity_tpu/kernels/dispatch.py::maybe_fast_step``
-for the paths ported so far: grid cloth under the Euler, Verlet and XPBD
-solvers.  The device the topology's tensors live on decides: CUDA runs the
-solver's hand-written kernel (``grid_euler``, ``grid_verlet``,
-``grid_xpbd``), the CPU runs the plain PyTorch version
-(:func:`.stencil.make_stencil_step`).  Anything else raises
-``NotImplementedError`` naming the ROADMAP item that ports it; nothing
-degrades to another path.
+for the paths ported so far: grid cloth and banded tet lattices, each under
+the Euler, Verlet and XPBD solvers.  The device the topology's tensors live
+on decides: CUDA runs the solver's hand-written kernel (grid cloth:
+``grid_euler``, ``grid_verlet``, ``grid_xpbd``; lattices: ``lattice_euler``,
+``lattice_verlet``, ``lattice_xpbd``), the CPU runs the plain PyTorch
+version (:func:`.stencil.make_stencil_step`,
+:func:`softbodyunity_torch.solver.step.make_plain_step`).  Anything else
+raises ``NotImplementedError`` naming the ROADMAP item that ports it;
+nothing degrades to another path.
 """
 
 from __future__ import annotations
@@ -17,16 +19,42 @@ from ..core.topology import Topology
 from .stencil import check_ported
 
 
+def _lattice_step(top: Topology, cfg: SimConfig):
+    from .lattice import lattice_gate
+
+    lattice_gate(top, cfg)
+    if top.device.type == "cuda":
+        if cfg.solver == Solver.XPBD:
+            from .lattice_xpbd import make_cuda_step
+        elif cfg.solver == Solver.VERLET:
+            from .lattice_verlet import make_cuda_step
+        else:
+            from .lattice_euler import make_cuda_step
+        return make_cuda_step(top, cfg)
+    if top.device.type == "cpu":
+        from ..solver.step import make_plain_step
+
+        return make_plain_step(top, cfg)
+    raise NotImplementedError(f"no step function for tensors on {top.device}")
+
+
 def maybe_fast_step(top: Topology, cfg: SimConfig):
     """Return ``fn(state, dt, n_substeps) -> state`` for ``(top, cfg)``, or
     raise.  Unlike the JAX dispatcher it never returns ``None``: the general
     edge-list path it would fall back to is not ported yet."""
     check_ported(cfg)
-    if cfg.backend == "jnp" or top.grid_shape is None or top.grid_spacing is None:
+    if cfg.backend == "jnp":
+        raise NotImplementedError(
+            "not ported to softbodyunity_torch yet: backend='jnp', the "
+            "general edge-list path (ROADMAP Queue 1 item 3)")
+    if top.n_tets > 0:
+        # volumetric lattices: the banded tet-lattice kernels
+        return _lattice_step(top, cfg)
+    if top.grid_shape is None or top.grid_spacing is None:
         raise NotImplementedError(
             "not ported to softbodyunity_torch yet: the general edge-list "
-            "path for non-grid scenes or backend='jnp' (ROADMAP Queue 1 "
-            "item 3)")
+            "path for scenes that are neither grid cloth nor tet lattices "
+            "(ROADMAP Queue 1 item 3)")
     if top.device.type == "cuda":
         if cfg.solver == Solver.XPBD:
             from .grid_xpbd import make_cuda_step

@@ -1,5 +1,5 @@
-"""Workload presets of the grid-cloth slices (Euler, Verlet, XPBD), under the
-JAX package's names (``softbodyunity_tpu/models/presets.py``).
+"""Workload presets of the grid-cloth and tet-cube slices (Euler, Verlet,
+XPBD), under the JAX package's names (``softbodyunity_tpu/models/presets.py``).
 
 Each preset returns ``(HostTopology, SimConfig)``; feed the topology to
 :func:`softbodyunity_torch.api.init` and the pair to ``step``.  The other
@@ -14,7 +14,7 @@ import numpy as np
 
 from ..core.config import (CollisionParams, SimConfig, Solver, SpringParams,
                            XPBDParams)
-from ..core.topology import HostTopology, cloth_grid
+from ..core.topology import HostTopology, cloth_grid, tet_cube
 
 _REGISTRY: Dict[str, Callable[[], Tuple[HostTopology, SimConfig]]] = {}
 
@@ -169,5 +169,109 @@ def cloth_bench_64k_verlet():
         pinned=("top",),
         springs=cfg.springs, xpbd=cfg.xpbd,
         plane_height=-8.0, origin=(0.0, 0.0, 0.0), orientation="xy",
+    )
+    return top, cfg
+
+
+@register("softbody_cube")
+def softbody_cube():
+    """BASELINE.json:10 — 'Volumetric softbody cube: tet-mesh edge springs +
+    volume-preservation constraint'.  Drops onto the ground plane."""
+    cfg = SimConfig(
+        solver=Solver.SEMI_IMPLICIT_EULER,
+        springs=SpringParams(k_structural=1500.0, damping=2.0),
+        collision=CollisionParams(enable_plane=True, friction=0.4),
+        global_damping=0.5,
+        volume_stiffness=0.5,
+    )
+    top = tet_cube(
+        6, spacing=0.08, springs=cfg.springs, xpbd=cfg.xpbd,
+        plane_height=0.0, origin=(0.0, 0.4, 0.0),
+    )
+    return top, cfg
+
+
+@register("softbody_cube_xpbd_sub")
+def softbody_cube_xpbd_sub():
+    """Small substepped-XPBD tet cube for the oracle-parity tier: one Jacobi
+    iteration per substep with proportionally more, shorter substeps (32 per
+    frame), XPBD's own recommendation (Macklin et al. 2019, "Small Steps in
+    Physics Simulation")."""
+    cfg = SimConfig(
+        solver=Solver.XPBD,
+        dt=1.0 / 60.0 / 32.0,
+        n_substeps=32,
+        xpbd=XPBDParams(
+            compliance_distance=1e-6,
+            compliance_volume=1e-7,
+            n_iterations=1,
+            relaxation=1.0,
+        ),
+        collision=CollisionParams(enable_plane=True, friction=0.4),
+        global_damping=0.5,
+    )
+    top = tet_cube(
+        6, spacing=0.08, springs=cfg.springs, xpbd=cfg.xpbd,
+        plane_height=0.0, origin=(0.0, 0.4, 0.0),
+    )
+    return top, cfg
+
+
+@register("softbody_cube_64k")
+def softbody_cube_64k():
+    """Scale variant of BASELINE.json:10: 40^3 = 64,000-vertex tet cube
+    (296k tets, 370k edge springs) dropping onto the ground plane, the
+    volumetric counterpart of the 64k cloth benchmark: 9 edge delta groups,
+    10 tet delta patterns, no residual elements."""
+    cfg = SimConfig(
+        solver=Solver.SEMI_IMPLICIT_EULER,
+        springs=SpringParams(k_structural=500.0, damping=0.5),
+        collision=CollisionParams(enable_plane=True, friction=0.4),
+        global_damping=0.5,
+        volume_stiffness=0.5,
+    )
+    top = tet_cube(
+        40, spacing=0.02, mass=0.01, springs=cfg.springs, xpbd=cfg.xpbd,
+        plane_height=0.0, origin=(0.0, 1.0, 0.0),
+    )
+    return top, cfg
+
+
+@register("softbody_cube_64k_verlet")
+def softbody_cube_64k_verlet():
+    """Verlet variant of the 64k tet cube: damped position update, banded
+    volume projection, position-only contact."""
+    cfg = SimConfig(
+        solver=Solver.VERLET,
+        springs=SpringParams(k_structural=500.0, damping=0.5),
+        collision=CollisionParams(enable_plane=True, friction=0.4),
+        global_damping=0.5,
+        volume_stiffness=0.5,
+    )
+    top = tet_cube(
+        40, spacing=0.02, mass=0.01, springs=cfg.springs, xpbd=cfg.xpbd,
+        plane_height=0.0, origin=(0.0, 1.0, 0.0),
+    )
+    return top, cfg
+
+
+@register("softbody_cube_64k_xpbd")
+def softbody_cube_64k_xpbd():
+    """XPBD variant of the 64k tet cube: distance and volume compliance
+    constraints, 8 Jacobi iterations per substep."""
+    cfg = SimConfig(
+        solver=Solver.XPBD,
+        xpbd=XPBDParams(
+            compliance_distance=1e-6,
+            compliance_volume=1e-7,
+            n_iterations=8,
+            relaxation=1.0,
+        ),
+        collision=CollisionParams(enable_plane=True, friction=0.4),
+        global_damping=0.5,
+    )
+    top = tet_cube(
+        40, spacing=0.02, mass=0.01, springs=cfg.springs, xpbd=cfg.xpbd,
+        plane_height=0.0, origin=(0.0, 1.0, 0.0),
     )
     return top, cfg

@@ -1,5 +1,6 @@
-"""The hand-written grid CUDA kernels (grid_euler, grid_verlet, grid_xpbd)
-against their plain PyTorch versions, on the card.  These tests skip without
+"""The hand-written CUDA kernels, grid (grid_euler, grid_verlet, grid_xpbd)
+and tet lattice (lattice_euler, lattice_verlet, lattice_xpbd), against their
+plain PyTorch versions, on the card.  These tests skip without
 a CUDA device: the kernels have no CPU mode.  The file imports no jax, so it runs where JAX is absent; there run it
 without the repository's conftest (which sets JAX up):
 
@@ -15,7 +16,9 @@ import torch
 import softbodyunity_torch as tsb
 from softbodyunity_torch.core.config import CollisionParams, Solver, XPBDParams
 from softbodyunity_torch.kernels import (dispatch, grid_euler, grid_verlet,
-                                        grid_xpbd, stencil)
+                                        grid_xpbd, lattice_euler,
+                                        lattice_verlet, lattice_xpbd, stencil)
+from softbodyunity_torch.solver.step import make_plain_step
 
 torch.set_num_threads(1)
 
@@ -23,7 +26,7 @@ torch.set_num_threads(1)
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the grid kernels run only on the "
+        pytest.skip("needs a CUDA device: the CUDA kernels run only on the "
                     "card")
     return torch.device("cuda")
 
@@ -197,3 +200,114 @@ def test_dispatch_takes_each_solver_kernel_on_card(cuda, solver):
     top_cpu, _ = tsb.init(host, device="cpu")
     assert (dispatch.maybe_fast_step(top_cpu, cfg).__qualname__
             == "make_stencil_step.<locals>.fn")
+
+
+def _lattice_scene(solver, n=6, volume_stiffness=0.5, sphere=False, pins=0):
+    """tests/test_pallas_lattice.py's tet-cube scenes: on the plane, or
+    (sphere) dropped onto a sphere with the plane out of reach."""
+    cfg = tsb.SimConfig(
+        solver=solver,
+        springs=tsb.SpringParams(k_structural=1200.0, damping=1.5),
+        xpbd=XPBDParams(compliance_distance=1e-6, compliance_volume=1e-7,
+                        n_iterations=4, relaxation=1.0),
+        collision=CollisionParams(enable_plane=True, enable_spheres=sphere,
+                                  friction=0.4),
+        global_damping=0.5,
+        volume_stiffness=volume_stiffness,
+    )
+    host = tsb.tet_cube(n, spacing=0.08, springs=cfg.springs, xpbd=cfg.xpbd,
+                        plane_height=-5.0 if sphere else 0.0,
+                        origin=(0.0, 0.25 if sphere else 0.01, 0.0))
+    if sphere:
+        host.sphere_centers = np.array([[0.2, -0.02, 0.2]])
+        host.sphere_radii = np.array([0.3])
+    host.inv_mass[:pins] = 0.0
+    return host, cfg
+
+
+_LATTICE = {Solver.SEMI_IMPLICIT_EULER: lattice_euler,
+            Solver.VERLET: lattice_verlet, Solver.XPBD: lattice_xpbd}
+
+
+# float32 kernel against float32 plain version on the same card: they
+# differ by FMA contraction only, so x is held to 1e-5 after tens of
+# substeps with plane or sphere contact (half the 2e-5 that
+# tests/test_pallas_lattice.py allows its rsqrt kernel); v = position
+# change / dt carries that rounding ~1e3-fold, hence 2e-3 (the JAX twin
+# tests' bound on v)
+@pytest.mark.cuda
+@pytest.mark.parametrize("solver,kw,n_sub", [
+    (Solver.SEMI_IMPLICIT_EULER, dict(n=6), 48),
+    (Solver.SEMI_IMPLICIT_EULER, dict(n=7), 48),
+    (Solver.SEMI_IMPLICIT_EULER, dict(volume_stiffness=0.0), 48),
+    (Solver.SEMI_IMPLICIT_EULER, dict(pins=8), 64),
+    (Solver.SEMI_IMPLICIT_EULER, dict(sphere=True), 96),
+    (Solver.VERLET, dict(n=6), 48),
+    (Solver.VERLET, dict(sphere=True, pins=4), 96),
+    (Solver.XPBD, dict(n=6), 64),
+    (Solver.XPBD, dict(n=7, pins=8), 64),
+    (Solver.XPBD, dict(sphere=True), 64),
+])
+def test_lattice_kernel_matches_plain_on_card(cuda, solver, kw, n_sub):
+    host, cfg = _lattice_scene(solver, **kw)
+    top, s0 = tsb.init(host, device=cuda)
+    want = make_plain_step(top, cfg)(s0, cfg.dt, n_sub)
+    for w in (*_WRAPPERS.values(), *_LATTICE.values()):
+        w.reset_launch_count()
+    got = _LATTICE[solver].make_cuda_step(top, cfg)(s0, cfg.dt, n_sub)
+    torch.cuda.synchronize()
+    per_sub = _LATTICE[solver].launches_per_substep(top, cfg)
+    assert per_sub == (1 + 4 if solver == Solver.XPBD
+                       else 1 + int(kw.get("volume_stiffness", 0.5) != 0.0))
+    assert _LATTICE[solver].launch_count() == n_sub * per_sub
+    assert sum(w.launch_count() for w in (*_WRAPPERS.values(),
+                                          *_LATTICE.values())) == n_sub * per_sub
+    torch.testing.assert_close(got.x, want.x, atol=1e-5, rtol=0)
+    torch.testing.assert_close(got.v, want.v, atol=2e-3, rtol=0)
+    torch.testing.assert_close(got.x_prev, want.x_prev, atol=1e-5, rtol=0)
+    pinned = torch.from_numpy(host.inv_mass == 0.0).to(cuda)
+    assert torch.equal(got.x[pinned], s0.x[pinned])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("solver", list(_LATTICE))
+def test_lattice_kernel_refuses_what_it_does_not_take(cuda, solver):
+    host, cfg = _lattice_scene(solver)
+    top, s0 = tsb.init(host, device=cuda)
+    step = _LATTICE[solver].make_cuda_step(top, cfg)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+        step(s0.replace(x=s0.x.clone().requires_grad_()), cfg.dt, 1)
+    with pytest.raises(ValueError, match="contiguous"):
+        step(s0.replace(x=s0.x.t().contiguous().t()), cfg.dt, 1)
+    with pytest.raises(TypeError, match="float32"):
+        step(s0.replace(x=s0.x.double()), cfg.dt, 1)
+    top64, _ = tsb.init(host, device=cuda, dtype=torch.float64)
+    with pytest.raises(TypeError, match="float32"):
+        _LATTICE[solver].make_cuda_step(top64, cfg)
+    for other in _LATTICE:
+        if other != solver:
+            with pytest.raises(ValueError, match=solver.value):
+                _LATTICE[other].make_cuda_step(top, cfg)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("solver", list(_LATTICE))
+def test_dispatch_takes_each_lattice_kernel_on_card(cuda, solver):
+    """On a CUDA topology the public step of a tet lattice goes through the
+    solver's lattice kernel and no other; on CPU tensors through the plain
+    version."""
+    host, cfg = _lattice_scene(solver)
+    top, s0 = tsb.init(host, device=cuda)
+    fn = dispatch.maybe_fast_step(top, cfg)
+    assert fn.__module__ == _LATTICE[solver].__name__
+    for w in (*_WRAPPERS.values(), *_LATTICE.values()):
+        w.reset_launch_count()
+    tsb.step(top, cfg, s0)
+    torch.cuda.synchronize()
+    assert _LATTICE[solver].launch_count() > 0
+    assert sum(w.launch_count() for w in (*_WRAPPERS.values(),
+                                          *_LATTICE.values())
+               if w is not _LATTICE[solver]) == 0
+    top_cpu, _ = tsb.init(host, device="cpu")
+    assert (dispatch.maybe_fast_step(top_cpu, cfg).__qualname__
+            == "make_plain_step.<locals>.fn")

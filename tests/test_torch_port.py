@@ -1,6 +1,8 @@
 """softbodyunity_torch's copies of the framework-free layers, held equal to
 the JAX package: config, grid builder, presets, the state hand-off in
-``convert``, ``suggest_dt``, vertex normals, and the no-jax import rule."""
+``convert``, ``suggest_dt``, vertex normals, and the no-jax import rule.
+(``tests/test_torch_lattice.py`` holds the tet-cube builder and the band
+builders equal.)"""
 
 import dataclasses
 import json
@@ -27,7 +29,12 @@ torch.set_num_threads(1)
 
 SLICE_PRESETS = ["cloth_32_euler", "cloth_hanging_sphere", "cloth_bench_64k",
                  "cloth_xpbd", "cloth_bench_64k_xpbd",
-                 "cloth_bench_64k_verlet"]
+                 "cloth_bench_64k_verlet", "softbody_cube",
+                 "softbody_cube_xpbd_sub"]
+# tet_cube(40) is seconds of Python loops in each package: these presets are
+# held equal by their configs and their builder's arguments
+LATTICE_64K = ["softbody_cube_64k", "softbody_cube_64k_verlet",
+               "softbody_cube_64k_xpbd"]
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
@@ -53,8 +60,8 @@ def _assert_hosts_equal(got, want):
 
 
 def test_preset_names_are_jax_presets():
-    assert set(tsb.presets.names()) == set(SLICE_PRESETS)
-    assert set(SLICE_PRESETS) <= set(jpresets.names())
+    assert set(tsb.presets.names()) == set(SLICE_PRESETS + LATTICE_64K)
+    assert set(SLICE_PRESETS + LATTICE_64K) <= set(jpresets.names())
 
 
 @pytest.mark.parametrize("name", SLICE_PRESETS)
@@ -63,6 +70,25 @@ def test_preset_config_and_arrays_match_jax(name):
     jhost, jcfg = jpresets.build(name)
     assert _plain(cfg) == _plain(jcfg)
     _assert_hosts_equal(host, jhost)
+
+
+@pytest.mark.parametrize("name", LATTICE_64K)
+def test_64k_lattice_preset_matches_jax(name, monkeypatch):
+    calls = []
+
+    def record(*args, **kw):
+        calls.append((args, {k: dataclasses.asdict(v)
+                             if dataclasses.is_dataclass(v) else v
+                             for k, v in kw.items()}))
+        return None
+
+    monkeypatch.setattr(jpresets, "tet_cube", record)
+    monkeypatch.setattr(tsb.presets, "tet_cube", record)
+    _, cfg = tsb.presets.build(name)
+    _, jcfg = jpresets.build(name)
+    assert _plain(cfg) == _plain(jcfg)
+    assert len(calls) == 2 and calls[0] == calls[1]
+    assert calls[0][0] == (40,)
 
 
 @pytest.mark.parametrize("kw", [
@@ -144,6 +170,10 @@ def test_package_imports_no_jax():
             "import softbodyunity_torch.kernels.grid_euler\n"
             "import softbodyunity_torch.kernels.grid_verlet\n"
             "import softbodyunity_torch.kernels.grid_xpbd\n"
+            "import softbodyunity_torch.kernels.lattice_euler\n"
+            "import softbodyunity_torch.kernels.lattice_verlet\n"
+            "import softbodyunity_torch.kernels.lattice_xpbd\n"
+            "import softbodyunity_torch.solver.step\n"
             "import softbodyunity_torch.solver.collide\n"
             "import softbodyunity_torch.kernels.dispatch\n"
             "import softbodyunity_torch.convert\n"
