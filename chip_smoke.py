@@ -11,33 +11,49 @@ The port's paths, one hand-written CUDA kernel each:
     Euler   softbody_cube_64k         lattice_euler   2 (integrate, volume)
     Verlet  softbody_cube_64k_verlet  lattice_verlet  2 (integrate, volume)
     XPBD    softbody_cube_64k_xpbd    lattice_xpbd    1 + n_iterations
+    Euler   cloth_selfcollide_64k     block_pairs     1, then grid_euler 1
+
+The seventh path is self-collision on grid cloth: each substep the Morton
+sort and the partner search (PyTorch ops on the card), one block_pairs
+launch that writes the repulsion force plane, and one grid_euler launch
+that adds it to the spring forces.
 
 Phases, each printed as one JSON line; any failure raises and exits nonzero:
 
 1. device     the card's name and power limit (nvidia-smi) and torch's view;
               then the host build time of each preset (tet_cube(40) is
               seconds of Python loops);
-2. build      nvcc builds the six kernels from kernels/csrc at first use,
+2. build      nvcc builds the seven kernels from kernels/csrc at first use,
               one nvcc per source, all started together;
 3. compare    each kernel against its plain PyTorch version, both float32 on
               the card: 16x8 cloths (the scenes of tests/test_pallas.py),
               6^3 and 7^3 tet cubes (tests/test_pallas_lattice.py), and one
-              frame of its 64k preset;
+              frame of its 64k preset; block_pairs on random clouds, the
+              folded sheets of tests/test_blocksparse.py (and against the
+              dense rule) and the 64k self-collision preset after 24
+              substeps, where no tile pair may be dropped, and the frame
+              that follows; then one frame of the 64k curtain shrunk to
+              60 % and of each grid solver with self-collision;
 4. main_path  each 64k preset through init(device="cuda") and 300 frames of
-              step(), every launch count set to 0 just before and read just
-              after: the path's kernel launched frames x substeps x launches
-              per substep times and no other kernel launched; x finite,
-              pinned rows bit-equal to the initial state, nothing below the
-              plane (and the cubes resting on it), unit normals, the path's
-              own peak device memory from init on;
+              step() (the self-collision preset 60), every launch count set
+              to 0 just before and read just after: the path's kernels
+              launched frames x substeps x launches per substep times and
+              no other kernel launched; x finite, pinned rows bit-equal to
+              the initial state, nothing below the plane (and the cubes
+              resting on it), unit normals, the path's own peak device
+              memory from init on;
 5. sphere     cloth_hanging_sphere (Euler), 120 frames: the pins hold, no
               vertex inside the sphere;
 6. golden     the float64 oracle trajectories of tests/golden replayed
-              through step() at tests/test_golden.py's tolerances;
-7. fidelity   each kernel in float32 against its plain version in float64:
+              through step() at tests/test_golden.py's tolerances
+              (cloth_batch_rl with self-collision methods block and dense);
+7. fidelity   each kernel in float32 against its plain version in float64
+              (replayed from a CUDA graph of one frame, held bit-equal to
+              a call of it on the first frame):
               grid Euler and Verlet over 500 frames of their 64k presets,
               grid XPBD over 100; softbody_cube over 1000 frames; the 64k
               cubes over 200 frames (Euler, Verlet) and 60 (XPBD);
+              cloth_batch_rl with method block over 100 frames;
 8. timing     per 64k preset, ms per substep of the kernel path and of the
               plain version with CUDA events, in turns plain/kernel/kernel/
               plain; then, after all of them (a profiler session slows the
@@ -45,7 +61,9 @@ Phases, each printed as one JSON line; any failure raises and exits nonzero:
               launch from torch.profiler.  The lattice kernels are timed
               from rest (the cube in free fall, the work bound_per_substep
               counts) and again from the main path's last state (the cube
-              deformed and resting on the plane).
+              deformed and resting on the plane).  The self-collision
+              path and its pair function alone are timed from the 64k
+              preset's state after 24 substeps.
 
 Then a JSON line of the kernels (launches on the main path, error against
 the plain version, times, bound), the nvidia-smi line, and as the last line
@@ -109,6 +127,11 @@ OPS_XPBD_TET = 123
 OPS_EULER_VOLUME_VERTEX = 15
 OPS_VERLET_VOLUME_VERTEX = 9
 OPS_LATTICE_XPBD_VERTEX_SWEEP = 14
+# A vertex pair of the block-sparse self-collision, counted from the plain
+# version (solver/blocksparse.py) the same way: diff 3, squared norm 5, max 1,
+# sqrt 1, k (r - d) / d 3, w diff 3, summed into the force 3 = 19 (the
+# compare and select of the radius test are not counted).
+OPS_PAIR = 19
 
 
 class SmokeFailure(Exception):
@@ -155,6 +178,17 @@ def _bound(nbytes, ops):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def block_pairs_bound(n, blk, n_tiles, sum_nvalid):
+    """(least ms the card could take for the pair forces of one state,
+    "bytes" or "operations"): the kernel's inputs (tiles, partner counts, the
+    interacting partner ids, the sort order) read once and the [3, N] force
+    planes written once, against OPS_PAIR per vertex pair of the interacting
+    tile pairs this state has."""
+    nbytes = (4 * 3 * n_tiles * blk + 8 * n_tiles + 8 * sum_nvalid + 8 * n
+              + 4 * 3 * n)
+    return _bound(nbytes, OPS_PAIR * blk * blk * sum_nvalid)
+
+
 def _lattice_bound(name, top, cfg, n, e):
     """bound_per_substep of a tet-lattice kernel: the ownership word and the
     count plane (4 B each) stand for the edge and tet masks."""
@@ -194,10 +228,13 @@ def main() -> int:
     import numpy as np
 
     import softbodyunity_torch as sb
-    from softbodyunity_torch.kernels import (build, grid_euler, grid_verlet,
-                                            grid_xpbd, lattice_euler,
-                                            lattice_verlet, lattice_xpbd)
+    from softbodyunity_torch.kernels import (blocks, build, grid_euler,
+                                            grid_verlet, grid_xpbd,
+                                            lattice_euler, lattice_verlet,
+                                            lattice_xpbd)
     from softbodyunity_torch.kernels.stencil import make_stencil_step
+    from softbodyunity_torch.solver import blocksparse
+    from softbodyunity_torch.solver.forces import self_collision_forces_dense
     from softbodyunity_torch.solver.step import make_plain_step
 
     cuda = torch.device("cuda")
@@ -239,11 +276,17 @@ def main() -> int:
             replaces="softbodyunity_tpu/kernels/pallas_lattice.py:699",
             device_names=("lattice_xpbd_predict_kernel",
                           "lattice_xpbd_sweep_kernel")),
+        "block_pairs": dict(
+            module=blocks, preset="cloth_selfcollide_64k",
+            replaces="softbodyunity_tpu/kernels/pallas_blocks.py:151",
+            device_names=("block_pairs_kernel",)),
     }
     for name, k in kernels.items():
         k["source"] = f"softbodyunity_torch/kernels/csrc/{name}.cu"
         k["lattice"] = name.startswith("lattice_")
         k["plain"] = make_plain_step if k["lattice"] else make_stencil_step
+    # the six solver kernels, each the whole substep of its own path
+    steps = {n: k for n, k in kernels.items() if n != "block_pairs"}
 
     def launches_per_substep(name, top, cfg):
         if kernels[name]["lattice"]:
@@ -289,6 +332,271 @@ def main() -> int:
              library=os.path.relpath(lib, ROOT), ptxas=ptxas)
     emit("build", kernels=list(kernels), seconds=build_s)
     phase_seconds()
+
+    # --- the self-collision path: block_pairs, then grid_euler ----------------
+    sc = kernels["block_pairs"]
+    pair_tol = (5e-4, 1e-3)   # tests/test_blocksparse.py:158, atol and rtol
+
+    def sc_params(**kw):
+        """tests/test_blocksparse.py's parameters."""
+        base = dict(enabled=True, method="block", radius=0.05, stiffness=10.0,
+                    cell_size=0.05, block_partners=16)
+        base.update(kw)
+        return sb.SelfCollisionParams(**base)
+
+    def folded(n_side, span, gap):
+        """tests/test_blocksparse.py's folded sheets: n_side^2 vertices at
+        spacing 0.01, folded back over itself every ``span`` in y, the
+        layers ``gap`` apart."""
+        xs, ys = np.meshgrid(np.arange(n_side), np.arange(n_side),
+                             indexing="ij")
+        layer = (ys.ravel() * 0.01 // span).astype(int)
+        yy = np.where(layer % 2 == 0, ys.ravel() * 0.01 % span,
+                      span - ys.ravel() * 0.01 % span)
+        x = np.stack([xs.ravel() * 0.01, yy, layer * gap],
+                     axis=1).astype(np.float32)
+        return torch.tensor(x, device=cuda)
+
+    def diagnostics(x, p):
+        d = blocksparse.self_collision_block_diagnostics(x, p)
+        dropped = int(d["dropped_pairs"])
+        return dropped, int(d["candidate_pairs"]) - dropped
+
+    def compare_pairs(x, p, scene, want=None, tol=pair_tol,
+                      why="kernel vs plain: rsqrt and another sum order"):
+        """block_pairs against its plain version (or ``want``) on ``x``."""
+        got = blocks.make_block_pairs(p, x.shape[0], cuda)(x).t()
+        if want is None:
+            want = blocksparse.self_collision_forces_block(x, p)
+        torch.cuda.synchronize()
+        err = (got - want).abs()
+        ok = bool(torch.isfinite(got).all()
+                  and (err <= tol[0] + tol[1] * want.abs()).all())
+        dropped, tile_pairs = diagnostics(x, p)
+        emit("compare", kernel="block_pairs", scene=scene,
+             vertices=x.shape[0], block=p.block_size,
+             tile_pairs=tile_pairs, dropped_pairs=dropped,
+             max_abs_err=float(err.max()),
+             max_abs_force=float(want.abs().max()), atol=tol[0],
+             rtol=tol[1], why=why)
+        require(ok, f"block_pairs {scene}: |err| {float(err.max()):.3e}")
+        require(float(want.abs().max()) > 0.0,
+                f"block_pairs {scene}: no pair interacts")
+        return float(err.max())
+
+    def batch_rl(solver, method):
+        """cloth_batch_rl with its self-collision method replaced (the
+        shipping dense_mxu is not ported), as tests/test_golden.py does."""
+        host, cfg = sb.presets.build("cloth_batch_rl")
+        return host, cfg.replace(
+            solver=solver, self_collision=dataclasses.replace(
+                cfg.self_collision, method=method))
+
+    def compare_self_collision():
+        for n in (500, 1000, 2048):
+            for blk in (256, 128):
+                rng = np.random.default_rng(n)
+                x = torch.tensor(rng.uniform(0, 0.5, (n, 3)),
+                                 dtype=torch.float32, device=cuda)
+                compare_pairs(x, sc_params(block_size=blk,
+                                           block_partners=-(-n // blk)),
+                              f"cloud {n}")
+        compare_pairs(folded(48, 0.16, 0.004),
+                      sc_params(radius=0.006, cell_size=0.012),
+                      "folded 48x48 sheet")
+        # the dense rule (which takes its 16,384 rows in chunks)
+        p16 = sb.presets.build("cloth_selfcollide_16k")[1].self_collision
+        x128 = folded(128, 0.32, 0.75 * p16.radius)
+        require(diagnostics(x128, p16)[0] == 0, "folded 128x128: dropped")
+        compare_pairs(x128, p16, "folded 128x128 sheet against dense",
+                      want=self_collision_forces_dense(
+                          x128, p16.radius, p16.stiffness),
+                      tol=(1e-3, 1e-3),
+                      why="block against the dense rule, "
+                          "tests/test_blocksparse.py:118-142's 1e-3")
+        # the 64k preset after 24 substeps (bench.py:366-378)
+        host, cfg = sc["host"], sc["cfg"]
+        top, s0 = sb.init(host, device=cuda)
+        s24 = sb.step(top, cfg, s0, n_substeps=24)
+        sc["err64"] = compare_pairs(s24.x, cfg.self_collision,
+                                    "cloth_selfcollide_64k after 24 substeps")
+        dropped, tile_pairs = diagnostics(s24.x, cfg.self_collision)
+        require(dropped == 0, f"64k after 24 substeps: {dropped} tile pairs "
+                "dropped (bench.py asserts 0)")
+        # one frame from that state, substep by substep: the kernel path
+        # against the plain path, and (printed) the plain path in float32
+        # against float64.  The bottom rows start below the plane and are
+        # crushed into a pile, where a pair at d ~ 1e-5 has a spring rate
+        # k r / d near 5e4 and explicit steps amplify any rounding: within
+        # the frame plain float32 leaves float64 by x 1.4e-2 and v 3.4.  So
+        # the first 4 substeps are held to the bounds of a rounding-only
+        # compare, and the frame to fixed bounds 7x and 4.5x over the
+        # readings of two runs (x 1.42e-4, v 5.64e-2, the same to the bit);
+        # the shrunk curtain below holds a whole frame at the rounding bounds
+        kern_fn = grid_euler.make_cuda_step(top, cfg)
+        plain_fn = make_stencil_step(top, cfg)
+        top64, _ = sb.init(host, device=cuda, dtype=torch.float64)
+        plain64_fn = make_stencil_step(top64, cfg)
+        kern, plain = s24, s24
+        ref = sb.State(x=s24.x.double(), v=s24.v.double(),
+                       x_prev=s24.x_prev.double())
+        series = []
+        for _ in range(cfg.n_substeps):
+            kern = kern_fn(kern, cfg.dt, 1)
+            plain = plain_fn(plain, cfg.dt, 1)
+            ref = plain64_fn(ref, cfg.dt, 1)
+            series.append((float((kern.x - plain.x).abs().max()),
+                           float((kern.v - plain.v).abs().max()),
+                           float((plain.x.double() - ref.x).abs().max()),
+                           float((plain.v.double() - ref.v).abs().max())))
+        torch.cuda.synchronize()
+        held, frame_x, frame_v = 4, 1e-3, 0.25
+        dx_held = max(a for a, _, _, _ in series[:held])
+        dv_held = max(b for _, b, _, _ in series[:held])
+        dx = max(a for a, _, _, _ in series)
+        dv = max(b for _, b, _, _ in series)
+        pinned = torch.from_numpy(host.inv_mass == 0.0).to(cuda)
+        emit("compare", kernel="block_pairs+grid_euler",
+             scene="cloth_selfcollide_64k, frame after 24 substeps",
+             substeps=cfg.n_substeps, tile_pairs=tile_pairs,
+             kernel_vs_plain_dx=[a for a, _, _, _ in series],
+             kernel_vs_plain_dv=[b for _, b, _, _ in series],
+             plain32_vs_plain64_dx=[c for _, _, c, _ in series],
+             plain32_vs_plain64_dv=[d for _, _, _, d in series],
+             held_substeps=held, held_atol_x=1e-5, held_atol_v=2e-3,
+             frame_atol_x=frame_x, frame_atol_v=frame_v,
+             why="FMA contraction and rsqrt, amplified by the crushed pile")
+        require(bool(torch.isfinite(kern.x).all()), "64k frame: not finite")
+        require(torch.equal(kern.x[pinned], s0.x[pinned]), "64k: pins moved")
+        require(dx_held <= 1e-5 and dv_held <= 2e-3,
+                f"64k self-collision, first {held} substeps: |dx| "
+                f"{dx_held:.3e}, |dv| {dv_held:.3e}")
+        require(dx <= frame_x and dv <= frame_v,
+                f"64k self-collision frame: |dx| {dx:.3e} (<= {frame_x}), "
+                f"|dv| {dv:.3e} (<= {frame_v})")
+        del top64, plain64_fn, ref
+
+        # the sheet shrunk to 60 % about its pinned top row: every
+        # structural neighbour inside the radius, and no vertex near the
+        # plane, so no pile
+        def shrink(s):
+            return s.replace(x=0.6 * s.x, x_prev=0.6 * s.x_prev)
+
+        dropped, tile_pairs = diagnostics(shrink(s0).x, cfg.self_collision)
+        require(tile_pairs > 0, "64k shrunk: no tile pair interacts")
+        compare("grid_euler", f"cloth_selfcollide_64k shrunk to 60% "
+                f"({tile_pairs} tile pairs, {dropped} dropped)", host, cfg,
+                cfg.n_substeps, 1e-5, 2e-3, "FMA contraction and rsqrt only",
+                start=shrink)
+        # one frame of each grid solver on cloth_batch_rl shrunk the same
+        # way: every neighbour at 0.024, inside the 0.03 radius
+        for solver, name in ((sb.Solver.SEMI_IMPLICIT_EULER, "grid_euler"),
+                             (sb.Solver.VERLET, "grid_verlet"),
+                             (sb.Solver.XPBD, "grid_xpbd")):
+            host_b, cfg_b = batch_rl(solver, "block")
+            compare(name, "cloth_batch_rl shrunk, self-collision block",
+                    host_b, cfg_b, cfg_b.n_substeps, 1e-5, 2e-3,
+                    "FMA contraction and rsqrt only", start=shrink)
+        return top, s24
+
+    def main_path_self_collision():
+        host, cfg = sc["host"], sc["cfg"]
+        frames_sc = 60
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        top, state0 = sb.init(host, device="cuda")
+        pinned = torch.from_numpy(host.inv_mass == 0.0).to(cuda)
+        expected = frames_sc * cfg.n_substeps
+        reset_counts()
+        t = time.perf_counter()
+        state = state0
+        for _ in range(frames_sc):
+            state = sb.step(top, cfg, state)
+        torch.cuda.synchronize()
+        main_s = time.perf_counter() - t
+        launched = counts()
+        sc["launches"] = launched["block_pairs"]
+        x = state.x
+        # the bottom rows start below the plane and are pressed flat onto
+        # it, a column's vertices onto one point: a vertex all of whose
+        # triangles collapsed has no normal (length 0); every other is unit
+        length = torch.linalg.vector_norm(sb.normals(top, state), dim=1)
+        flat = length == 0.0
+        unit_err = float((length[~flat] - 1.0).abs().max())
+        dropped, tile_pairs = diagnostics(x, cfg.self_collision)
+        emit("main_path", kernel="block_pairs+grid_euler",
+             preset=sc["preset"], solver=cfg.solver.value,
+             vertices=x.shape[0], frames=frames_sc, substeps=expected,
+             launches=launched, expected_launches={
+                 "block_pairs": expected, "grid_euler": expected},
+             seconds=main_s, y_min=float(x[:, 1].min()),
+             plane_height=float(top.plane_height), normal_unit_err=unit_err,
+             collapsed_normals=int(flat.sum()),
+             sum_nvalid=tile_pairs, dropped_pairs=dropped,
+             peak_mem_bytes=torch.cuda.max_memory_allocated() - held)
+        require(launched["block_pairs"] == expected
+                and launched["grid_euler"] == expected
+                and sum(launched.values()) == 2 * expected,
+                f"self-collision main path launches {launched}, expected "
+                f"{expected} block_pairs and {expected} grid_euler")
+        require(bool(torch.isfinite(x).all()), "self-collision: x not finite")
+        require(int(pinned.sum()) == 256, "self-collision: pins")
+        require(torch.equal(x[pinned], state0.x[pinned]),
+                "self-collision main path: pinned rows moved")
+        require(bool((x[:, 1] >= top.plane_height).all()),
+                "self-collision main path: vertex below the plane")
+        require(bool(torch.isfinite(length).all())
+                and int(flat.sum()) < x.shape[0] // 2,
+                f"self-collision normals: {int(flat.sum())} collapsed")
+        require(unit_err <= 1e-5, f"self-collision normals {unit_err:.3e}")
+
+    def golden_self_collision():
+        # tests/test_golden.py's 5e-2 for self-collision chaos; the first
+        # record (frame 10) also at 1e-5, before the chaos (the JAX
+        # package's own f32 path is 2.0e-7 from f64 there)
+        data = np.load(os.path.join(ROOT, "tests", "golden",
+                                    "cloth_batch_rl.npz"))
+        golden = data["positions"]
+        every = int(data["record_every"])
+        for method in ("block", "dense"):
+            host, cfg = batch_rl(sb.Solver.SEMI_IMPLICIT_EULER, method)
+            top, s = sb.init(host, device="cuda")
+            drifts = []
+            for r in range(golden.shape[0]):
+                for _ in range(every):
+                    s = sb.step(top, cfg, s)
+                drifts.append(float(np.max(np.abs(
+                    s.x.double().cpu().numpy() - golden[r]))))
+            emit("golden", preset="cloth_batch_rl", method=method,
+                 solver=cfg.solver.value, frames=golden.shape[0] * every,
+                 drift_per_record=drifts, tol=5e-2, first_tol=1e-5)
+            require(drifts[0] < 1e-5 and max(drifts) < 5e-2,
+                    f"golden cloth_batch_rl {method}: drifts {drifts}")
+
+    def fidelity_self_collision():
+        # the f32 kernel path against the f64 plain path: 1e-5 over frames
+        # 1-20, where the JAX package's own f32 stays within 4.2e-7 of f64,
+        # so a wrong force cannot hide behind contact chaos; then the
+        # golden's 5e-2 (the JAX package: 1.94e-2 at frame 50)
+        host, cfg = batch_rl(sb.Solver.SEMI_IMPLICIT_EULER, "block")
+        t = time.perf_counter()
+        top32, s32 = sb.init(host, device="cuda")
+        top64, s64 = sb.init(host, device="cuda", dtype=torch.float64)
+        plain64 = make_stencil_step(top64, cfg)
+        drift = []
+        for _ in range(100):
+            s32 = sb.step(top32, cfg, s32)
+            s64 = plain64(s64, cfg.dt, cfg.n_substeps)
+            drift.append(float((s32.x.double() - s64.x).abs().max()))
+        early, late = max(drift[:20]), max(drift[20:])
+        emit("fidelity", kernel="block_pairs+grid_euler",
+             preset="cloth_batch_rl", method="block", frames=100, every=10,
+             drift=drift[9::10], worst_frames_1_20=early,
+             worst_frames_21_100=late, bound_frames_1_20=1e-5,
+             bound_frames_21_100=5e-2, seconds=time.perf_counter() - t)
+        require(early <= 1e-5, f"fidelity cloth_batch_rl: {early:.3e} by 20")
+        require(late <= 5e-2, f"fidelity cloth_batch_rl: {late:.3e}")
 
     # 3. kernel vs plain version on the card ----------------------------------
     def scene16(solver=sb.Solver.SEMI_IMPLICIT_EULER, shear=True, bend=True,
@@ -340,8 +648,11 @@ def main() -> int:
         host.inv_mass[:pins] = 0.0
         return host, cfg
 
-    def compare(name, scene, host, cfg, n_sub, atol_x, atol_v, why):
+    def compare(name, scene, host, cfg, n_sub, atol_x, atol_v, why,
+                start=None):
         top, s0 = sb.init(host, device=cuda)
+        if start is not None:
+            s0 = start(s0)
         plain = kernels[name]["plain"](top, cfg)(s0, cfg.dt, n_sub)
         kern = kernels[name]["module"].make_cuda_step(top, cfg)(
             s0, cfg.dt, n_sub)
@@ -407,15 +718,16 @@ def main() -> int:
     compare("lattice_xpbd", "6^3 no sweeps", host,
             cfg.replace(xpbd=dataclasses.replace(cfg.xpbd, n_iterations=0)),
             32, 1e-5, 2e-3, fma + "; n_iterations = 0: the epilogue alone")
-    for name, k in kernels.items():
+    for name, k in steps.items():
         k["err64"] = compare(name, k["preset"], k["host"], k["cfg"],
                              k["cfg"].n_substeps, 1e-5, 1e-3,
                              "one smooth frame: rounding only")
+    sc_state = compare_self_collision()
     emit("compare", seconds=phase_seconds())
 
     # 4. the main paths -----------------------------------------------------
     frames = 300
-    for name, k in kernels.items():
+    for name, k in steps.items():
         host, cfg = k["host"], k["cfg"]
         # the path's own peak: what it allocates from init on, over what
         # earlier phases still hold (api.step caches the step functions,
@@ -471,6 +783,7 @@ def main() -> int:
         if k["lattice"]:
             k["settled"] = state
         del top, state0, state, x, pinned, on_surface, nrm
+    main_path_self_collision()
     emit("main_path", seconds=phase_seconds())
 
     # 5. hanging cloth on a sphere ------------------------------------------
@@ -514,6 +827,7 @@ def main() -> int:
              first_tol=first_tol)
         require(drifts[0] < first_tol and max(drifts) < tol,
                 f"golden {name}: drifts {drifts}")
+    golden_self_collision()
     emit("golden", seconds=phase_seconds())
 
     # 7. fidelity bound -----------------------------------------------------
@@ -570,6 +884,33 @@ def main() -> int:
          "BASELINE.json:5", None)]
     fidelity += [(name, None, 10 * len(ref), 10, max(ref) + 1e-5, cube_why,
                   ref) for name, ref in jax_cube_drift.items()]
+
+    def graphed(fn, s0, cfg):
+        """``fn(s, cfg.dt, cfg.n_substeps)`` captured from ``s0`` in one CUDA
+        graph: a replay runs the same kernels on the same inputs as a call,
+        without the host's cost of the thousands of small eager ops a frame
+        of a float64 plain version launches.  The state it returns is the
+        graph's output buffers, which the next replay overwrites."""
+        inp = sb.State(x=s0.x.clone(), v=s0.v.clone(),
+                       x_prev=s0.x_prev.clone())
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn(inp, cfg.dt, cfg.n_substeps)     # warm-up, outside the graph
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = fn(inp, cfg.dt, cfg.n_substeps)
+
+        def frame(s):
+            for buf, val in ((inp.x, s.x), (inp.v, s.v),
+                             (inp.x_prev, s.x_prev)):
+                buf.copy_(val)
+            graph.replay()
+            return out
+
+        return frame
+
     for name, preset, n_frames, every, bound, why, ref in fidelity:
         k = kernels[name]
         host, cfg = ((cube_host, cube_cfg) if preset == "softbody_cube"
@@ -578,10 +919,17 @@ def main() -> int:
         top32, s32 = sb.init(host, device="cuda")
         top64, s64 = sb.init(host, device="cuda", dtype=torch.float64)
         plain64 = k["plain"](top64, cfg)
+        frame64 = graphed(plain64, s64, cfg)
+        # the replay against a call, once: the same kernels, the same bits
+        want, got = plain64(s64, cfg.dt, cfg.n_substeps), frame64(s64)
+        require(all(torch.equal(a, b) for a, b in (
+            (want.x, got.x), (want.v, got.v), (want.x_prev, got.x_prev))),
+            f"fidelity {name}: the graph's frame differs from a call's")
+        del want, got
         checkpoints = []
         for i in range(n_frames):
             s32 = sb.step(top32, cfg, s32)
-            s64 = plain64(s64, cfg.dt, cfg.n_substeps)
+            s64 = frame64(s64)
             if (i + 1) % every == 0:
                 checkpoints.append(float((s32.x.double() - s64.x).abs().max()))
         torch.cuda.synchronize()
@@ -594,65 +942,90 @@ def main() -> int:
                               [a - b for a, b in zip(checkpoints, ref)]),
              seconds=time.perf_counter() - t)
         require(worst <= bound, f"fidelity {name}: drift {worst:.3e} > {bound}")
+    fidelity_self_collision()
     emit("fidelity", seconds=phase_seconds())
 
     # 8. timing -------------------------------------------------------------
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def events_ms(body, n):
+        """ms per unit of ``body()``, which does ``n`` units, from CUDA
+        events."""
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        body()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / n
+
+    def substep_ms(fn, s0, cfg, n_frames, n_sub):
+        """ms per substep of ``n_frames`` calls ``fn(s, dt, n_sub)`` from
+        ``s0``."""
+        def body():
+            s = s0
+            for _ in range(n_frames):
+                s = fn(s, cfg.dt, n_sub)
+        return events_ms(body, n_frames * n_sub)
+
+    def in_turns(runs):
+        """Each of ``runs`` {"kernel": body, "plain": body} (bodies return
+        ms) after a warm-up call, in turns plain/kernel/kernel/plain."""
+        for body in runs.values():
+            body()
+        torch.cuda.synchronize()
+        ms = {"kernel": [], "plain": []}
+        for which in ("plain", "kernel", "kernel", "plain"):
+            ms[which].append(runs[which]())
+        return ms
+
     def device_us_per_launch(fn, s0, cfg, n_frames, names):
         """Device time per launch of each named kernel over n_frames, from
-        torch.profiler; None where the trace shows no device time."""
-        from torch.profiler import ProfilerActivity, profile
-
+        torch.profiler (None where the trace shows no device time), and the
+        device time of every kernel, memcpy and memset in the trace, in µs
+        per substep."""
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             s = s0
             for _ in range(n_frames):
                 s = fn(s, cfg.dt, cfg.n_substeps)
             torch.cuda.synchronize()
-        out = {}
+        out, busy = {}, 0.0
         for ev in prof.key_averages():
+            total = getattr(ev, "device_time_total", None)
+            if total is None:
+                total = getattr(ev, "cuda_time_total", 0.0)
+            # the device's own events; a host event's device time counts
+            # the kernels it launched a second time
+            if ev.device_type != DeviceType.CPU:
+                busy += total
             for kname in names:
-                if kname in ev.key:
-                    total = getattr(ev, "device_time_total", None)
-                    if total is None:
-                        total = getattr(ev, "cuda_time_total", 0.0)
-                    if total > 0 and ev.count > 0:
-                        out[kname] = (total / ev.count, ev.count)
-        return out
+                if kname in ev.key and total > 0 and ev.count > 0:
+                    out[kname] = (total / ev.count, ev.count)
+        return out, busy / (n_frames * cfg.n_substeps)
 
     # every CUDA-event timing first: a torch.profiler session slows the
     # launches that follow it, so the device times are taken after
-    for name, k in kernels.items():
+    for name, k in steps.items():
         cfg = k["cfg"]
         top, s0 = sb.init(k["host"], device="cuda")
         # lattices: 20 frames from rest end before the cube reaches the
         # plane, so the timed work is the one bound_per_substep counts
-        runs = {"kernel": (k["module"].make_cuda_step(top, cfg),
-                           20 if k["lattice"] else 100),
-                "plain": (k["plain"](top, cfg), 2 if k["lattice"] else 5)}
-        k["timing_runs"], k["timing_s0"] = runs, s0
-        for fn, _ in runs.values():          # warm-up
-            for _ in range(2):
-                fn(s0, cfg.dt, cfg.n_substeps)
-        torch.cuda.synchronize()
-
-        def timed(which, s=s0):
-            fn, n_frames = runs[which]
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            for _ in range(n_frames):
-                s = fn(s, cfg.dt, cfg.n_substeps)
-            end.record()
-            end.synchronize()
-            return start.elapsed_time(end) / (n_frames * cfg.n_substeps)
-
-        ms = {"kernel": [], "plain": []}
-        for which in ("plain", "kernel", "kernel", "plain"):
-            ms[which].append(timed(which))
+        kern_fn = k["module"].make_cuda_step(top, cfg)
+        plain_fn = k["plain"](top, cfg)
+        frames_k, frames_p = (20, 2) if k["lattice"] else (100, 5)
+        k["timing_fn"], k["timing_s0"] = kern_fn, s0
+        ms = in_turns({
+            "kernel": lambda: substep_ms(kern_fn, s0, cfg, frames_k,
+                                         cfg.n_substeps),
+            "plain": lambda: substep_ms(plain_fn, s0, cfg, frames_p,
+                                        cfg.n_substeps)})
         if k["lattice"]:
             # the same kernels from the main path's last state, the cube
             # deformed and resting on the plane
-            ms["kernel_settled"] = [timed("kernel", k["settled"])
-                                    for _ in range(2)]
+            ms["kernel_settled"] = [
+                substep_ms(kern_fn, k["settled"], cfg, frames_k,
+                           cfg.n_substeps) for _ in range(2)]
         k["ms"] = min(ms["kernel"])
         k["plain_ms"] = min(ms["plain"])
         k["bound_ms"], k["bound_by"] = bound_per_substep(name, top, cfg)
@@ -661,14 +1034,43 @@ def main() -> int:
              kernel_substeps_per_s=1e3 / k["ms"],
              plain_substeps_per_s=1e3 / k["plain_ms"],
              bound_us_per_substep=k["bound_ms"] * 1e3, bound_by=k["bound_by"])
-    for name, k in kernels.items():
+    # the self-collision path, and its pair function alone, from the 64k
+    # preset's state after 24 substeps
+    top, s24 = sc_state
+    cfg = sc["cfg"]
+    p, x = cfg.self_collision, s24.x
+    kern_fn = grid_euler.make_cuda_step(top, cfg)
+    plain_fn = make_stencil_step(top, cfg)
+    pair_fn = blocks.make_block_pairs(p, x.shape[0], cuda)
+    path_ms = in_turns({
+        "kernel": lambda: substep_ms(kern_fn, s24, cfg, 10, cfg.n_substeps),
+        "plain": lambda: substep_ms(plain_fn, s24, cfg, 1, 2)})
+    pair_ms = in_turns({
+        "kernel": lambda: events_ms(lambda: [pair_fn(x) for _ in range(50)],
+                                    50),
+        "plain": lambda: events_ms(
+            lambda: [blocksparse.self_collision_forces_block(x, p)
+                     for _ in range(2)], 2)})
+    dropped, tile_pairs = diagnostics(x, p)
+    sc["ms"] = min(pair_ms["kernel"])
+    sc["plain_ms"] = min(pair_ms["plain"])
+    sc["bound_ms"], sc["bound_by"] = block_pairs_bound(
+        x.shape[0], p.block_size, -(-x.shape[0] // p.block_size), tile_pairs)
+    emit("timing", kernel="block_pairs", preset=sc["preset"], card=smi,
+         start="24 substeps", ms_per_substep=path_ms,
+         kernel_substeps_per_s=1e3 / min(path_ms["kernel"]),
+         plain_substeps_per_s=1e3 / min(path_ms["plain"]),
+         ms_per_pair_call=pair_ms, sum_nvalid=tile_pairs,
+         dropped_pairs=dropped, bound_us_per_call=sc["bound_ms"] * 1e3,
+         bound_by=sc["bound_by"])
+    for name, k in steps.items():
         cfg = k["cfg"]
         starts = {"": k["timing_s0"]}
         if k["lattice"]:
             starts["settled"] = k["settled"]
         for label, s0 in starts.items():
-            dev = device_us_per_launch(k["timing_runs"]["kernel"][0], s0, cfg,
-                                       5, k["device_names"])
+            dev, _ = device_us_per_launch(k["timing_fn"], s0, cfg, 5,
+                                          k["device_names"])
             per_sub = (sum(us * count for us, count in dev.values())
                        / (5 * cfg.n_substeps)
                        if len(dev) == len(k["device_names"]) else None)
@@ -676,6 +1078,19 @@ def main() -> int:
                  start=label or "rest",
                  device_us_per_launch={n: us for n, (us, _) in dev.items()},
                  device_us_per_substep=per_sub)
+    # the self-collision substep: block_pairs, grid_euler, and the sort and
+    # partner search (every other kernel of the trace)
+    cfg = sc["cfg"]
+    names = sc["device_names"] + kernels["grid_euler"]["device_names"]
+    dev, busy = device_us_per_launch(kern_fn, s24, cfg, 5, names)
+    named = (sum(us * count for us, count in dev.values())
+             / (5 * cfg.n_substeps))
+    emit("timing", kernel="block_pairs", profiler_frames=5,
+         start="24 substeps",
+         device_us_per_launch={n: us for n, (us, _) in dev.items()},
+         launches={n: c for n, (_, c) in dev.items()},
+         other_device_us_per_substep=busy - named,
+         device_us_per_substep=busy)
     emit("timing", seconds=phase_seconds())
 
     print(json.dumps({"kernels": [{

@@ -3,15 +3,18 @@
 A port of ``softbodyunity_tpu`` (JAX on a TPU) to PyTorch on an NVIDIA H100,
 with the same module layout and names.  The port covers grid cloth and the
 volumetric tet cube (banded tet lattices) under the semi-implicit Euler,
-Verlet and XPBD solvers with plane and sphere contact; each hot loop is a
-hand-written CUDA kernel (``kernels/csrc/grid_euler.cu``, ``grid_verlet.cu``,
-``grid_xpbd.cu`` for cloth; ``lattice_euler.cu``, ``lattice_verlet.cu``,
-``lattice_xpbd.cu`` for lattices), built with nvcc at first use.  On the CPU
-the same API runs the kernels' plain PyTorch versions.
+Verlet and XPBD solvers with plane and sphere contact, and vertex-vertex
+self-collision on grid cloth (methods ``block`` and ``dense``); each hot
+loop is a hand-written CUDA kernel (``kernels/csrc/grid_euler.cu``,
+``grid_verlet.cu``, ``grid_xpbd.cu`` for cloth; ``lattice_euler.cu``,
+``lattice_verlet.cu``, ``lattice_xpbd.cu`` for lattices; ``block_pairs.cu``
+for the block-sparse self-collision pairs), built with nvcc at first use.
+On the CPU the same API runs the kernels' plain PyTorch versions.
 
     import softbodyunity_torch as sb
 
-    host, cfg = sb.presets.build("cloth_bench_64k")   # or "softbody_cube_64k"
+    host, cfg = sb.presets.build("cloth_bench_64k")   # or "softbody_cube_64k",
+                                                      # "cloth_selfcollide_64k"
     top, state = sb.init(host, device="cuda")
     for _ in range(300):
         state = sb.step(top, cfg, state)

@@ -1,0 +1,153 @@
+// Block-sparse self-collision pair forces for Hopper (sm_90a).  Built by
+// softbodyunity_torch/kernels/build.py, wrapped by
+// softbodyunity_torch/kernels/blocks.py; its plain PyTorch version is
+// softbodyunity_torch/solver/blocksparse.py::self_collision_forces_block.
+//
+// Replaces the TPU kernel softbodyunity_tpu/kernels/pallas_blocks.py
+// ::_make_kernel, launched by ::_block_pairs_pallas through pl.pallas_call:
+// for every Morton tile i of the sorted vertices and each of its first
+// nvalid[i] partner tiles p, the repulsion of every vertex of tile i from
+// every vertex of tile p,
+//   f_i += w(d) (x_i - x_j),  w = max(k r / d - k, 0),  d = sqrt(max(d2, eps2)),
+// which is k (r - d) / d for d < r and 0 beyond.  The Morton sort, the
+// bounding-box partner search and the far-coordinate padding stay in
+// PyTorch (solver/blocksparse.py), as they stay in XLA on the TPU.
+//
+// Design.  The TPU kernel is one program that walks all tiles in order with
+// the whole tile array in VMEM.  Here a CTA of blk threads (one per vertex of
+// tile i) takes a chunk of `chunk` consecutive partners of tile i: grid
+// (B, ceil(K / chunk)), where K is the partner budget.  Per partner it stages
+// the partner tile (3 x blk floats) in shared memory and every thread sweeps
+// its blk vertices, accumulating w dx in registers; the shared-memory reads
+// are broadcasts.  CTAs whose chunk starts at or past nvalid[i] exit at once,
+// so the work follows the sum of the interacting partners, not B x K.
+// Splitting a tile's partners over CTAs spreads a crowded tile (a 64k pile
+// has tiles with ~70 partners against a mean of ~8) over many SMs.
+//
+// Determinism without atomics on the data: a tile with one chunk writes its
+// forces directly; otherwise each chunk writes its partial sums to a scratch
+// row, and the CTA that finishes last (a per-tile arrival counter) adds the
+// rows in chunk order 0, 1, ... and writes the result.  The counter only
+// elects that CTA, and resets itself for the next launch, so the sum and
+// its rounding are the same on every run.  The result is written in vertex
+// order through the sort permutation `order` (each vertex once), into
+// [3, N] component planes: the grid kernels' force-plane input.
+//
+// Self pairs are not masked: a vertex meeting itself has dx exactly 0 and a
+// finite w (the eps2 clamp), so it adds exactly 0.  Padded tile slots enter
+// at +1e6: their distance to every real vertex exceeds r, so w = 0; their
+// own rows are never written.  Built without fast-math, so 0 * w stays 0.
+//
+// What bounds it.  A pair costs ~16 operations (3 differences, the squared
+// norm, max, rsqrt, w, three multiply-adds), so the function needs about
+// 16 x 256^2 x sum(nvalid) operations: ~2.2 G at the 64k preset's ~2,100
+// interacting tile pairs, ~33 us at the float32 peak, and it reads each
+// tile once (0.8 MB at 64k): bound by operations.  The sweep runs 256^2
+// pairs per tile pair where only a few percent are within r; a compacted
+// pair worklist is later work.
+//
+// Rounding.  rsqrtf (as the TPU kernel's lax.rsqrt) and a sum in (partner,
+// vertex) order: the plain version sums the other way and divides, so the
+// two agree to rounding (tested at atol 5e-4, rtol 1e-3).
+
+#include <cuda_runtime.h>
+
+namespace {
+
+__global__ void __launch_bounds__(1024) block_pairs_kernel(
+    const float* __restrict__ x_tiles,      // [B, 3, blk], pads at +1e6
+    const long long* __restrict__ nvalid,   // [B] interacting partners
+    const long long* __restrict__ partners, // [B, >= K], row stride p_stride
+    int p_stride, const long long* __restrict__ order,   // [N] sorted -> vertex
+    int n, int n_tiles, int chunk, int blk, float* __restrict__ partial,
+    int* __restrict__ arrivals, float* __restrict__ f_out,   // [3, N]
+    float eps2, float c1, float c2) {
+  extern __shared__ float sj[];             // [3, blk]: the partner tile
+  __shared__ bool last;
+  const int i = blockIdx.x;
+  const int s = blockIdx.y;
+  const int l = threadIdx.x;
+  const int nv = static_cast<int>(nvalid[i]);
+  const int n_chunks = nv > 0 ? (nv + chunk - 1) / chunk : 1;
+  if (s >= n_chunks) return;                // uniform over the CTA
+
+  const float* xi_tile = x_tiles + static_cast<size_t>(i) * 3 * blk;
+  const float xi0 = xi_tile[l], xi1 = xi_tile[blk + l],
+              xi2 = xi_tile[2 * blk + l];
+  float ax = 0.0f, ay = 0.0f, az = 0.0f;
+  const int k_end = min(s * chunk + chunk, nv);
+  for (int k = s * chunk; k < k_end; ++k) {
+    const long long pk = partners[static_cast<size_t>(i) * p_stride + k];
+    const float* xp = x_tiles + static_cast<size_t>(pk) * 3 * blk;
+    __syncthreads();                        // the last sweep is done with sj
+    sj[l] = xp[l];
+    sj[blk + l] = xp[blk + l];
+    sj[2 * blk + l] = xp[2 * blk + l];
+    __syncthreads();
+#pragma unroll 4
+    for (int j = 0; j < blk; ++j) {
+      const float dx = xi0 - sj[j];
+      const float dy = xi1 - sj[blk + j];
+      const float dz = xi2 - sj[2 * blk + j];
+      const float d2 = dx * dx + dy * dy + dz * dz;
+      const float w = fmaxf(c1 * rsqrtf(fmaxf(d2, eps2)) - c2, 0.0f);
+      ax += w * dx;
+      ay += w * dy;
+      az += w * dz;
+    }
+  }
+
+  const int row = i * blk + l;              // this thread's sorted slot
+  if (n_chunks > 1) {
+    // partial sums out; the last CTA of tile i to arrive adds them in order
+    const size_t ps = static_cast<size_t>(n_tiles) * 3 * blk;
+    float* mine = partial + s * ps + static_cast<size_t>(i) * 3 * blk;
+    mine[l] = ax;
+    mine[blk + l] = ay;
+    mine[2 * blk + l] = az;
+    __threadfence();                        // partials visible device-wide
+    __syncthreads();
+    if (l == 0) last = atomicAdd(&arrivals[i], 1) == n_chunks - 1;
+    __syncthreads();
+    if (!last) return;
+    __threadfence();
+    ax = ay = az = 0.0f;
+    for (int c = 0; c < n_chunks; ++c) {
+      const float* src = partial + c * ps + static_cast<size_t>(i) * 3 * blk;
+      ax += __ldcg(src + l);
+      ay += __ldcg(src + blk + l);
+      az += __ldcg(src + 2 * blk + l);
+    }
+    if (l == 0) arrivals[i] = 0;            // ready for the next launch
+  }
+  if (row < n) {
+    const long long v = order[row];
+    f_out[v] = ax;
+    f_out[n + v] = ay;
+    f_out[2 * static_cast<size_t>(n) + v] = az;
+  }
+}
+
+}  // namespace
+
+// Launch the pair forces of one state on `stream`; returns the cudaError_t
+// of the launch (0 = cudaSuccess).  `partial` holds ceil(k_budget / chunk)
+// x n_tiles x 3 x blk floats; `arrivals` n_tiles ints, zero before the first
+// launch (each launch leaves them zero).  Allocates nothing and does not
+// synchronise.
+extern "C" int block_pairs_forces(
+    const float* x_tiles, const long long* nvalid, const long long* partners,
+    int p_stride, const long long* order, int n, int n_tiles, int k_budget,
+    int chunk, int blk, float* partial, int* arrivals, float* f_out,
+    float eps2, float c1, float c2, void* stream) {
+  const dim3 grid(n_tiles, (k_budget + chunk - 1) / chunk);
+  const size_t smem = 3 * static_cast<size_t>(blk) * sizeof(float);
+  block_pairs_kernel<<<grid, blk, smem, static_cast<cudaStream_t>(stream)>>>(
+      x_tiles, nvalid, partners, p_stride, order, n, n_tiles, chunk, blk,
+      partial, arrivals, f_out, eps2, c1, c2);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" const char* block_pairs_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}

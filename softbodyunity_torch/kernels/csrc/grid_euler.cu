@@ -7,7 +7,11 @@
 // ::_make_kernel, launched by ::_pallas_substeps through pl.pallas_call, for
 // the branches the grid-cloth Euler path runs: the six-offset spring stencil
 // (Hooke + axial damper), gravity, global damping and pinning, plane contact
-// and sphere contact, with the colliders' kinematic velocities.  Its wind,
+// and sphere contact, with the colliders' kinematic velocities.  An optional
+// external force plane (the self-collision repulsion, block_pairs.cu) is
+// added to the spring forces, where the JAX package's general path adds
+// self_collision_force (solver/step.py::total_forces); the TPU routes such
+// scenes off this kernel.  Its wind,
 // strain-limit, capsule/box, plastic and tear branches are not ported yet;
 // the wrapper refuses configs that enable them.
 //
@@ -63,14 +67,17 @@ struct Params {
 // One thread per vertex (i, j) of the [ny, nx] grid.  x, v, x_out and v_out
 // are [3, ny, nx] component planes; offsets is [n_off, 4] rows of
 // (di, dj, k, rest); plane is (height, surface velocity xyz); spheres is
-// [n_spheres, 7] rows of (center xyz, radius, velocity xyz).
+// [n_spheres, 7] rows of (center xyz, radius, velocity xyz).  kExt: f_ext,
+// [3, ny, nx], is added to the spring forces; the instantiation without it
+// is the kernel as it was before the plane existed.
+template <bool kExt>
 __global__ void __launch_bounds__(256) grid_euler_substep_kernel(
     const float* __restrict__ x, const float* __restrict__ v,
     float* __restrict__ x_out, float* __restrict__ v_out,
     const float* __restrict__ inv_mass, const float* __restrict__ offsets,
     int n_off, const float* __restrict__ plane, int plane_on,
-    const float* __restrict__ spheres, int n_spheres, int ny, int nx,
-    Params p) {
+    const float* __restrict__ spheres, int n_spheres,
+    const float* __restrict__ f_ext, int ny, int nx, Params p) {
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
   const int i = blockIdx.y * blockDim.y + threadIdx.y;
   if (i >= ny || j >= nx) return;
@@ -108,6 +115,12 @@ __global__ void __launch_bounds__(256) grid_euler_substep_kernel(
     }
   }
 
+  if (kExt) {   // springs + f_ext, as total_forces sums them
+    fx += f_ext[idx];
+    fy += f_ext[ps + idx];
+    fz += f_ext[2 * ps + idx];
+  }
+
   const float im = inv_mass[idx];
   const bool movable = im > 0.0f;
   float vx = (vi.x + p.dt * (p.gx + fx * im)) * p.decay;
@@ -133,22 +146,28 @@ __global__ void __launch_bounds__(256) grid_euler_substep_kernel(
 }  // namespace
 
 // Launch one substep on `stream`; returns the cudaError_t of the launch
-// (0 = cudaSuccess).  Allocates nothing and does not synchronise.
+// (0 = cudaSuccess).  f_ext may be null (no external force plane).
+// Allocates nothing and does not synchronise.
 extern "C" int grid_euler_substep(
     const float* x, const float* v, float* x_out, float* v_out,
     const float* inv_mass, const float* offsets, int n_off,
     const float* plane, int plane_on, const float* spheres, int n_spheres,
-    int ny, int nx, float dt, float damping, float gx, float gy, float gz,
-    float decay, float restitution, float restitution1, float keep,
-    void* stream) {
+    const float* f_ext, int ny, int nx, float dt, float damping, float gx,
+    float gy, float gz, float decay, float restitution, float restitution1,
+    float keep, void* stream) {
   const Params p{dt, damping, gx, gy, gz, decay, restitution, restitution1,
                  keep};
   const dim3 block(32, 8);
   const dim3 grid((nx + block.x - 1) / block.x, (ny + block.y - 1) / block.y);
-  grid_euler_substep_kernel<<<grid, block, 0,
-                              static_cast<cudaStream_t>(stream)>>>(
-      x, v, x_out, v_out, inv_mass, offsets, n_off, plane, plane_on, spheres,
-      n_spheres, ny, nx, p);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (f_ext)
+    grid_euler_substep_kernel<true><<<grid, block, 0, st>>>(
+        x, v, x_out, v_out, inv_mass, offsets, n_off, plane, plane_on,
+        spheres, n_spheres, f_ext, ny, nx, p);
+  else
+    grid_euler_substep_kernel<false><<<grid, block, 0, st>>>(
+        x, v, x_out, v_out, inv_mass, offsets, n_off, plane, plane_on,
+        spheres, n_spheres, f_ext, ny, nx, p);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -8,7 +8,9 @@
 // pl.pallas_call, for the branches the grid-cloth Verlet path runs: the
 // six-offset spring stencil on the velocity estimate (x - xp) / dt, the
 // damped position update, pinning, position-only plane and sphere contact,
-// and the plane and sphere friction.  Its wind, strain-limit, capsule/box,
+// and the plane and sphere friction, with an optional external force plane
+// (the self-collision repulsion at x, block_pairs.cu) added to the spring
+// forces as solver/step.py::verlet_integrate adds it.  Its wind, strain-limit, capsule/box,
 // plastic and tear branches are not ported yet; the wrapper refuses configs
 // that enable them.
 //
@@ -53,13 +55,16 @@ struct Params {
 // is [n_off, 4] rows of (di, dj, k, rest); plane is (height, surface
 // velocity xyz); spheres is [n_spheres, 7] rows (center, radius, velocity).
 // plane_fric / sphere_fric are 0 when friction is 0 or the collider is off.
+// kExt: f_ext, [3, ny, nx], is added to the spring forces; the
+// instantiation without it is the kernel as it was before the plane existed.
+template <bool kExt>
 __global__ void __launch_bounds__(256) grid_verlet_substep_kernel(
     const float* __restrict__ x, const float* __restrict__ xp,
     float* __restrict__ out, const float* __restrict__ inv_mass,
     const float* __restrict__ offsets, int n_off,
     const float* __restrict__ plane, int plane_on, int plane_fric,
     const float* __restrict__ spheres, int n_spheres, int sphere_fric,
-    int ny, int nx, Params p) {
+    const float* __restrict__ f_ext, int ny, int nx, Params p) {
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
   const int i = blockIdx.y * blockDim.y + threadIdx.y;
   if (i >= ny || j >= nx) return;
@@ -102,6 +107,12 @@ __global__ void __launch_bounds__(256) grid_verlet_substep_kernel(
     }
   }
 
+  if (kExt) {   // springs + f_ext, as total_forces sums them
+    fx += f_ext[idx];
+    fy += f_ext[ps + idx];
+    fz += f_ext[2 * ps + idx];
+  }
+
   const float im = inv_mass[idx];
   if (!(im > 0.0f)) {          // pinned: x stays, bit for bit
     store3(out, idx, ps, xi);
@@ -128,20 +139,27 @@ __global__ void __launch_bounds__(256) grid_verlet_substep_kernel(
 }  // namespace
 
 // Launch one substep on `stream`; returns the cudaError_t of the launch
-// (0 = cudaSuccess).  Allocates nothing and does not synchronise.
+// (0 = cudaSuccess).  f_ext may be null (no external force plane).
+// Allocates nothing and does not synchronise.
 extern "C" int grid_verlet_substep(
     const float* x, const float* xp, float* out, const float* inv_mass,
     const float* offsets, int n_off, const float* plane, int plane_on,
     int plane_fric, const float* spheres, int n_spheres, int sphere_fric,
-    int ny, int nx, float dt, float damping, float gx, float gy, float gz,
-    float decay, float mu, float keep, float shell, void* stream) {
+    const float* f_ext, int ny, int nx, float dt, float damping, float gx,
+    float gy, float gz, float decay, float mu, float keep, float shell,
+    void* stream) {
   const Params p{dt, damping, gx, gy, gz, decay, mu, keep, shell};
   const dim3 block(32, 8);
   const dim3 grid((nx + block.x - 1) / block.x, (ny + block.y - 1) / block.y);
-  grid_verlet_substep_kernel<<<grid, block, 0,
-                               static_cast<cudaStream_t>(stream)>>>(
-      x, xp, out, inv_mass, offsets, n_off, plane, plane_on, plane_fric,
-      spheres, n_spheres, sphere_fric, ny, nx, p);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (f_ext)
+    grid_verlet_substep_kernel<true><<<grid, block, 0, st>>>(
+        x, xp, out, inv_mass, offsets, n_off, plane, plane_on, plane_fric,
+        spheres, n_spheres, sphere_fric, f_ext, ny, nx, p);
+  else
+    grid_verlet_substep_kernel<false><<<grid, block, 0, st>>>(
+        x, xp, out, inv_mass, offsets, n_off, plane, plane_on, plane_fric,
+        spheres, n_spheres, sphere_fric, f_ext, ny, nx, p);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -20,6 +20,10 @@
 //   predict   v <- (v + dt g)(1 - gdamp dt), 0 on pins; delta <- dt v; the
 //             lambda planes and the contact flag <- 0.  x is the substep's
 //             start position xp and stays read-only until the next substep.
+//             An optional external force plane f (the self-collision
+//             repulsion at xp, block_pairs.cu) enters here as
+//             g + f inv_mass, as solver/step.py::substep_xpbd takes it;
+//             the sweeps cover only the springs.
 //   sweep     (n_iterations launches) evaluate xe = xp + delta at the
 //             vertex and its 12 neighbours; per offset, dlam of the edge the
 //             vertex owns and, from the same device function, argument order
@@ -68,18 +72,31 @@ struct Params {
   float shell;        // SPHERE_CONTACT_SHELL
 };
 
+// kExt: f_ext, [3, ny, nx], is added to the predict's acceleration as
+// f_ext * inv_mass; the instantiation without it is the kernel as it was
+// before the plane existed.
+template <bool kExt>
 __global__ void __launch_bounds__(256) grid_xpbd_predict_kernel(
     const float* __restrict__ v, float* __restrict__ delta,
     float* __restrict__ lam, int n_off, unsigned char* __restrict__ flag,
-    const float* __restrict__ inv_mass, int ny, int nx, Params p) {
+    const float* __restrict__ inv_mass, const float* __restrict__ f_ext,
+    int ny, int nx, Params p) {
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
   const int i = blockIdx.y * blockDim.y + threadIdx.y;
   if (i >= ny || j >= nx) return;
   const int ps = ny * nx;
   const int idx = i * nx + j;
   Vec3 vi = load3(v, idx, ps);
-  vi = {(vi.x + p.dt * p.gx) * p.decay, (vi.y + p.dt * p.gy) * p.decay,
-        (vi.z + p.dt * p.gz) * p.decay};
+  if (kExt) {
+    const float w = inv_mass[idx];
+    const Vec3 f = load3(f_ext, idx, ps);
+    vi = {(vi.x + p.dt * (p.gx + f.x * w)) * p.decay,
+          (vi.y + p.dt * (p.gy + f.y * w)) * p.decay,
+          (vi.z + p.dt * (p.gz + f.z * w)) * p.decay};
+  } else {
+    vi = {(vi.x + p.dt * p.gx) * p.decay, (vi.y + p.dt * p.gy) * p.decay,
+          (vi.z + p.dt * p.gz) * p.decay};
+  }
   if (!(inv_mass[idx] > 0.0f)) vi = {0.0f, 0.0f, 0.0f};
   store3(delta, idx, ps, {p.dt * vi.x, p.dt * vi.y, p.dt * vi.z});
   for (int o = 0; o < n_off; ++o) lam[o * ps + idx] = 0.0f;
@@ -196,18 +213,22 @@ dim3 grid_of(int ny, int nx, dim3 block) {
 }  // namespace
 
 // Launch the predict pass of one substep on `stream`; returns the
-// cudaError_t of the launch (0 = cudaSuccess).  Allocates nothing and does
-// not synchronise.
+// cudaError_t of the launch (0 = cudaSuccess).  f_ext may be null (no
+// external force plane).  Allocates nothing and does not synchronise.
 extern "C" int grid_xpbd_predict(const float* v, float* delta, float* lam,
                                  int n_off, unsigned char* flag,
-                                 const float* inv_mass, int ny, int nx,
-                                 float dt, float gx, float gy, float gz,
-                                 float decay, void* stream) {
+                                 const float* inv_mass, const float* f_ext,
+                                 int ny, int nx, float dt, float gx, float gy,
+                                 float gz, float decay, void* stream) {
   const Params p{dt, gx, gy, gz, decay, 0.0f, 1.0f, 1.0f};
   const dim3 block(32, 8);
-  grid_xpbd_predict_kernel<<<grid_of(ny, nx, block), block, 0,
-                             static_cast<cudaStream_t>(stream)>>>(
-      v, delta, lam, n_off, flag, inv_mass, ny, nx, p);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (f_ext)
+    grid_xpbd_predict_kernel<true><<<grid_of(ny, nx, block), block, 0, st>>>(
+        v, delta, lam, n_off, flag, inv_mass, f_ext, ny, nx, p);
+  else
+    grid_xpbd_predict_kernel<false><<<grid_of(ny, nx, block), block, 0, st>>>(
+        v, delta, lam, n_off, flag, inv_mass, f_ext, ny, nx, p);
   return static_cast<int>(cudaGetLastError());
 }
 

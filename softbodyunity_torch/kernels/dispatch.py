@@ -10,6 +10,17 @@ version (:func:`.stencil.make_stencil_step`,
 :func:`softbodyunity_torch.solver.step.make_plain_step`).  Anything else
 raises ``NotImplementedError`` naming the ROADMAP item that ports it;
 nothing degrades to another path.
+
+Grid scenes with self-collision (methods ``block`` and ``dense``) take the
+grid path too, on either device: each substep computes the repulsion as a
+``[3, ny, nx]`` force plane (method ``block`` on the card: the
+``block_pairs`` kernel, :mod:`.blocks`), and the solver's grid kernel adds
+it where the JAX package's general path adds ``self_collision_force``.  The
+JAX dispatcher sends such scenes off its fused grid kernels instead
+(``softbodyunity_tpu/kernels/dispatch.py:168-169``), because those keep the
+whole state in VMEM and have no input for an outside force; these kernels
+read the plane from device memory like the rest of their state.  Routing as
+the TPU does would put the plain spring code on the card's main path.
 """
 
 from __future__ import annotations

@@ -17,6 +17,7 @@ import torch
 from ..core.config import SimConfig, Solver
 from ..core.state import State
 from ..core.topology import EDGE_BEND, EDGE_SHEAR, Topology
+from .blocks import self_collision_planes_cuda
 from .grid_scene import check_input, check_launch, pack_grid_scene
 from .stencil import _offsets, from_planes, to_planes
 
@@ -44,7 +45,7 @@ def _launcher():
         p, p, p, p,            # x, v, x_out, v_out
         p, p, i,               # inv_mass, offsets, n_off
         p, i, p, i,            # plane, plane_on, spheres, n_spheres
-        i, i,                  # ny, nx
+        p, i, i,               # f_ext (or null), ny, nx
         f, f, f, f, f,         # dt, damping, gx, gy, gz
         f, f, f, f,            # decay, restitution, restitution1, keep
         p,                     # stream
@@ -61,7 +62,10 @@ def make_cuda_step(top: Topology, cfg: SimConfig):
 
     The collider geometry and the offset table (di, dj, k, rest) are packed
     once, here, into float32 rows on the device; the kernel reads them from
-    device memory, so a frame makes no host round trip."""
+    device memory, so a frame makes no host round trip.  With self-collision
+    on, each substep first computes the repulsion at its start position
+    (method ``block``: one launch of the ``block_pairs`` kernel) and the
+    Euler kernel adds that force plane to the spring forces."""
     sc = pack_grid_scene(top, cfg, Solver.SEMI_IMPLICIT_EULER, "grid_euler")
     ny, nx, device = sc.ny, sc.nx, sc.device
     n = ny * nx
@@ -71,6 +75,7 @@ def make_cuda_step(top: Topology, cfg: SimConfig):
     table = torch.tensor(offsets, dtype=torch.float32, device=device)
     col = cfg.collision
     gx, gy, gz = cfg.gravity
+    sc_force = self_collision_planes_cuda(cfg, ny, nx, device)
     launch, error_string = _launcher()
 
     def fn(state: State, dt: float, n_substeps: int) -> State:
@@ -90,11 +95,13 @@ def make_cuda_step(top: Topology, cfg: SimConfig):
         with torch.cuda.device(device):
             stream = torch.cuda.current_stream(device).cuda_stream
             for _ in range(n_substeps):
+                f_ext = sc_force(xa) if sc_force else None
                 check_launch(launch(
                     xa.data_ptr(), va.data_ptr(), xb.data_ptr(), vb.data_ptr(),
                     sc.inv_mass.data_ptr(), table.data_ptr(), len(offsets),
                     sc.plane.data_ptr(), sc.plane_on, sc.spheres.data_ptr(),
-                    sc.n_spheres, ny, nx, *scalars, stream),
+                    sc.n_spheres, None if f_ext is None else f_ext.data_ptr(),
+                    ny, nx, *scalars, stream),
                     "grid_euler", error_string)
                 _launches += 1
                 xa, xb, va, vb = xb, xa, vb, va

@@ -19,6 +19,7 @@ from ..core.config import SimConfig, Solver
 from ..core.state import State
 from ..core.topology import EDGE_BEND, EDGE_SHEAR, Topology
 from ..solver.collide import SPHERE_CONTACT_SHELL
+from .blocks import self_collision_planes_cuda
 from .grid_scene import check_input, check_launch, pack_grid_scene
 from .stencil import _offsets, from_planes, to_planes
 
@@ -47,7 +48,7 @@ def _launcher():
         p, p, i,               # inv_mass, offsets, n_off
         p, i, i,               # plane, plane_on, plane_fric
         p, i, i,               # spheres, n_spheres, sphere_fric
-        i, i,                  # ny, nx
+        p, i, i,               # f_ext (or null), ny, nx
         f, f, f, f, f,         # dt, damping, gx, gy, gz
         f, f, f, f,            # decay, mu, keep, shell
         p,                     # stream
@@ -65,7 +66,10 @@ def make_cuda_step(top: Topology, cfg: SimConfig):
     and ``v = (x - x_prev) / dt``.
 
     The collider rows and the offset table (di, dj, k, rest) are packed
-    once, here, into float32 rows on the device."""
+    once, here, into float32 rows on the device.  With self-collision on,
+    each substep first computes the repulsion at ``x`` (method ``block``:
+    one ``block_pairs`` launch), which the kernel adds to the spring
+    forces."""
     sc = pack_grid_scene(top, cfg, Solver.VERLET, "grid_verlet")
     ny, nx, device = sc.ny, sc.nx, sc.device
     n = ny * nx
@@ -75,6 +79,7 @@ def make_cuda_step(top: Topology, cfg: SimConfig):
     table = torch.tensor(offsets, dtype=torch.float32, device=device)
     mu = cfg.collision.friction
     gx, gy, gz = cfg.gravity
+    sc_force = self_collision_planes_cuda(cfg, ny, nx, device)
     launch, error_string = _launcher()
 
     def fn(state: State, dt: float, n_substeps: int) -> State:
@@ -93,12 +98,14 @@ def make_cuda_step(top: Topology, cfg: SimConfig):
         with torch.cuda.device(device):
             stream = torch.cuda.current_stream(device).cuda_stream
             for _ in range(n_substeps):
+                f_ext = sc_force(x) if sc_force else None
                 check_launch(launch(
                     x.data_ptr(), xp.data_ptr(), out.data_ptr(),
                     sc.inv_mass.data_ptr(), table.data_ptr(), len(offsets),
                     sc.plane.data_ptr(), sc.plane_on, sc.plane_fric,
-                    sc.spheres.data_ptr(), sc.n_spheres, sc.sphere_fric, ny,
-                    nx, *scalars, stream), "grid_verlet", error_string)
+                    sc.spheres.data_ptr(), sc.n_spheres, sc.sphere_fric,
+                    None if f_ext is None else f_ext.data_ptr(), ny, nx,
+                    *scalars, stream), "grid_verlet", error_string)
                 _launches += 1
                 # the new position, the new history, the next output
                 x, xp, out = out, x, xp

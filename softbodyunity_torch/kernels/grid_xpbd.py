@@ -22,6 +22,7 @@ from ..core.config import SimConfig, Solver
 from ..core.state import State
 from ..core.topology import EDGE_BEND, EDGE_SHEAR, Topology
 from ..solver.collide import SPHERE_CONTACT_SHELL
+from .blocks import self_collision_planes_cuda
 from .grid_scene import check_input, check_launch, pack_grid_scene
 from .stencil import (_valid_mask, _xpbd_offsets, from_planes, jacobi_count,
                       to_planes)
@@ -54,7 +55,7 @@ def _launchers():
     predict = lib.grid_xpbd_predict
     predict.argtypes = [
         p, p, p, i, p, p,      # v, delta, lam, n_off, flag, inv_mass
-        i, i,                  # ny, nx
+        p, i, i,               # f_ext (or null), ny, nx
         f, f, f, f, f,         # dt, gx, gy, gz, decay
         p,                     # stream
     ]
@@ -85,7 +86,10 @@ def make_cuda_step(top: Topology, cfg: SimConfig):
 
     The collider rows and ``inv_cnt = relaxation / max(count, 1)`` are
     packed once, here; the offset table (di, dj, alpha / dt^2, rest) once
-    per substep size ``dt``."""
+    per substep size ``dt``.  With self-collision on, each substep first
+    computes the repulsion at its start position (method ``block``: one
+    ``block_pairs`` launch), which the predict launch takes into the
+    velocity; the sweeps cover only the springs."""
     sc = pack_grid_scene(top, cfg, Solver.XPBD, "grid_xpbd")
     ny, nx, device = sc.ny, sc.nx, sc.device
     n = ny * nx
@@ -101,6 +105,7 @@ def make_cuda_step(top: Topology, cfg: SimConfig):
     project = int(cfg.xpbd.n_iterations > 0)
     gx, gy, gz = cfg.gravity
     tables = {}
+    sc_force = self_collision_planes_cuda(cfg, ny, nx, device)
     predict, sweep, error_string = _launchers()
 
     def fn(state: State, dt: float, n_substeps: int) -> State:
@@ -128,10 +133,12 @@ def make_cuda_step(top: Topology, cfg: SimConfig):
         with torch.cuda.device(device):
             stream = torch.cuda.current_stream(device).cuda_stream
             for _ in range(n_substeps):
+                f_ext = sc_force(x) if sc_force else None
                 check_launch(predict(
                     v.data_ptr(), d_in.data_ptr(), lam_in.data_ptr(), n_off,
-                    flag.data_ptr(), sc.inv_mass.data_ptr(), ny, nx, dt, gx,
-                    gy, gz, 1.0 - cfg.global_damping * dt, stream),
+                    flag.data_ptr(), sc.inv_mass.data_ptr(),
+                    None if f_ext is None else f_ext.data_ptr(), ny, nx, dt,
+                    gx, gy, gz, 1.0 - cfg.global_damping * dt, stream),
                     "grid_xpbd predict", error_string)
                 _launches += 1
                 for it in range(n_sweeps):

@@ -43,6 +43,8 @@ def use_volume(top: Topology, cfg: SimConfig) -> bool:
 def _gate_failure(top: Topology, cfg: SimConfig):
     """Why the lattice path cannot run ``(top, cfg)``, or None."""
     g, t = top.offset_groups, top.tet_groups
+    if cfg.self_collision.enabled:
+        return "self-collision on a tet scene"
     if g is None or t is None:
         return "no banded groups were built for this topology"
     if len(g.deltas) == 0 or g.n_residual > 0:

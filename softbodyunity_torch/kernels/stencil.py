@@ -28,6 +28,7 @@ from ..core.config import SimConfig, Solver
 from ..core.state import State
 from ..core.topology import EDGE_BEND, EDGE_SHEAR, Topology
 from ..solver.collide import SPHERE_CONTACT_SHELL
+from ..solver.forces import self_collision_planes
 
 # Config branches of the fused grid kernels that the port does not run yet,
 # for every solver, each with the ROADMAP item that ports it.  The kernels
@@ -45,7 +46,10 @@ _UNPORTED = (
     ("tearing", lambda c: c.tear.enabled, "Queue 1 item 6, Queue 2 item 1"),
     ("plasticity", lambda c: c.plasticity.enabled,
      "Queue 1 item 6, Queue 2 item 1"),
-    ("self-collision", lambda c: c.self_collision.enabled, "Queue 1 item 5"),
+    ("self-collision methods hash and dense_mxu",
+     lambda c: (c.self_collision.enabled
+                and c.self_collision.method in ("hash", "dense_mxu")),
+     "Queue 1 item 5"),
     ("pressure", lambda c: c.pressure.enabled, "Queue 1 item 6"),
     ("shape matching", lambda c: c.shape_match.enabled, "Queue 1 item 7"),
     ("motion constraints", lambda c: c.motion.enabled, "Queue 1 item 6"),
@@ -158,14 +162,18 @@ def stencil_spring_forces(
 
 
 def euler_substep_grid(x3, v3, inv_mass2, offsets, masks, gravity,
-                       cfg: SimConfig, dt: float, top: Topology):
+                       cfg: SimConfig, dt: float, top: Topology, f_ext=None):
     """One semi-implicit Euler substep on grid planes (oracle
     ``substep_euler`` semantics): springs, gravity and global damping,
     pinning, then plane and sphere contact relative to the colliders'
     kinematic velocities.  ``gravity`` is ``[3, 1, 1]`` on the planes'
-    device.  Returns ``(x3, v3)``."""
+    device.  ``f_ext`` (``[3, ny, nx]`` or None) is an external force at
+    ``x3``, the self-collision repulsion, added to the spring forces as
+    ``total_forces`` adds it.  Returns ``(x3, v3)``."""
     movable = inv_mass2 > 0.0
     f = stencil_spring_forces(x3, v3, offsets, masks, cfg.springs.damping)
+    if f_ext is not None:
+        f = f + f_ext
     v3 = (v3 + dt * (gravity + f * inv_mass2)) * (1.0 - cfg.global_damping * dt)
     v3 = torch.where(movable, v3, 0.0)
     x3 = x3 + dt * v3
@@ -275,15 +283,18 @@ def _sphere_friction_grid(x3, x_start3, cfg: SimConfig, dt: float, movable,
 
 
 def verlet_substep_grid(x3, xp3, inv_mass2, offsets, masks, gravity,
-                        cfg: SimConfig, dt: float, top: Topology):
+                        cfg: SimConfig, dt: float, top: Topology, f_ext=None):
     """One position-Verlet substep on grid planes (oracle ``substep_verlet``
-    semantics): springs on the velocity estimate ``(x - xp) / dt``, the
-    damped position update, pinning, then position-only plane and sphere
-    contact and their friction.  Returns ``(x_new, x3)``: the new position
-    and the new history ``x_prev``."""
+    semantics): springs on the velocity estimate ``(x - xp) / dt``, plus
+    ``f_ext`` at ``x3`` when given, the damped position update, pinning,
+    then position-only plane and sphere contact and their friction.
+    Returns ``(x_new, x3)``: the new position and the new history
+    ``x_prev``."""
     movable = inv_mass2 > 0.0
     v_est = (x3 - xp3) / dt
     f = stencil_spring_forces(x3, v_est, offsets, masks, cfg.springs.damping)
+    if f_ext is not None:
+        f = f + f_ext
     accel = gravity + f * inv_mass2
     x_new = (x3 + (x3 - xp3) * (1.0 - cfg.global_damping * dt)
              + accel * dt * dt)
@@ -297,13 +308,16 @@ def verlet_substep_grid(x3, xp3, inv_mass2, offsets, masks, gravity,
 
 
 def xpbd_substep_grid(x3, v3, inv_mass2, xoffsets, masks, cnt, gravity,
-                      cfg: SimConfig, dt: float, top: Topology):
+                      cfg: SimConfig, dt: float, top: Topology, f_ext=None):
     """One XPBD substep on grid planes (oracle ``substep_xpbd`` semantics):
     predict, then ``n_iterations`` Jacobi sweeps of distance-constraint
     projection with compliance, count-averaged and under-relaxed, contact
     projected inside the loop, friction once after it, and the velocity
     recovered from the position change.  ``cnt`` is
-    :func:`jacobi_count` of ``masks``.  Returns ``(x_new, v_new)``.
+    :func:`jacobi_count` of ``masks``.  ``f_ext`` (or None), an external
+    force at ``x3``, enters the predict as ``f_ext * inv_mass``, as
+    ``substep_xpbd`` takes the self-collision repulsion; the constraints
+    cover only the springs.  Returns ``(x_new, v_new)``.
 
     Delta form: the loop carries the substep's accumulated position change
     ``delta`` and never a rounded ``x``; only the evaluation point
@@ -312,7 +326,8 @@ def xpbd_substep_grid(x3, v3, inv_mass2, xoffsets, masks, cnt, gravity,
     col = cfg.collision
     movable = inv_mass2 > 0.0
     w = inv_mass2[0]
-    v3 = (v3 + dt * gravity) * (1.0 - cfg.global_damping * dt)
+    accel = gravity if f_ext is None else gravity + f_ext * inv_mass2
+    v3 = (v3 + dt * accel) * (1.0 - cfg.global_damping * dt)
     v3 = torch.where(movable, v3, 0.0)
     x_prev = x3
     delta = dt * v3
@@ -378,8 +393,11 @@ def from_planes(a: torch.Tensor) -> torch.Tensor:
 def make_stencil_step(top: Topology, cfg: SimConfig):
     """Build ``fn(state, dt, n_substeps) -> state`` for a grid-cloth scene
     under ``cfg.solver`` (Euler, Verlet or XPBD), in plain PyTorch on
-    whatever device ``top`` lives on."""
+    whatever device ``top`` lives on.  With self-collision on, each substep
+    first evaluates its force planes at the substep's start position
+    (method ``block`` by the pair kernel's plain version)."""
     check_ported(cfg)
+    sc_force = self_collision_planes(cfg)
     ny, nx = top.grid_shape
     has_shear = EDGE_SHEAR in top.edge_classes_present
     has_bend = EDGE_BEND in top.edge_classes_present
@@ -399,19 +417,23 @@ def make_stencil_step(top: Topology, cfg: SimConfig):
         if cfg.solver == Solver.VERLET:
             xp3 = to_planes(state.x_prev, ny, nx)
             for _ in range(n_substeps):
+                f_ext = sc_force(x3) if sc_force else None
                 x3, xp3 = verlet_substep_grid(x3, xp3, inv_mass2, offsets,
-                                              masks, gravity, cfg, dt, top)
+                                              masks, gravity, cfg, dt, top,
+                                              f_ext)
             v3 = (x3 - xp3) / dt
         else:
             v3 = to_planes(state.v, ny, nx)
             for _ in range(n_substeps):
+                f_ext = sc_force(x3) if sc_force else None
                 if cfg.solver == Solver.XPBD:
                     x3, v3 = xpbd_substep_grid(x3, v3, inv_mass2, xoffsets,
                                                masks, cnt, gravity, cfg, dt,
-                                               top)
+                                               top, f_ext)
                 else:
                     x3, v3 = euler_substep_grid(x3, v3, inv_mass2, offsets,
-                                                masks, gravity, cfg, dt, top)
+                                                masks, gravity, cfg, dt, top,
+                                                f_ext)
             # neither solver reads x_prev; rebuild the natural value (the
             # position before the final integrate) as the JAX fast paths do
             xp3 = x3 - dt * v3

@@ -1,5 +1,5 @@
-"""Workload presets of the grid-cloth and tet-cube slices (Euler, Verlet,
-XPBD), under the JAX package's names (``softbodyunity_tpu/models/presets.py``).
+"""Workload presets of the grid-cloth (with and without self-collision) and
+tet-cube slices (Euler, Verlet, XPBD), under the JAX package's names (``softbodyunity_tpu/models/presets.py``).
 
 Each preset returns ``(HostTopology, SimConfig)``; feed the topology to
 :func:`softbodyunity_torch.api.init` and the pair to ``step``.  The other
@@ -12,8 +12,8 @@ from typing import Callable, Dict, Tuple
 
 import numpy as np
 
-from ..core.config import (CollisionParams, SimConfig, Solver, SpringParams,
-                           XPBDParams)
+from ..core.config import (CollisionParams, SelfCollisionParams, SimConfig,
+                           Solver, SpringParams, XPBDParams)
 from ..core.topology import HostTopology, cloth_grid, tet_cube
 
 _REGISTRY: Dict[str, Callable[[], Tuple[HostTopology, SimConfig]]] = {}
@@ -120,6 +120,85 @@ def cloth_bench_64k():
         pinned=("top",),
         springs=cfg.springs, xpbd=cfg.xpbd,
         plane_height=-8.0, origin=(0.0, 0.0, 0.0), orientation="xy",
+    )
+    return top, cfg
+
+
+@register("cloth_batch_rl")
+def cloth_batch_rl():
+    """BASELINE.json:11 — '1024-scene vmapped cloth batch with spatial-hash
+    self-collision for RL rollouts'.  Returns ONE 16x16 scene.  Its shipping
+    self-collision method ``dense_mxu`` (the MXU pairwise form) and the batch
+    are not ported yet (ROADMAP Queue 1 item 5): stepping it as shipped
+    raises; replace the method with ``dense`` or ``block`` to run it."""
+    cfg = SimConfig(
+        solver=Solver.SEMI_IMPLICIT_EULER,
+        springs=SpringParams(k_structural=600.0, k_shear=300.0, damping=0.5),
+        collision=CollisionParams(enable_plane=True, friction=0.3),
+        global_damping=0.2,
+        self_collision=SelfCollisionParams(
+            enabled=True, method="dense_mxu", radius=0.03, stiffness=40.0,
+            cell_size=0.03, grid_dim=32, max_per_cell=4,
+        ),
+        n_substeps=8,
+    )
+    top = cloth_grid(
+        16, 16, spacing=0.04, shear=True, bend=False,
+        pinned=("tl", "tr"),
+        springs=cfg.springs, xpbd=cfg.xpbd,
+        plane_height=-1.0, origin=(0.0, 0.0, 0.0), orientation="xy",
+    )
+    return top, cfg
+
+
+@register("cloth_selfcollide_16k")
+def cloth_selfcollide_16k():
+    """Large single-scene self-collision: a 128x128 = 16,384-vertex curtain
+    pinned along the top, folding onto itself under gravity, on the
+    block-sparse Morton-tiled path.  block_partners = 64 = the tile count,
+    so the partner budget can never overflow."""
+    spacing = 0.01
+    cfg = SimConfig(
+        solver=Solver.SEMI_IMPLICIT_EULER,
+        springs=SpringParams(k_structural=800.0, k_shear=400.0, damping=0.8),
+        collision=CollisionParams(enable_plane=True, friction=0.3),
+        global_damping=1.0,
+        self_collision=SelfCollisionParams(
+            enabled=True, method="block", radius=0.008, stiffness=60.0,
+            cell_size=0.016, block_partners=64,
+        ),
+    )
+    top = cloth_grid(
+        128, 128, spacing=spacing, mass=0.01, shear=True, bend=False,
+        pinned=("top",),
+        springs=cfg.springs, xpbd=cfg.xpbd,
+        plane_height=-0.9, origin=(0.0, 0.0, 0.0), orientation="xy",
+    )
+    return top, cfg
+
+
+@register("cloth_selfcollide_64k")
+def cloth_selfcollide_64k():
+    """64k-vertex self-colliding curtain (256x256) on the block-sparse path:
+    the dense rule would be 4.3 billion pairs.  ``cell_size`` is the Morton
+    sort granularity (0.32: each cell holds ~4 whole tiles, so tiles stay
+    compact); ``block_partners`` = 96 covers the heavy partner tail of the
+    draping curtain (the JAX package's docstring gives the measurements)."""
+    cfg = SimConfig(
+        solver=Solver.SEMI_IMPLICIT_EULER,
+        springs=SpringParams(k_structural=800.0, k_shear=400.0, damping=0.8),
+        collision=CollisionParams(enable_plane=True, friction=0.3),
+        global_damping=1.0,
+        self_collision=SelfCollisionParams(
+            enabled=True, method="block", radius=0.008, stiffness=60.0,
+            cell_size=0.32, block_partners=96,
+        ),
+    )
+    top = cloth_grid(
+        256, 256, spacing=0.01, mass=0.01, shear=True, bend=False,
+        pinned=("top",),
+        springs=cfg.springs, xpbd=cfg.xpbd,
+        plane_height=-2.2, origin=(0.0, 0.0, 0.0), orientation="xy",
     )
     return top, cfg
 

@@ -203,6 +203,34 @@ def test_unported_branch_raises(what):
         tsb.step(top, cfg.replace(**_UNPORTED[what]), state)
 
 
+# self-collision: methods hash and dense_mxu (and the batch preset that ships
+# dense_mxu) come with the batch slice; on tet scenes with the general path
+@pytest.mark.parametrize("preset,method,item", [
+    ("cloth_32_euler", "hash", "Queue 1 item 5"),
+    ("cloth_32_euler", "dense_mxu", "Queue 1 item 5"),
+    ("cloth_batch_rl", None, "Queue 1 item 5"),
+    ("softbody_cube", "block", "Queue 1 item 3"),
+    ("softbody_cube", "dense", "Queue 1 item 3"),
+])
+def test_unported_self_collision_raises_with_its_item(preset, method, item):
+    host, cfg = tsb.presets.build(preset)
+    if method is not None:
+        cfg = cfg.replace(self_collision=SelfCollisionParams(
+            enabled=True, method=method))
+    top, state = tsb.init(host, device="cpu")
+    with pytest.raises(NotImplementedError, match=item):
+        tsb.step(top, cfg, state)
+
+
+def test_unknown_self_collision_method_raises():
+    host, cfg = tsb.presets.build("cloth_32_euler")
+    top, state = tsb.init(host, device="cpu")
+    cfg = cfg.replace(self_collision=SelfCollisionParams(
+        enabled=True, method="dense-mxu"))
+    with pytest.raises(ValueError, match="unknown self-collision method"):
+        tsb.step(top, cfg, state)
+
+
 def test_non_grid_scene_raises():
     host, cfg = tsb.presets.build("cloth_32_euler")
     top, state = tsb.init(host, device="cpu")

@@ -1,6 +1,7 @@
-"""The hand-written CUDA kernels, grid (grid_euler, grid_verlet, grid_xpbd)
-and tet lattice (lattice_euler, lattice_verlet, lattice_xpbd), against their
-plain PyTorch versions, on the card.  These tests skip without
+"""The hand-written CUDA kernels, grid (grid_euler, grid_verlet, grid_xpbd),
+tet lattice (lattice_euler, lattice_verlet, lattice_xpbd) and the
+block-sparse self-collision pairs (block_pairs), against their plain
+PyTorch versions, on the card.  These tests skip without
 a CUDA device: the kernels have no CPU mode.  The file imports no jax, so it runs where JAX is absent; there run it
 without the repository's conftest (which sets JAX up):
 
@@ -15,9 +16,11 @@ import torch
 
 import softbodyunity_torch as tsb
 from softbodyunity_torch.core.config import CollisionParams, Solver, XPBDParams
-from softbodyunity_torch.kernels import (dispatch, grid_euler, grid_verlet,
-                                        grid_xpbd, lattice_euler,
+from softbodyunity_torch.core.config import SelfCollisionParams
+from softbodyunity_torch.kernels import (blocks, dispatch, grid_euler,
+                                        grid_verlet, grid_xpbd, lattice_euler,
                                         lattice_verlet, lattice_xpbd, stencil)
+from softbodyunity_torch.solver import blocksparse
 from softbodyunity_torch.solver.step import make_plain_step
 
 torch.set_num_threads(1)
@@ -311,3 +314,108 @@ def test_dispatch_takes_each_lattice_kernel_on_card(cuda, solver):
     top_cpu, _ = tsb.init(host, device="cpu")
     assert (dispatch.maybe_fast_step(top_cpu, cfg).__qualname__
             == "make_plain_step.<locals>.fn")
+
+
+# --- block_pairs: block-sparse self-collision ---------------------------------
+
+# tests/test_blocksparse.py:158's kernel-vs-twin tolerance (rsqrt and another
+# summation order); 500 and 1000 are not multiples of the tile size, so the
+# last tile carries far-coordinate pads
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,blk,partners", [
+    (500, 256, 2), (1000, 256, 4), (2048, 256, 8), (1000, 128, 8),
+    (2048, 128, 16), (4 * 256, 256, 1),
+])
+def test_block_pairs_matches_plain_on_card(cuda, n, blk, partners):
+    rng = np.random.default_rng(n + blk)
+    side = 0.02 if partners == 1 else 0.5      # a pile with a starved budget
+    x = torch.tensor(rng.uniform(0, side, (n, 3)), dtype=torch.float32,
+                     device=cuda)
+    p = SelfCollisionParams(enabled=True, method="block", radius=0.05,
+                            stiffness=10.0, cell_size=0.05,
+                            block_partners=partners, block_size=blk)
+    want = blocksparse.self_collision_forces_block(x, p)
+    blocks.reset_launch_count()
+    fn = blocks.make_block_pairs(p, n, cuda)
+    got = fn(x)
+    again = fn(x)              # the arrival counters reset themselves
+    torch.cuda.synchronize()
+    assert blocks.launch_count() == 2
+    assert torch.equal(got, again)             # deterministic
+    torch.testing.assert_close(got.t(), want, atol=5e-4, rtol=1e-3)
+    assert float(want.abs().max()) > 0.0
+
+
+def _batch_rl(solver, method="block"):
+    host, cfg = tsb.presets.build("cloth_batch_rl")
+    return host, cfg.replace(solver=solver, self_collision=dataclasses.replace(
+        cfg.self_collision, method=method))
+
+
+# kernel path against the plain path, f32 on the card: FMA contraction and
+# rsqrt only, PERF.md's small-scene bounds (x 1e-5, v 2e-3)
+@pytest.mark.cuda
+@pytest.mark.parametrize("solver", list(_WRAPPERS))
+@pytest.mark.parametrize("method", ["block", "dense"])
+def test_self_collision_rollout_launches_on_card(cuda, solver, method):
+    host, cfg = _batch_rl(solver, method)
+    top, s0 = tsb.init(host, device=cuda)
+    frames = 3
+    for w in (*_WRAPPERS.values(), *_LATTICE.values(), blocks):
+        w.reset_launch_count()
+    s = s0
+    for _ in range(frames):
+        s = tsb.step(top, cfg, s)
+    torch.cuda.synchronize()
+    subs = frames * cfg.n_substeps
+    per_sub = (grid_xpbd.launches_per_substep(cfg) if solver == Solver.XPBD
+               else 1)
+    assert _WRAPPERS[solver].launch_count() == subs * per_sub
+    assert blocks.launch_count() == (subs if method == "block" else 0)
+    assert sum(w.launch_count() for w in (*_WRAPPERS.values(),
+                                          *_LATTICE.values())) == subs * per_sub
+    plain = stencil.make_stencil_step(top, cfg)
+    want = s0
+    for _ in range(frames):
+        want = plain(want, cfg.dt, cfg.n_substeps)
+    torch.testing.assert_close(s.x, want.x, atol=1e-5, rtol=0)
+    torch.testing.assert_close(s.v, want.v, atol=2e-3, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("solver", list(_WRAPPERS))
+def test_self_collision_frame_never_waits_for_the_device(cuda, solver):
+    """The sort, the partner search and the pair launch of every substep
+    stay on the device: torch's sync debug mode raises on a host wait."""
+    host, cfg = _batch_rl(solver)
+    top, s0 = tsb.init(host, device=cuda)
+    fn = _WRAPPERS[solver].make_cuda_step(top, cfg)
+    fn(s0, cfg.dt, 1)                          # build and load first
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        s = fn(s0, cfg.dt, cfg.n_substeps)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert bool(torch.isfinite(s.x).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("solver", list(_WRAPPERS))
+def test_null_force_plane_is_the_kernel_without_it(cuda, solver,
+                                                   monkeypatch):
+    """A zero force plane gives, bit for bit, what the launch without one
+    (the null pointer, the kernel as it was before the plane) gives: the
+    plane enters at one place and nowhere else."""
+    host, cfg = _scene16_solver(solver)
+    top, s0 = tsb.init(host, device=cuda)
+    wrapper = _WRAPPERS[solver]
+    without = wrapper.make_cuda_step(top, cfg)(s0, cfg.dt, 32)
+    monkeypatch.setattr(wrapper, "self_collision_planes_cuda",
+                        lambda c, ny, nx, device: torch.zeros_like)
+    on = cfg.replace(self_collision=SelfCollisionParams(enabled=True,
+                                                        method="block"))
+    with_zero = wrapper.make_cuda_step(top, on)(s0, cfg.dt, 32)
+    torch.cuda.synchronize()
+    assert torch.equal(without.x, with_zero.x)
+    assert torch.equal(without.v, with_zero.v)

@@ -30,7 +30,8 @@ torch.set_num_threads(1)
 SLICE_PRESETS = ["cloth_32_euler", "cloth_hanging_sphere", "cloth_bench_64k",
                  "cloth_xpbd", "cloth_bench_64k_xpbd",
                  "cloth_bench_64k_verlet", "softbody_cube",
-                 "softbody_cube_xpbd_sub"]
+                 "softbody_cube_xpbd_sub", "cloth_batch_rl",
+                 "cloth_selfcollide_16k", "cloth_selfcollide_64k"]
 # tet_cube(40) is seconds of Python loops in each package: these presets are
 # held equal by their configs and their builder's arguments
 LATTICE_64K = ["softbody_cube_64k", "softbody_cube_64k_verlet",
@@ -104,6 +105,20 @@ def test_cloth_grid_matches_jax(kw):
                         jtopo.cloth_grid(7, 5, **kw))
 
 
+def test_self_collision_params_match_jax():
+    """The copied SelfCollisionParams: the same fields, defaults and
+    types."""
+    from softbodyunity_tpu.core.config import SelfCollisionParams as J
+
+    assert ([(f.name, f.type, f.default) for f in dataclasses.fields(
+        tsb.SelfCollisionParams)]
+        == [(f.name, f.type, f.default) for f in dataclasses.fields(J)])
+    jp = J(enabled=True, method="block", radius=0.01, block_partners=32)
+    assert dataclasses.asdict(convert.config_from_dict(dataclasses.asdict(
+        jpresets.build("cloth_32_euler")[1].replace(
+            self_collision=jp))).self_collision) == dataclasses.asdict(jp)
+
+
 def test_cloth_grid_rejects_unknown_pin():
     with pytest.raises(ValueError):
         ttopo.cloth_grid(4, 4, pinned=("middle",))
@@ -173,6 +188,9 @@ def test_package_imports_no_jax():
             "import softbodyunity_torch.kernels.lattice_euler\n"
             "import softbodyunity_torch.kernels.lattice_verlet\n"
             "import softbodyunity_torch.kernels.lattice_xpbd\n"
+            "import softbodyunity_torch.kernels.blocks\n"
+            "import softbodyunity_torch.solver.blocksparse\n"
+            "import softbodyunity_torch.solver.forces\n"
             "import softbodyunity_torch.solver.step\n"
             "import softbodyunity_torch.solver.collide\n"
             "import softbodyunity_torch.kernels.dispatch\n"
