@@ -18,6 +18,17 @@ sort and the partner search (PyTorch ops on the card), one block_pairs
 launch that writes the repulsion force plane, and one grid_euler launch
 that adds it to the spring forces.
 
+Then the grids past the TPU's whole-VMEM cap (its row-tiled kernels) and the
+tear and plastic planes, on the same three grid kernels (their feature
+instantiations, with one frame-end update launch a frame):
+
+    Euler   cloth_bench_262k, cloth_bench_1m        grid_euler   1
+    Euler   cloth_tearing_262k, cloth_plastic_262k,
+            cloth_tearing_64k, cloth_plastic_64k    grid_euler   1, + 1 a frame
+    Verlet  cloth_tearing_262k (solver replaced)    grid_verlet  1, + 1 a frame
+    XPBD    cloth_tearing_262k (solver replaced)    grid_xpbd    1 + n_iterations,
+                                                                 + 1 a frame
+
 Phases, each printed as one JSON line; any failure raises and exits nonzero:
 
 1. device     the card's name and power limit (nvidia-smi) and torch's view;
@@ -33,7 +44,13 @@ Phases, each printed as one JSON line; any failure raises and exits nonzero:
               dense rule) and the 64k self-collision preset after 24
               substeps, where no tile pair may be dropped, and the frame
               that follows; then one frame of the 64k curtain shrunk to
-              60 % and of each grid solver with self-collision;
+              60 % and of each grid solver with self-collision; each
+              feature instantiation on the small tearing and plastic
+              scenes of tests/test_torch_features.py, one frame-end update
+              launch from identical inputs against the plain update (masks
+              and scales to the bit), one frame of each 262k feature preset
+              under the three solvers (masks equal), and one frame of the
+              262k and 1m curtains;
 4. main_path  each 64k preset through init(device="cuda") and 300 frames of
               step() (the self-collision preset 60), every launch count set
               to 0 just before and read just after: the path's kernels
@@ -41,7 +58,11 @@ Phases, each printed as one JSON line; any failure raises and exits nonzero:
               no other kernel launched; x finite, pinned rows bit-equal to
               the initial state, nothing below the plane (and the cubes
               resting on it), unit normals, the path's own peak device
-              memory from init on;
+              memory from init on; then the eight paths past the cap or
+              with feature planes (phase main_path_large), each checked the
+              same way, the tear masks non-increasing with edges torn, the
+              rest scales inside their clip with some above 1, max |v| per
+              frame finite;
 5. sphere     cloth_hanging_sphere (Euler), 120 frames: the pins hold, no
               vertex inside the sphere;
 6. golden     the float64 oracle trajectories of tests/golden replayed
@@ -53,7 +74,11 @@ Phases, each printed as one JSON line; any failure raises and exits nonzero:
               grid Euler and Verlet over 500 frames of their 64k presets,
               grid XPBD over 100; softbody_cube over 1000 frames; the 64k
               cubes over 200 frames (Euler, Verlet) and 60 (XPBD);
-              cloth_batch_rl with method block over 100 frames;
+              cloth_batch_rl with method block over 100 frames; the 262k
+              and 1m curtains over 200 and 100 frames; the feature presets
+              over 60 (64k) or 30 (262k) frames, the masks and scales of
+              float32 kernel, float32 plain and float64 plain compared at
+              each frame (printed, not bounded);
 8. timing     per 64k preset, ms per substep of the kernel path and of the
               plain version with CUDA events, in turns plain/kernel/kernel/
               plain; then, after all of them (a profiler session slows the
@@ -63,7 +88,8 @@ Phases, each printed as one JSON line; any failure raises and exits nonzero:
               counts) and again from the main path's last state (the cube
               deformed and resting on the plane).  The self-collision
               path and its pair function alone are timed from the 64k
-              preset's state after 24 substeps.
+              preset's state after 24 substeps.  The paths past the cap and
+              with feature planes are timed from rest.
 
 Then a JSON line of the kernels (launches on the main path, error against
 the plain version, times, bound), the nvidia-smi line, and as the last line
@@ -132,6 +158,19 @@ OPS_LATTICE_XPBD_VERTEX_SWEEP = 14
 # sqrt 1, k (r - d) / d 3, w diff 3, summed into the force 3 = 19 (the
 # compare and select of the radius test are not counted).
 OPS_PAIR = 19
+# The feature update of one edge, counted from its plain version
+# (kernels/stencil.py::update_features) the same way: the length (d 3,
+# |d|^2 5, sqrt 1) 9; plastic flow (rest scale 1, max 1, strain 2, abs 1,
+# yield 1, max 1, sign 1 and its multiply 1, creep 1, + 1 1, times scale 1,
+# clip 2) 14; the tear check (threshold 1 multiply without plasticity, 2
+# with, compare 1, alive * ok 1).  A plastic edge's force or constraint
+# takes one more multiply (rest * scale); under tearing the XPBD Jacobi
+# count adds 2 per edge and a max and a divide per vertex.
+OPS_FEATURE_LENGTH = 9
+OPS_PLASTIC = 14
+OPS_TEAR = 3
+OPS_XPBD_COUNT_EDGE = 2
+OPS_XPBD_COUNT_VERTEX = 2
 
 
 class SmokeFailure(Exception):
@@ -169,6 +208,22 @@ def bound_per_substep(name, top, cfg):
         nbytes = 4 * n * (3 + 3 + 1 + 1 + 3 + 3)
         ops = (it * (OPS_XPBD_EDGE * e + OPS_XPBD_VERTEX_SWEEP * n)
                + OPS_XPBD_VERTEX_ONCE * n)
+    tear, plastic = cfg.tear.enabled, cfg.plasticity.enabled
+    if tear or plastic:
+        # the planes of the enabled features read and written once per
+        # substep, and per frame one more update over the final x (read
+        # once), spread over the frame's substeps; the update's operations
+        # per edge and substep, as many again at the frame's end
+        planes = n_off * (int(tear) + int(plastic))
+        sub = cfg.n_substeps
+        nbytes += 4 * n * planes * 2 * (sub + 1) / sub + 4 * n * 3 / sub
+        update = (OPS_FEATURE_LENGTH + OPS_PLASTIC * int(plastic)
+                  + (OPS_TEAR + int(plastic)) * int(tear))
+        ops += e * update * (sub + 1) / sub
+        if plastic:
+            ops += e * (cfg.xpbd.n_iterations if name == "grid_xpbd" else 1)
+        if tear and name == "grid_xpbd":
+            ops += OPS_XPBD_COUNT_EDGE * e + OPS_XPBD_COUNT_VERTEX * n
     return _bound(nbytes + consts, ops)
 
 
@@ -228,11 +283,14 @@ def main() -> int:
     import numpy as np
 
     import softbodyunity_torch as sb
+    from softbodyunity_torch import api
     from softbodyunity_torch.kernels import (blocks, build, grid_euler,
                                             grid_verlet, grid_xpbd,
                                             lattice_euler, lattice_verlet,
                                             lattice_xpbd)
-    from softbodyunity_torch.kernels.stencil import make_stencil_step
+    from softbodyunity_torch.kernels.stencil import (make_stencil_step,
+                                                    to_planes,
+                                                    update_features)
     from softbodyunity_torch.solver import blocksparse
     from softbodyunity_torch.solver.forces import self_collision_forces_dense
     from softbodyunity_torch.solver.step import make_plain_step
@@ -294,6 +352,48 @@ def main() -> int:
         return (grid_xpbd.launches_per_substep(cfg) if name == "grid_xpbd"
                 else 1)
 
+    # the grids past the TPU's whole-VMEM cap and the tear and plastic
+    # planes: each path's preset (its solver replaced where named), the
+    # kernel it launches and its main-path frames (the 1m curtain at least
+    # 12: its JAX preset once NaN'd by frame 12)
+    large = {}
+    for label, preset, solver, kernel, frames_ in (
+            ("cloth_bench_262k", "cloth_bench_262k", None, "grid_euler", 30),
+            ("cloth_bench_1m", "cloth_bench_1m", None, "grid_euler", 24),
+            ("cloth_tearing_262k", "cloth_tearing_262k", None, "grid_euler",
+             30),
+            ("cloth_tearing_262k_verlet", "cloth_tearing_262k",
+             sb.Solver.VERLET, "grid_verlet", 20),
+            ("cloth_tearing_262k_xpbd", "cloth_tearing_262k", sb.Solver.XPBD,
+             "grid_xpbd", 10),
+            ("cloth_plastic_262k", "cloth_plastic_262k", None, "grid_euler",
+             30),
+            ("cloth_tearing_64k", "cloth_tearing_64k", None, "grid_euler", 60),
+            ("cloth_plastic_64k", "cloth_plastic_64k", None, "grid_euler",
+             60)):
+        large[label] = dict(preset=preset, solver=solver, kernel=kernel,
+                            frames=frames_)
+    # the kernels line's entries for the row-tiled TPU kernels #4-6: the
+    # feature instantiations, and the plain one past the cap
+    variants = {
+        "grid_euler_features": dict(
+            base="grid_euler", path="cloth_tearing_262k",
+            replaces="softbodyunity_tpu/kernels/pallas_tiled.py:380, and the "
+                     "tear/plastic branch of pallas_substep.py:534"),
+        "grid_verlet_features": dict(
+            base="grid_verlet", path="cloth_tearing_262k_verlet",
+            replaces="softbodyunity_tpu/kernels/pallas_tiled.py:738, and the "
+                     "tear/plastic branch of pallas_substep.py:801"),
+        "grid_xpbd_features": dict(
+            base="grid_xpbd", path="cloth_tearing_262k_xpbd",
+            replaces="softbodyunity_tpu/kernels/pallas_tiled.py:1155, and "
+                     "the tear/plastic branch of pallas_xpbd.py:334"),
+        "grid_euler_1m": dict(
+            base="grid_euler", path="cloth_bench_1m",
+            replaces="softbodyunity_tpu/kernels/pallas_tiled.py:380, without "
+                     "feature planes"),
+    }
+
     def reset_counts():
         for k in kernels.values():
             k["module"].reset_launch_count()
@@ -316,6 +416,18 @@ def main() -> int:
              vertices=k["host"].positions0.shape[0],
              tets=k["host"].tets.shape[0], edges=k["host"].edges.shape[0],
              seconds=time.perf_counter() - t)
+    built = {}
+    for p in large.values():
+        if p["preset"] not in built:
+            t = time.perf_counter()
+            built[p["preset"]] = sb.presets.build(p["preset"])
+            emit("host_build", preset=p["preset"],
+                 vertices=built[p["preset"]][0].positions0.shape[0],
+                 edges=built[p["preset"]][0].edges.shape[0],
+                 seconds=time.perf_counter() - t)
+        p["host"], cfg = built[p["preset"]]
+        p["cfg"] = cfg if p["solver"] is None else cfg.replace(
+            solver=p["solver"])
     phase_seconds()
 
     # 2. build --------------------------------------------------------------
@@ -598,6 +710,237 @@ def main() -> int:
         require(early <= 1e-5, f"fidelity cloth_batch_rl: {early:.3e} by 20")
         require(late <= 5e-2, f"fidelity cloth_batch_rl: {late:.3e}")
 
+    # --- the grids past the cap and the tear and plastic planes -------------
+    def feature_scene(solver, feature):
+        """tests/test_torch_features.py's hanging cloth (8 wide, 24 rows; 32
+        for XPBD): "tear" rips at 3 % strain, "plastic" creeps past 2 %,
+        "both" does both, creeping slower."""
+        cfg = sb.SimConfig(
+            solver=solver,
+            springs=sb.SpringParams(k_structural=300.0, k_shear=150.0,
+                                    k_bend=60.0, damping=0.3),
+            xpbd=sb.XPBDParams(compliance_distance=3e-4, compliance_bend=1e-3,
+                               n_iterations=4),
+            tear=sb.TearParams(enabled=feature in ("tear", "both"),
+                               strain_limit=0.03),
+            plasticity=sb.PlasticityParams(
+                enabled=feature in ("plastic", "both"), yield_strain=0.02,
+                creep=0.05 if feature == "both" else 0.25),
+            collision=sb.CollisionParams(enable_plane=True),
+            global_damping=0.1)
+        host = sb.cloth_grid(8, 32 if solver == sb.Solver.XPBD else 24,
+                             spacing=0.05, shear=True, bend=True,
+                             pinned=("top",), springs=cfg.springs,
+                             xpbd=cfg.xpbd, plane_height=-5.0,
+                             orientation="xy")
+        return host, cfg
+
+    def with_features(top, cfg, s):
+        return api.ensure_plastic_state(top, cfg,
+                                        api.ensure_tear_state(top, cfg, s))
+
+    def feature_diff(a, b):
+        """(edges whose liveness differs, max |rest scale difference|)
+        between two states (None for a feature that is off)."""
+        m = (None if a.edge_alive is None else
+             int((a.edge_alive != b.edge_alive.to(a.edge_alive.dtype)).sum()))
+        d = (None if a.rest_scale is None else float(
+            (a.rest_scale.double() - b.rest_scale.double()).abs().max()))
+        return m, d
+
+    def compare_features(name, scene, host, cfg, n_sub, atol_x, atol_v,
+                         atol_s, why):
+        """Kernel ``name`` with its tear and plastic planes against the plain
+        version, float32 on the card, from rest: the masks must be equal.
+        Returns (max error, topology, kernel state)."""
+        top, s0 = sb.init(host, device=cuda)
+        s0 = with_features(top, cfg, s0)
+        plain = make_stencil_step(top, cfg)(s0, cfg.dt, n_sub)
+        kern = kernels[name]["module"].make_cuda_step(top, cfg)(
+            s0, cfg.dt, n_sub)
+        torch.cuda.synchronize()
+        dx = float((kern.x - plain.x).abs().max())
+        dv = float((kern.v - plain.v).abs().max())
+        mask_diff, ds = feature_diff(kern, plain)
+        torn = (None if plain.edge_alive is None
+                else int((plain.edge_alive == 0).sum()))
+        smax = (None if plain.rest_scale is None
+                else float(plain.rest_scale.max()))
+        pinned = torch.from_numpy(host.inv_mass == 0.0).to(cuda)
+        emit("compare", kernel=name, scene=scene, substeps=n_sub,
+             tear=cfg.tear.enabled, plastic=cfg.plasticity.enabled,
+             max_abs_dx=dx, max_abs_dv=dv, mask_diff_edges=mask_diff,
+             torn_edges=torn, max_abs_scale_err=ds, max_scale=smax,
+             atol_x=atol_x, atol_v=atol_v, atol_scale=atol_s, why=why)
+        require(bool(torch.isfinite(kern.x).all()
+                     and torch.isfinite(kern.v).all()),
+                f"{name} {scene}: kernel output not finite")
+        require(torch.equal(kern.x[pinned], s0.x[pinned]),
+                f"{name} {scene}: pinned vertices moved")
+        require(not mask_diff, f"{name} {scene}: {mask_diff} masks differ")
+        require(dx <= atol_x and dv <= atol_v and (ds is None or ds <= atol_s),
+                f"{name} {scene}: kernel vs plain |dx| {dx:.3e}, |dv| "
+                f"{dv:.3e}, |dscale| {ds}")
+        return max(dx, dv), top, kern
+
+    def update_bit_equal(name, scene, top, cfg, state):
+        """One frame-end update launch of kernel ``name`` on ``state``
+        against the plain update on the same inputs: masks and scales of
+        every edge to the bit."""
+        fn = kernels[name]["module"].make_cuda_step(top, cfg)
+        planes = fn.features.planes
+        alive, scale = planes.to_planes(state)
+        x3 = to_planes(state.x, *top.grid_shape).contiguous()
+        table = torch.tensor(planes.offsets, dtype=torch.float32, device=cuda)
+        got = planes.to_edges(*fn.features.update(x3, alive, scale, table),
+                              state)
+        want = planes.to_edges(*update_features(x3, planes.offsets, alive,
+                                                scale, cfg), state)
+        torch.cuda.synchronize()
+        tore = (None if want[0] is None else
+                int(((state.edge_alive != 0) & (want[0] == 0)).sum()))
+        same = [torch.equal(g, w) for g, w in zip(got, want) if w is not None]
+        emit("compare", kernel=name, scene=scene + ", one frame-end launch",
+             edges=planes.n_edges, torn_by_the_update=tore,
+             bit_equal=all(same))
+        require(all(same), f"{name} {scene}: the update launch differs from "
+                "the plain update")
+
+    def compare_large():
+        fma = "FMA contraction only"
+        for solver, name in ((sb.Solver.SEMI_IMPLICIT_EULER, "grid_euler"),
+                             (sb.Solver.VERLET, "grid_verlet"),
+                             (sb.Solver.XPBD, "grid_xpbd")):
+            for feature in ("tear", "plastic", "both"):
+                host, cfg = feature_scene(solver, feature)
+                _, top, kern = compare_features(
+                    name, f"8-wide hanging cloth, {feature}", host, cfg, 64,
+                    5e-5, 5e-2, 1e-5,
+                    fma + "; tests/test_tearing.py's 5e-5 on x over 64 "
+                    "substeps of a tearing cloth")
+                if cfg.tear.enabled:
+                    require(float(kern.edge_alive.min()) == 0.0,
+                            f"{name} {feature}: nothing tore")
+                if cfg.plasticity.enabled:
+                    require(float(kern.rest_scale.max()) > 1.001,
+                            f"{name} {feature}: no plastic flow")
+                # a stretched cloth: strains around the limits
+                rng = np.random.default_rng(7)
+                _, s0 = sb.init(host, device=cuda)
+                e = host.edges.shape[0]
+                state = s0.replace(
+                    x=s0.x + torch.tensor(
+                        0.003 * rng.standard_normal(tuple(s0.x.shape)),
+                        dtype=torch.float32, device=cuda),
+                    edge_alive=torch.tensor(rng.uniform(size=e) < 0.8,
+                                            dtype=torch.float32, device=cuda),
+                    rest_scale=torch.tensor(rng.uniform(0.9, 1.2, e),
+                                            dtype=torch.float32,
+                                            device=cuda))
+                update_bit_equal(name, f"8-wide cloth stretched, {feature}",
+                                 top, cfg, state)
+        # one frame of each 262k feature preset under the three solvers,
+        # and of the curtains past the cap
+        for label, p in large.items():
+            host, cfg = p["host"], p["cfg"]
+            if cfg.tear.enabled or cfg.plasticity.enabled:
+                err, top, kern = compare_features(
+                    p["kernel"], label, host, cfg, cfg.n_substeps, 1e-5, 1e-3,
+                    1e-5, "one frame from rest: " + fma)
+                update_bit_equal(p["kernel"], label + " after one frame", top,
+                                 cfg, kern)
+                del top, kern
+            else:
+                err = compare(p["kernel"], label, host, cfg, cfg.n_substeps,
+                              1e-5, 1e-3, "one smooth frame: rounding only")
+            p["err"] = err
+        if "cloth_plastic_262k" in large:
+            for solver, name in ((sb.Solver.VERLET, "grid_verlet"),
+                                 (sb.Solver.XPBD, "grid_xpbd")):
+                p = large["cloth_plastic_262k"]
+                compare_features(name, "cloth_plastic_262k, " + solver.value,
+                                 p["host"], p["cfg"].replace(solver=solver),
+                                 p["cfg"].n_substeps, 1e-5, 1e-3, 1e-5,
+                                 "one frame from rest: " + fma)
+
+    def main_path_large():
+        for label, p in large.items():
+            host, cfg = p["host"], p["cfg"]
+            frames_ = p["frames"]
+            module = kernels[p["kernel"]]["module"]
+            torch.cuda.synchronize()
+            held = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            top, state0 = sb.init(host, device="cuda")
+            pinned = torch.from_numpy(host.inv_mass == 0.0).to(cuda)
+            expected = frames_ * module.launches_per_frame(cfg, cfg.n_substeps)
+            reset_counts()
+            t = time.perf_counter()
+            state, vmax, alive_sum = state0, [], []
+            for _ in range(frames_):
+                state = sb.step(top, cfg, state)
+                vmax.append(torch.linalg.vector_norm(state.v, dim=1).max())
+                if cfg.tear.enabled:
+                    alive_sum.append(state.edge_alive.sum())
+            torch.cuda.synchronize()
+            main_s = time.perf_counter() - t
+            launched = counts()
+            p["launches"] = launched[p["kernel"]]
+            x = state.x
+            vmax = torch.stack(vmax).tolist()
+            alive_sum = (torch.stack(alive_sum).tolist() if alive_sum
+                         else None)
+            length = torch.linalg.vector_norm(sb.normals(top, state), dim=1)
+            flat = length == 0.0
+            unit_err = float((length[~flat] - 1.0).abs().max())
+            e = host.edges.shape[0]
+            scale = state.rest_scale
+            emit("main_path_large", kernel=p["kernel"], path=label,
+                 preset=p["preset"], solver=cfg.solver.value,
+                 vertices=x.shape[0], edges=e, frames=frames_,
+                 substeps=frames_ * cfg.n_substeps, launches=launched,
+                 expected_launches=expected, seconds=main_s,
+                 vmax_per_frame=vmax[::max(1, frames_ // 12)],
+                 vmax_last=vmax[-1], alive_edges_per_frame=(
+                     None if alive_sum is None
+                     else alive_sum[::max(1, frames_ // 12)]),
+                 torn_edges=(None if alive_sum is None
+                             else e - int(alive_sum[-1])),
+                 rest_scale_min=None if scale is None else float(scale.min()),
+                 rest_scale_max=None if scale is None else float(scale.max()),
+                 y_min=float(x[:, 1].min()),
+                 plane_height=float(top.plane_height),
+                 normal_unit_err=unit_err, collapsed_normals=int(flat.sum()),
+                 peak_mem_bytes=torch.cuda.max_memory_allocated() - held)
+            require(launched[p["kernel"]] == expected,
+                    f"{label}: {launched[p['kernel']]} launches, expected "
+                    f"{expected}")
+            require(sum(launched.values()) == expected,
+                    f"{label}: other kernels launched: {launched}")
+            require(bool(torch.isfinite(x).all()), f"{label}: x not finite")
+            require(int(pinned.sum()) == host.grid_shape[1],
+                    f"{label}: {int(pinned.sum())} pins")
+            require(torch.equal(x[pinned], state0.x[pinned]),
+                    f"{label}: pinned row moved")
+            require(bool((x[:, 1] >= top.plane_height).all()),
+                    f"{label}: vertex below the plane")
+            require(all(np.isfinite(vmax)) and max(vmax) < 100.0,
+                    f"{label}: max |v| per frame {vmax}")
+            require(bool(torch.isfinite(length).all()) and unit_err <= 1e-5,
+                    f"{label}: normals off unit length by {unit_err:.3e}")
+            if alive_sum is not None:
+                require(all(b <= a for a, b in zip(alive_sum, alive_sum[1:])),
+                        f"{label}: a torn edge came back")
+                require(alive_sum[-1] < e, f"{label}: nothing tore")
+            if scale is not None:
+                pp = cfg.plasticity
+                require(float(scale.min()) >= pp.min_scale
+                        and float(scale.max()) <= pp.max_scale
+                        and float(scale.max()) > 1.0,
+                        f"{label}: rest scales in [{float(scale.min())}, "
+                        f"{float(scale.max())}]")
+            del top, state0, state, x, pinned, length, flat
+
     # 3. kernel vs plain version on the card ----------------------------------
     def scene16(solver=sb.Solver.SEMI_IMPLICIT_EULER, shear=True, bend=True,
                 sphere=None, verlet_sphere=False):
@@ -723,6 +1066,7 @@ def main() -> int:
                              k["cfg"].n_substeps, 1e-5, 1e-3,
                              "one smooth frame: rounding only")
     sc_state = compare_self_collision()
+    compare_large()
     emit("compare", seconds=phase_seconds())
 
     # 4. the main paths -----------------------------------------------------
@@ -784,6 +1128,7 @@ def main() -> int:
             k["settled"] = state
         del top, state0, state, x, pinned, on_surface, nrm
     main_path_self_collision()
+    main_path_large()
     emit("main_path", seconds=phase_seconds())
 
     # 5. hanging cloth on a sphere ------------------------------------------
@@ -890,9 +1235,11 @@ def main() -> int:
         graph: a replay runs the same kernels on the same inputs as a call,
         without the host's cost of the thousands of small eager ops a frame
         of a float64 plain version launches.  The state it returns is the
-        graph's output buffers, which the next replay overwrites."""
-        inp = sb.State(x=s0.x.clone(), v=s0.v.clone(),
-                       x_prev=s0.x_prev.clone())
+        graph's output buffers, which the next replay overwrites.  The tear
+        and plastic fields ride along where ``s0`` has them."""
+        fields = [f for f in ("x", "v", "x_prev", "edge_alive", "rest_scale")
+                  if getattr(s0, f) is not None]
+        inp = s0.replace(**{f: getattr(s0, f).clone() for f in fields})
         side = torch.cuda.Stream()
         side.wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(side):
@@ -903,12 +1250,15 @@ def main() -> int:
             out = fn(inp, cfg.dt, cfg.n_substeps)
 
         def frame(s):
-            for buf, val in ((inp.x, s.x), (inp.v, s.v),
-                             (inp.x_prev, s.x_prev)):
-                buf.copy_(val)
+            for f in fields:
+                getattr(inp, f).copy_(getattr(s, f))
             graph.replay()
             return out
 
+        # the graph reads the tensors ``fn`` built once (masks, tables) by
+        # address: keep them alive as long as the graph (unreferenced, their
+        # memory is reused and replays read garbage)
+        frame.fn = fn
         return frame
 
     for name, preset, n_frames, every, bound, why, ref in fidelity:
@@ -943,6 +1293,86 @@ def main() -> int:
              seconds=time.perf_counter() - t)
         require(worst <= bound, f"fidelity {name}: drift {worst:.3e} > {bound}")
     fidelity_self_collision()
+
+    def fidelity_large():
+        # the curtains past the cap: BASELINE.json:5's 1e-3 over 200 (262k)
+        # and 100 (1m) frames.  The float64 references of this phase run
+        # eagerly: at these sizes the device, not the host, bounds them
+        for label, n_frames, every in (("cloth_bench_262k", 200, 50),
+                                       ("cloth_bench_1m", 100, 25)):
+            p = large[label]
+            host, cfg = p["host"], p["cfg"]
+            t = time.perf_counter()
+            top32, s32 = sb.init(host, device="cuda")
+            top64, s64 = sb.init(host, device="cuda", dtype=torch.float64)
+            plain64 = make_stencil_step(top64, cfg)
+            checkpoints = []
+            for i in range(n_frames):
+                s32 = sb.step(top32, cfg, s32)
+                s64 = plain64(s64, cfg.dt, cfg.n_substeps)
+                if (i + 1) % every == 0:
+                    checkpoints.append(float(
+                        (s32.x.double() - s64.x).abs().max()))
+            torch.cuda.synchronize()
+            worst = max(checkpoints)
+            emit("fidelity", kernel=p["kernel"], preset=label,
+                 frames=n_frames, every=every, drift=checkpoints,
+                 worst_drift=worst, bound=1e-3,
+                 bound_source="BASELINE.json:5",
+                 seconds=time.perf_counter() - t)
+            require(worst <= 1e-3, f"fidelity {label}: drift {worst:.3e}")
+            del top32, s32, top64, s64, plain64
+        # the feature presets: the float32 kernel path against the float32
+        # and the float64 plain versions, frame by frame: the first frame in
+        # which the tear masks part, the edges that differ and the largest
+        # rest-scale gap at each checkpoint, and the position drift.
+        # Printed, not bounded: a mask decision at the threshold turns on one
+        # ulp of an edge length
+        for label, n_frames, every in (("cloth_tearing_64k", 60, 10),
+                                       ("cloth_plastic_64k", 60, 10),
+                                       ("cloth_tearing_262k", 30, 5),
+                                       ("cloth_plastic_262k", 30, 5)):
+            p = large[label]
+            host, cfg = p["host"], p["cfg"]
+            t = time.perf_counter()
+            top32, s32 = sb.init(host, device="cuda")
+            s32 = with_features(top32, cfg, s32)
+            top64, s64 = sb.init(host, device="cuda", dtype=torch.float64)
+            s64 = with_features(top64, cfg, s64)
+            plain32 = make_stencil_step(top32, cfg)
+            plain64 = make_stencil_step(top64, cfg)
+            p32, p64 = s32, s64
+            first = {"plain32": None, "plain64": None}
+            rows = []
+            for i in range(n_frames):
+                s32 = sb.step(top32, cfg, s32)
+                p32 = plain32(p32, cfg.dt, cfg.n_substeps)
+                p64 = plain64(p64, cfg.dt, cfg.n_substeps)
+                d32, d64 = feature_diff(s32, p32), feature_diff(s32, p64)
+                for key, d in (("plain32", d32), ("plain64", d64)):
+                    if first[key] is None and (d[0] or 0) > 0:
+                        first[key] = i + 1
+                if (i + 1) % every == 0:
+                    rows.append(dict(
+                        frame=i + 1,
+                        mask_diff_vs_plain32=d32[0],
+                        mask_diff_vs_plain64=d64[0],
+                        scale_gap_vs_plain32=d32[1],
+                        scale_gap_vs_plain64=d64[1],
+                        torn_edges=(None if s32.edge_alive is None else
+                                    int((s32.edge_alive == 0).sum())),
+                        x_drift_vs_plain64=float(
+                            (s32.x.double() - p64.x).abs().max())))
+            torch.cuda.synchronize()
+            emit("fidelity", kernel=p["kernel"], preset=label,
+                 frames=n_frames, every=every,
+                 first_frame_masks_part=first, checkpoints=rows,
+                 seconds=time.perf_counter() - t)
+            require(bool(torch.isfinite(s32.x).all()),
+                    f"fidelity {label}: not finite")
+            del top32, s32, top64, s64, plain32, plain64, p32, p64
+
+    fidelity_large()
     emit("fidelity", seconds=phase_seconds())
 
     # 8. timing -------------------------------------------------------------
@@ -1063,6 +1493,29 @@ def main() -> int:
          ms_per_pair_call=pair_ms, sum_nvalid=tile_pairs,
          dropped_pairs=dropped, bound_us_per_call=sc["bound_ms"] * 1e3,
          bound_by=sc["bound_by"])
+    # the paths past the cap and with feature planes, from rest
+    for label, p in large.items():
+        host, cfg = p["host"], p["cfg"]
+        top, s0 = sb.init(host, device="cuda")
+        s0 = with_features(top, cfg, s0)
+        kern_fn = kernels[p["kernel"]]["module"].make_cuda_step(top, cfg)
+        plain_fn = make_stencil_step(top, cfg)
+        p["timing_fn"], p["timing_s0"] = kern_fn, s0
+        ms = in_turns({
+            "kernel": lambda: substep_ms(kern_fn, s0, cfg, 10,
+                                         cfg.n_substeps),
+            "plain": lambda: substep_ms(plain_fn, s0, cfg, 1,
+                                        cfg.n_substeps)})
+        p["ms"], p["plain_ms"] = min(ms["kernel"]), min(ms["plain"])
+        p["bound_ms"], p["bound_by"] = bound_per_substep(p["kernel"], top,
+                                                         cfg)
+        emit("timing", kernel=p["kernel"], path=label, preset=p["preset"],
+             card=smi, ms_per_substep=ms,
+             kernel_substeps_per_s=1e3 / p["ms"],
+             plain_substeps_per_s=1e3 / p["plain_ms"],
+             bound_us_per_substep=p["bound_ms"] * 1e3,
+             bound_by=p["bound_by"])
+        del top, plain_fn
     for name, k in steps.items():
         cfg = k["cfg"]
         starts = {"": k["timing_s0"]}
@@ -1091,15 +1544,37 @@ def main() -> int:
          launches={n: c for n, (_, c) in dev.items()},
          other_device_us_per_substep=busy - named,
          device_us_per_substep=busy)
+    for label, p in large.items():
+        cfg = p["cfg"]
+        names = kernels[p["kernel"]]["device_names"]
+        if cfg.tear.enabled or cfg.plasticity.enabled:
+            names = names + ("grid_feature_finish_kernel",)
+        dev, busy = device_us_per_launch(p["timing_fn"], p["timing_s0"], cfg,
+                                         3, names)
+        emit("timing", kernel=p["kernel"], path=label, profiler_frames=3,
+             start="rest",
+             device_us_per_launch={n: us for n, (us, _) in dev.items()},
+             launches={n: c for n, (_, c) in dev.items()},
+             device_us_per_substep=busy)
     emit("timing", seconds=phase_seconds())
 
-    print(json.dumps({"kernels": [{
+    line = [{
         "name": name, "route": "cuda", "source": k["source"],
         "replaces": k["replaces"], "launches": k["launches"],
         "max_abs_err": k["err64"], "ms": k["ms"], "plain_ms": k["plain_ms"],
         "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
         "library_ms": None,   # no single PyTorch call computes a substep
-    } for name, k in kernels.items()]}), flush=True)
+    } for name, k in kernels.items()]
+    for name, vv in variants.items():
+        p = large[vv["path"]]
+        line.append({
+            "name": name, "route": "cuda",
+            "source": kernels[vv["base"]]["source"],
+            "replaces": vv["replaces"], "launches": p["launches"],
+            "max_abs_err": p["err"], "ms": p["ms"], "plain_ms": p["plain_ms"],
+            "bound_ms": p["bound_ms"], "bound_by": p["bound_by"],
+            "library_ms": None})
+    print(json.dumps({"kernels": line}), flush=True)
     emit("done", seconds=time.perf_counter() - t_start)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

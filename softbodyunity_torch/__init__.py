@@ -3,8 +3,9 @@
 A port of ``softbodyunity_tpu`` (JAX on a TPU) to PyTorch on an NVIDIA H100,
 with the same module layout and names.  The port covers grid cloth and the
 volumetric tet cube (banded tet lattices) under the semi-implicit Euler,
-Verlet and XPBD solvers with plane and sphere contact, and vertex-vertex
-self-collision on grid cloth (methods ``block`` and ``dense``); each hot
+Verlet and XPBD solvers with plane and sphere contact, vertex-vertex
+self-collision on grid cloth (methods ``block`` and ``dense``), and grid
+cloth of any size with tearing and plasticity; each hot
 loop is a hand-written CUDA kernel (``kernels/csrc/grid_euler.cu``,
 ``grid_verlet.cu``, ``grid_xpbd.cu`` for cloth; ``lattice_euler.cu``,
 ``lattice_verlet.cu``, ``lattice_xpbd.cu`` for lattices; ``block_pairs.cu``

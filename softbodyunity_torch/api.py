@@ -124,6 +124,27 @@ def _dispatch_step(top, cfg, state, dt, n_substeps):
     return _step_fn(top, cfg)(state, dt, n_substeps)
 
 
+def ensure_tear_state(top: Topology, cfg: SimConfig, state: State) -> State:
+    """Populate ``State.edge_alive`` (every edge live) when a tearing config
+    meets a state without it; no-op otherwise."""
+    if cfg.tear.enabled and state.edge_alive is None:
+        state = state.replace(edge_alive=torch.ones(
+            int(top.edges.shape[0]), dtype=state.x.dtype,
+            device=state.x.device))
+    return state
+
+
+def ensure_plastic_state(top: Topology, cfg: SimConfig,
+                         state: State) -> State:
+    """Populate ``State.rest_scale`` (all ones) when a plasticity config
+    meets a state without it; no-op otherwise."""
+    if cfg.plasticity.enabled and state.rest_scale is None:
+        state = state.replace(rest_scale=torch.ones(
+            int(top.edges.shape[0]), dtype=state.x.dtype,
+            device=state.x.device))
+    return state
+
+
 def step(
     top: Topology,
     cfg: SimConfig,
@@ -133,9 +154,12 @@ def step(
 ) -> State:
     """Advance one frame: ``n_substeps`` substeps of size ``dt``.  Verlet
     reads ``state.x_prev`` as its history (so a state handed over from a
-    running scene keeps its motion); Euler and XPBD read ``state.v``."""
+    running scene keeps its motion); Euler and XPBD read ``state.v``.
+    Under tearing or plasticity a state without ``edge_alive`` or
+    ``rest_scale`` starts with every edge live and unscaled."""
     dt = cfg.dt if dt is None else float(dt)
     n = cfg.n_substeps if n_substeps is None else int(n_substeps)
+    state = ensure_plastic_state(top, cfg, ensure_tear_state(top, cfg, state))
     return _dispatch_step(top, cfg, state, dt, n)
 
 
@@ -150,6 +174,7 @@ def rollout(
     """Run ``n_steps`` frames; returns ``(final_state, xs[n_steps, N, 3])``."""
     dt = cfg.dt if dt is None else float(dt)
     n = cfg.n_substeps if n_substeps is None else int(n_substeps)
+    state = ensure_plastic_state(top, cfg, ensure_tear_state(top, cfg, state))
     xs = torch.empty((int(n_steps),) + tuple(state.x.shape),
                      dtype=state.x.dtype, device=state.x.device)
     for t in range(int(n_steps)):

@@ -10,7 +10,9 @@ inputs.  Nothing here imports jax; the caller fetches JAX arrays with
                               for f in dataclasses.fields(jax_host)})
     cfg   = config_from_dict(dataclasses.asdict(jax_cfg))
     state = state_from_arrays(np.asarray(s.x), np.asarray(s.v),
-                              np.asarray(s.x_prev), device="cuda")
+                              np.asarray(s.x_prev), device="cuda",
+                              edge_alive=np.asarray(s.edge_alive),   # torn
+                              rest_scale=np.asarray(s.rest_scale))   # plastic
 """
 
 from __future__ import annotations
@@ -59,10 +61,15 @@ def config_from_dict(d: dict) -> SimConfig:
     return _rebuild(SimConfig, d)
 
 
-def state_from_arrays(x, v, x_prev, device, dtype=torch.float32) -> State:
+def state_from_arrays(x, v, x_prev, device, dtype=torch.float32,
+                      edge_alive=None, rest_scale=None) -> State:
     """``State`` on ``device`` from ``[N, 3]`` position, velocity and
-    previous-position arrays."""
+    previous-position arrays, and optionally the ``[E]`` tear liveness
+    (``edge_alive``) and plastic rest scales (``rest_scale``) of a torn or
+    plastically deformed scene."""
     def t(a):
-        return torch.tensor(np.asarray(a), dtype=dtype, device=device)
+        return (None if a is None
+                else torch.tensor(np.asarray(a), dtype=dtype, device=device))
 
-    return State(x=t(x), v=t(v), x_prev=t(x_prev))
+    return State(x=t(x), v=t(v), x_prev=t(x_prev), edge_alive=t(edge_alive),
+                 rest_scale=t(rest_scale))

@@ -20,9 +20,11 @@ class State:
 
     ``x_prev`` is the previous-substep position, the Verlet integrator's
     history term; the Euler and XPBD paths return ``x - dt * v`` there, as
-    the JAX package's fast paths do.  The optional fields (tear liveness, plastic
-    rest scale, shape-matching quaternions) belong to features later slices
-    port; the grid paths leave them ``None``.
+    the JAX package's fast paths do.  The optional fields hold the tear
+    liveness (TearParams) and plastic rest scale (PlasticityParams) of the
+    grid paths, one value per edge of ``Topology.edges`` (``api.step`` fills
+    them when a config turns the feature on), and the shape-matching
+    quaternions, which no path of the port carries yet.
     """
 
     x: torch.Tensor        # [N, 3] positions

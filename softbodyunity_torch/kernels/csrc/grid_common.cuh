@@ -188,4 +188,143 @@ __device__ __forceinline__ Vec3 eval_point(const float* __restrict__ xp,
   return {a.x + b.x, a.y + b.y, a.z + b.z};
 }
 
+// --- tearing and plasticity: the per-edge feature update -------------------
+//
+// Tear liveness and plastic rest scales live in [n_off, ny, nx] planes, the
+// entry of edge (p -> p + o) at its owner p.  A kernel updates them at the
+// start of every launch but a frame's first, from its input positions
+// (softbodyunity_torch/kernels/grid_features.py), and the thread of the
+// owner and the thread that takes the edge's reaction each recompute the
+// update.  Both must decide alike, or one side of an edge tears and the
+// other does not: so both call edge_feature_update on the same inputs in
+// the same argument order, and every operation of it is rounded as the
+// plain version rounds it (kernels/stencil.py::update_features): no FMA
+// contraction (the _rn intrinsics), IEEE sqrtf and division.  One update
+// from identical positions then gives masks and scales bit-equal to the
+// plain version's.
+
+// Scalars of the feature updates, from SimConfig, rounded once to float.
+struct FeatParams {
+  float strain1;        // 1 + tear.strain_limit
+  float yield_strain;   // plasticity
+  float creep;
+  float min_scale;
+  float max_scale;
+};
+
+// |b - a|, with |d|^2 summed (d0^2 + d1^2) + d2^2 as the plain version sums
+// it (stencil.py::_edge_lengths).
+__device__ __forceinline__ float edge_length_rn(Vec3 a, Vec3 b) {
+  const float dx = b.x - a.x, dy = b.y - a.y, dz = b.z - a.z;
+  return sqrtf(__fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
+                         __fmul_rn(dz, dz)));
+}
+
+// Plastic flow of one edge's rest scale (stencil.py::plastic_update_grid):
+// past the yield strain the scale creeps toward the deformed length, then
+// is clipped to [min_scale, max_scale].
+__device__ __forceinline__ float plastic_flow(float len, float rest,
+                                              float scale,
+                                              const FeatParams& f) {
+  const float rest_eff = fmaxf(__fmul_rn(rest, scale), 1e-12f);
+  const float strain = __fdiv_rn(__fsub_rn(len, rest_eff), rest_eff);
+  const float sgn = strain > 0.0f ? 1.0f : (strain < 0.0f ? -1.0f : 0.0f);
+  const float excess =
+      __fmul_rn(sgn, fmaxf(__fsub_rn(fabsf(strain), f.yield_strain), 0.0f));
+  const float s = __fmul_rn(scale, __fadd_rn(1.0f, __fmul_rn(f.creep, excess)));
+  return fminf(fmaxf(s, f.min_scale), f.max_scale);
+}
+
+// The feature update of the edge from xa (its owner) to xb
+// (stencil.py::update_features): plastic flow first (scale != nullptr
+// means plasticity is on), then the tear check against the flowed rest
+// (alive != nullptr means tearing is on).  The tear threshold is
+// tear_limit = rest * (1 + strain_limit), rounded once from double, without
+// plasticity, else (rest * scale) * (1 + strain_limit) in float.  An edge
+// past it dies for good: alive * 0.
+__device__ __forceinline__ void edge_feature_update(
+    Vec3 xa, Vec3 xb, float rest, float tear_limit, const FeatParams& f,
+    float* alive, float* scale) {
+  const float len = edge_length_rn(xa, xb);
+  if (scale) *scale = plastic_flow(len, rest, *scale, f);
+  if (alive) {
+    const float limit =
+        scale ? __fmul_rn(__fmul_rn(rest, *scale), f.strain1) : tear_limit;
+    if (!(len <= limit)) *alive = 0.0f;
+  }
+}
+
+// The feature planes of the edge owned by vertex `own` at offset o, to
+// vertex `nb`: read the old values (1 for a feature that is off), update
+// them from positions xa (own) and xb (nb) unless `first`, and return them.
+// alive_in/scale_in are null for a feature that is off.
+__device__ __forceinline__ void edge_features(
+    const float* __restrict__ alive_in, const float* __restrict__ scale_in,
+    int plane_idx, Vec3 xa, Vec3 xb, float rest, float tear_limit,
+    const FeatParams& f, int first, float& alive, float& scale) {
+  alive = alive_in ? alive_in[plane_idx] : 1.0f;
+  scale = scale_in ? scale_in[plane_idx] : 1.0f;
+  if (!first)
+    edge_feature_update(xa, xb, rest, tear_limit, f,
+                        alive_in ? &alive : nullptr,
+                        scale_in ? &scale : nullptr);
+}
+
+// The rest length an edge's force or constraint uses: rest * scale under
+// plasticity, rounded apart so that nvcc cannot fuse it into the length
+// difference (the plain version rounds it, then subtracts).
+__device__ __forceinline__ float scaled_rest(float rest, float scale,
+                                             const float* scale_in) {
+  return scale_in ? __fmul_rn(rest, scale) : rest;
+}
+
+// The frame-end update (grid_features.py::FeaturePlanes.finish): one
+// thread per vertex updates the n_off edges it owns from the final
+// positions x, reading *_in and writing *_out (either pair may be null:
+// that feature is off).  A vertex whose neighbour at offset o lies outside
+// the grid owns no edge there and copies its entry, which nothing reads.
+// table rows are (di, dj, _, rest); tear_limits[o] is offset o's
+// rest * (1 + strain_limit).
+__global__ void __launch_bounds__(256) grid_feature_finish_kernel(
+    const float* __restrict__ x, const float* __restrict__ alive_in,
+    float* __restrict__ alive_out, const float* __restrict__ scale_in,
+    float* __restrict__ scale_out, const float* __restrict__ table,
+    const float* __restrict__ tear_limits, int n_off, int ny, int nx,
+    FeatParams f) {
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  const int i = blockIdx.y * blockDim.y + threadIdx.y;
+  if (i >= ny || j >= nx) return;
+  const int ps = ny * nx;
+  const int idx = i * nx + j;
+  const Vec3 xi = load3(x, idx, ps);
+  for (int o = 0; o < n_off; ++o) {
+    const int ii = i + static_cast<int>(table[4 * o]);
+    const int jj = j + static_cast<int>(table[4 * o + 1]);
+    const int q = o * ps + idx;
+    float a = alive_in ? alive_in[q] : 1.0f;
+    float s = scale_in ? scale_in[q] : 1.0f;
+    if (ii >= 0 && ii < ny && jj >= 0 && jj < nx)
+      edge_features(alive_in, scale_in, q, xi, load3(x, ii * nx + jj, ps),
+                    table[4 * o + 3], tear_limits[o], f, 0, a, s);
+    if (alive_out) alive_out[q] = a;
+    if (scale_out) scale_out[q] = s;
+  }
+}
+
+// Launch the frame-end update on `stream`; returns the cudaError_t of the
+// launch.  Each kernel library exports it under its own name.
+inline int launch_feature_finish(const float* x, const float* alive_in,
+                                 float* alive_out, const float* scale_in,
+                                 float* scale_out, const float* table,
+                                 const float* tear_limits, int n_off, int ny,
+                                 int nx, FeatParams f, void* stream) {
+  const dim3 block(32, 8);
+  const dim3 grid((nx + block.x - 1) / block.x, (ny + block.y - 1) / block.y);
+  grid_feature_finish_kernel<<<grid, block, 0,
+                               static_cast<cudaStream_t>(stream)>>>(
+      x, alive_in, alive_out, scale_in, scale_out, table, tear_limits, n_off,
+      ny, nx, f);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace

@@ -1,50 +1,73 @@
 // Fused semi-implicit Euler substep for structured grid cloth, for Hopper
 // (sm_90a).  Built by softbodyunity_torch/kernels/build.py, wrapped by
 // softbodyunity_torch/kernels/grid_euler.py; its plain PyTorch version is
-// softbodyunity_torch/kernels/stencil.py::euler_substep_grid.
+// softbodyunity_torch/kernels/stencil.py::euler_substep_grid (with
+// update_features, in the launch-start order of
+// softbodyunity_torch/kernels/grid_features.py).
 //
-// Replaces the TPU kernel softbodyunity_tpu/kernels/pallas_substep.py
-// ::_make_kernel, launched by ::_pallas_substeps through pl.pallas_call, for
-// the branches the grid-cloth Euler path runs: the six-offset spring stencil
-// (Hooke + axial damper), gravity, global damping and pinning, plane contact
-// and sphere contact, with the colliders' kinematic velocities.  An optional
+// Replaces two TPU kernels of softbodyunity_tpu/kernels/: the whole-VMEM
+// pallas_substep.py::_make_kernel, launched by ::_pallas_substeps through
+// pl.pallas_call (up to 128k vertices, 64k with tear or plastic planes),
+// and the row-tiled pallas_tiled.py::_make_kernel, launched by
+// ::_tiled_substeps (grids past that cap).  It runs their branches of the
+// grid-cloth Euler path: the six-offset spring stencil (Hooke + axial
+// damper), gravity, global damping and pinning, plane contact and sphere
+// contact with the colliders' kinematic velocities, and the tear-liveness
+// and plastic rest-scale planes (the kFeat instantiation).  An optional
 // external force plane (the self-collision repulsion, block_pairs.cu) is
 // added to the spring forces, where the JAX package's general path adds
 // self_collision_force (solver/step.py::total_forces); the TPU routes such
-// scenes off this kernel.  Its wind,
-// strain-limit, capsule/box, plastic and tear branches are not ported yet;
-// the wrapper refuses configs that enable them.
+// scenes off these kernels.  Their wind, strain-limit and capsule/box
+// branches are not ported yet; the wrapper refuses configs that enable
+// them.
 //
-// Design.  The TPU kernel keeps the whole state in VMEM and runs every
-// substep of a frame in one launch, which caps it at 128k vertices.  An SM's
-// 227 KB of shared memory cannot hold the 64k-vertex state (x and v are
-// 1.5 MB), but the 50 MB L2 holds it from one launch to the next.  So here a
-// substep is one launch with one thread per vertex, reading the (x, v) planes
-// of one buffer and writing the other: ping-pong, because an in-place update
-// would race with the neighbours' reads.  The host loops over substeps.  The
-// design needs no vertex cap and no row-tiled variant.
+// Design.  The TPU's whole-VMEM kernel keeps the state in VMEM and runs
+// every substep of a frame in one launch, which caps it at 128k vertices;
+// past the cap its row-tiled kernel runs one substep per launch on row
+// tiles with DMA'd 8-row halos.  An SM's 227 KB of shared memory cannot
+// hold even the 64k-vertex state (x and v are 1.5 MB), but the 50 MB L2
+// holds it from one launch to the next at 64k, and device memory at any
+// size.  So here a substep is one launch with one thread per vertex,
+// reading the (x, v) planes of one buffer and writing the other: ping-pong,
+// because an in-place update would race with the neighbours' reads.  The
+// host loops over substeps.  That is the row-tiled kernel's form without
+// its tiles: the bounds checks below replace its halos and global-row
+// masks, and no vertex cap applies.  What the row-tiled kernel computes
+// beyond the whole-VMEM one is the launch-start form of the feature
+// planes: a substep that is one launch with no grid-wide barrier cannot
+// tear an edge from its neighbours' new positions, so each launch but a
+// frame's first updates the planes from its INPUT positions (the previous
+// substep's output) before it uses them, and the wrapper launches one
+// frame-end update (grid_common.cuh::grid_feature_finish_kernel) after the
+// last substep.  kFeat is that form here.
 //
 // Spring forces are a gather.  For each offset o a vertex adds the force of
 // the edge it owns (to p + o) and subtracts the force of the edge owned by
 // p - o, recomputed rather than scattered: no atomics, a deterministic sum,
 // and both copies of an edge force come from one function
 // (grid_common.cuh::edge_force, shared with grid_verlet.cu), so they are
-// identical.  Grid bounds checks replace the TPU kernel's wrap-around roll
-// and edge-ownership masks.
+// identical.  Under kFeat both threads of an edge also recompute its
+// feature update from the same inputs (grid_common.cuh::edge_features), so
+// they agree on whether it tore; each writes only the planes of the edges
+// it owns.
 //
 // What bounds it.  Per vertex and substep a thread reads its own x and v
 // (24 bytes), the same for 12 neighbours (nearly all hits in L1/L2), and
 // writes 24 bytes: about 3 MB of device-memory traffic per substep at 64k
 // vertices, around a microsecond at the card's 3.35 TB/s, and ~300 flops per
-// vertex.  A launch costs several microseconds of host and device time, so at
-// 64k vertices the kernel is bound by launch overhead and latency, not by
-// bandwidth or arithmetic.  Capturing a frame's launches in a CUDA graph, or
-// a persistent kernel with a grid-wide barrier per substep, is the next step.
+// vertex; the feature planes add 4 bytes in and out per offset and plane.
+// A launch costs several microseconds of host and device time, so at 64k
+// vertices the kernel is bound by launch overhead and latency, not by
+// bandwidth or arithmetic; at 262k and 1m vertices (12.6 MB of x, 50 MB
+// for ping-pong x and v) it nears the bytes it must move.  Capturing a
+// frame's launches in a CUDA graph, or a persistent kernel with a
+// grid-wide barrier per substep, is the next step.
 //
 // Rounding.  sqrtf and IEEE divides, in the plain version's order.  nvcc
 // contracts a * b + c into FMAs where torch rounds twice, so kernel and plain
-// version agree to rounding, not to the bit.  Pinned vertices stay
-// bit-frozen: their velocity is zeroed and x + dt * 0 == x.
+// version agree to rounding, not to the bit; the feature update alone is
+// rounded as the plain version rounds it (grid_common.cuh).  Pinned vertices
+// stay bit-frozen: their velocity is zeroed and x + dt * 0 == x.
 
 #include <cuda_runtime.h>
 
@@ -69,15 +92,21 @@ struct Params {
 // (di, dj, k, rest); plane is (height, surface velocity xyz); spheres is
 // [n_spheres, 7] rows of (center xyz, radius, velocity xyz).  kExt: f_ext,
 // [3, ny, nx], is added to the spring forces; the instantiation without it
-// is the kernel as it was before the plane existed.
-template <bool kExt>
+// is the kernel as it was before the plane existed.  kFeat: the tear and
+// plastic planes, [n_off, ny, nx], are read from *_in (null: the feature is
+// off), updated at the launch's start unless `first`, used by the springs
+// and written to *_out; tear_limits[o] is rest * (1 + strain_limit).
+template <bool kExt, bool kFeat>
 __global__ void __launch_bounds__(256) grid_euler_substep_kernel(
     const float* __restrict__ x, const float* __restrict__ v,
     float* __restrict__ x_out, float* __restrict__ v_out,
     const float* __restrict__ inv_mass, const float* __restrict__ offsets,
     int n_off, const float* __restrict__ plane, int plane_on,
     const float* __restrict__ spheres, int n_spheres,
-    const float* __restrict__ f_ext, int ny, int nx, Params p) {
+    const float* __restrict__ f_ext, const float* __restrict__ alive_in,
+    float* __restrict__ alive_out, const float* __restrict__ scale_in,
+    float* __restrict__ scale_out, const float* __restrict__ tear_limits,
+    int first, FeatParams fp, int ny, int nx, Params p) {
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
   const int i = blockIdx.y * blockDim.y + threadIdx.y;
   if (i >= ny || j >= nx) return;
@@ -96,22 +125,46 @@ __global__ void __launch_bounds__(256) grid_euler_substep_kernel(
     int ii = i + di, jj = j + dj;
     if (ii >= 0 && ii < ny && jj >= 0 && jj < nx) {
       const int nb = ii * nx + jj;
-      const Vec3 e = edge_force(xi, vi, load3(x, nb, ps), load3(v, nb, ps),
-                                k, rest, p.damping);
-      fx += e.x;
-      fy += e.y;
-      fz += e.z;
+      const Vec3 xn = load3(x, nb, ps);
+      float a = 1.0f, s = 1.0f;
+      if (kFeat) {
+        edge_features(alive_in, scale_in, o * ps + idx, xi, xn, rest,
+                      tear_limits[o], fp, first, a, s);
+        if (alive_out) alive_out[o * ps + idx] = a;
+        if (scale_out) scale_out[o * ps + idx] = s;
+      }
+      if (a != 0.0f) {
+        const Vec3 e = edge_force(xi, vi, xn, load3(v, nb, ps), k,
+                                  kFeat ? scaled_rest(rest, s, scale_in)
+                                        : rest,
+                                  p.damping);
+        fx += e.x;
+        fy += e.y;
+        fz += e.z;
+      }
+    } else if (kFeat) {   // no edge here: the entry is carried, unread
+      if (alive_out) alive_out[o * ps + idx] = alive_in[o * ps + idx];
+      if (scale_out) scale_out[o * ps + idx] = scale_in[o * ps + idx];
     }
     // the reaction of the edge owned by (i - di, j - dj)
     ii = i - di;
     jj = j - dj;
     if (ii >= 0 && ii < ny && jj >= 0 && jj < nx) {
       const int nb = ii * nx + jj;
-      const Vec3 e = edge_force(load3(x, nb, ps), load3(v, nb, ps), xi, vi,
-                                k, rest, p.damping);
-      fx -= e.x;
-      fy -= e.y;
-      fz -= e.z;
+      const Vec3 xn = load3(x, nb, ps);
+      float a = 1.0f, s = 1.0f;
+      if (kFeat)
+        edge_features(alive_in, scale_in, o * ps + nb, xn, xi, rest,
+                      tear_limits[o], fp, first, a, s);
+      if (a != 0.0f) {
+        const Vec3 e = edge_force(xn, load3(v, nb, ps), xi, vi, k,
+                                  kFeat ? scaled_rest(rest, s, scale_in)
+                                        : rest,
+                                  p.damping);
+        fx -= e.x;
+        fy -= e.y;
+        fz -= e.z;
+      }
     }
   }
 
@@ -146,29 +199,55 @@ __global__ void __launch_bounds__(256) grid_euler_substep_kernel(
 }  // namespace
 
 // Launch one substep on `stream`; returns the cudaError_t of the launch
-// (0 = cudaSuccess).  f_ext may be null (no external force plane).
-// Allocates nothing and does not synchronise.
+// (0 = cudaSuccess).  f_ext may be null (no external force plane).  With
+// feat = 0 the feature pointers are ignored; with feat = 1 a null pair
+// (alive_* or scale_*) turns that feature off.  Allocates nothing and does
+// not synchronise.
 extern "C" int grid_euler_substep(
     const float* x, const float* v, float* x_out, float* v_out,
     const float* inv_mass, const float* offsets, int n_off,
     const float* plane, int plane_on, const float* spheres, int n_spheres,
-    const float* f_ext, int ny, int nx, float dt, float damping, float gx,
-    float gy, float gz, float decay, float restitution, float restitution1,
-    float keep, void* stream) {
+    const float* f_ext, int feat, const float* alive_in, float* alive_out,
+    const float* scale_in, float* scale_out, const float* tear_limits,
+    int first, float strain1, float yield_strain, float creep,
+    float min_scale, float max_scale, int ny, int nx, float dt,
+    float damping, float gx, float gy, float gz, float decay,
+    float restitution, float restitution1, float keep, void* stream) {
   const Params p{dt, damping, gx, gy, gz, decay, restitution, restitution1,
                  keep};
+  const FeatParams fp{strain1, yield_strain, creep, min_scale, max_scale};
   const dim3 block(32, 8);
   const dim3 grid((nx + block.x - 1) / block.x, (ny + block.y - 1) / block.y);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (f_ext)
-    grid_euler_substep_kernel<true><<<grid, block, 0, st>>>(
-        x, v, x_out, v_out, inv_mass, offsets, n_off, plane, plane_on,
-        spheres, n_spheres, f_ext, ny, nx, p);
+#define GRID_EULER_LAUNCH(EXT, FEAT)                                        \
+  grid_euler_substep_kernel<EXT, FEAT><<<grid, block, 0, st>>>(             \
+      x, v, x_out, v_out, inv_mass, offsets, n_off, plane, plane_on,        \
+      spheres, n_spheres, f_ext, alive_in, alive_out, scale_in, scale_out,  \
+      tear_limits, first, fp, ny, nx, p)
+  if (f_ext && feat)
+    GRID_EULER_LAUNCH(true, true);
+  else if (f_ext)
+    GRID_EULER_LAUNCH(true, false);
+  else if (feat)
+    GRID_EULER_LAUNCH(false, true);
   else
-    grid_euler_substep_kernel<false><<<grid, block, 0, st>>>(
-        x, v, x_out, v_out, inv_mass, offsets, n_off, plane, plane_on,
-        spheres, n_spheres, f_ext, ny, nx, p);
+    GRID_EULER_LAUNCH(false, false);
+#undef GRID_EULER_LAUNCH
   return static_cast<int>(cudaGetLastError());
+}
+
+// Launch the frame-end feature update over the final positions x
+// (grid_common.cuh::grid_feature_finish_kernel); returns the cudaError_t.
+extern "C" int grid_euler_features(
+    const float* x, const float* alive_in, float* alive_out,
+    const float* scale_in, float* scale_out, const float* offsets,
+    const float* tear_limits, int n_off, float strain1, float yield_strain,
+    float creep, float min_scale, float max_scale, int ny, int nx,
+    void* stream) {
+  return launch_feature_finish(
+      x, alive_in, alive_out, scale_in, scale_out, offsets, tear_limits,
+      n_off, ny, nx,
+      FeatParams{strain1, yield_strain, creep, min_scale, max_scale}, stream);
 }
 
 extern "C" const char* grid_euler_error_string(int err) {

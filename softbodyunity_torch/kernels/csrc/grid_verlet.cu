@@ -1,37 +1,49 @@
 // Fused position-Verlet substep for structured grid cloth, for Hopper
 // (sm_90a).  Built by softbodyunity_torch/kernels/build.py, wrapped by
 // softbodyunity_torch/kernels/grid_verlet.py; its plain PyTorch version is
-// softbodyunity_torch/kernels/stencil.py::verlet_substep_grid.
+// softbodyunity_torch/kernels/stencil.py::verlet_substep_grid (with
+// update_features, in the launch-start order of
+// softbodyunity_torch/kernels/grid_features.py).
 //
-// Replaces the TPU kernel softbodyunity_tpu/kernels/pallas_substep.py
-// ::_make_verlet_kernel, launched by ::_pallas_verlet_substeps through
-// pl.pallas_call, for the branches the grid-cloth Verlet path runs: the
-// six-offset spring stencil on the velocity estimate (x - xp) / dt, the
-// damped position update, pinning, position-only plane and sphere contact,
-// and the plane and sphere friction, with an optional external force plane
-// (the self-collision repulsion at x, block_pairs.cu) added to the spring
-// forces as solver/step.py::verlet_integrate adds it.  Its wind, strain-limit, capsule/box,
-// plastic and tear branches are not ported yet; the wrapper refuses configs
+// Replaces two TPU kernels of softbodyunity_tpu/kernels/: the whole-VMEM
+// pallas_substep.py::_make_verlet_kernel, launched by
+// ::_pallas_verlet_substeps through pl.pallas_call, and the row-tiled
+// pallas_tiled.py::_make_verlet_kernel, launched by
+// ::_tiled_verlet_substeps (grids past the whole-VMEM cap).  It runs their
+// branches of the grid-cloth Verlet path: the six-offset spring stencil on
+// the velocity estimate (x - xp) / dt, the damped position update,
+// pinning, position-only plane and sphere contact, the plane and sphere
+// friction, and the tear-liveness and plastic rest-scale planes (the kFeat
+// instantiation, in the row-tiled kernel's launch-start form: see
+// grid_euler.cu), with an optional external force plane (the
+// self-collision repulsion at x, block_pairs.cu) added to the spring forces
+// as solver/step.py::verlet_integrate adds it.  Their wind, strain-limit
+// and capsule/box branches are not ported yet; the wrapper refuses configs
 // that enable them.
 //
 // Design.  As grid_euler.cu: one launch per substep, one thread per vertex,
-// the state in L2 between launches, no vertex cap.  The damper reads each
-// neighbour's velocity estimate, so a neighbour's xp is read while the owner
-// writes its new position: writing the new x over xp would race.  The
-// wrapper therefore rotates three buffers: read (x, xp), write out, then
-// (x, xp, out) <- (out, x, xp).  Spring forces are the same gather as the
-// Euler kernel's, from the shared grid_common.cuh::edge_force (owned edge
-// plus the recomputed reaction of the edge owned by p - o).  Contact and
-// friction read only the vertex's own data.
+// the state in L2 or device memory between launches, no vertex cap, the
+// feature planes updated at each launch's start from its input positions
+// (the frame's first launch excepted) and once more at the frame's end.
+// The damper reads each neighbour's velocity estimate, so a neighbour's xp
+// is read while the owner writes its new position: writing the new x over
+// xp would race.  The wrapper therefore rotates three buffers: read (x,
+// xp), write out, then (x, xp, out) <- (out, x, xp).  Spring forces are the
+// same gather as the Euler kernel's, from the shared
+// grid_common.cuh::edge_force (owned edge plus the recomputed reaction of
+// the edge owned by p - o), and so is the feature update of both.  Contact
+// and friction read only the vertex's own data.
 //
 // What bounds it.  Per vertex and substep it reads x, xp and inv_mass and
 // writes x: 40 bytes, 2.6 MB at 64k vertices, ~0.8 us at 3.35 TB/s, and
-// ~300 flops.  As with the Euler kernel, launch overhead and the serial
-// chain of 12 neighbour gathers bound it at 64k, not bandwidth.
+// ~300 flops; the feature planes add 4 bytes in and out per offset and
+// plane.  As with the Euler kernel, launch overhead and the serial chain of
+// 12 neighbour gathers bound it at 64k, not bandwidth.
 //
 // Rounding.  sqrtf and IEEE divides (the velocity estimate is a divide by
 // dt) in the plain version's order; FMA contraction makes the agreement one
-// of rounding.  Pinned vertices keep x bit for bit.
+// of rounding, except in the feature update, rounded as the plain version
+// rounds it.  Pinned vertices keep x bit for bit.
 
 #include <cuda_runtime.h>
 
@@ -57,14 +69,18 @@ struct Params {
 // plane_fric / sphere_fric are 0 when friction is 0 or the collider is off.
 // kExt: f_ext, [3, ny, nx], is added to the spring forces; the
 // instantiation without it is the kernel as it was before the plane existed.
-template <bool kExt>
+// kFeat: the tear and plastic planes, as grid_euler.cu's.
+template <bool kExt, bool kFeat>
 __global__ void __launch_bounds__(256) grid_verlet_substep_kernel(
     const float* __restrict__ x, const float* __restrict__ xp,
     float* __restrict__ out, const float* __restrict__ inv_mass,
     const float* __restrict__ offsets, int n_off,
     const float* __restrict__ plane, int plane_on, int plane_fric,
     const float* __restrict__ spheres, int n_spheres, int sphere_fric,
-    const float* __restrict__ f_ext, int ny, int nx, Params p) {
+    const float* __restrict__ f_ext, const float* __restrict__ alive_in,
+    float* __restrict__ alive_out, const float* __restrict__ scale_in,
+    float* __restrict__ scale_out, const float* __restrict__ tear_limits,
+    int first, FeatParams fp, int ny, int nx, Params p) {
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
   const int i = blockIdx.y * blockDim.y + threadIdx.y;
   if (i >= ny || j >= nx) return;
@@ -85,12 +101,24 @@ __global__ void __launch_bounds__(256) grid_verlet_substep_kernel(
     if (ii >= 0 && ii < ny && jj >= 0 && jj < nx) {
       const int nb = ii * nx + jj;
       const Vec3 xn = load3(x, nb, ps);
-      const Vec3 e = edge_force(
-          xi, vi, xn, velocity_estimate(xn, load3(xp, nb, ps), p.dt), k,
-          rest, p.damping);
-      fx += e.x;
-      fy += e.y;
-      fz += e.z;
+      float a = 1.0f, s = 1.0f;
+      if (kFeat) {
+        edge_features(alive_in, scale_in, o * ps + idx, xi, xn, rest,
+                      tear_limits[o], fp, first, a, s);
+        if (alive_out) alive_out[o * ps + idx] = a;
+        if (scale_out) scale_out[o * ps + idx] = s;
+      }
+      if (a != 0.0f) {
+        const Vec3 e = edge_force(
+            xi, vi, xn, velocity_estimate(xn, load3(xp, nb, ps), p.dt), k,
+            kFeat ? scaled_rest(rest, s, scale_in) : rest, p.damping);
+        fx += e.x;
+        fy += e.y;
+        fz += e.z;
+      }
+    } else if (kFeat) {   // no edge here: the entry is carried, unread
+      if (alive_out) alive_out[o * ps + idx] = alive_in[o * ps + idx];
+      if (scale_out) scale_out[o * ps + idx] = scale_in[o * ps + idx];
     }
     // the reaction of the edge owned by (i - di, j - dj)
     ii = i - di;
@@ -98,12 +126,18 @@ __global__ void __launch_bounds__(256) grid_verlet_substep_kernel(
     if (ii >= 0 && ii < ny && jj >= 0 && jj < nx) {
       const int nb = ii * nx + jj;
       const Vec3 xn = load3(x, nb, ps);
-      const Vec3 e = edge_force(
-          xn, velocity_estimate(xn, load3(xp, nb, ps), p.dt), xi, vi, k,
-          rest, p.damping);
-      fx -= e.x;
-      fy -= e.y;
-      fz -= e.z;
+      float a = 1.0f, s = 1.0f;
+      if (kFeat)
+        edge_features(alive_in, scale_in, o * ps + nb, xn, xi, rest,
+                      tear_limits[o], fp, first, a, s);
+      if (a != 0.0f) {
+        const Vec3 e = edge_force(
+            xn, velocity_estimate(xn, load3(xp, nb, ps), p.dt), xi, vi, k,
+            kFeat ? scaled_rest(rest, s, scale_in) : rest, p.damping);
+        fx -= e.x;
+        fy -= e.y;
+        fz -= e.z;
+      }
     }
   }
 
@@ -139,28 +173,53 @@ __global__ void __launch_bounds__(256) grid_verlet_substep_kernel(
 }  // namespace
 
 // Launch one substep on `stream`; returns the cudaError_t of the launch
-// (0 = cudaSuccess).  f_ext may be null (no external force plane).
-// Allocates nothing and does not synchronise.
+// (0 = cudaSuccess).  f_ext may be null (no external force plane).  The
+// feature arguments are grid_euler_substep's.  Allocates nothing and does
+// not synchronise.
 extern "C" int grid_verlet_substep(
     const float* x, const float* xp, float* out, const float* inv_mass,
     const float* offsets, int n_off, const float* plane, int plane_on,
     int plane_fric, const float* spheres, int n_spheres, int sphere_fric,
-    const float* f_ext, int ny, int nx, float dt, float damping, float gx,
-    float gy, float gz, float decay, float mu, float keep, float shell,
-    void* stream) {
+    const float* f_ext, int feat, const float* alive_in, float* alive_out,
+    const float* scale_in, float* scale_out, const float* tear_limits,
+    int first, float strain1, float yield_strain, float creep,
+    float min_scale, float max_scale, int ny, int nx, float dt,
+    float damping, float gx, float gy, float gz, float decay, float mu,
+    float keep, float shell, void* stream) {
   const Params p{dt, damping, gx, gy, gz, decay, mu, keep, shell};
+  const FeatParams fp{strain1, yield_strain, creep, min_scale, max_scale};
   const dim3 block(32, 8);
   const dim3 grid((nx + block.x - 1) / block.x, (ny + block.y - 1) / block.y);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (f_ext)
-    grid_verlet_substep_kernel<true><<<grid, block, 0, st>>>(
-        x, xp, out, inv_mass, offsets, n_off, plane, plane_on, plane_fric,
-        spheres, n_spheres, sphere_fric, f_ext, ny, nx, p);
+#define GRID_VERLET_LAUNCH(EXT, FEAT)                                       \
+  grid_verlet_substep_kernel<EXT, FEAT><<<grid, block, 0, st>>>(            \
+      x, xp, out, inv_mass, offsets, n_off, plane, plane_on, plane_fric,    \
+      spheres, n_spheres, sphere_fric, f_ext, alive_in, alive_out,          \
+      scale_in, scale_out, tear_limits, first, fp, ny, nx, p)
+  if (f_ext && feat)
+    GRID_VERLET_LAUNCH(true, true);
+  else if (f_ext)
+    GRID_VERLET_LAUNCH(true, false);
+  else if (feat)
+    GRID_VERLET_LAUNCH(false, true);
   else
-    grid_verlet_substep_kernel<false><<<grid, block, 0, st>>>(
-        x, xp, out, inv_mass, offsets, n_off, plane, plane_on, plane_fric,
-        spheres, n_spheres, sphere_fric, f_ext, ny, nx, p);
+    GRID_VERLET_LAUNCH(false, false);
+#undef GRID_VERLET_LAUNCH
   return static_cast<int>(cudaGetLastError());
+}
+
+// Launch the frame-end feature update over the final positions x
+// (grid_common.cuh::grid_feature_finish_kernel); returns the cudaError_t.
+extern "C" int grid_verlet_features(
+    const float* x, const float* alive_in, float* alive_out,
+    const float* scale_in, float* scale_out, const float* offsets,
+    const float* tear_limits, int n_off, float strain1, float yield_strain,
+    float creep, float min_scale, float max_scale, int ny, int nx,
+    void* stream) {
+  return launch_feature_finish(
+      x, alive_in, alive_out, scale_in, scale_out, offsets, tear_limits,
+      n_off, ny, nx,
+      FeatParams{strain1, yield_strain, creep, min_scale, max_scale}, stream);
 }
 
 extern "C" const char* grid_verlet_error_string(int err) {

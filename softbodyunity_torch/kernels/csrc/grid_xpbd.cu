@@ -1,21 +1,29 @@
 // Fused XPBD substep for structured grid cloth, for Hopper (sm_90a).  Built
 // by softbodyunity_torch/kernels/build.py, wrapped by
 // softbodyunity_torch/kernels/grid_xpbd.py; its plain PyTorch version is
-// softbodyunity_torch/kernels/stencil.py::xpbd_substep_grid.
+// softbodyunity_torch/kernels/stencil.py::xpbd_substep_grid (with
+// update_features, in the launch-start order of
+// softbodyunity_torch/kernels/grid_features.py).
 //
-// Replaces the TPU kernel softbodyunity_tpu/kernels/pallas_xpbd.py
-// ::_make_kernel, launched by ::_pallas_xpbd_substeps through
-// pl.pallas_call, for the branches the grid-cloth XPBD path runs: predict
-// (gravity, global damping, pinning), n_iterations Jacobi sweeps of
-// distance constraints with compliance over the six grid offsets, with
-// per-offset lambda planes, count-averaged and under-relaxed, plane and
-// sphere contact projected inside the loop, plane and sphere friction once
-// after it, and the velocity recovered from the position change.  Its wind,
-// strain-limit, capsule/box, plastic and tear branches are not ported yet;
-// the wrapper refuses configs that enable them.
+// Replaces two TPU kernels of softbodyunity_tpu/kernels/: the whole-VMEM
+// pallas_xpbd.py::_make_kernel, launched by ::_pallas_xpbd_substeps through
+// pl.pallas_call, and the row-tiled pallas_tiled.py::_make_xpbd_tiled_kernel,
+// launched by ::_tiled_xpbd_substeps (grids past the whole-VMEM cap).  It
+// runs their branches of the grid-cloth XPBD path: predict (gravity, global
+// damping, pinning), n_iterations Jacobi sweeps of distance constraints
+// with compliance over the six grid offsets, with per-offset lambda planes,
+// count-averaged and under-relaxed, plane and sphere contact projected
+// inside the loop, plane and sphere friction once after it, the velocity
+// recovered from the position change, and the tear-liveness and plastic
+// rest-scale planes (the kFeat instantiations).  Their wind, strain-limit
+// and capsule/box branches are not ported yet; the wrapper refuses configs
+// that enable them.
 //
 // Design.  A Jacobi sweep reads every neighbour's evaluation point, so each
 // sweep needs a grid-wide barrier; here that barrier is a kernel boundary.
+// The row-tiled TPU kernel instead runs a whole substep per tile on halos
+// of reach x n_iterations rows, recomputing the overlap; global Jacobi with
+// one launch per sweep is what that computes.
 // A substep is 1 + n_iterations launches, one thread per vertex each:
 //   predict   v <- (v + dt g)(1 - gdamp dt), 0 on pins; delta <- dt v; the
 //             lambda planes and the contact flag <- 0.  x is the substep's
@@ -23,7 +31,13 @@
 //             An optional external force plane f (the self-collision
 //             repulsion at xp, block_pairs.cu) enters here as
 //             g + f inv_mass, as solver/step.py::substep_xpbd takes it;
-//             the sweeps cover only the springs.
+//             the sweeps cover only the springs.  kFeat: the feature update
+//             of the launch-start form (grid_euler.cu) runs here, from xp,
+//             unless it is the frame's first substep; the predict writes
+//             the substep's tear and plastic planes and, under tearing,
+//             the Jacobi weights inv_cnt from the updated liveness: the
+//             count of live edges at a vertex changes as edges tear.  The
+//             plastic rest scales stay constant over the substep.
 //   sweep     (n_iterations launches) evaluate xe = xp + delta at the
 //             vertex and its 12 neighbours; per offset, dlam of the edge the
 //             vertex owns and, from the same device function, argument order
@@ -34,12 +48,15 @@
 //             lambda planes ping-pong between sweeps (an in-place update
 //             would let thread p - o overwrite the lambda thread p still
 //             reads); the contact flag is the vertex's own and stays put.
+//             kFeat: a torn edge is skipped and a plastic one's rest is
+//             rest * scale, both read from the predict's planes.
 //   epilogue  run by the last sweep for its own vertex: plane friction on
 //             the OR'd flag, sphere friction, pins masked, x = xp + delta
 //             written to the other x buffer, v = delta / dt in place.
 // Delta form: the loop carries the substep's position change and never a
-// rounded x (the f32 drift bound depends on it).  inv_cnt = relaxation /
-// max(count, 1) is computed once per scene, as pallas_xpbd.py does.
+// rounded x (the f32 drift bound depends on it).  Without tearing, inv_cnt
+// = relaxation / max(count, 1) is computed once per scene, as
+// pallas_xpbd.py does.
 //
 // What bounds it.  At 64k vertices one substep must read x, v and inv_mass
 // and write x and v (3.4 MB, ~1.0 us at 3.35 TB/s), and does ~36 flops per
@@ -52,8 +69,9 @@
 //
 // Rounding.  sqrtf and IEEE divides in the plain version's order (the
 // divide-form norm d / max(len, 1e-12)); FMA contraction and the folded
-// relaxation make the agreement one of rounding.  Pinned vertices keep x
-// bit for bit (their delta is masked to 0 and xp + 0 == xp).
+// relaxation make the agreement one of rounding, except in the feature
+// update, rounded as the plain version rounds it (grid_common.cuh).  Pinned
+// vertices keep x bit for bit (their delta is masked to 0 and xp + 0 == xp).
 
 #include <cuda_runtime.h>
 
@@ -74,13 +92,22 @@ struct Params {
 
 // kExt: f_ext, [3, ny, nx], is added to the predict's acceleration as
 // f_ext * inv_mass; the instantiation without it is the kernel as it was
-// before the plane existed.
-template <bool kExt>
+// before the plane existed.  kFeat: the tear and plastic planes (as
+// grid_euler.cu's) are updated from x, the substep's start, unless `first`,
+// and written to *_out; under tearing (inv_cnt_out not null) the predict
+// also writes relaxation / max(count of live edges, 1).  offsets is
+// [n_off, 4] rows of (di, dj, alpha / dt^2, rest).
+template <bool kExt, bool kFeat>
 __global__ void __launch_bounds__(256) grid_xpbd_predict_kernel(
     const float* __restrict__ v, float* __restrict__ delta,
     float* __restrict__ lam, int n_off, unsigned char* __restrict__ flag,
     const float* __restrict__ inv_mass, const float* __restrict__ f_ext,
-    int ny, int nx, Params p) {
+    const float* __restrict__ x, const float* __restrict__ offsets,
+    const float* __restrict__ alive_in, float* __restrict__ alive_out,
+    const float* __restrict__ scale_in, float* __restrict__ scale_out,
+    const float* __restrict__ tear_limits, int first, FeatParams fp,
+    float relaxation, float* __restrict__ inv_cnt_out, int ny, int nx,
+    Params p) {
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
   const int i = blockIdx.y * blockDim.y + threadIdx.y;
   if (i >= ny || j >= nx) return;
@@ -101,6 +128,39 @@ __global__ void __launch_bounds__(256) grid_xpbd_predict_kernel(
   store3(delta, idx, ps, {p.dt * vi.x, p.dt * vi.y, p.dt * vi.z});
   for (int o = 0; o < n_off; ++o) lam[o * ps + idx] = 0.0f;
   flag[idx] = 0;
+
+  if (kFeat) {
+    const Vec3 xi = load3(x, idx, ps);
+    float cnt = 0.0f;   // live edges at this vertex, owned and owning it
+    for (int o = 0; o < n_off; ++o) {
+      const int di = static_cast<int>(offsets[4 * o]);
+      const int dj = static_cast<int>(offsets[4 * o + 1]);
+      const float rest = offsets[4 * o + 3];
+      int ii = i + di, jj = j + dj;
+      if (ii >= 0 && ii < ny && jj >= 0 && jj < nx) {
+        float a, s;
+        edge_features(alive_in, scale_in, o * ps + idx, xi,
+                      load3(x, ii * nx + jj, ps), rest, tear_limits[o], fp,
+                      first, a, s);
+        if (alive_out) alive_out[o * ps + idx] = a;
+        if (scale_out) scale_out[o * ps + idx] = s;
+        cnt += a;
+      } else {   // no edge here: the entry is carried, unread
+        if (alive_out) alive_out[o * ps + idx] = alive_in[o * ps + idx];
+        if (scale_out) scale_out[o * ps + idx] = scale_in[o * ps + idx];
+      }
+      ii = i - di;
+      jj = j - dj;
+      if (inv_cnt_out && ii >= 0 && ii < ny && jj >= 0 && jj < nx) {
+        const int nb = ii * nx + jj;
+        float a, s;
+        edge_features(alive_in, scale_in, o * ps + nb, load3(x, nb, ps), xi,
+                      rest, tear_limits[o], fp, first, a, s);
+        cnt += a;
+      }
+    }
+    if (inv_cnt_out) inv_cnt_out[idx] = relaxation / fmaxf(cnt, 1.0f);
+  }
 }
 
 // One Jacobi sweep (project = 1) and, on the last sweep (last = 1), the
@@ -109,7 +169,9 @@ __global__ void __launch_bounds__(256) grid_xpbd_predict_kernel(
 // (di, dj, alpha / dt^2, rest); plane is (height, surface velocity xyz);
 // spheres is [n_spheres, 7] rows (center, radius, velocity).  With
 // n_iterations = 0 the wrapper launches one sweep with project = 0, which
-// runs only the epilogue.
+// runs only the epilogue.  kFeat: alive and scale (either may be null: that
+// feature is off) are the substep's planes, written by the predict.
+template <bool kFeat>
 __global__ void __launch_bounds__(256) grid_xpbd_sweep_kernel(
     const float* __restrict__ xp, const float* __restrict__ delta_in,
     float* __restrict__ delta_out, const float* __restrict__ lam_in,
@@ -119,6 +181,7 @@ __global__ void __launch_bounds__(256) grid_xpbd_sweep_kernel(
     const float* __restrict__ plane, int plane_on, int plane_fric,
     const float* __restrict__ spheres, int n_spheres, int sphere_fric,
     int project, int last, float* __restrict__ x_out, float* __restrict__ v,
+    const float* __restrict__ alive, const float* __restrict__ scale,
     int ny, int nx, Params p) {
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
   const int i = blockIdx.y * blockDim.y + threadIdx.y;
@@ -142,10 +205,13 @@ __global__ void __launch_bounds__(256) grid_xpbd_sweep_kernel(
       // the edge this vertex owns, to (i + di, j + dj): lambda and -w dlam n
       float lam = lam_in[o * ps + idx];
       int ii = i + di, jj = j + dj;
-      if (ii >= 0 && ii < ny && jj >= 0 && jj < nx) {
+      if (ii >= 0 && ii < ny && jj >= 0 && jj < nx &&
+          (!kFeat || !alive || alive[o * ps + idx] != 0.0f)) {
         const int nb = ii * nx + jj;
+        const float r = kFeat && scale ? __fmul_rn(rest, scale[o * ps + idx])
+                                       : rest;
         const float dlam = xpbd_dlam(xe, eval_point(xp, delta_in, nb, ps),
-                                     wi, inv_mass[nb], at, rest, lam, n);
+                                     wi, inv_mass[nb], at, r, lam, n);
         lam += dlam;
         const float s = -(wi * dlam);
         dx += s * n.x;
@@ -158,8 +224,11 @@ __global__ void __launch_bounds__(256) grid_xpbd_sweep_kernel(
       jj = j - dj;
       if (ii >= 0 && ii < ny && jj >= 0 && jj < nx) {
         const int nb = ii * nx + jj;
+        if (kFeat && alive && alive[o * ps + nb] == 0.0f) continue;
+        const float r = kFeat && scale ? __fmul_rn(rest, scale[o * ps + nb])
+                                       : rest;
         const float dlam = xpbd_dlam(eval_point(xp, delta_in, nb, ps), xe,
-                                     inv_mass[nb], wi, at, rest,
+                                     inv_mass[nb], wi, at, r,
                                      lam_in[o * ps + nb], n);
         const float s = wi * dlam;
         dx += s * n.x;
@@ -214,43 +283,82 @@ dim3 grid_of(int ny, int nx, dim3 block) {
 
 // Launch the predict pass of one substep on `stream`; returns the
 // cudaError_t of the launch (0 = cudaSuccess).  f_ext may be null (no
-// external force plane).  Allocates nothing and does not synchronise.
-extern "C" int grid_xpbd_predict(const float* v, float* delta, float* lam,
-                                 int n_off, unsigned char* flag,
-                                 const float* inv_mass, const float* f_ext,
-                                 int ny, int nx, float dt, float gx, float gy,
-                                 float gz, float decay, void* stream) {
+// external force plane).  With feat = 1 the predict also runs the feature
+// update from x (a null alive_* or scale_* pair turns that feature off;
+// inv_cnt_out is null without tearing).  Allocates nothing and does not
+// synchronise.
+extern "C" int grid_xpbd_predict(
+    const float* v, float* delta, float* lam, int n_off, unsigned char* flag,
+    const float* inv_mass, const float* f_ext, const float* x,
+    const float* offsets, int feat, const float* alive_in, float* alive_out,
+    const float* scale_in, float* scale_out, const float* tear_limits,
+    int first, float strain1, float yield_strain, float creep,
+    float min_scale, float max_scale, float relaxation, float* inv_cnt_out,
+    int ny, int nx, float dt, float gx, float gy, float gz, float decay,
+    void* stream) {
   const Params p{dt, gx, gy, gz, decay, 0.0f, 1.0f, 1.0f};
+  const FeatParams fp{strain1, yield_strain, creep, min_scale, max_scale};
   const dim3 block(32, 8);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (f_ext)
-    grid_xpbd_predict_kernel<true><<<grid_of(ny, nx, block), block, 0, st>>>(
-        v, delta, lam, n_off, flag, inv_mass, f_ext, ny, nx, p);
+#define GRID_XPBD_PREDICT(EXT, FEAT)                                        \
+  grid_xpbd_predict_kernel<EXT, FEAT>                                       \
+      <<<grid_of(ny, nx, block), block, 0, st>>>(                           \
+          v, delta, lam, n_off, flag, inv_mass, f_ext, x, offsets,          \
+          alive_in, alive_out, scale_in, scale_out, tear_limits, first, fp, \
+          relaxation, inv_cnt_out, ny, nx, p)
+  if (f_ext && feat)
+    GRID_XPBD_PREDICT(true, true);
+  else if (f_ext)
+    GRID_XPBD_PREDICT(true, false);
+  else if (feat)
+    GRID_XPBD_PREDICT(false, true);
   else
-    grid_xpbd_predict_kernel<false><<<grid_of(ny, nx, block), block, 0, st>>>(
-        v, delta, lam, n_off, flag, inv_mass, f_ext, ny, nx, p);
+    GRID_XPBD_PREDICT(false, false);
+#undef GRID_XPBD_PREDICT
   return static_cast<int>(cudaGetLastError());
 }
 
 // Launch one Jacobi sweep (and, with last = 1, the epilogue) on `stream`;
-// returns the cudaError_t of the launch.  Allocates nothing and does not
-// synchronise.
+// returns the cudaError_t of the launch.  feat = 1 reads the substep's
+// alive and scale planes (either may be null).  Allocates nothing and does
+// not synchronise.
 extern "C" int grid_xpbd_sweep(
     const float* xp, const float* delta_in, float* delta_out,
     const float* lam_in, float* lam_out, unsigned char* flag,
     const float* inv_mass, const float* inv_cnt, const float* offsets,
     int n_off, const float* plane, int plane_on, int plane_fric,
     const float* spheres, int n_spheres, int sphere_fric, int project,
-    int last, float* x_out, float* v, int ny, int nx, float dt, float mu,
-    float keep, float shell, void* stream) {
+    int last, float* x_out, float* v, int feat, const float* alive,
+    const float* scale, int ny, int nx, float dt, float mu, float keep,
+    float shell, void* stream) {
   const Params p{dt, 0.0f, 0.0f, 0.0f, 1.0f, mu, keep, shell};
   const dim3 block(32, 8);
-  grid_xpbd_sweep_kernel<<<grid_of(ny, nx, block), block, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
-      xp, delta_in, delta_out, lam_in, lam_out, flag, inv_mass, inv_cnt,
-      offsets, n_off, plane, plane_on, plane_fric, spheres, n_spheres,
-      sphere_fric, project, last, x_out, v, ny, nx, p);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define GRID_XPBD_SWEEP(FEAT)                                               \
+  grid_xpbd_sweep_kernel<FEAT><<<grid_of(ny, nx, block), block, 0, st>>>(   \
+      xp, delta_in, delta_out, lam_in, lam_out, flag, inv_mass, inv_cnt,    \
+      offsets, n_off, plane, plane_on, plane_fric, spheres, n_spheres,      \
+      sphere_fric, project, last, x_out, v, alive, scale, ny, nx, p)
+  if (feat)
+    GRID_XPBD_SWEEP(true);
+  else
+    GRID_XPBD_SWEEP(false);
+#undef GRID_XPBD_SWEEP
   return static_cast<int>(cudaGetLastError());
+}
+
+// Launch the frame-end feature update over the final positions x
+// (grid_common.cuh::grid_feature_finish_kernel); returns the cudaError_t.
+extern "C" int grid_xpbd_features(
+    const float* x, const float* alive_in, float* alive_out,
+    const float* scale_in, float* scale_out, const float* offsets,
+    const float* tear_limits, int n_off, float strain1, float yield_strain,
+    float creep, float min_scale, float max_scale, int ny, int nx,
+    void* stream) {
+  return launch_feature_finish(
+      x, alive_in, alive_out, scale_in, scale_out, offsets, tear_limits,
+      n_off, ny, nx,
+      FeatParams{strain1, yield_strain, creep, min_scale, max_scale}, stream);
 }
 
 extern "C" const char* grid_xpbd_error_string(int err) {

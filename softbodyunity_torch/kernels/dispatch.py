@@ -3,13 +3,31 @@
 Counterpart of ``softbodyunity_tpu/kernels/dispatch.py::maybe_fast_step``
 for the paths ported so far: grid cloth and banded tet lattices, each under
 the Euler, Verlet and XPBD solvers.  The device the topology's tensors live
-on decides: CUDA runs the solver's hand-written kernel (grid cloth:
-``grid_euler``, ``grid_verlet``, ``grid_xpbd``; lattices: ``lattice_euler``,
-``lattice_verlet``, ``lattice_xpbd``), the CPU runs the plain PyTorch
-version (:func:`.stencil.make_stencil_step`,
+on decides: CUDA runs the solver's hand-written kernel, the CPU runs the
+plain PyTorch version (:func:`.stencil.make_stencil_step`,
 :func:`softbodyunity_torch.solver.step.make_plain_step`).  Anything else
 raises ``NotImplementedError`` naming the ROADMAP item that ports it;
 nothing degrades to another path.
+
+Which TPU kernels (``PERF.md``'s table) each CUDA kernel stands for:
+
+- ``grid_euler`` for #1 (``pallas_substep.py::_pallas_substeps``, whole
+  state in VMEM, up to 128k vertices) and #4
+  (``pallas_tiled.py::_tiled_substeps``, row tiles past that cap);
+- ``grid_verlet`` for #2 (``_pallas_verlet_substeps``) and #5
+  (``_tiled_verlet_substeps``);
+- ``grid_xpbd`` for #3 (``pallas_xpbd.py::_pallas_xpbd_substeps``) and #6
+  (``_tiled_xpbd_substeps``);
+- ``lattice_euler``, ``lattice_xpbd``, ``lattice_verlet`` for #7-9;
+- ``block_pairs`` for #10.
+
+The JAX dispatcher picks between #1-3 and #4-6 by the vertex count, the cap
+halved by each of tearing and plasticity, since their planes share VMEM with
+the state.  The grid kernels here keep the state in device memory between
+launches and have no cap: every grid scene, of any size and with or without
+tear and plastic planes, takes its solver's kernel, and that kernel runs the
+row-tiled kernels' launch-start form of the feature planes
+(:mod:`.grid_features`).
 
 Grid scenes with self-collision (methods ``block`` and ``dense``) take the
 grid path too, on either device: each substep computes the repulsion as a

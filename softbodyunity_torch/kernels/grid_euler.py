@@ -1,10 +1,16 @@
 """Wrapper of the hand-written fused Euler grid substep, ``csrc/grid_euler.cu``.
 
-Counterpart of ``softbodyunity_tpu/kernels/pallas_substep.py::make_pallas_step``.
-The plain PyTorch version is
+Counterpart of ``softbodyunity_tpu/kernels/pallas_substep.py::make_pallas_step``
+and, for grids past its vertex cap, of
+``softbodyunity_tpu/kernels/pallas_tiled.py::make_tiled_step``: one kernel
+serves every grid size.  The plain PyTorch version is
 :func:`.stencil.make_stencil_step`; :mod:`.dispatch` takes it for tensors on
 the CPU and this wrapper for tensors on a CUDA device, where it launches the
 kernel or raises.
+
+A frame is ``n_substeps`` launches; under tearing or plasticity one more,
+the frame-end feature update (:mod:`.grid_features`).  Each launch counts
+once.
 """
 
 from __future__ import annotations
@@ -18,6 +24,8 @@ from ..core.config import SimConfig, Solver
 from ..core.state import State
 from ..core.topology import EDGE_BEND, EDGE_SHEAR, Topology
 from .blocks import self_collision_planes_cuda
+from .grid_features import (FINISH_ARGTYPES, LAUNCH_ARGTYPES, NO_FEATURES,
+                            CudaFeatures, features_on, launches_per_frame)
 from .grid_scene import check_input, check_launch, pack_grid_scene
 from .stencil import _offsets, from_planes, to_planes
 
@@ -45,15 +53,19 @@ def _launcher():
         p, p, p, p,            # x, v, x_out, v_out
         p, p, i,               # inv_mass, offsets, n_off
         p, i, p, i,            # plane, plane_on, spheres, n_spheres
-        p, i, i,               # f_ext (or null), ny, nx
+        p,                     # f_ext (or null)
+        *LAUNCH_ARGTYPES,      # the feature planes and scalars
+        i, i,                  # ny, nx
         f, f, f, f, f,         # dt, damping, gx, gy, gz
         f, f, f, f,            # decay, restitution, restitution1, keep
         p,                     # stream
     ]
     fn.restype = ctypes.c_int
+    lib.grid_euler_features.argtypes = FINISH_ARGTYPES
+    lib.grid_euler_features.restype = ctypes.c_int
     lib.grid_euler_error_string.argtypes = [ctypes.c_int]
     lib.grid_euler_error_string.restype = ctypes.c_char_p
-    return fn, lib.grid_euler_error_string
+    return fn, lib.grid_euler_features, lib.grid_euler_error_string
 
 
 def make_cuda_step(top: Topology, cfg: SimConfig):
@@ -65,7 +77,12 @@ def make_cuda_step(top: Topology, cfg: SimConfig):
     device memory, so a frame makes no host round trip.  With self-collision
     on, each substep first computes the repulsion at its start position
     (method ``block``: one launch of the ``block_pairs`` kernel) and the
-    Euler kernel adds that force plane to the spring forces."""
+    Euler kernel adds that force plane to the spring forces.  Under tearing
+    or plasticity the state's ``edge_alive``/``rest_scale`` go into
+    ping-pong planes once a frame, every launch but the first updates them
+    at its start, and one frame-end launch updates them over the final
+    positions (:class:`.grid_features.CudaFeatures`, kept as
+    ``fn.features``)."""
     sc = pack_grid_scene(top, cfg, Solver.SEMI_IMPLICIT_EULER, "grid_euler")
     ny, nx, device = sc.ny, sc.nx, sc.device
     n = ny * nx
@@ -76,7 +93,9 @@ def make_cuda_step(top: Topology, cfg: SimConfig):
     col = cfg.collision
     gx, gy, gz = cfg.gravity
     sc_force = self_collision_planes_cuda(cfg, ny, nx, device)
-    launch, error_string = _launcher()
+    launch, finish, error_string = _launcher()
+    feat = (CudaFeatures(top, cfg, offsets, finish, error_string, "grid_euler")
+            if features_on(cfg) else None)
 
     def fn(state: State, dt: float, n_substeps: int) -> State:
         global _launches
@@ -92,21 +111,34 @@ def make_cuda_step(top: Topology, cfg: SimConfig):
         vb = torch.empty_like(xa)
         xa.copy_(to_planes(state.x, ny, nx))
         va.copy_(to_planes(state.v, ny, nx))
+        edge_alive, rest_scale = state.edge_alive, state.rest_scale
         with torch.cuda.device(device):
             stream = torch.cuda.current_stream(device).cuda_stream
-            for _ in range(n_substeps):
+            if feat:
+                feat.begin(state)
+            for k in range(n_substeps):
                 f_ext = sc_force(xa) if sc_force else None
                 check_launch(launch(
                     xa.data_ptr(), va.data_ptr(), xb.data_ptr(), vb.data_ptr(),
                     sc.inv_mass.data_ptr(), table.data_ptr(), len(offsets),
                     sc.plane.data_ptr(), sc.plane_on, sc.spheres.data_ptr(),
                     sc.n_spheres, None if f_ext is None else f_ext.data_ptr(),
+                    *(feat.launch_args(k == 0) if feat else NO_FEATURES),
                     ny, nx, *scalars, stream),
                     "grid_euler", error_string)
                 _launches += 1
                 xa, xb, va, vb = xb, xa, vb, va
+                if feat:
+                    feat.swap()
+            if feat:
+                if n_substeps > 0:
+                    feat.launch_finish(xa, table, stream)
+                    _launches += 1
+                edge_alive, rest_scale = feat.end(state)
         x = from_planes(xa)
         v = from_planes(va)
-        return State(x=x, v=v, x_prev=x - dt * v)
+        return State(x=x, v=v, x_prev=x - dt * v, edge_alive=edge_alive,
+                     rest_scale=rest_scale, cluster_quat=state.cluster_quat)
 
+    fn.features = feat
     return fn

@@ -1,11 +1,17 @@
 """Wrapper of the hand-written fused Verlet grid substep, ``csrc/grid_verlet.cu``.
 
 Counterpart of
-``softbodyunity_tpu/kernels/pallas_substep.py::make_pallas_verlet_step``.  The
+``softbodyunity_tpu/kernels/pallas_substep.py::make_pallas_verlet_step`` and,
+for grids past its vertex cap, of
+``softbodyunity_tpu/kernels/pallas_tiled.py::make_tiled_verlet_step``.  The
 plain PyTorch version is :func:`.stencil.make_stencil_step` (its Verlet
 branch, :func:`.stencil.verlet_substep_grid`); :mod:`.dispatch` takes it for
 tensors on the CPU and this wrapper for tensors on a CUDA device, where it
 launches the kernel or raises.
+
+A frame is ``n_substeps`` launches; under tearing or plasticity one more,
+the frame-end feature update (:mod:`.grid_features`).  Each launch counts
+once.
 """
 
 from __future__ import annotations
@@ -20,6 +26,8 @@ from ..core.state import State
 from ..core.topology import EDGE_BEND, EDGE_SHEAR, Topology
 from ..solver.collide import SPHERE_CONTACT_SHELL
 from .blocks import self_collision_planes_cuda
+from .grid_features import (FINISH_ARGTYPES, LAUNCH_ARGTYPES, NO_FEATURES,
+                            CudaFeatures, features_on, launches_per_frame)
 from .grid_scene import check_input, check_launch, pack_grid_scene
 from .stencil import _offsets, from_planes, to_planes
 
@@ -48,15 +56,19 @@ def _launcher():
         p, p, i,               # inv_mass, offsets, n_off
         p, i, i,               # plane, plane_on, plane_fric
         p, i, i,               # spheres, n_spheres, sphere_fric
-        p, i, i,               # f_ext (or null), ny, nx
+        p,                     # f_ext (or null)
+        *LAUNCH_ARGTYPES,      # the feature planes and scalars
+        i, i,                  # ny, nx
         f, f, f, f, f,         # dt, damping, gx, gy, gz
         f, f, f, f,            # decay, mu, keep, shell
         p,                     # stream
     ]
     fn.restype = ctypes.c_int
+    lib.grid_verlet_features.argtypes = FINISH_ARGTYPES
+    lib.grid_verlet_features.restype = ctypes.c_int
     lib.grid_verlet_error_string.argtypes = [ctypes.c_int]
     lib.grid_verlet_error_string.restype = ctypes.c_char_p
-    return fn, lib.grid_verlet_error_string
+    return fn, lib.grid_verlet_features, lib.grid_verlet_error_string
 
 
 def make_cuda_step(top: Topology, cfg: SimConfig):
@@ -69,7 +81,8 @@ def make_cuda_step(top: Topology, cfg: SimConfig):
     once, here, into float32 rows on the device.  With self-collision on,
     each substep first computes the repulsion at ``x`` (method ``block``:
     one ``block_pairs`` launch), which the kernel adds to the spring
-    forces."""
+    forces.  Tearing and plasticity as :func:`.grid_euler.make_cuda_step`
+    runs them (``fn.features``)."""
     sc = pack_grid_scene(top, cfg, Solver.VERLET, "grid_verlet")
     ny, nx, device = sc.ny, sc.nx, sc.device
     n = ny * nx
@@ -80,7 +93,9 @@ def make_cuda_step(top: Topology, cfg: SimConfig):
     mu = cfg.collision.friction
     gx, gy, gz = cfg.gravity
     sc_force = self_collision_planes_cuda(cfg, ny, nx, device)
-    launch, error_string = _launcher()
+    launch, finish, error_string = _launcher()
+    feat = (CudaFeatures(top, cfg, offsets, finish, error_string,
+                         "grid_verlet") if features_on(cfg) else None)
 
     def fn(state: State, dt: float, n_substeps: int) -> State:
         global _launches
@@ -95,21 +110,35 @@ def make_cuda_step(top: Topology, cfg: SimConfig):
         out = torch.empty_like(x)
         x.copy_(to_planes(state.x, ny, nx))
         xp.copy_(to_planes(state.x_prev, ny, nx))
+        edge_alive, rest_scale = state.edge_alive, state.rest_scale
         with torch.cuda.device(device):
             stream = torch.cuda.current_stream(device).cuda_stream
-            for _ in range(n_substeps):
+            if feat:
+                feat.begin(state)
+            for k in range(n_substeps):
                 f_ext = sc_force(x) if sc_force else None
                 check_launch(launch(
                     x.data_ptr(), xp.data_ptr(), out.data_ptr(),
                     sc.inv_mass.data_ptr(), table.data_ptr(), len(offsets),
                     sc.plane.data_ptr(), sc.plane_on, sc.plane_fric,
                     sc.spheres.data_ptr(), sc.n_spheres, sc.sphere_fric,
-                    None if f_ext is None else f_ext.data_ptr(), ny, nx,
-                    *scalars, stream), "grid_verlet", error_string)
+                    None if f_ext is None else f_ext.data_ptr(),
+                    *(feat.launch_args(k == 0) if feat else NO_FEATURES),
+                    ny, nx, *scalars, stream), "grid_verlet", error_string)
                 _launches += 1
                 # the new position, the new history, the next output
                 x, xp, out = out, x, xp
+                if feat:
+                    feat.swap()
+            if feat:
+                if n_substeps > 0:
+                    feat.launch_finish(x, table, stream)
+                    _launches += 1
+                edge_alive, rest_scale = feat.end(state)
         x3, xp3 = from_planes(x), from_planes(xp)
-        return State(x=x3, v=(x3 - xp3) / dt, x_prev=xp3)
+        return State(x=x3, v=(x3 - xp3) / dt, x_prev=xp3,
+                     edge_alive=edge_alive, rest_scale=rest_scale,
+                     cluster_quat=state.cluster_quat)
 
+    fn.features = feat
     return fn

@@ -1,6 +1,8 @@
 """Wrapper of the hand-written fused XPBD grid substep, ``csrc/grid_xpbd.cu``.
 
-Counterpart of ``softbodyunity_tpu/kernels/pallas_xpbd.py::make_pallas_xpbd_step``.
+Counterpart of ``softbodyunity_tpu/kernels/pallas_xpbd.py::make_pallas_xpbd_step``
+and, for grids past its vertex cap, of
+``softbodyunity_tpu/kernels/pallas_tiled.py::make_tiled_xpbd_step``.
 The plain PyTorch version is :func:`.stencil.make_stencil_step` (its XPBD
 branch, :func:`.stencil.xpbd_substep_grid`); :mod:`.dispatch` takes it for
 tensors on the CPU and this wrapper for tensors on a CUDA device, where it
@@ -8,7 +10,10 @@ launches the kernels or raises.
 
 A substep is ``1 + max(n_iterations, 1)`` launches: one predict pass, then
 one launch per Jacobi sweep, the grid-wide barrier between sweeps (with no
-sweep, one launch runs the epilogue alone).  Each launch counts once.
+sweep, one launch runs the epilogue alone).  Under tearing or plasticity
+the predict also updates the feature planes (and, under tearing, the
+substep's Jacobi weights), and a frame ends with one more launch, the
+frame-end feature update (:mod:`.grid_features`).  Each launch counts once.
 """
 
 from __future__ import annotations
@@ -23,6 +28,9 @@ from ..core.state import State
 from ..core.topology import EDGE_BEND, EDGE_SHEAR, Topology
 from ..solver.collide import SPHERE_CONTACT_SHELL
 from .blocks import self_collision_planes_cuda
+from . import grid_features
+from .grid_features import (FINISH_ARGTYPES, LAUNCH_ARGTYPES, NO_FEATURES,
+                            CudaFeatures, features_on)
 from .grid_scene import check_input, check_launch, pack_grid_scene
 from .stencil import (_valid_mask, _xpbd_offsets, from_planes, jacobi_count,
                       to_planes)
@@ -46,6 +54,12 @@ def launches_per_substep(cfg: SimConfig) -> int:
     return 1 + max(cfg.xpbd.n_iterations, 1)
 
 
+def launches_per_frame(cfg: SimConfig, n_substeps: int) -> int:
+    """Each substep's launches, plus the frame-end feature update."""
+    return grid_features.launches_per_frame(cfg, n_substeps,
+                                            launches_per_substep(cfg))
+
+
 @functools.cache
 def _launchers():
     from .build import load_library
@@ -55,7 +69,10 @@ def _launchers():
     predict = lib.grid_xpbd_predict
     predict.argtypes = [
         p, p, p, i, p, p,      # v, delta, lam, n_off, flag, inv_mass
-        p, i, i,               # f_ext (or null), ny, nx
+        p, p, p,               # f_ext (or null), x, offsets
+        *LAUNCH_ARGTYPES,      # the feature planes and scalars
+        f, p,                  # relaxation, inv_cnt out (tearing; or null)
+        i, i,                  # ny, nx
         f, f, f, f, f,         # dt, gx, gy, gz, decay
         p,                     # stream
     ]
@@ -68,14 +85,17 @@ def _launchers():
         p, i, i,               # plane, plane_on, plane_fric
         p, i, i,               # spheres, n_spheres, sphere_fric
         i, i, p, p,            # project, last, x_out, v
+        i, p, p,               # feat, the substep's alive and scale planes
         i, i,                  # ny, nx
         f, f, f, f,            # dt, mu, keep, shell
         p,                     # stream
     ]
     sweep.restype = ctypes.c_int
+    lib.grid_xpbd_features.argtypes = FINISH_ARGTYPES
+    lib.grid_xpbd_features.restype = ctypes.c_int
     lib.grid_xpbd_error_string.argtypes = [ctypes.c_int]
     lib.grid_xpbd_error_string.restype = ctypes.c_char_p
-    return predict, sweep, lib.grid_xpbd_error_string
+    return predict, sweep, lib.grid_xpbd_features, lib.grid_xpbd_error_string
 
 
 def make_cuda_step(top: Topology, cfg: SimConfig):
@@ -89,7 +109,11 @@ def make_cuda_step(top: Topology, cfg: SimConfig):
     per substep size ``dt``.  With self-collision on, each substep first
     computes the repulsion at its start position (method ``block``: one
     ``block_pairs`` launch), which the predict launch takes into the
-    velocity; the sweeps cover only the springs."""
+    velocity; the sweeps cover only the springs.  Under tearing or
+    plasticity the predict runs the launch-start feature update of
+    :func:`.grid_euler.make_cuda_step` (``fn.features``) and, under
+    tearing, writes the substep's ``relaxation / max(count, 1)`` from the
+    live edges, which the sweeps read in place of the scene's."""
     sc = pack_grid_scene(top, cfg, Solver.XPBD, "grid_xpbd")
     ny, nx, device = sc.ny, sc.nx, sc.device
     n = ny * nx
@@ -106,7 +130,10 @@ def make_cuda_step(top: Topology, cfg: SimConfig):
     gx, gy, gz = cfg.gravity
     tables = {}
     sc_force = self_collision_planes_cuda(cfg, ny, nx, device)
-    predict, sweep, error_string = _launchers()
+    predict, sweep, finish, error_string = _launchers()
+    feat = (CudaFeatures(top, cfg, xoffsets, finish, error_string,
+                         "grid_xpbd") if features_on(cfg) else None)
+    tearing = cfg.tear.enabled
 
     def fn(state: State, dt: float, n_substeps: int) -> State:
         global _launches
@@ -130,34 +157,54 @@ def make_cuda_step(top: Topology, cfg: SimConfig):
         flag = torch.empty((ny, nx), dtype=torch.uint8, device=device)
         x.copy_(to_planes(state.x, ny, nx))
         v.copy_(to_planes(state.v, ny, nx))
+        edge_alive, rest_scale = state.edge_alive, state.rest_scale
+        # under tearing the predict writes each substep's Jacobi weights
+        cnt = torch.empty_like(inv_cnt) if tearing else inv_cnt
         with torch.cuda.device(device):
             stream = torch.cuda.current_stream(device).cuda_stream
-            for _ in range(n_substeps):
+            if feat:
+                feat.begin(state)
+            for k in range(n_substeps):
                 f_ext = sc_force(x) if sc_force else None
                 check_launch(predict(
                     v.data_ptr(), d_in.data_ptr(), lam_in.data_ptr(), n_off,
                     flag.data_ptr(), sc.inv_mass.data_ptr(),
-                    None if f_ext is None else f_ext.data_ptr(), ny, nx, dt,
-                    gx, gy, gz, 1.0 - cfg.global_damping * dt, stream),
-                    "grid_xpbd predict", error_string)
+                    None if f_ext is None else f_ext.data_ptr(),
+                    x.data_ptr(), table.data_ptr(),
+                    *(feat.launch_args(k == 0) if feat else NO_FEATURES),
+                    cfg.xpbd.relaxation, cnt.data_ptr() if tearing else None,
+                    ny, nx, dt, gx, gy, gz, 1.0 - cfg.global_damping * dt,
+                    stream), "grid_xpbd predict", error_string)
                 _launches += 1
+                if feat:
+                    feat.swap()
+                alive = feat.alive.data_ptr() if tearing else None
+                scale = (feat.scale.data_ptr()
+                         if feat and feat.scale is not None else None)
                 for it in range(n_sweeps):
                     check_launch(sweep(
                         x.data_ptr(), d_in.data_ptr(), d_out.data_ptr(),
                         lam_in.data_ptr(), lam_out.data_ptr(),
                         flag.data_ptr(), sc.inv_mass.data_ptr(),
-                        inv_cnt.data_ptr(), table.data_ptr(), n_off,
+                        cnt.data_ptr(), table.data_ptr(), n_off,
                         sc.plane.data_ptr(), sc.plane_on, sc.plane_fric,
                         sc.spheres.data_ptr(), sc.n_spheres, sc.sphere_fric,
                         project, int(it == n_sweeps - 1), x_out.data_ptr(),
-                        v.data_ptr(), ny, nx, dt, mu, 1.0 - mu,
-                        SPHERE_CONTACT_SHELL, stream),
-                        "grid_xpbd sweep", error_string)
+                        v.data_ptr(), int(feat is not None), alive, scale,
+                        ny, nx, dt, mu, 1.0 - mu, SPHERE_CONTACT_SHELL,
+                        stream), "grid_xpbd sweep", error_string)
                     _launches += 1
                     d_in, d_out = d_out, d_in
                     lam_in, lam_out = lam_out, lam_in
                 x, x_out = x_out, x
+            if feat:
+                if n_substeps > 0:
+                    feat.launch_finish(x, table, stream)
+                    _launches += 1
+                edge_alive, rest_scale = feat.end(state)
         x3, v3 = from_planes(x), from_planes(v)
-        return State(x=x3, v=v3, x_prev=x3 - dt * v3)
+        return State(x=x3, v=v3, x_prev=x3 - dt * v3, edge_alive=edge_alive,
+                     rest_scale=rest_scale, cluster_quat=state.cluster_quat)
 
+    fn.features = feat
     return fn

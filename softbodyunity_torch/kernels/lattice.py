@@ -45,6 +45,9 @@ def _gate_failure(top: Topology, cfg: SimConfig):
     g, t = top.offset_groups, top.tet_groups
     if cfg.self_collision.enabled:
         return "self-collision on a tet scene"
+    if cfg.tear.enabled or cfg.plasticity.enabled:
+        # the lattice kernels carry no feature planes (nor do the TPU's)
+        return "tearing or plasticity on a tet scene"
     if g is None or t is None:
         return "no banded groups were built for this topology"
     if len(g.deltas) == 0 or g.n_residual > 0:

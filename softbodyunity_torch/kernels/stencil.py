@@ -6,7 +6,11 @@ wrapped by :mod:`.grid_euler`, :mod:`.grid_verlet` and :mod:`.grid_xpbd`):
 the CPU runs them, and ``chip_smoke.py`` holds each kernel to its plain
 version on the card.  They port the three solver branches of
 ``softbodyunity_tpu/kernels/stencil.py``, the XLA twin of the TPU kernels,
-with the same operations in the same order.
+with the same operations in the same order, tearing (TearParams) and
+plasticity (PlasticityParams) included: tear liveness and plastic rest
+scales ride as per-offset ``[n_off, ny, nx]`` planes and are updated at the
+end of every substep, plastic flow first, then the tear check against the
+flowed rest (:func:`update_features`).
 
 A cloth grid has regular topology: every spring class is a constant offset
 ``(di, dj)`` on the grid —
@@ -43,9 +47,6 @@ _UNPORTED = (
     ("box colliders", lambda c: c.collision.enable_boxes,
      "Queue 1 item 2, Queue 2 item 1"),
     ("SDF colliders", lambda c: c.collision.enable_sdf, "Queue 1 item 6"),
-    ("tearing", lambda c: c.tear.enabled, "Queue 1 item 6, Queue 2 item 1"),
-    ("plasticity", lambda c: c.plasticity.enabled,
-     "Queue 1 item 6, Queue 2 item 1"),
     ("self-collision methods hash and dense_mxu",
      lambda c: (c.self_collision.enabled
                 and c.self_collision.method in ("hash", "dense_mxu")),
@@ -137,17 +138,20 @@ def stencil_spring_forces(
     x3: torch.Tensor,     # [3, ny, nx]
     v3: torch.Tensor,     # [3, ny, nx]
     offsets,              # from _offsets
-    masks,                # per offset, [ny, nx] from _valid_mask
+    masks,                # per offset, [ny, nx]: _valid_mask or tear liveness
     damping: float,
+    rest_scale=None,      # [n_off, ny, nx] plastic rest scales, or None
 ) -> torch.Tensor:
     """Hooke + axial damper over all spring classes, stencil-accumulated.
 
     For each offset o every vertex (i, j) owns the edge to (i, j) + o; the
     reaction is applied by shifting the force plane back by -o.  The norm is
     sqrt, then a multiply by ``1 / max(len, 1e-12)``, the op order of the
-    JAX twin (``solver/forces.py::length_dir_planes_mul``)."""
+    JAX twin (``solver/forces.py::length_dir_planes_mul``).  Tear liveness
+    planes take the masks' place (they are 0 at invalid grid positions);
+    ``rest_scale`` rescales the rest lengths."""
     f_total = torch.zeros_like(x3)
-    for (di, dj, k, rest), mask in zip(offsets, masks):
+    for o, ((di, dj, k, rest), mask) in enumerate(zip(offsets, masks)):
         xn = _shift(x3, di, dj)
         vn = _shift(v3, di, dj)
         d = xn - x3
@@ -155,23 +159,131 @@ def stencil_spring_forces(
         inv_len = 1.0 / torch.clamp_min(length, 1e-12)
         n = d * inv_len
         rel_v = _dot(vn - v3, n)
-        fmag = (k * (length - rest) + damping * rel_v) * mask
+        rest_eff = rest if rest_scale is None else rest * rest_scale[o]
+        fmag = (k * (length - rest_eff) + damping * rel_v) * mask
         f = fmag * n                       # force on (i,j), toward neighbour
         f_total = f_total + f - _shift(f, -di, -dj)
     return f_total
 
 
+# --- tearing and plasticity: per-offset feature planes -----------------------
+
+def _edge_lengths(x3, di: int, dj: int) -> torch.Tensor:
+    """|x(i+di, j+dj) - x(i, j)| with |d|^2 summed (d0^2 + d1^2) + d2^2."""
+    d = _shift(x3, di, dj) - x3
+    return torch.sqrt(_dot(d, d))
+
+
+def tear_ok_planes(x3, offsets, strain_limit: float, rest_scale=None):
+    """Per-offset survival masks of the tear check (the oracle's
+    ``tear_update`` comparison): 1.0 where the edge owned at (i, j) is
+    within its strain limit.  ``rest_scale`` (plasticity) rescales the rest
+    lengths first.  The threshold is ``rest * (1 + strain_limit)`` rounded
+    once from double without plasticity, else ``(rest * scale) * (1 +
+    strain_limit)`` in the planes' type, as the JAX package's twin rounds
+    it."""
+    ok = []
+    for o, off in enumerate(offsets):
+        di, dj, rest = off[0], off[1], off[3]
+        length = _edge_lengths(x3, di, dj)
+        limit = (rest * (1.0 + strain_limit) if rest_scale is None
+                 else rest * rest_scale[o] * (1.0 + strain_limit))
+        ok.append((length <= limit).to(x3.dtype))
+    return ok
+
+
+def tear_update_grid(x3, offsets, alive, strain_limit: float,
+                     rest_scale=None) -> torch.Tensor:
+    """End-of-substep tear check on liveness planes (the oracle's
+    ``tear_update``): an edge past its strain limit dies for good.
+    Invalid grid positions are 0 in ``alive`` and stay 0."""
+    ok = tear_ok_planes(x3, offsets, strain_limit, rest_scale=rest_scale)
+    return torch.stack([alive[o] * ok[o] for o in range(len(offsets))])
+
+
+def plastic_update_grid(x3, offsets, scale, pp) -> torch.Tensor:
+    """End-of-substep plastic flow on rest-scale planes (the oracle's
+    ``plastic_update``; PlasticityParams ``pp``): an edge strained past the
+    yield point creeps its rest scale toward the deformed length.  Invalid
+    grid positions carry scales that nothing reads (the force masks zero
+    them; the plane-to-edge gather takes valid owners only)."""
+    out = []
+    for o, off in enumerate(offsets):
+        di, dj, rest = off[0], off[1], off[3]
+        length = _edge_lengths(x3, di, dj)
+        rest_eff = torch.clamp_min(rest * scale[o], 1e-12)
+        strain = (length - rest_eff) / rest_eff
+        excess = torch.sign(strain) * torch.clamp_min(
+            strain.abs() - pp.yield_strain, 0.0)
+        out.append(torch.clamp(scale[o] * (1.0 + pp.creep * excess),
+                               pp.min_scale, pp.max_scale))
+    return torch.stack(out)
+
+
+def update_features(x3, offsets, alive, scale, cfg: SimConfig):
+    """The feature update at the end of a substep, from its final positions
+    ``x3``: plastic flow first, then the tear check against the flowed rest
+    (the oracle's order).  ``alive``/``scale`` are planes or None (the
+    feature is off); returns the new ``(alive, scale)``."""
+    if scale is not None:
+        scale = plastic_update_grid(x3, offsets, scale, cfg.plasticity)
+    if alive is not None:
+        alive = tear_update_grid(x3, offsets, alive, cfg.tear.strain_limit,
+                                 rest_scale=scale)
+    return alive, scale
+
+
+def tear_plane_maps(top: Topology, offsets, ny: int, nx: int):
+    """``(edge_to_planes, planes_to_edge, plane_idx)``: the flat ``[E]`` <->
+    ``[n_off, ny, nx]`` conversion of per-edge values.  Edge e maps to
+    (offset o, owner vertex) with owner + (di, dj) = its other end.  The
+    index is built once, here, on the host from the edge list, then kept on
+    the topology's device (``plane_idx``, int64 ``[E]``): a frame scatters
+    once and gathers once.  The (di, dj) order of :func:`_offsets` and
+    :func:`_xpbd_offsets` is the same, so one map serves every solver."""
+    edges = top.edges.cpu().numpy()
+    a, b = edges[:, 0].astype(np.int64), edges[:, 1].astype(np.int64)
+    di_e = b // nx - a // nx
+    dj_e = b % nx - a % nx
+    o_e = np.zeros_like(a)
+    owner = a.copy()
+    for o, off in enumerate(offsets):
+        di, dj = off[0], off[1]
+        fwd = (di_e == di) & (dj_e == dj)
+        rev = (di_e == -di) & (dj_e == -dj)
+        o_e = np.where(fwd | rev, o, o_e)
+        owner = np.where(rev, b, owner)
+    plane_idx = torch.from_numpy(o_e * (ny * nx) + owner).to(top.device)
+    n_off = len(offsets)
+
+    def edge_to_planes(vals: torch.Tensor) -> torch.Tensor:
+        flat = torch.zeros(n_off * ny * nx, dtype=vals.dtype,
+                           device=vals.device)
+        flat[plane_idx] = vals
+        return flat.reshape(n_off, ny, nx)
+
+    def planes_to_edge(planes: torch.Tensor) -> torch.Tensor:
+        return planes.reshape(-1)[plane_idx]
+
+    return edge_to_planes, planes_to_edge, plane_idx
+
+
 def euler_substep_grid(x3, v3, inv_mass2, offsets, masks, gravity,
-                       cfg: SimConfig, dt: float, top: Topology, f_ext=None):
+                       cfg: SimConfig, dt: float, top: Topology, f_ext=None,
+                       scale=None):
     """One semi-implicit Euler substep on grid planes (oracle
     ``substep_euler`` semantics): springs, gravity and global damping,
     pinning, then plane and sphere contact relative to the colliders'
     kinematic velocities.  ``gravity`` is ``[3, 1, 1]`` on the planes'
     device.  ``f_ext`` (``[3, ny, nx]`` or None) is an external force at
     ``x3``, the self-collision repulsion, added to the spring forces as
-    ``total_forces`` adds it.  Returns ``(x3, v3)``."""
+    ``total_forces`` adds it.  ``masks`` are the tear liveness planes under
+    tearing, ``scale`` the plastic rest scales (or None); the feature
+    update is the caller's (:func:`update_features`).  Returns
+    ``(x3, v3)``."""
     movable = inv_mass2 > 0.0
-    f = stencil_spring_forces(x3, v3, offsets, masks, cfg.springs.damping)
+    f = stencil_spring_forces(x3, v3, offsets, masks, cfg.springs.damping,
+                              rest_scale=scale)
     if f_ext is not None:
         f = f + f_ext
     v3 = (v3 + dt * (gravity + f * inv_mass2)) * (1.0 - cfg.global_damping * dt)
@@ -283,16 +395,18 @@ def _sphere_friction_grid(x3, x_start3, cfg: SimConfig, dt: float, movable,
 
 
 def verlet_substep_grid(x3, xp3, inv_mass2, offsets, masks, gravity,
-                        cfg: SimConfig, dt: float, top: Topology, f_ext=None):
+                        cfg: SimConfig, dt: float, top: Topology, f_ext=None,
+                        scale=None):
     """One position-Verlet substep on grid planes (oracle ``substep_verlet``
     semantics): springs on the velocity estimate ``(x - xp) / dt``, plus
     ``f_ext`` at ``x3`` when given, the damped position update, pinning,
     then position-only plane and sphere contact and their friction.
-    Returns ``(x_new, x3)``: the new position and the new history
-    ``x_prev``."""
+    ``masks``/``scale`` as :func:`euler_substep_grid`'s.  Returns
+    ``(x_new, x3)``: the new position and the new history ``x_prev``."""
     movable = inv_mass2 > 0.0
     v_est = (x3 - xp3) / dt
-    f = stencil_spring_forces(x3, v_est, offsets, masks, cfg.springs.damping)
+    f = stencil_spring_forces(x3, v_est, offsets, masks, cfg.springs.damping,
+                              rest_scale=scale)
     if f_ext is not None:
         f = f + f_ext
     accel = gravity + f * inv_mass2
@@ -308,16 +422,20 @@ def verlet_substep_grid(x3, xp3, inv_mass2, offsets, masks, gravity,
 
 
 def xpbd_substep_grid(x3, v3, inv_mass2, xoffsets, masks, cnt, gravity,
-                      cfg: SimConfig, dt: float, top: Topology, f_ext=None):
+                      cfg: SimConfig, dt: float, top: Topology, f_ext=None,
+                      scale=None):
     """One XPBD substep on grid planes (oracle ``substep_xpbd`` semantics):
     predict, then ``n_iterations`` Jacobi sweeps of distance-constraint
     projection with compliance, count-averaged and under-relaxed, contact
     projected inside the loop, friction once after it, and the velocity
     recovered from the position change.  ``cnt`` is
-    :func:`jacobi_count` of ``masks``.  ``f_ext`` (or None), an external
-    force at ``x3``, enters the predict as ``f_ext * inv_mass``, as
-    ``substep_xpbd`` takes the self-collision repulsion; the constraints
-    cover only the springs.  Returns ``(x_new, v_new)``.
+    :func:`jacobi_count` of ``masks`` (the tear liveness planes under
+    tearing, so a torn edge leaves the constraints and the count).
+    ``scale`` (or None) holds the plastic rest scales, constant over the
+    substep.  ``f_ext`` (or None), an external force at ``x3``, enters the
+    predict as ``f_ext * inv_mass``, as ``substep_xpbd`` takes the
+    self-collision repulsion; the constraints cover only the springs.
+    Returns ``(x_new, v_new)``.
 
     Delta form: the loop carries the substep's accumulated position change
     ``delta`` and never a rounded ``x``; only the evaluation point
@@ -340,7 +458,7 @@ def xpbd_substep_grid(x3, v3, inv_mass2, xoffsets, masks, cnt, gravity,
             d = _shift(xe, di, dj) - xe
             length = torch.sqrt(_dot(d, d))
             n = d / torch.clamp_min(length, 1e-12)   # divide form
-            c_val = length - rest
+            c_val = length - (rest if scale is None else rest * scale[o])
             alpha_t = alpha / (dt * dt)
             wn = _shift(w, di, dj)
             denom = torch.clamp_min(w + wn + alpha_t, 1e-12)
@@ -390,12 +508,25 @@ def from_planes(a: torch.Tensor) -> torch.Tensor:
     return a.reshape(3, -1).t().contiguous()
 
 
+def edge_values(state_field, n_edges: int, like: torch.Tensor):
+    """A per-edge feature field of a state, or all ones where the state has
+    none yet (what ``api.ensure_tear_state``/``ensure_plastic_state``
+    supply)."""
+    if state_field is not None:
+        return state_field
+    return torch.ones(n_edges, dtype=like.dtype, device=like.device)
+
+
 def make_stencil_step(top: Topology, cfg: SimConfig):
     """Build ``fn(state, dt, n_substeps) -> state`` for a grid-cloth scene
     under ``cfg.solver`` (Euler, Verlet or XPBD), in plain PyTorch on
     whatever device ``top`` lives on.  With self-collision on, each substep
     first evaluates its force planes at the substep's start position
-    (method ``block`` by the pair kernel's plain version)."""
+    (method ``block`` by the pair kernel's plain version).  Under tearing
+    and plasticity the state's ``edge_alive``/``rest_scale`` go into planes
+    once a frame, every substep ends with :func:`update_features`, and the
+    planes come back to the edges at the end; under tearing the XPBD
+    Jacobi count follows the liveness planes every substep."""
     check_ported(cfg)
     sc_force = self_collision_planes(cfg)
     ny, nx = top.grid_shape
@@ -411,33 +542,55 @@ def make_stencil_step(top: Topology, cfg: SimConfig):
         # the same (di, dj) order as offsets, so the masks serve both
         xoffsets = _xpbd_offsets(cfg, top.grid_spacing, has_shear, has_bend)
         cnt = jacobi_count(xoffsets, masks)
+    tearing, plastic = cfg.tear.enabled, cfg.plasticity.enabled
+    if tearing or plastic:
+        edge_to_planes, planes_to_edge, _ = tear_plane_maps(top, offsets,
+                                                            ny, nx)
+    n_edges = int(top.edges.shape[0])
 
     def fn(state: State, dt: float, n_substeps: int) -> State:
         x3 = to_planes(state.x, ny, nx)
+        alive = scale = None
+        if tearing:
+            alive = edge_to_planes(edge_values(state.edge_alive, n_edges,
+                                               state.x))
+        if plastic:
+            scale = edge_to_planes(edge_values(state.rest_scale, n_edges,
+                                               state.x))
         if cfg.solver == Solver.VERLET:
             xp3 = to_planes(state.x_prev, ny, nx)
             for _ in range(n_substeps):
                 f_ext = sc_force(x3) if sc_force else None
-                x3, xp3 = verlet_substep_grid(x3, xp3, inv_mass2, offsets,
-                                              masks, gravity, cfg, dt, top,
-                                              f_ext)
+                x3, xp3 = verlet_substep_grid(
+                    x3, xp3, inv_mass2, offsets,
+                    masks if alive is None else alive, gravity, cfg, dt,
+                    top, f_ext, scale)
+                alive, scale = update_features(x3, offsets, alive, scale, cfg)
             v3 = (x3 - xp3) / dt
         else:
             v3 = to_planes(state.v, ny, nx)
             for _ in range(n_substeps):
                 f_ext = sc_force(x3) if sc_force else None
+                m = masks if alive is None else alive
                 if cfg.solver == Solver.XPBD:
+                    c = cnt if alive is None else jacobi_count(xoffsets, m)
                     x3, v3 = xpbd_substep_grid(x3, v3, inv_mass2, xoffsets,
-                                               masks, cnt, gravity, cfg, dt,
-                                               top, f_ext)
+                                               m, c, gravity, cfg, dt, top,
+                                               f_ext, scale)
                 else:
                     x3, v3 = euler_substep_grid(x3, v3, inv_mass2, offsets,
-                                                masks, gravity, cfg, dt, top,
-                                                f_ext)
+                                                m, gravity, cfg, dt, top,
+                                                f_ext, scale)
+                alive, scale = update_features(x3, offsets, alive, scale, cfg)
             # neither solver reads x_prev; rebuild the natural value (the
             # position before the final integrate) as the JAX fast paths do
             xp3 = x3 - dt * v3
-        return State(x=from_planes(x3), v=from_planes(v3),
-                     x_prev=from_planes(xp3))
+        return State(
+            x=from_planes(x3), v=from_planes(v3), x_prev=from_planes(xp3),
+            edge_alive=(planes_to_edge(alive) if tearing
+                        else state.edge_alive),
+            rest_scale=(planes_to_edge(scale) if plastic
+                        else state.rest_scale),
+            cluster_quat=state.cluster_quat)
 
     return fn

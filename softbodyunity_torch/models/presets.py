@@ -1,5 +1,6 @@
-"""Workload presets of the grid-cloth (with and without self-collision) and
-tet-cube slices (Euler, Verlet, XPBD), under the JAX package's names (``softbodyunity_tpu/models/presets.py``).
+"""Workload presets of the grid-cloth (any size, with and without
+self-collision, tearing and plasticity) and tet-cube slices (Euler, Verlet,
+XPBD), under the JAX package's names (``softbodyunity_tpu/models/presets.py``).
 
 Each preset returns ``(HostTopology, SimConfig)``; feed the topology to
 :func:`softbodyunity_torch.api.init` and the pair to ``step``.  The other
@@ -12,8 +13,9 @@ from typing import Callable, Dict, Tuple
 
 import numpy as np
 
-from ..core.config import (CollisionParams, SelfCollisionParams, SimConfig,
-                           Solver, SpringParams, XPBDParams)
+from ..core.config import (CollisionParams, PlasticityParams,
+                           SelfCollisionParams, SimConfig, Solver,
+                           SpringParams, TearParams, XPBDParams)
 from ..core.topology import HostTopology, cloth_grid, tet_cube
 
 _REGISTRY: Dict[str, Callable[[], Tuple[HostTopology, SimConfig]]] = {}
@@ -352,5 +354,140 @@ def softbody_cube_64k_xpbd():
     top = tet_cube(
         40, spacing=0.02, mass=0.01, springs=cfg.springs, xpbd=cfg.xpbd,
         plane_height=0.0, origin=(0.0, 1.0, 0.0),
+    )
+    return top, cfg
+
+
+@register("cloth_bench_1m")
+def cloth_bench_1m():
+    """Scaling showcase: 1024x1024 = 1,048,576-vertex curtain (6.3M springs).
+
+    dt = 1/1920 (32 substeps/frame): explicit integration needs dt to
+    shrink with the spacing (half the 64k preset's spacing and mass
+    doubles the spring frequency; the 64k dt of 1/960 is past the
+    stability edge here: the JAX package's curtain NaN'd by frame 12
+    before this)."""
+    cfg = SimConfig(
+        solver=Solver.SEMI_IMPLICIT_EULER,
+        springs=SpringParams(k_structural=800.0, k_shear=400.0, k_bend=150.0, damping=0.8),
+        collision=CollisionParams(enable_plane=True, friction=0.2),
+        global_damping=2.0,
+        dt=1.0 / 60.0 / 32.0,
+        n_substeps=32,
+        backend="auto",
+    )
+    top = cloth_grid(
+        1024, 1024, spacing=0.005, mass=0.005, shear=True, bend=True,
+        pinned=("top",),
+        springs=cfg.springs, xpbd=cfg.xpbd,
+        plane_height=-30.0, origin=(0.0, 0.0, 0.0), orientation="xy",
+    )
+    return top, cfg
+
+
+@register("cloth_bench_262k")
+def cloth_bench_262k():
+    """512x512 = 262,144-vertex curtain, the first stop past the TPU's
+    whole-VMEM kernel cap of 128k vertices.  dt = 1/1920: see
+    cloth_bench_1m (same spacing; the 64k dt is unstable at this
+    resolution)."""
+    cfg = SimConfig(
+        solver=Solver.SEMI_IMPLICIT_EULER,
+        springs=SpringParams(k_structural=800.0, k_shear=400.0, k_bend=150.0,
+                             damping=0.8),
+        collision=CollisionParams(enable_plane=True, friction=0.2),
+        global_damping=2.0,
+        dt=1.0 / 60.0 / 32.0,
+        n_substeps=32,
+        backend="auto",
+    )
+    top = cloth_grid(
+        512, 512, spacing=0.005, mass=0.005, shear=True, bend=True,
+        pinned=("top",),
+        springs=cfg.springs, xpbd=cfg.xpbd,
+        plane_height=-15.0, origin=(0.0, 0.0, 0.0), orientation="xy",
+    )
+    return top, cfg
+
+
+@register("cloth_tearing_64k")
+def cloth_tearing_64k():
+    """64k-vertex banner that rips under its own weight (TearParams): edge
+    liveness rides as per-offset planes through the grid kernels."""
+    cfg = SimConfig(
+        solver=Solver.SEMI_IMPLICIT_EULER,
+        springs=SpringParams(k_structural=300.0, k_shear=150.0, k_bend=60.0,
+                             damping=0.3),
+        tear=TearParams(enabled=True, strain_limit=0.05),
+        global_damping=0.1,
+    )
+    top = cloth_grid(
+        256, 256, spacing=0.01, shear=True, bend=True, pinned=("top",),
+        springs=cfg.springs, xpbd=cfg.xpbd,
+        plane_height=-50.0, origin=(0.0, 0.0, 0.0), orientation="xy",
+    )
+    return top, cfg
+
+
+@register("cloth_plastic_64k")
+def cloth_plastic_64k():
+    """64k-vertex awning that sags permanently under load
+    (PlasticityParams): rest-length scales ride as per-offset planes
+    through the grid kernels."""
+    cfg = SimConfig(
+        solver=Solver.SEMI_IMPLICIT_EULER,
+        springs=SpringParams(k_structural=800.0, k_shear=400.0, k_bend=150.0,
+                             damping=0.8),
+        plasticity=PlasticityParams(enabled=True, yield_strain=0.03,
+                                    creep=0.05),
+        global_damping=0.5,
+    )
+    top = cloth_grid(
+        256, 256, spacing=0.01, shear=True, bend=True, pinned=("top",),
+        springs=cfg.springs, xpbd=cfg.xpbd,
+        plane_height=-50.0, origin=(0.0, 0.0, 0.0), orientation="xy",
+    )
+    return top, cfg
+
+
+@register("cloth_tearing_262k")
+def cloth_tearing_262k():
+    """512x512 = 262k-vertex ripping banner, past the TPU's whole-VMEM
+    tearing cap (64k): there it runs the row-tiled kernels, whose liveness
+    planes tear at launch start, as the port's grid kernels do at any
+    size."""
+    cfg = SimConfig(
+        solver=Solver.SEMI_IMPLICIT_EULER,
+        springs=SpringParams(k_structural=300.0, k_shear=150.0, k_bend=60.0,
+                             damping=0.3),
+        tear=TearParams(enabled=True, strain_limit=0.05),
+        global_damping=0.1,
+    )
+    top = cloth_grid(
+        512, 512, spacing=0.005, shear=True, bend=True, pinned=("top",),
+        springs=cfg.springs, xpbd=cfg.xpbd,
+        plane_height=-50.0, origin=(0.0, 0.0, 0.0), orientation="xy",
+    )
+    return top, cfg
+
+
+@register("cloth_plastic_262k")
+def cloth_plastic_262k():
+    """512x512 = 262k-vertex permanently sagging banner, past the TPU's
+    whole-VMEM plasticity cap (64k): there it runs the row-tiled kernels,
+    whose rest-scale planes flow at launch start, as the port's grid
+    kernels do at any size."""
+    cfg = SimConfig(
+        solver=Solver.SEMI_IMPLICIT_EULER,
+        springs=SpringParams(k_structural=300.0, k_shear=150.0, k_bend=60.0,
+                             damping=0.3),
+        plasticity=PlasticityParams(enabled=True, yield_strain=0.03,
+                                    creep=0.05),
+        global_damping=0.1,
+    )
+    top = cloth_grid(
+        512, 512, spacing=0.005, shear=True, bend=True, pinned=("top",),
+        springs=cfg.springs, xpbd=cfg.xpbd,
+        plane_height=-50.0, origin=(0.0, 0.0, 0.0), orientation="xy",
     )
     return top, cfg

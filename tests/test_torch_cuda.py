@@ -1,4 +1,5 @@
-"""The hand-written CUDA kernels, grid (grid_euler, grid_verlet, grid_xpbd),
+"""The hand-written CUDA kernels, grid (grid_euler, grid_verlet, grid_xpbd,
+with and without their tear and plastic planes),
 tet lattice (lattice_euler, lattice_verlet, lattice_xpbd) and the
 block-sparse self-collision pairs (block_pairs), against their plain
 PyTorch versions, on the card.  These tests skip without
@@ -419,3 +420,120 @@ def test_null_force_plane_is_the_kernel_without_it(cuda, solver,
     torch.cuda.synchronize()
     assert torch.equal(without.x, with_zero.x)
     assert torch.equal(without.v, with_zero.v)
+
+
+# --- tearing and plasticity: the feature instantiations ------------------------
+
+def _feature_scene(solver, feature, ny=24):
+    """tests/test_torch_features.py's hanging cloth (8 wide, pinned along the
+    top row): "tear" rips at 3 % strain, "plastic" creeps past 2 %, "both"
+    does both, creeping slower."""
+    cfg = tsb.SimConfig(
+        solver=solver,
+        springs=tsb.SpringParams(k_structural=300.0, k_shear=150.0,
+                                 k_bend=60.0, damping=0.3),
+        xpbd=XPBDParams(compliance_distance=3e-4, compliance_bend=1e-3,
+                        n_iterations=4),
+        tear=tsb.TearParams(enabled=feature in ("tear", "both"),
+                            strain_limit=0.03),
+        plasticity=tsb.PlasticityParams(
+            enabled=feature in ("plastic", "both"), yield_strain=0.02,
+            creep=0.05 if feature == "both" else 0.25),
+        collision=CollisionParams(enable_plane=True),
+        global_damping=0.1,
+    )
+    host = tsb.cloth_grid(8, ny, spacing=0.05, shear=True, bend=True,
+                          pinned=("top",), springs=cfg.springs,
+                          xpbd=cfg.xpbd, plane_height=-5.0, orientation="xy")
+    return host, cfg
+
+
+# float32 kernel against float32 plain version over 64 substeps, the cloth
+# tearing and flowing: x to the JAX twin tests' 5e-5 (tests/test_tearing.py),
+# v 5e-2 (v carries x's rounding over dt), scales 1e-5; the masks equal
+@pytest.mark.cuda
+@pytest.mark.parametrize("feature", ["tear", "plastic", "both"])
+@pytest.mark.parametrize("solver", list(_WRAPPERS))
+def test_feature_kernel_matches_plain_on_card(cuda, solver, feature):
+    host, cfg = _feature_scene(solver, feature)
+    top, s0 = tsb.init(host, device=cuda)
+    want = stencil.make_stencil_step(top, cfg)(s0, cfg.dt, 64)
+    for w in _WRAPPERS.values():
+        w.reset_launch_count()
+    got = _WRAPPERS[solver].make_cuda_step(top, cfg)(s0, cfg.dt, 64)
+    torch.cuda.synchronize()
+    assert (_WRAPPERS[solver].launch_count()
+            == _WRAPPERS[solver].launches_per_frame(cfg, 64))
+    torch.testing.assert_close(got.x, want.x, atol=5e-5, rtol=0)
+    torch.testing.assert_close(got.v, want.v, atol=5e-2, rtol=0)
+    if cfg.tear.enabled:
+        assert torch.equal(got.edge_alive, want.edge_alive)
+        assert float(want.edge_alive.min()) == 0.0
+    if cfg.plasticity.enabled:
+        torch.testing.assert_close(got.rest_scale, want.rest_scale,
+                                   atol=1e-5, rtol=0)
+        assert float(want.rest_scale.max()) > 1.001
+    pinned = torch.from_numpy(host.inv_mass == 0.0).to(cuda)
+    assert torch.equal(got.x[pinned], s0.x[pinned])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("feature", ["tear", "plastic", "both"])
+@pytest.mark.parametrize("solver", list(_WRAPPERS))
+def test_feature_update_launch_is_bit_equal_to_plain(cuda, solver, feature):
+    """One frame-end launch from identical inputs (a stretched cloth, strains
+    around the limits, random liveness and scales) gives the plain update's
+    masks and scales to the bit, at every edge."""
+    host, cfg = _feature_scene(solver, feature)
+    top, s0 = tsb.init(host, device=cuda)
+    fn = _WRAPPERS[solver].make_cuda_step(top, cfg)
+    feat = fn.features
+    rng = np.random.default_rng(7)
+    x = s0.x + torch.tensor(0.003 * rng.standard_normal(tuple(s0.x.shape)),
+                            dtype=torch.float32, device=cuda)
+    e = host.edges.shape[0]
+    state = s0.replace(
+        x=x, edge_alive=torch.tensor((rng.uniform(size=e) < 0.8),
+                                     dtype=torch.float32, device=cuda),
+        rest_scale=torch.tensor(rng.uniform(0.9, 1.2, e),
+                                dtype=torch.float32, device=cuda))
+    alive, scale = feat.planes.to_planes(state)
+    x3 = stencil.to_planes(x, *top.grid_shape).contiguous()
+    table = torch.tensor(feat.planes.offsets, dtype=torch.float32,
+                         device=cuda)
+    got = feat.planes.to_edges(*feat.update(x3, alive, scale, table), state)
+    want = feat.planes.to_edges(*stencil.update_features(
+        x3, feat.planes.offsets, alive, scale, cfg), state)
+    torch.cuda.synchronize()
+    if cfg.tear.enabled:
+        assert torch.equal(got[0], want[0])
+        assert 0.1 < float((want[0] == 0).float().mean()) < 0.9
+    if cfg.plasticity.enabled:
+        assert torch.equal(got[1], want[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("solver", list(_WRAPPERS))
+def test_feature_rollout_launch_counts(cuda, solver):
+    """n_substeps + 1 launches a frame (XPBD: n_substeps x (1 +
+    n_iterations) + 1), no other kernel, and the masks of a rollout equal
+    those of frame-by-frame steps."""
+    host, cfg = _feature_scene(solver, "both")
+    top, s0 = tsb.init(host, device=cuda)
+    for w in (*_WRAPPERS.values(), *_LATTICE.values(), blocks):
+        w.reset_launch_count()
+    frames = 3
+    s_roll, _ = tsb.rollout(top, cfg, s0, frames)
+    torch.cuda.synchronize()
+    per_frame = (cfg.n_substeps * (1 + cfg.xpbd.n_iterations) + 1
+                 if solver == Solver.XPBD else cfg.n_substeps + 1)
+    assert _WRAPPERS[solver].launch_count() == frames * per_frame
+    assert sum(w.launch_count() for w in (*_WRAPPERS.values(),
+                                          *_LATTICE.values(), blocks)) \
+        == frames * per_frame
+    s = s0
+    for _ in range(frames):
+        s = tsb.step(top, cfg, s)
+    assert torch.equal(s.x, s_roll.x)
+    assert torch.equal(s.edge_alive, s_roll.edge_alive)
+    assert torch.equal(s.rest_scale, s_roll.rest_scale)

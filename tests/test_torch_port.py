@@ -31,11 +31,16 @@ SLICE_PRESETS = ["cloth_32_euler", "cloth_hanging_sphere", "cloth_bench_64k",
                  "cloth_xpbd", "cloth_bench_64k_xpbd",
                  "cloth_bench_64k_verlet", "softbody_cube",
                  "softbody_cube_xpbd_sub", "cloth_batch_rl",
-                 "cloth_selfcollide_16k", "cloth_selfcollide_64k"]
+                 "cloth_selfcollide_16k", "cloth_selfcollide_64k",
+                 "cloth_tearing_64k", "cloth_plastic_64k"]
 # tet_cube(40) is seconds of Python loops in each package: these presets are
 # held equal by their configs and their builder's arguments
 LATTICE_64K = ["softbody_cube_64k", "softbody_cube_64k_verlet",
                "softbody_cube_64k_xpbd"]
+# the grids past 128k vertices, held equal the same way (the 1m curtain's
+# arrays are ~1 GB in each package)
+GRID_LARGE = ["cloth_bench_262k", "cloth_bench_1m", "cloth_tearing_262k",
+              "cloth_plastic_262k"]
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
@@ -61,8 +66,9 @@ def _assert_hosts_equal(got, want):
 
 
 def test_preset_names_are_jax_presets():
-    assert set(tsb.presets.names()) == set(SLICE_PRESETS + LATTICE_64K)
-    assert set(SLICE_PRESETS + LATTICE_64K) <= set(jpresets.names())
+    ported = SLICE_PRESETS + LATTICE_64K + GRID_LARGE
+    assert set(tsb.presets.names()) == set(ported)
+    assert set(ported) <= set(jpresets.names())
 
 
 @pytest.mark.parametrize("name", SLICE_PRESETS)
@@ -90,6 +96,27 @@ def test_64k_lattice_preset_matches_jax(name, monkeypatch):
     assert _plain(cfg) == _plain(jcfg)
     assert len(calls) == 2 and calls[0] == calls[1]
     assert calls[0][0] == (40,)
+
+
+@pytest.mark.parametrize("name,side", [
+    ("cloth_bench_262k", 512), ("cloth_bench_1m", 1024),
+    ("cloth_tearing_262k", 512), ("cloth_plastic_262k", 512)])
+def test_large_grid_preset_matches_jax(name, side, monkeypatch):
+    calls = []
+
+    def record(*args, **kw):
+        calls.append((args, {k: dataclasses.asdict(v)
+                             if dataclasses.is_dataclass(v) else v
+                             for k, v in kw.items()}))
+        return None
+
+    monkeypatch.setattr(jpresets, "cloth_grid", record)
+    monkeypatch.setattr(tsb.presets, "cloth_grid", record)
+    _, cfg = tsb.presets.build(name)
+    _, jcfg = jpresets.build(name)
+    assert _plain(cfg) == _plain(jcfg)
+    assert len(calls) == 2 and calls[0] == calls[1]
+    assert calls[0][0] == (side, side)
 
 
 @pytest.mark.parametrize("kw", [
@@ -189,6 +216,7 @@ def test_package_imports_no_jax():
             "import softbodyunity_torch.kernels.lattice_verlet\n"
             "import softbodyunity_torch.kernels.lattice_xpbd\n"
             "import softbodyunity_torch.kernels.blocks\n"
+            "import softbodyunity_torch.kernels.grid_features\n"
             "import softbodyunity_torch.solver.blocksparse\n"
             "import softbodyunity_torch.solver.forces\n"
             "import softbodyunity_torch.solver.step\n"
