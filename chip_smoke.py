@@ -29,6 +29,17 @@ instantiations, with one frame-end update launch a frame):
     XPBD    cloth_tearing_262k (solver replaced)    grid_xpbd    1 + n_iterations,
                                                                  + 1 a frame
 
+Then the wind and strain-limit branches: wind (drag and lift) in the three
+grid kernels, the strain limit's sweeps (grid_strain_sweep_kernel, one
+launch per sweep, the last running the solver's epilogue), and the wind's
+drag in the three lattice kernels:
+
+    Euler   cloth_wind_64k (Verlet, XPBD: solver replaced)   grid_*    as above
+    Euler   cloth_strain_64k (Verlet, XPBD: solver replaced) grid_*    + iterations
+            (sweeps; XPBD: 1 + n_iterations + iterations)
+    Euler   softbody_cube_64k, _verlet, _xpbd with drag      lattice_* as above
+            (wind velocity (3, 0, 1), drag 0.3)
+
 Phases, each printed as one JSON line; any failure raises and exits nonzero:
 
 1. device     the card's name and power limit (nvidia-smi) and torch's view;
@@ -50,7 +61,13 @@ Phases, each printed as one JSON line; any failure raises and exits nonzero:
               launch from identical inputs against the plain update (masks
               and scales to the bit), one frame of each 262k feature preset
               under the three solvers (masks equal), and one frame of the
-              262k and 1m curtains;
+              262k and 1m curtains; then the wind with lift under the three
+              grid solvers (10x10 and a contact-free 16x24, tests/test_wind.py's
+              scenes), the strain limit under the three (tests/
+              test_strainlimit.py's 16x16 banner, without planes, tearing,
+              tearing and plasticity: masks equal), the sweeps alone from
+              identical positions, the drag on 6^3 cubes, and one frame of
+              each wind, strain and drag path at 64k;
 4. main_path  each 64k preset through init(device="cuda") and 300 frames of
               step() (the self-collision preset 60), every launch count set
               to 0 just before and read just after: the path's kernels
@@ -62,12 +79,14 @@ Phases, each printed as one JSON line; any failure raises and exits nonzero:
               with feature planes (phase main_path_large), each checked the
               same way, the tear masks non-increasing with edges torn, the
               rest scales inside their clip with some above 1, max |v| per
-              frame finite;
+              frame finite; then the nine wind, strain and drag paths
+              (phase main_path_branches), the strain sweeps' own count too;
 5. sphere     cloth_hanging_sphere (Euler), 120 frames: the pins hold, no
               vertex inside the sphere;
 6. golden     the float64 oracle trajectories of tests/golden replayed
               through step() at tests/test_golden.py's tolerances
-              (cloth_batch_rl with self-collision methods block and dense);
+              (cloth_batch_rl with self-collision methods block and dense;
+              cloth_strain_limited);
 7. fidelity   each kernel in float32 against its plain version in float64
               (replayed from a CUDA graph of one frame, held bit-equal to
               a call of it on the first frame):
@@ -78,7 +97,11 @@ Phases, each printed as one JSON line; any failure raises and exits nonzero:
               and 1m curtains over 200 and 100 frames; the feature presets
               over 60 (64k) or 30 (262k) frames, the masks and scales of
               float32 kernel, float32 plain and float64 plain compared at
-              each frame (printed, not bounded);
+              each frame (printed, not bounded); cloth_wind_64k and
+              cloth_strain_64k over 200 frames, held to 1e-3 while the JAX
+              package's own float32 drift on them stays inside it, and to
+              twice its worst after, where the flutter and the strain clamp
+              have made both chaotic;
 8. timing     per 64k preset, ms per substep of the kernel path and of the
               plain version with CUDA events, in turns plain/kernel/kernel/
               plain; then, after all of them (a profiler session slows the
@@ -89,7 +112,8 @@ Phases, each printed as one JSON line; any failure raises and exits nonzero:
               deformed and resting on the plane).  The self-collision
               path and its pair function alone are timed from the 64k
               preset's state after 24 substeps.  The paths past the cap and
-              with feature planes are timed from rest.
+              with feature planes, and the wind, strain and drag paths, are
+              timed from rest, and the strain sweeps alone.
 
 Then a JSON line of the kernels (launches on the main path, error against
 the plain version, times, bound), the nvidia-smi line, and as the last line
@@ -171,6 +195,21 @@ OPS_PLASTIC = 14
 OPS_TEAR = 3
 OPS_XPBD_COUNT_EDGE = 2
 OPS_XPBD_COUNT_VERTEX = 2
+# The wind, counted from its plain version (kernels/stencil.py::
+# wind_forces_grid) the same way, per vertex: v_rel 3, drag 3, added to the
+# force 3 = 9 for drag alone; with lift the two face normals of a cell (2
+# differences 6 and a cross product 9 each) 30, the six faces summed 15,
+# the norm (squares 5, sqrt, max, divides 3) 10, v_rel . n 5, lift * 1,
+# times n 3 and added 3: 76.  The lattice kernels run the drag alone.
+OPS_WIND_VERTEX = 76
+OPS_DRAG_VERTEX = 9
+# A strain-limit edge in one sweep (kernels/stencil.py::strain_limit_planes):
+# d 3, |d|^2 5, sqrt 1, max 1, n 3, clip 2, C 1 and its mask 1, w + wn 1,
+# max 1, divide 1, the two shares 2, times n 6, added at both ends 6 = 34;
+# per vertex and sweep the averaged update 6; once per substep the count, 2
+# per edge and 2 per vertex.
+OPS_STRAIN_EDGE = 34
+OPS_STRAIN_VERTEX = 6
 
 
 class SmokeFailure(Exception):
@@ -224,7 +263,30 @@ def bound_per_substep(name, top, cfg):
             ops += e * (cfg.xpbd.n_iterations if name == "grid_xpbd" else 1)
         if tear and name == "grid_xpbd":
             ops += OPS_XPBD_COUNT_EDGE * e + OPS_XPBD_COUNT_VERTEX * n
+    if cfg.wind.enabled:
+        ops += (OPS_WIND_VERTEX if cfg.wind.lift != 0.0
+                else OPS_DRAG_VERTEX) * n
+    if cfg.strain_limit.enabled:
+        # the sweeps' positions stay inside the substep: no input or output
+        # bytes of their own, the operations of every sweep
+        ops += _strain_ops(cfg, n, e)
     return _bound(nbytes + consts, ops)
+
+
+def _strain_ops(cfg, n, e):
+    it = cfg.strain_limit.iterations
+    return (it * (OPS_STRAIN_EDGE * e + OPS_STRAIN_VERTEX * n)
+            + OPS_XPBD_COUNT_EDGE * e + OPS_XPBD_COUNT_VERTEX * n)
+
+
+def strain_bound(top, cfg):
+    """(least ms the card could take for one substep's strain-limit sweeps
+    on this scene, "bytes" or "operations"): the positions and inverse
+    masses read once and the positions written once, against every sweep's
+    operations."""
+    n = top.n_vertices
+    e = int(top.edges.shape[0])
+    return _bound(4 * n * (3 + 1 + 3), _strain_ops(cfg, n, e))
 
 
 def _bound(nbytes, ops):
@@ -269,6 +331,8 @@ def _lattice_bound(name, top, cfg, n, e):
         ops = (it * (OPS_XPBD_EDGE * e + OPS_XPBD_TET * t
                      + OPS_LATTICE_XPBD_VERTEX_SWEEP * n)
                + OPS_XPBD_VERTEX_ONCE * n)
+    if cfg.wind.enabled:
+        ops += OPS_DRAG_VERTEX * n
     return _bound(nbytes + consts, ops)
 
 
@@ -284,11 +348,14 @@ def main() -> int:
 
     import softbodyunity_torch as sb
     from softbodyunity_torch import api
+    from softbodyunity_torch.core.topology import EDGE_BEND, EDGE_SHEAR
     from softbodyunity_torch.kernels import (blocks, build, grid_euler,
-                                            grid_verlet, grid_xpbd,
-                                            lattice_euler, lattice_verlet,
-                                            lattice_xpbd)
-    from softbodyunity_torch.kernels.stencil import (make_stencil_step,
+                                            grid_strain, grid_verlet,
+                                            grid_xpbd, lattice_euler,
+                                            lattice_verlet, lattice_xpbd)
+    from softbodyunity_torch.kernels.stencil import (_offsets, _valid_mask,
+                                                    make_stencil_step,
+                                                    strain_limit_planes,
                                                     to_planes,
                                                     update_features)
     from softbodyunity_torch.solver import blocksparse
@@ -394,9 +461,74 @@ def main() -> int:
                      "feature planes"),
     }
 
+    # the wind and strain-limit branches of the grid kernels and the drag
+    # of the lattice kernels: each path's preset (its solver replaced where
+    # named; the 64k cubes blown by a wind of drag only), the kernel it
+    # launches and its main-path frames
+    cube_wind = sb.WindParams(velocity=(3.0, 0.0, 1.0), drag=0.3)
+    branches = {}
+    for label, preset, solver, kernel, frames_ in (
+            ("cloth_wind_64k", "cloth_wind_64k", None, "grid_euler", 300),
+            ("cloth_wind_64k_verlet", "cloth_wind_64k", sb.Solver.VERLET,
+             "grid_verlet", 60),
+            ("cloth_wind_64k_xpbd", "cloth_wind_64k", sb.Solver.XPBD,
+             "grid_xpbd", 30),
+            ("cloth_strain_64k", "cloth_strain_64k", None, "grid_euler", 300),
+            ("cloth_strain_64k_verlet", "cloth_strain_64k", sb.Solver.VERLET,
+             "grid_verlet", 60),
+            ("cloth_strain_64k_xpbd", "cloth_strain_64k", sb.Solver.XPBD,
+             "grid_xpbd", 30),
+            ("softbody_cube_64k_wind", "softbody_cube_64k", None,
+             "lattice_euler", 60),
+            ("softbody_cube_64k_verlet_wind", "softbody_cube_64k_verlet", None,
+             "lattice_verlet", 60),
+            ("softbody_cube_64k_xpbd_wind", "softbody_cube_64k_xpbd", None,
+             "lattice_xpbd", 20)):
+        branches[label] = dict(preset=preset, solver=solver, kernel=kernel,
+                               frames=frames_)
+    # the kernels line's entries for the branches: each grid kernel's wind
+    # (lift) and lattice kernel's drag, and the strain sweep
+    branch_lines = {
+        "grid_euler_wind": dict(
+            path="cloth_wind_64k",
+            replaces="softbodyunity_tpu/kernels/pallas_substep.py:404-408, "
+                     "the wind branch of :534 (and pallas_tiled.py:273-281 "
+                     "of :380)"),
+        "grid_verlet_wind": dict(
+            path="cloth_wind_64k_verlet",
+            replaces="softbodyunity_tpu/kernels/pallas_substep.py:669-673, "
+                     "the wind branch of :801 (and pallas_tiled.py:623-628 "
+                     "of :738)"),
+        "grid_xpbd_wind": dict(
+            path="cloth_wind_64k_xpbd",
+            replaces="softbodyunity_tpu/kernels/pallas_xpbd.py:103-111, the "
+                     "wind branch of :334 (and pallas_tiled.py:993-1000 of "
+                     ":1155)"),
+        "lattice_euler_drag": dict(
+            path="softbody_cube_64k_wind",
+            replaces="softbodyunity_tpu/kernels/pallas_lattice.py:293-294, "
+                     "the wind drag of :363"),
+        "lattice_verlet_drag": dict(
+            path="softbody_cube_64k_verlet_wind",
+            replaces="softbodyunity_tpu/kernels/pallas_lattice.py:818-819, "
+                     "the wind drag of :901"),
+        "lattice_xpbd_drag": dict(
+            path="softbody_cube_64k_xpbd_wind",
+            replaces="softbodyunity_tpu/kernels/pallas_lattice.py:521, the "
+                     "wind drag of :699"),
+    }
+    strain_line = dict(
+        name="grid_strain_sweep", path="cloth_strain_64k",
+        source="softbodyunity_torch/kernels/csrc/grid_common.cuh",
+        replaces="softbodyunity_tpu/kernels/pallas_substep.py:301 "
+                 "_strain_limit_planes, the strain branch of "
+                 "pallas_substep.py:534 (414-422), :801 (679-686) and "
+                 "pallas_xpbd.py:334 (186-225)")
+
     def reset_counts():
         for k in kernels.values():
             k["module"].reset_launch_count()
+        grid_strain.reset_launch_count()
 
     def counts():
         return {n: k["module"].launch_count() for n, k in kernels.items()}
@@ -418,6 +550,21 @@ def main() -> int:
              seconds=time.perf_counter() - t)
     built = {}
     for p in large.values():
+        if p["preset"] not in built:
+            t = time.perf_counter()
+            built[p["preset"]] = sb.presets.build(p["preset"])
+            emit("host_build", preset=p["preset"],
+                 vertices=built[p["preset"]][0].positions0.shape[0],
+                 edges=built[p["preset"]][0].edges.shape[0],
+                 seconds=time.perf_counter() - t)
+        p["host"], cfg = built[p["preset"]]
+        p["cfg"] = cfg if p["solver"] is None else cfg.replace(
+            solver=p["solver"])
+    for p in branches.values():
+        if p["kernel"].startswith("lattice_"):
+            k = kernels[p["kernel"]]
+            p["host"], p["cfg"] = k["host"], k["cfg"].replace(wind=cube_wind)
+            continue
         if p["preset"] not in built:
             t = time.perf_counter()
             built[p["preset"]] = sb.presets.build(p["preset"])
@@ -941,6 +1088,227 @@ def main() -> int:
                         f"{float(scale.max())}]")
             del top, state0, state, x, pinned, length, flat
 
+    # --- the wind and strain-limit branches, and the lattices' drag ---------
+    def wind_scene(solver, nx=10, ny=10, plane_height=-1.0):
+        """tests/test_wind.py's cloth in a cross-wind with drag and lift
+        (10x10; 16x24 contact-free, past an 8-row tile)."""
+        cfg = sb.SimConfig(
+            solver=solver,
+            wind=sb.WindParams(velocity=(2.0, 0.5, 1.0), drag=0.3, lift=0.8),
+            xpbd=sb.XPBDParams(n_iterations=3),
+            collision=sb.CollisionParams(enable_plane=True),
+            global_damping=0.2)
+        host = sb.cloth_grid(nx, ny, spacing=0.05, shear=True, bend=True,
+                             pinned=("tl", "tr"), springs=cfg.springs,
+                             xpbd=cfg.xpbd, plane_height=plane_height,
+                             orientation="xy")
+        return host, cfg
+
+    def strain_scene(solver, feature="none"):
+        """tests/test_strainlimit.py's soft 16x16 banner on a plane, 8 %
+        stretch bound; "tear" tears at 20 %, "both" also creeps."""
+        cfg = sb.SimConfig(
+            solver=solver,
+            strain_limit=sb.StrainLimitParams(enabled=True, max_stretch=0.08),
+            springs=sb.SpringParams(k_structural=30.0, k_shear=15.0,
+                                    k_bend=6.0, damping=0.5),
+            xpbd=sb.XPBDParams(compliance_distance=5e-3, compliance_bend=5e-2),
+            tear=sb.TearParams(enabled=feature != "none", strain_limit=0.2),
+            plasticity=sb.PlasticityParams(enabled=feature == "both",
+                                           yield_strain=0.02, creep=0.1),
+            global_damping=0.4)
+        host = sb.cloth_grid(16, 16, spacing=0.08, mass=0.04,
+                             pinned=("top",), shear=True, bend=True,
+                             springs=cfg.springs, xpbd=cfg.xpbd,
+                             plane_height=-0.9, orientation="xy")
+        return host, cfg
+
+    def grid_offsets(top, cfg):
+        return _offsets(cfg, top.grid_spacing,
+                        EDGE_SHEAR in top.edge_classes_present,
+                        EDGE_BEND in top.edge_classes_present)
+
+    def compare_sweeps(scene, host, cfg, x, alive=None, scale=None):
+        """The strain sweeps alone (grid_euler.make_strain_correction) from
+        positions ``x`` against x + strain_limit_planes: FMA contraction
+        only.  Returns the error."""
+        top, _ = sb.init(host, device=cuda)
+        ny, nx = top.grid_shape
+        x3 = to_planes(x, ny, nx).contiguous()
+        offsets = grid_offsets(top, cfg)
+        masks = [_valid_mask(ny, nx, di, dj, cuda, torch.float32)
+                 for di, dj, _, _ in offsets]
+        want = x3 + strain_limit_planes(
+            x3, offsets, masks if alive is None else list(alive),
+            top.inv_mass.reshape(1, ny, nx), cfg.strain_limit, scales=scale)
+        got = grid_euler.make_strain_correction(top, cfg)(x3, alive, scale)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        moved = float((want - x3).abs().max())
+        pinned = (top.inv_mass == 0.0).reshape(ny, nx)
+        frozen = torch.equal(got[:, pinned], x3[:, pinned])
+        emit("compare", kernel="grid_strain_sweep", scene=scene,
+             sweeps=cfg.strain_limit.iterations, tear=alive is not None,
+             plastic=scale is not None, max_abs_dx=err, max_moved=moved,
+             pins_frozen=frozen, atol_x=1e-6, why="FMA contraction only")
+        require(err <= 1e-6 and moved > 1e-4 and frozen,
+                f"strain sweeps {scene}: |dx| {err:.3e}, moved {moved:.3e}, "
+                f"pins frozen {frozen}")
+        return err
+
+    def compare_branches():
+        fma = "FMA contraction only"
+        for solver, name in ((sb.Solver.SEMI_IMPLICIT_EULER, "grid_euler"),
+                             (sb.Solver.VERLET, "grid_verlet"),
+                             (sb.Solver.XPBD, "grid_xpbd")):
+            compare(name, "10x10 wind with lift", *wind_scene(solver), 64,
+                    5e-5, 5e-2, fma + "; tests/test_wind.py's 5e-5 on x")
+            compare(name, "16x24 wind with lift, contact-free",
+                    *wind_scene(solver, 16, 24, -3.0), 64, 5e-5, 5e-2,
+                    fma + "; tests/test_wind.py's 5e-5 on x")
+            host, cfg = strain_scene(solver)
+            compare(name, "16x16 strain limit", host, cfg, 64, 3e-5, 5e-2,
+                    fma + "; tests/test_strainlimit.py's 3e-5 on x")
+            for feature in ("tear", "both"):
+                host, cfg = strain_scene(solver, feature)
+                compare_features(
+                    name, f"16x16 strain limit, {feature}", host, cfg, 64,
+                    2e-4, 5e-2, 1e-3,
+                    fma + "; tests/test_strainlimit.py's 2e-4 on x with "
+                    "tearing; scales: x's rounding over rest 0.08, creep 0.1")
+        # the sweeps alone, the banner stretched 15 % with noise
+        rng = np.random.default_rng(5)
+        for feature in ("none", "tear", "both"):
+            host, cfg = strain_scene(sb.Solver.SEMI_IMPLICIT_EULER, feature)
+            x0 = torch.tensor(host.positions0, dtype=torch.float32,
+                              device=cuda)
+            x = 1.15 * x0 + torch.tensor(
+                0.01 * rng.standard_normal(tuple(x0.shape)),
+                dtype=torch.float32, device=cuda)
+            ny, nx = host.grid_shape
+            alive = scale = None
+            if cfg.tear.enabled:
+                alive = torch.stack([
+                    _valid_mask(ny, nx, di, dj, cuda, torch.float32)
+                    for di, dj in ((0, 1), (1, 0), (1, 1), (1, -1), (0, 2),
+                                   (2, 0))]) * torch.tensor(
+                    rng.uniform(size=(6, ny, nx)) < 0.8, dtype=torch.float32,
+                    device=cuda)
+            if cfg.plasticity.enabled:
+                scale = torch.tensor(rng.uniform(0.9, 1.2, (6, ny, nx)),
+                                     dtype=torch.float32, device=cuda)
+            compare_sweeps(f"16x16 banner stretched 15 %, {feature}", host,
+                           cfg, x, alive, scale)
+        # the drag on tests/test_pallas_lattice.py's 6^3 cube
+        for solver, name in ((sb.Solver.SEMI_IMPLICIT_EULER, "lattice_euler"),
+                             (sb.Solver.VERLET, "lattice_verlet"),
+                             (sb.Solver.XPBD, "lattice_xpbd")):
+            host, cfg = cube(solver)
+            compare(name, "6^3 drag", host,
+                    cfg.replace(wind=sb.WindParams(velocity=(3.0, 0.0, 1.0),
+                                                   drag=0.5)),
+                    48, 1e-5, 2e-3, fma)
+        # one frame of each path at 64k, and the sweeps alone from the
+        # strain preset's state after a frame
+        for label, p in branches.items():
+            host, cfg = p["host"], p["cfg"]
+            p["err"] = compare(p["kernel"], label, host, cfg, cfg.n_substeps,
+                               1e-5, 1e-3, "one frame from rest: " + fma)
+        p = branches[strain_line["path"]]
+        top, s0 = sb.init(p["host"], device=cuda)
+        s1 = sb.step(top, p["cfg"], s0)
+        strain_line["err"] = compare_sweeps(
+            "cloth_strain_64k after a frame, stretched 15 %", p["host"],
+            p["cfg"], 1.15 * s1.x)
+        del top, s0, s1
+
+    def main_path_branches():
+        for label, p in branches.items():
+            host, cfg = p["host"], p["cfg"]
+            frames_ = p["frames"]
+            kernel = p["kernel"]
+            lattice = kernel.startswith("lattice_")
+            module = kernels[kernel]["module"]
+            torch.cuda.synchronize()
+            held = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            top, state0 = sb.init(host, device="cuda")
+            pinned = torch.from_numpy(host.inv_mass == 0.0).to(cuda)
+            expected = frames_ * (
+                module.launches_per_frame(cfg, cfg.n_substeps) if not lattice
+                else cfg.n_substeps * module.launches_per_substep(top, cfg))
+            sweeps = frames_ * cfg.n_substeps * grid_strain.sweeps(cfg)
+            reset_counts()
+            t = time.perf_counter()
+            state, vmax = state0, []
+            for _ in range(frames_):
+                state = sb.step(top, cfg, state)
+                vmax.append(torch.linalg.vector_norm(state.v, dim=1).max())
+            torch.cuda.synchronize()
+            main_s = time.perf_counter() - t
+            launched = counts()
+            swept = grid_strain.launch_count()
+            p["launches"] = launched[kernel]
+            p["sweeps"] = swept
+            x = state.x
+            vmax = torch.stack(vmax).tolist()
+            if lattice:   # the normals of the surface the triangles cover
+                on = torch.zeros(x.shape[0], dtype=torch.bool, device=cuda)
+                on[top.triangles.reshape(-1)] = True
+                length = torch.linalg.vector_norm(
+                    sb.normals(top, state)[on], dim=1)
+            else:
+                length = torch.linalg.vector_norm(sb.normals(top, state),
+                                                  dim=1)
+            unit_err = float((length - 1.0).abs().max())
+            e = host.edges.shape[0]
+            strain = None
+            if cfg.strain_limit.enabled:
+                a, b = top.edges[:, 0], top.edges[:, 1]
+                strain = float((torch.linalg.vector_norm(x[b] - x[a], dim=1)
+                                / top.rest_length - 1.0).max())
+            x0 = state0.x
+            emit("main_path_branches", kernel=kernel, path=label,
+                 preset=p["preset"], solver=cfg.solver.value,
+                 vertices=x.shape[0], edges=e, frames=frames_,
+                 substeps=frames_ * cfg.n_substeps, launches=launched,
+                 expected_launches=expected, strain_sweeps=swept,
+                 expected_strain_sweeps=sweeps, seconds=main_s,
+                 vmax_per_frame=vmax[::max(1, frames_ // 12)],
+                 vmax_last=vmax[-1], max_strain=strain,
+                 max_stretch=(cfg.strain_limit.max_stretch
+                              if cfg.strain_limit.enabled else None),
+                 mean_dx=float((x[:, 0] - x0[:, 0]).mean()),
+                 mean_dz=float((x[:, 2] - x0[:, 2]).mean()),
+                 y_min=float(x[:, 1].min()),
+                 plane_height=float(top.plane_height),
+                 normal_unit_err=unit_err,
+                 peak_mem_bytes=torch.cuda.max_memory_allocated() - held)
+            require(launched[kernel] == expected,
+                    f"{label}: {launched[kernel]} launches, expected "
+                    f"{expected}")
+            require(sum(launched.values()) == expected,
+                    f"{label}: other kernels launched: {launched}")
+            require(swept == sweeps,
+                    f"{label}: {swept} strain sweeps, expected {sweeps}")
+            require(bool(torch.isfinite(x).all()), f"{label}: x not finite")
+            require(int(pinned.sum()) == (0 if lattice
+                                          else host.grid_shape[1]),
+                    f"{label}: {int(pinned.sum())} pins")
+            require(torch.equal(x[pinned], x0[pinned]),
+                    f"{label}: pinned row moved")
+            require(bool((x[:, 1] >= top.plane_height).all()),
+                    f"{label}: vertex below the plane")
+            require(all(np.isfinite(vmax)) and max(vmax) < 100.0,
+                    f"{label}: max |v| per frame {vmax}")
+            require(bool(torch.isfinite(length).all()) and unit_err <= 1e-5,
+                    f"{label}: normals off unit length by {unit_err:.3e}")
+            if cfg.wind.enabled:   # blown downwind, along +x and +z
+                require(float((x[:, 0] - x0[:, 0]).mean()) > 0.0
+                        and float((x[:, 2] - x0[:, 2]).mean()) > 0.0,
+                        f"{label}: not blown downwind")
+            del top, state0, state, x, pinned, length
+
     # 3. kernel vs plain version on the card ----------------------------------
     def scene16(solver=sb.Solver.SEMI_IMPLICIT_EULER, shear=True, bend=True,
                 sphere=None, verlet_sphere=False):
@@ -1067,6 +1435,7 @@ def main() -> int:
                              "one smooth frame: rounding only")
     sc_state = compare_self_collision()
     compare_large()
+    compare_branches()
     emit("compare", seconds=phase_seconds())
 
     # 4. the main paths -----------------------------------------------------
@@ -1129,6 +1498,7 @@ def main() -> int:
         del top, state0, state, x, pinned, on_surface, nrm
     main_path_self_collision()
     main_path_large()
+    main_path_branches()
     emit("main_path", seconds=phase_seconds())
 
     # 5. hanging cloth on a sphere ------------------------------------------
@@ -1155,7 +1525,8 @@ def main() -> int:
     for name, tol, first_tol in (("cloth_32_euler", 1e-4, 1e-4),
                                  ("cloth_hanging_sphere", 5e-2, 2e-3),
                                  ("cloth_xpbd", 2e-3, 2e-3),
-                                 ("softbody_cube", 1e-4, 1e-4)):
+                                 ("softbody_cube", 1e-4, 1e-4),
+                                 ("cloth_strain_limited", 5e-3, 5e-3)):
         data = np.load(os.path.join(ROOT, "tests", "golden", f"{name}.npz"))
         golden = data["positions"]
         every = int(data["record_every"])
@@ -1373,6 +1744,70 @@ def main() -> int:
             del top32, s32, top64, s64, plain32, plain64, p32, p64
 
     fidelity_large()
+
+    # The wind and strain presets: the JAX package's own float32 path
+    # leaves its float64 run by the series below, every 10 frames (CPU;
+    # api.step in float32 and float64 on the preset, 200 frames): the
+    # flutter in the cross-wind and the strain clamp on the soft banner
+    # amplify rounding exponentially, past 1e-3 by frame 90 (wind) and 30
+    # (strain), and then saturate at the motion's own amplitude.  So the
+    # port is held to BASELINE.json:5's 1e-3 over the frames where the
+    # reference's float32 stays inside it (wind 1-80, strain 1-20).  Past
+    # them a float32 run lands anywhere in that amplitude (run 3, PR 6: the
+    # kernel followed the wind series to 2.2e-4 up to frame 100, then ended
+    # at 5.03e-2 against the reference's 4.58e-2): it is held to twice the
+    # reference's worst, which a wrong force (the compares above hold every
+    # branch at 1e-5 for a frame) would leave by far, and its difference
+    # from the series is printed.
+    jax_branch_drift = {
+        "cloth_wind_64k": (80, [
+            1.845229e-06, 2.495283e-06, 2.457427e-06, 4.267878e-06,
+            2.078255e-05, 5.530978e-05, 1.095842e-04, 3.116132e-04,
+            1.551024e-03, 4.335685e-03, 1.657185e-02, 2.038094e-02,
+            2.250000e-02, 2.559366e-02, 3.078683e-02, 3.458134e-02,
+            4.349818e-02, 4.087440e-02, 4.462330e-02, 4.576919e-02]),
+        "cloth_strain_64k": (20, [
+            9.169401e-05, 4.226400e-04, 1.259543e-03, 2.958249e-03,
+            7.118472e-03, 9.049879e-03, 5.317054e-02, 7.168111e-02,
+            7.599411e-02, 8.004781e-02, 4.095386e-02, 3.385353e-02,
+            4.321141e-02, 4.532942e-02, 4.745200e-02, 4.912903e-02,
+            2.979982e-02, 7.483560e-02, 4.881768e-02, 4.702367e-02])}
+    for label, (held, ref) in jax_branch_drift.items():
+        p = branches[label]
+        host, cfg = p["host"], p["cfg"]
+        late_bound = 2.0 * max(ref)
+        t = time.perf_counter()
+        top32, s32 = sb.init(host, device="cuda")
+        top64, s64 = sb.init(host, device="cuda", dtype=torch.float64)
+        plain64 = make_stencil_step(top64, cfg)
+        frame64 = graphed(plain64, s64, cfg)
+        want, got = plain64(s64, cfg.dt, cfg.n_substeps), frame64(s64)
+        require(all(torch.equal(a, b) for a, b in (
+            (want.x, got.x), (want.v, got.v), (want.x_prev, got.x_prev))),
+            f"fidelity {label}: the graph's frame differs from a call's")
+        del want, got
+        checkpoints = []
+        for i in range(200):
+            s32 = sb.step(top32, cfg, s32)
+            s64 = frame64(s64)
+            if (i + 1) % 10 == 0:
+                checkpoints.append(float((s32.x.double() - s64.x).abs().max()))
+        torch.cuda.synchronize()
+        early = max(checkpoints[:held // 10])
+        late = max(checkpoints[held // 10:])
+        emit("fidelity", kernel=p["kernel"], preset=label, frames=200,
+             every=10, drift=checkpoints, held_frames=held,
+             worst_drift_held=early, bound_held=1e-3,
+             worst_drift_after=late, bound_after=late_bound,
+             bound_source="BASELINE.json:5 while the JAX package's own f32 "
+                          "drift stays inside it; then twice its worst",
+             minus_reference=[a - b for a, b in zip(checkpoints, ref)],
+             seconds=time.perf_counter() - t)
+        require(early <= 1e-3,
+                f"fidelity {label}: drift {early:.3e} by frame {held}")
+        require(late <= late_bound,
+                f"fidelity {label}: drift {late:.3e} > {late_bound}")
+        del top32, s32, top64, s64, plain64, frame64
     emit("fidelity", seconds=phase_seconds())
 
     # 8. timing -------------------------------------------------------------
@@ -1469,11 +1904,13 @@ def main() -> int:
     top, s24 = sc_state
     cfg = sc["cfg"]
     p, x = cfg.self_collision, s24.x
-    kern_fn = grid_euler.make_cuda_step(top, cfg)
+    # its own name: the profiler below traces this step function (PR 5's
+    # script traced whichever step a later loop left in kern_fn)
+    sc_fn = grid_euler.make_cuda_step(top, cfg)
     plain_fn = make_stencil_step(top, cfg)
     pair_fn = blocks.make_block_pairs(p, x.shape[0], cuda)
     path_ms = in_turns({
-        "kernel": lambda: substep_ms(kern_fn, s24, cfg, 10, cfg.n_substeps),
+        "kernel": lambda: substep_ms(sc_fn, s24, cfg, 10, cfg.n_substeps),
         "plain": lambda: substep_ms(plain_fn, s24, cfg, 1, 2)})
     pair_ms = in_turns({
         "kernel": lambda: events_ms(lambda: [pair_fn(x) for _ in range(50)],
@@ -1516,6 +1953,58 @@ def main() -> int:
              bound_us_per_substep=p["bound_ms"] * 1e3,
              bound_by=p["bound_by"])
         del top, plain_fn
+    # the wind, strain and drag paths, from rest
+    for label, p in branches.items():
+        host, cfg = p["host"], p["cfg"]
+        k = kernels[p["kernel"]]
+        top, s0 = sb.init(host, device="cuda")
+        kern_fn = k["module"].make_cuda_step(top, cfg)
+        plain_fn = k["plain"](top, cfg)
+        frames_k, frames_p = (20, 2) if k["lattice"] else (100, 3)
+        p["timing_fn"], p["timing_s0"] = kern_fn, s0
+        ms = in_turns({
+            "kernel": lambda: substep_ms(kern_fn, s0, cfg, frames_k,
+                                         cfg.n_substeps),
+            "plain": lambda: substep_ms(plain_fn, s0, cfg, frames_p,
+                                        cfg.n_substeps)})
+        p["ms"], p["plain_ms"] = min(ms["kernel"]), min(ms["plain"])
+        p["bound_ms"], p["bound_by"] = bound_per_substep(p["kernel"], top,
+                                                         cfg)
+        emit("timing", kernel=p["kernel"], path=label, preset=p["preset"],
+             card=smi, ms_per_substep=ms,
+             kernel_substeps_per_s=1e3 / p["ms"],
+             plain_substeps_per_s=1e3 / p["plain_ms"],
+             bound_us_per_substep=p["bound_ms"] * 1e3,
+             bound_by=p["bound_by"])
+        del top, plain_fn
+    # the strain sweeps of one substep alone, from the 64k banner at rest
+    # stretched 15 %, every edge past its 10 % bound
+    p = branches[strain_line["path"]]
+    cfg = p["cfg"]
+    top, s0 = sb.init(p["host"], device="cuda")
+    ny, nx = top.grid_shape
+    x3 = to_planes(1.15 * s0.x, ny, nx).contiguous()
+    offsets = grid_offsets(top, cfg)
+    masks = [_valid_mask(ny, nx, di, dj, cuda, torch.float32)
+             for di, dj, _, _ in offsets]
+    w2 = top.inv_mass.reshape(1, ny, nx)
+    sweep_fn = grid_euler.make_strain_correction(top, cfg)
+    ms = in_turns({
+        "kernel": lambda: events_ms(
+            lambda: [sweep_fn(x3) for _ in range(50)], 50),
+        "plain": lambda: events_ms(
+            lambda: [x3 + strain_limit_planes(x3, offsets, masks, w2,
+                                              cfg.strain_limit)
+                     for _ in range(3)], 3)})
+    strain_line["ms"], strain_line["plain_ms"] = (min(ms["kernel"]),
+                                                  min(ms["plain"]))
+    strain_line["bound_ms"], strain_line["bound_by"] = strain_bound(top, cfg)
+    emit("timing", kernel="grid_strain_sweep", path=strain_line["path"],
+         card=smi, sweeps=cfg.strain_limit.iterations,
+         ms_per_substep_sweeps=ms,
+         bound_us_per_substep_sweeps=strain_line["bound_ms"] * 1e3,
+         bound_by=strain_line["bound_by"])
+    del top, s0
     for name, k in steps.items():
         cfg = k["cfg"]
         starts = {"": k["timing_s0"]}
@@ -1535,7 +2024,7 @@ def main() -> int:
     # partner search (every other kernel of the trace)
     cfg = sc["cfg"]
     names = sc["device_names"] + kernels["grid_euler"]["device_names"]
-    dev, busy = device_us_per_launch(kern_fn, s24, cfg, 5, names)
+    dev, busy = device_us_per_launch(sc_fn, s24, cfg, 5, names)
     named = (sum(us * count for us, count in dev.values())
              / (5 * cfg.n_substeps))
     emit("timing", kernel="block_pairs", profiler_frames=5,
@@ -1549,6 +2038,18 @@ def main() -> int:
         names = kernels[p["kernel"]]["device_names"]
         if cfg.tear.enabled or cfg.plasticity.enabled:
             names = names + ("grid_feature_finish_kernel",)
+        dev, busy = device_us_per_launch(p["timing_fn"], p["timing_s0"], cfg,
+                                         3, names)
+        emit("timing", kernel=p["kernel"], path=label, profiler_frames=3,
+             start="rest",
+             device_us_per_launch={n: us for n, (us, _) in dev.items()},
+             launches={n: c for n, (_, c) in dev.items()},
+             device_us_per_substep=busy)
+    for label, p in branches.items():
+        cfg = p["cfg"]
+        names = kernels[p["kernel"]]["device_names"]
+        if cfg.strain_limit.enabled:
+            names = names + ("grid_strain_sweep_kernel",)
         dev, busy = device_us_per_launch(p["timing_fn"], p["timing_s0"], cfg,
                                          3, names)
         emit("timing", kernel=p["kernel"], path=label, profiler_frames=3,
@@ -1574,6 +2075,23 @@ def main() -> int:
             "max_abs_err": p["err"], "ms": p["ms"], "plain_ms": p["plain_ms"],
             "bound_ms": p["bound_ms"], "bound_by": p["bound_by"],
             "library_ms": None})
+    for name, vv in branch_lines.items():
+        p = branches[vv["path"]]
+        line.append({
+            "name": name, "route": "cuda",
+            "source": kernels[p["kernel"]]["source"],
+            "replaces": vv["replaces"], "launches": p["launches"],
+            "max_abs_err": p["err"], "ms": p["ms"], "plain_ms": p["plain_ms"],
+            "bound_ms": p["bound_ms"], "bound_by": p["bound_by"],
+            "library_ms": None})
+    line.append({
+        "name": strain_line["name"], "route": "cuda",
+        "source": strain_line["source"], "replaces": strain_line["replaces"],
+        "launches": branches[strain_line["path"]]["sweeps"],
+        "max_abs_err": strain_line["err"], "ms": strain_line["ms"],
+        "plain_ms": strain_line["plain_ms"],
+        "bound_ms": strain_line["bound_ms"],
+        "bound_by": strain_line["bound_by"], "library_ms": None})
     print(json.dumps({"kernels": line}), flush=True)
     emit("done", seconds=time.perf_counter() - t_start)
     print(smi, flush=True)

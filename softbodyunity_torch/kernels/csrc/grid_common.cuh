@@ -3,6 +3,8 @@
 // [ny, nx] grid whose state lies in [3, ny, nx] component planes, and the
 // tet-lattice kernels (lattice_*.cu, through lattice_common.cuh), one thread
 // per vertex of [3, N] planes.  Every helper reads or writes one vertex.
+// Two kernels live here, each instantiated by every grid library: the
+// frame-end feature update and the strain limit's sweep.
 //
 // Rounding: sqrtf and IEEE divides in the order of the plain PyTorch
 // versions (softbodyunity_torch/kernels/stencil.py,
@@ -309,6 +311,241 @@ __global__ void __launch_bounds__(256) grid_feature_finish_kernel(
     if (alive_out) alive_out[q] = a;
     if (scale_out) scale_out[q] = s;
   }
+}
+
+// --- wind: drag, and lift along the grid's vertex normals ------------------
+//
+// The WindParams force at one vertex (stencil.py::wind_forces_grid): with
+// r = velocity - v, f = drag r, plus lift (r . n) n when lift is on, n the
+// unit area-weighted vertex normal of the grid's triangles
+// (stencil.py::grid_vertex_normals).  The normal reads the vertex's 1-ring,
+// (i +- 1, j), (i, j +- 1), (i + 1, j - 1) and (i - 1, j + 1), which the
+// spring stencil's structural and shear offsets load already: no new
+// device-memory traffic.
+
+// Scalars of the wind, rounded once to float.
+struct Wind {
+  float vx, vy, vz;   // wind velocity
+  float drag;
+  float lift;
+};
+
+__device__ __forceinline__ Vec3 sub3(Vec3 a, Vec3 b) {
+  return {a.x - b.x, a.y - b.y, a.z - b.z};
+}
+
+__device__ __forceinline__ Vec3 cross3(Vec3 a, Vec3 b) {
+  return {a.y * b.z - a.z * b.y, a.z * b.x - a.x * b.z,
+          a.x * b.y - a.y * b.x};
+}
+
+// The face normals (unnormalised) of grid cell (a, b): f1 of the triangle
+// (p(a,b), p(a+1,b), p(a,b+1)), f2 of (p(a,b+1), p(a+1,b), p(a+1,b+1)).  A
+// cell outside [0, ny - 1) x [0, nx - 1) has none: zero, as the plain
+// version's masked face planes are.
+__device__ __forceinline__ Vec3 face1(const float* __restrict__ x, int a,
+                                      int b, int ny, int nx, int ps) {
+  if (a < 0 || b < 0 || a + 1 >= ny || b + 1 >= nx) return {0.0f, 0.0f, 0.0f};
+  const Vec3 p = load3(x, a * nx + b, ps);
+  return cross3(sub3(load3(x, (a + 1) * nx + b, ps), p),
+                sub3(load3(x, a * nx + b + 1, ps), p));
+}
+
+__device__ __forceinline__ Vec3 face2(const float* __restrict__ x, int a,
+                                      int b, int ny, int nx, int ps) {
+  if (a < 0 || b < 0 || a + 1 >= ny || b + 1 >= nx) return {0.0f, 0.0f, 0.0f};
+  const Vec3 pi = load3(x, (a + 1) * nx + b, ps);
+  const Vec3 pj = load3(x, a * nx + b + 1, ps);
+  return cross3(sub3(pi, pj), sub3(load3(x, (a + 1) * nx + b + 1, ps), pj));
+}
+
+// The unit normal of vertex (i, j): the six faces around it summed in the
+// plain version's order, f1 + f1(-1,0) + f1(0,-1) + f2(0,-1) + f2(-1,0) +
+// f2(-1,-1), divided by max(|sum|, 1e-12).
+__device__ __forceinline__ Vec3 vertex_normal(const float* __restrict__ x,
+                                              int i, int j, int ny, int nx,
+                                              int ps) {
+  Vec3 a = face1(x, i, j, ny, nx, ps);
+  Vec3 f = face1(x, i - 1, j, ny, nx, ps);
+  a = {a.x + f.x, a.y + f.y, a.z + f.z};
+  f = face1(x, i, j - 1, ny, nx, ps);
+  a = {a.x + f.x, a.y + f.y, a.z + f.z};
+  f = face2(x, i, j - 1, ny, nx, ps);
+  a = {a.x + f.x, a.y + f.y, a.z + f.z};
+  f = face2(x, i - 1, j, ny, nx, ps);
+  a = {a.x + f.x, a.y + f.y, a.z + f.z};
+  f = face2(x, i - 1, j - 1, ny, nx, ps);
+  a = {a.x + f.x, a.y + f.y, a.z + f.z};
+  const float m = fmaxf(sqrtf(dot3(a, a)), 1e-12f);
+  return {a.x / m, a.y / m, a.z / m};
+}
+
+// The wind force on vertex (i, j) of positions x, moving at v.
+__device__ __forceinline__ Vec3 wind_force(const float* __restrict__ x, int i,
+                                           int j, int ny, int nx, int ps,
+                                           Vec3 v, const Wind& w) {
+  const Vec3 r = {w.vx - v.x, w.vy - v.y, w.vz - v.z};
+  Vec3 f = {w.drag * r.x, w.drag * r.y, w.drag * r.z};
+  if (w.lift != 0.0f) {
+    const Vec3 n = vertex_normal(x, i, j, ny, nx, ps);
+    const float s = w.lift * dot3(r, n);
+    f = {f.x + s * n.x, f.y + s * n.y, f.z + s * n.z};
+  }
+  return f;
+}
+
+// --- the strain limit: one Jacobi sweep per launch --------------------------
+//
+// StrainLimitParams (stencil.py::strain_limit_planes, TPU
+// pallas_substep.py::_strain_limit_planes): each sweep projects every live
+// edge whose length lies outside [lo, hi] = rest * [1 - max_compress,
+// 1 + max_stretch] back onto the nearer bound, the endpoints weighted by
+// inverse mass, and moves each vertex by the sum of its edges' corrections
+// over its count of live edges, owned and owning.  A sweep reads every
+// neighbour's result of the sweep before, and nothing but a kernel boundary
+// gives that grid-wide barrier, so a sweep is one launch, one thread per
+// vertex, reading one position buffer and writing another (ping-pong).  A
+// thread evaluates its n_off owned edges and the n_off edges owned by
+// p - o, whose reaction it takes, through strain_corr with the owner's
+// argument order, so both ends of an edge compute the same correction; no
+// atomics.  The count comes from the same liveness tests.  The last sweep
+// runs the solver's epilogue for its own vertex (the Epilogue functor of
+// each solver's .cu file), so strain limiting adds no launch beyond its
+// sweeps.
+
+// Scalars of the strain limit, rounded once to float.
+struct StrainParams {
+  float stretch1;    // 1 + max_stretch
+  float compress1;   // 1 - max_compress
+  int compress_on;   // max_compress >= 0 (else the lower bound is 0)
+};
+
+// The correction factor C / max(wa + wb, 1e-12) of the edge a -> b, with
+// C = len - clip(len, lo, hi), and its unit direction n (the divide-form
+// norm d / max(len, 1e-12)).
+__device__ __forceinline__ float strain_corr(Vec3 xa, Vec3 xb, float wa,
+                                             float wb, float lo, float hi,
+                                             Vec3& n) {
+  const Vec3 d = sub3(xb, xa);
+  const float len = sqrtf(dot3(d, d));
+  const float m = fmaxf(len, 1e-12f);
+  n = {d.x / m, d.y / m, d.z / m};
+  const float c = len - fminf(fmaxf(len, lo), hi);
+  return c / fmaxf(wa + wb, 1e-12f);
+}
+
+// The band [lo, hi] of the edge owned at plane entry q of offset o: from
+// limits[o] = (hi, lo), rest * (1 + max_stretch) and rest * (1 -
+// max_compress) or 0 rounded once from double, without plasticity; from
+// rest * scale[q] in float, as the plain version rounds it, with it.
+__device__ __forceinline__ void strain_band(const float* __restrict__ limits,
+                                            const float* __restrict__ scale,
+                                            float rest, int o, int q,
+                                            const StrainParams& sp, float& lo,
+                                            float& hi) {
+  if (scale) {
+    const float r = __fmul_rn(rest, scale[q]);
+    hi = __fmul_rn(r, sp.stretch1);
+    lo = sp.compress_on ? __fmul_rn(r, sp.compress1) : 0.0f;
+  } else {
+    hi = limits[2 * o];
+    lo = limits[2 * o + 1];
+  }
+}
+
+// One strain-limit sweep (project = 1) of vertex (i, j), and on the last
+// sweep (last = 1) the solver's epilogue.  A sweep's positions are base, or
+// base + add where add is not null (XPBD's first sweep: xp + delta);
+// table is [n_off, 4] rows of (di, dj, _, rest); alive and scale are the
+// substep's tear and plastic planes, [n_off, ny, nx] (null: the feature is
+// off).  A sweep that is not the last writes the new positions to xs_out;
+// the last hands them to epi(idx, x_new), which writes the substep's
+// result.  With iterations = 0 the wrapper launches one sweep with
+// project = 0: the epilogue alone, on unchanged positions.
+template <class Epilogue>
+__global__ void __launch_bounds__(256) grid_strain_sweep_kernel(
+    const float* __restrict__ base, const float* __restrict__ add,
+    float* __restrict__ xs_out, const float* __restrict__ inv_mass,
+    const float* __restrict__ table, const float* __restrict__ limits,
+    int n_off, const float* __restrict__ alive,
+    const float* __restrict__ scale, StrainParams sp, int project, int last,
+    int ny, int nx, Epilogue epi) {
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  const int i = blockIdx.y * blockDim.y + threadIdx.y;
+  if (i >= ny || j >= nx) return;
+  const int ps = ny * nx;
+  const int idx = i * nx + j;
+  auto pos = [&](int q) {
+    const Vec3 a = load3(base, q, ps);
+    if (!add) return a;
+    const Vec3 b = load3(add, q, ps);
+    return Vec3{a.x + b.x, a.y + b.y, a.z + b.z};
+  };
+  const Vec3 xi = pos(idx);
+  Vec3 xn = xi;
+  if (project) {
+    const float wi = inv_mass[idx];
+    float dx = 0.0f, dy = 0.0f, dz = 0.0f, cnt = 0.0f;
+    for (int o = 0; o < n_off; ++o) {
+      const int di = static_cast<int>(table[4 * o]);
+      const int dj = static_cast<int>(table[4 * o + 1]);
+      const float rest = table[4 * o + 3];
+      float lo, hi;
+      Vec3 n;
+      // the edge this vertex owns, to (i + di, j + dj): + w_i corr n
+      int ii = i + di, jj = j + dj;
+      if (ii >= 0 && ii < ny && jj >= 0 && jj < nx &&
+          (!alive || alive[o * ps + idx] != 0.0f)) {
+        const int nb = ii * nx + jj;
+        strain_band(limits, scale, rest, o, o * ps + idx, sp, lo, hi);
+        const float s =
+            wi * strain_corr(xi, pos(nb), wi, inv_mass[nb], lo, hi, n);
+        dx += s * n.x;
+        dy += s * n.y;
+        dz += s * n.z;
+        cnt += 1.0f;
+      }
+      // the edge owned by (i - di, j - dj), recomputed: - w_i corr n here
+      ii = i - di;
+      jj = j - dj;
+      if (ii >= 0 && ii < ny && jj >= 0 && jj < nx) {
+        const int nb = ii * nx + jj;
+        if (alive && alive[o * ps + nb] == 0.0f) continue;
+        strain_band(limits, scale, rest, o, o * ps + nb, sp, lo, hi);
+        const float s =
+            wi * strain_corr(pos(nb), xi, inv_mass[nb], wi, lo, hi, n);
+        dx -= s * n.x;
+        dy -= s * n.y;
+        dz -= s * n.z;
+        cnt += 1.0f;
+      }
+    }
+    const float c = 1.0f / fmaxf(cnt, 1.0f);
+    xn = {xi.x + dx * c, xi.y + dy * c, xi.z + dz * c};
+  }
+  if (!last) {
+    store3(xs_out, idx, ps, xn);
+    return;
+  }
+  epi(idx, xn);
+}
+
+// Launch one strain sweep with epilogue `epi` on `stream`; returns the
+// cudaError_t of the launch.
+template <class Epilogue>
+int launch_strain_sweep(const float* base, const float* add, float* xs_out,
+                        const float* inv_mass, const float* table,
+                        const float* limits, int n_off, const float* alive,
+                        const float* scale, StrainParams sp, int project,
+                        int last, int ny, int nx, Epilogue epi,
+                        void* stream) {
+  const dim3 block(32, 8);
+  const dim3 grid((nx + block.x - 1) / block.x, (ny + block.y - 1) / block.y);
+  grid_strain_sweep_kernel<Epilogue>
+      <<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
+          base, add, xs_out, inv_mass, table, limits, n_off, alive, scale,
+          sp, project, last, ny, nx, epi);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // Launch the frame-end update on `stream`; returns the cudaError_t of the

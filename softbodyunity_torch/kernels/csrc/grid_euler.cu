@@ -12,14 +12,16 @@
 // ::_tiled_substeps (grids past that cap).  It runs their branches of the
 // grid-cloth Euler path: the six-offset spring stencil (Hooke + axial
 // damper), gravity, global damping and pinning, plane contact and sphere
-// contact with the colliders' kinematic velocities, and the tear-liveness
-// and plastic rest-scale planes (the kFeat instantiation).  An optional
-// external force plane (the self-collision repulsion, block_pairs.cu) is
-// added to the spring forces, where the JAX package's general path adds
-// self_collision_force (solver/step.py::total_forces); the TPU routes such
-// scenes off these kernels.  Their wind, strain-limit and capsule/box
-// branches are not ported yet; the wrapper refuses configs that enable
-// them.
+// contact with the colliders' kinematic velocities, the tear-liveness and
+// plastic rest-scale planes (the kFeat instantiation), the wind's drag and
+// lift along the grid's vertex normals (the kWind instantiation), and the
+// strain limit's Jacobi sweeps (grid_common.cuh::grid_strain_sweep_kernel,
+// one launch per sweep, its last running this solver's epilogue).  An
+// optional external force plane (the self-collision repulsion,
+// block_pairs.cu) is added to the spring forces, where the JAX package's
+// general path adds self_collision_force (solver/step.py::total_forces);
+// the TPU routes such scenes off these kernels.  Their capsule/box branch
+// is not ported yet; the wrapper refuses configs that enable it.
 //
 // Design.  The TPU's whole-VMEM kernel keeps the state in VMEM and runs
 // every substep of a frame in one launch, which caps it at 128k vertices;
@@ -39,7 +41,11 @@
 // frame's first updates the planes from its INPUT positions (the previous
 // substep's output) before it uses them, and the wrapper launches one
 // frame-end update (grid_common.cuh::grid_feature_finish_kernel) after the
-// last substep.  kFeat is that form here.
+// last substep.  kFeat is that form here.  The strain limit needs a
+// grid-wide barrier between its sweeps, so under it a substep is 1 +
+// iterations launches: this kernel integrates with the contact left out,
+// each sweep launch moves the positions, and the last sweep adds the change
+// to the velocity and runs the contact (EulerStrainEpilogue below).
 //
 // Spring forces are a gather.  For each offset o a vertex adds the force of
 // the edge it owns (to p + o) and subtracts the force of the edge owned by
@@ -55,7 +61,9 @@
 // (24 bytes), the same for 12 neighbours (nearly all hits in L1/L2), and
 // writes 24 bytes: about 3 MB of device-memory traffic per substep at 64k
 // vertices, around a microsecond at the card's 3.35 TB/s, and ~300 flops per
-// vertex; the feature planes add 4 bytes in and out per offset and plane.
+// vertex; the feature planes add 4 bytes in and out per offset and plane,
+// the wind ~100 flops and no bytes (its normal reads the 1-ring the springs
+// load), and each strain sweep reads and writes 12 bytes of positions.
 // A launch costs several microseconds of host and device time, so at 64k
 // vertices the kernel is bound by launch overhead and latency, not by
 // bandwidth or arithmetic; at 262k and 1m vertices (12.6 MB of x, 50 MB
@@ -95,8 +103,9 @@ struct Params {
 // is the kernel as it was before the plane existed.  kFeat: the tear and
 // plastic planes, [n_off, ny, nx], are read from *_in (null: the feature is
 // off), updated at the launch's start unless `first`, used by the springs
-// and written to *_out; tear_limits[o] is rest * (1 + strain_limit).
-template <bool kExt, bool kFeat>
+// and written to *_out; tear_limits[o] is rest * (1 + strain_limit).  kWind:
+// the wind force, at x and v, is added after f_ext.
+template <bool kExt, bool kFeat, bool kWind>
 __global__ void __launch_bounds__(256) grid_euler_substep_kernel(
     const float* __restrict__ x, const float* __restrict__ v,
     float* __restrict__ x_out, float* __restrict__ v_out,
@@ -106,7 +115,7 @@ __global__ void __launch_bounds__(256) grid_euler_substep_kernel(
     const float* __restrict__ f_ext, const float* __restrict__ alive_in,
     float* __restrict__ alive_out, const float* __restrict__ scale_in,
     float* __restrict__ scale_out, const float* __restrict__ tear_limits,
-    int first, FeatParams fp, int ny, int nx, Params p) {
+    int first, FeatParams fp, Wind wind, int ny, int nx, Params p) {
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
   const int i = blockIdx.y * blockDim.y + threadIdx.y;
   if (i >= ny || j >= nx) return;
@@ -173,6 +182,12 @@ __global__ void __launch_bounds__(256) grid_euler_substep_kernel(
     fy += f_ext[ps + idx];
     fz += f_ext[2 * ps + idx];
   }
+  if (kWind) {  // + wind, as total_forces sums them
+    const Vec3 fw = wind_force(x, i, j, ny, nx, ps, vi, wind);
+    fx += fw.x;
+    fy += fw.y;
+    fz += fw.z;
+  }
 
   const float im = inv_mass[idx];
   const bool movable = im > 0.0f;
@@ -196,6 +211,39 @@ __global__ void __launch_bounds__(256) grid_euler_substep_kernel(
   v_out[2 * ps + idx] = vz;
 }
 
+// The last strain sweep's epilogue (stencil.py::euler_substep_grid): the
+// change dxl = x_new - x0 from the integrated positions x0 goes into x and,
+// over dt, into the integrated velocity v (in place: each thread touches
+// its own vertex only), then the velocity-level contact of a movable
+// vertex; x is written to x_out.
+struct EulerStrainEpilogue {
+  const float* x0;
+  float* x_out;
+  float* v;
+  const float* inv_mass;
+  const float* plane;
+  int plane_on;
+  const float* spheres;
+  int n_spheres;
+  int ps;
+  Params p;
+
+  __device__ void operator()(int idx, Vec3 xn) const {
+    const Vec3 a = load3(x0, idx, ps);
+    const Vec3 d = sub3(xn, a);
+    float px = a.x + d.x, py = a.y + d.y, pz = a.z + d.z;
+    const Vec3 vi = load3(v, idx, ps);
+    float vx = vi.x + d.x / p.dt, vy = vi.y + d.y / p.dt,
+          vz = vi.z + d.z / p.dt;
+    if (inv_mass[idx] > 0.0f)
+      resolve_velocity_contact(px, py, pz, vx, vy, vz, plane, plane_on,
+                               spheres, n_spheres, p.restitution,
+                               p.restitution1, p.keep);
+    store3(x_out, idx, ps, {px, py, pz});
+    store3(v, idx, ps, {vx, vy, vz});
+  }
+};
+
 }  // namespace
 
 // Launch one substep on `stream`; returns the cudaError_t of the launch
@@ -210,30 +258,63 @@ extern "C" int grid_euler_substep(
     const float* f_ext, int feat, const float* alive_in, float* alive_out,
     const float* scale_in, float* scale_out, const float* tear_limits,
     int first, float strain1, float yield_strain, float creep,
-    float min_scale, float max_scale, int ny, int nx, float dt,
+    float min_scale, float max_scale, int wind_on, float wvx, float wvy,
+    float wvz, float drag, float lift, int ny, int nx, float dt,
     float damping, float gx, float gy, float gz, float decay,
     float restitution, float restitution1, float keep, void* stream) {
   const Params p{dt, damping, gx, gy, gz, decay, restitution, restitution1,
                  keep};
   const FeatParams fp{strain1, yield_strain, creep, min_scale, max_scale};
+  const Wind wind{wvx, wvy, wvz, drag, lift};
   const dim3 block(32, 8);
   const dim3 grid((nx + block.x - 1) / block.x, (ny + block.y - 1) / block.y);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define GRID_EULER_LAUNCH(EXT, FEAT)                                        \
-  grid_euler_substep_kernel<EXT, FEAT><<<grid, block, 0, st>>>(             \
+#define GRID_EULER_LAUNCH(EXT, FEAT, WIND)                                  \
+  grid_euler_substep_kernel<EXT, FEAT, WIND><<<grid, block, 0, st>>>(       \
       x, v, x_out, v_out, inv_mass, offsets, n_off, plane, plane_on,        \
       spheres, n_spheres, f_ext, alive_in, alive_out, scale_in, scale_out,  \
-      tear_limits, first, fp, ny, nx, p)
+      tear_limits, first, fp, wind, ny, nx, p)
+#define GRID_EULER_WIND(EXT, FEAT)          \
+  do {                                      \
+    if (wind_on)                            \
+      GRID_EULER_LAUNCH(EXT, FEAT, true);   \
+    else                                    \
+      GRID_EULER_LAUNCH(EXT, FEAT, false);  \
+  } while (0)
   if (f_ext && feat)
-    GRID_EULER_LAUNCH(true, true);
+    GRID_EULER_WIND(true, true);
   else if (f_ext)
-    GRID_EULER_LAUNCH(true, false);
+    GRID_EULER_WIND(true, false);
   else if (feat)
-    GRID_EULER_LAUNCH(false, true);
+    GRID_EULER_WIND(false, true);
   else
-    GRID_EULER_LAUNCH(false, false);
+    GRID_EULER_WIND(false, false);
+#undef GRID_EULER_WIND
 #undef GRID_EULER_LAUNCH
   return static_cast<int>(cudaGetLastError());
+}
+
+// Launch one strain-limit sweep (grid_common.cuh::grid_strain_sweep_kernel)
+// on `stream`, and with last = 1 the Euler epilogue: x0 and v are the
+// integrate launch's outputs, x_out receives the substep's positions (v is
+// updated in place).  Returns the cudaError_t of the launch.  Allocates
+// nothing and does not synchronise.
+extern "C" int grid_euler_strain(
+    const float* base, const float* add, float* xs_out,
+    const float* inv_mass, const float* offsets, const float* limits,
+    int n_off, const float* alive, const float* scale, float stretch1,
+    float compress1, int compress_on, int project, int last, const float* x0,
+    float* x_out, float* v, const float* plane, int plane_on,
+    const float* spheres, int n_spheres, int ny, int nx, float dt,
+    float restitution, float restitution1, float keep, void* stream) {
+  const Params p{dt,  0.0f,        0.0f,         0.0f, 0.0f,
+                 1.0f, restitution, restitution1, keep};
+  const EulerStrainEpilogue epi{x0,      x_out,   v,         inv_mass, plane,
+                                plane_on, spheres, n_spheres, ny * nx,  p};
+  return launch_strain_sweep(base, add, xs_out, inv_mass, offsets, limits,
+                             n_off, alive, scale,
+                             StrainParams{stretch1, compress1, compress_on},
+                             project, last, ny, nx, epi, stream);
 }
 
 // Launch the frame-end feature update over the final positions x

@@ -15,11 +15,14 @@
 // pinning, position-only plane and sphere contact, the plane and sphere
 // friction, and the tear-liveness and plastic rest-scale planes (the kFeat
 // instantiation, in the row-tiled kernel's launch-start form: see
-// grid_euler.cu), with an optional external force plane (the
-// self-collision repulsion at x, block_pairs.cu) added to the spring forces
-// as solver/step.py::verlet_integrate adds it.  Their wind, strain-limit
-// and capsule/box branches are not ported yet; the wrapper refuses configs
-// that enable them.
+// grid_euler.cu), the wind's drag and lift at the velocity estimate (the
+// kWind instantiation), and the strain limit's sweeps
+// (grid_common.cuh::grid_strain_sweep_kernel, position only, the last
+// running the contact chain: VerletStrainEpilogue below), with an optional
+// external force plane (the self-collision repulsion at x, block_pairs.cu)
+// added to the spring forces as solver/step.py::verlet_integrate adds it.
+// Their capsule/box branch is not ported yet; the wrapper refuses configs
+// that enable it.
 //
 // Design.  As grid_euler.cu: one launch per substep, one thread per vertex,
 // the state in L2 or device memory between launches, no vertex cap, the
@@ -69,8 +72,9 @@ struct Params {
 // plane_fric / sphere_fric are 0 when friction is 0 or the collider is off.
 // kExt: f_ext, [3, ny, nx], is added to the spring forces; the
 // instantiation without it is the kernel as it was before the plane existed.
-// kFeat: the tear and plastic planes, as grid_euler.cu's.
-template <bool kExt, bool kFeat>
+// kFeat: the tear and plastic planes, as grid_euler.cu's.  kWind: the wind
+// force at x and the velocity estimate, added after f_ext.
+template <bool kExt, bool kFeat, bool kWind>
 __global__ void __launch_bounds__(256) grid_verlet_substep_kernel(
     const float* __restrict__ x, const float* __restrict__ xp,
     float* __restrict__ out, const float* __restrict__ inv_mass,
@@ -80,7 +84,7 @@ __global__ void __launch_bounds__(256) grid_verlet_substep_kernel(
     const float* __restrict__ f_ext, const float* __restrict__ alive_in,
     float* __restrict__ alive_out, const float* __restrict__ scale_in,
     float* __restrict__ scale_out, const float* __restrict__ tear_limits,
-    int first, FeatParams fp, int ny, int nx, Params p) {
+    int first, FeatParams fp, Wind wind, int ny, int nx, Params p) {
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
   const int i = blockIdx.y * blockDim.y + threadIdx.y;
   if (i >= ny || j >= nx) return;
@@ -146,6 +150,12 @@ __global__ void __launch_bounds__(256) grid_verlet_substep_kernel(
     fy += f_ext[ps + idx];
     fz += f_ext[2 * ps + idx];
   }
+  if (kWind) {  // + wind, as total_forces sums them
+    const Vec3 fw = wind_force(x, i, j, ny, nx, ps, vi, wind);
+    fx += fw.x;
+    fy += fw.y;
+    fz += fw.z;
+  }
 
   const float im = inv_mass[idx];
   if (!(im > 0.0f)) {          // pinned: x stays, bit for bit
@@ -170,6 +180,45 @@ __global__ void __launch_bounds__(256) grid_verlet_substep_kernel(
   store3(out, idx, ps, xnew);
 }
 
+// The last strain sweep's epilogue (stencil.py::verlet_substep_grid): the
+// change x_new - x0 from the integrated positions x0 goes into x, then a
+// movable vertex takes the position-level contact and friction against the
+// substep's start x_start; x is written to out.
+struct VerletStrainEpilogue {
+  const float* x0;
+  const float* x_start;
+  float* out;
+  const float* inv_mass;
+  const float* plane;
+  int plane_on;
+  int plane_fric;
+  const float* spheres;
+  int n_spheres;
+  int sphere_fric;
+  int ps;
+  Params p;
+
+  __device__ void operator()(int idx, Vec3 xn) const {
+    const Vec3 a = load3(x0, idx, ps);
+    const Vec3 d = sub3(xn, a);
+    Vec3 x = {a.x + d.x, a.y + d.y, a.z + d.z};
+    if (inv_mass[idx] > 0.0f) {
+      const Vec3 xi = load3(x_start, idx, ps);
+      const bool contact =
+          project_plane_spheres(x, plane, plane_on, spheres, n_spheres);
+      if (plane_fric && contact) {
+        const float tx = xi.x + plane[1] * p.dt;
+        const float tz = xi.z + plane[3] * p.dt;
+        x.x = tx + (x.x - tx) * p.keep;
+        x.z = tz + (x.z - tz) * p.keep;
+      }
+      if (sphere_fric)
+        x = sphere_friction(x, xi, spheres, n_spheres, p.mu, p.dt, p.shell);
+    }
+    store3(out, idx, ps, x);
+  }
+};
+
 }  // namespace
 
 // Launch one substep on `stream`; returns the cudaError_t of the launch
@@ -183,29 +232,64 @@ extern "C" int grid_verlet_substep(
     const float* f_ext, int feat, const float* alive_in, float* alive_out,
     const float* scale_in, float* scale_out, const float* tear_limits,
     int first, float strain1, float yield_strain, float creep,
-    float min_scale, float max_scale, int ny, int nx, float dt,
+    float min_scale, float max_scale, int wind_on, float wvx, float wvy,
+    float wvz, float drag, float lift, int ny, int nx, float dt,
     float damping, float gx, float gy, float gz, float decay, float mu,
     float keep, float shell, void* stream) {
   const Params p{dt, damping, gx, gy, gz, decay, mu, keep, shell};
   const FeatParams fp{strain1, yield_strain, creep, min_scale, max_scale};
+  const Wind wind{wvx, wvy, wvz, drag, lift};
   const dim3 block(32, 8);
   const dim3 grid((nx + block.x - 1) / block.x, (ny + block.y - 1) / block.y);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define GRID_VERLET_LAUNCH(EXT, FEAT)                                       \
-  grid_verlet_substep_kernel<EXT, FEAT><<<grid, block, 0, st>>>(            \
+#define GRID_VERLET_LAUNCH(EXT, FEAT, WIND)                                 \
+  grid_verlet_substep_kernel<EXT, FEAT, WIND><<<grid, block, 0, st>>>(      \
       x, xp, out, inv_mass, offsets, n_off, plane, plane_on, plane_fric,    \
       spheres, n_spheres, sphere_fric, f_ext, alive_in, alive_out,          \
-      scale_in, scale_out, tear_limits, first, fp, ny, nx, p)
+      scale_in, scale_out, tear_limits, first, fp, wind, ny, nx, p)
+#define GRID_VERLET_WIND(EXT, FEAT)          \
+  do {                                       \
+    if (wind_on)                             \
+      GRID_VERLET_LAUNCH(EXT, FEAT, true);   \
+    else                                     \
+      GRID_VERLET_LAUNCH(EXT, FEAT, false);  \
+  } while (0)
   if (f_ext && feat)
-    GRID_VERLET_LAUNCH(true, true);
+    GRID_VERLET_WIND(true, true);
   else if (f_ext)
-    GRID_VERLET_LAUNCH(true, false);
+    GRID_VERLET_WIND(true, false);
   else if (feat)
-    GRID_VERLET_LAUNCH(false, true);
+    GRID_VERLET_WIND(false, true);
   else
-    GRID_VERLET_LAUNCH(false, false);
+    GRID_VERLET_WIND(false, false);
+#undef GRID_VERLET_WIND
 #undef GRID_VERLET_LAUNCH
   return static_cast<int>(cudaGetLastError());
+}
+
+// Launch one strain-limit sweep (grid_common.cuh::grid_strain_sweep_kernel)
+// on `stream`, and with last = 1 the Verlet epilogue: x0 is the integrate
+// launch's output, x_start the substep's start, out receives the substep's
+// positions.  Returns the cudaError_t of the launch.  Allocates nothing and
+// does not synchronise.
+extern "C" int grid_verlet_strain(
+    const float* base, const float* add, float* xs_out,
+    const float* inv_mass, const float* offsets, const float* limits,
+    int n_off, const float* alive, const float* scale, float stretch1,
+    float compress1, int compress_on, int project, int last, const float* x0,
+    const float* x_start, float* out, const float* plane, int plane_on,
+    int plane_fric, const float* spheres, int n_spheres, int sphere_fric,
+    int ny, int nx, float dt, float mu, float keep, float shell,
+    void* stream) {
+  const Params p{dt, 0.0f, 0.0f, 0.0f, 0.0f, 1.0f, mu, keep, shell};
+  const VerletStrainEpilogue epi{x0,        x_start,    out,     inv_mass,
+                                 plane,     plane_on,   plane_fric,
+                                 spheres,   n_spheres,  sphere_fric,
+                                 ny * nx,   p};
+  return launch_strain_sweep(base, add, xs_out, inv_mass, offsets, limits,
+                             n_off, alive, scale,
+                             StrainParams{stretch1, compress1, compress_on},
+                             project, last, ny, nx, epi, stream);
 }
 
 // Launch the frame-end feature update over the final positions x

@@ -15,9 +15,12 @@
 // count-averaged and under-relaxed, plane and sphere contact projected
 // inside the loop, plane and sphere friction once after it, the velocity
 // recovered from the position change, and the tear-liveness and plastic
-// rest-scale planes (the kFeat instantiations).  Their wind, strain-limit
-// and capsule/box branches are not ported yet; the wrapper refuses configs
-// that enable them.
+// rest-scale planes (the kFeat instantiations), the wind's drag and lift in
+// the predict (the kWind instantiation), and the strain limit's sweeps after
+// the Jacobi loop (grid_common.cuh::grid_strain_sweep_kernel; its last
+// sweep runs one more contact projection and the epilogue:
+// XpbdStrainEpilogue below).  Their capsule/box branch is not ported yet;
+// the wrapper refuses configs that enable it.
 //
 // Design.  A Jacobi sweep reads every neighbour's evaluation point, so each
 // sweep needs a grid-wide barrier; here that barrier is a kernel boundary.
@@ -53,6 +56,11 @@
 //   epilogue  run by the last sweep for its own vertex: plane friction on
 //             the OR'd flag, sphere friction, pins masked, x = xp + delta
 //             written to the other x buffer, v = delta / dt in place.
+//   strain    under the strain limit, iterations more launches after the
+//             Jacobi sweeps (which then all store delta): the strain sweeps
+//             on xp + delta, and the last of them adds its change to delta,
+//             projects the contact once more (its plane clamp ORed into the
+//             flag) and runs the epilogue instead of the last Jacobi sweep.
 // Delta form: the loop carries the substep's position change and never a
 // rounded x (the f32 drift bound depends on it).  Without tearing, inv_cnt
 // = relaxation / max(count, 1) is computed once per scene, as
@@ -92,12 +100,13 @@ struct Params {
 
 // kExt: f_ext, [3, ny, nx], is added to the predict's acceleration as
 // f_ext * inv_mass; the instantiation without it is the kernel as it was
-// before the plane existed.  kFeat: the tear and plastic planes (as
-// grid_euler.cu's) are updated from x, the substep's start, unless `first`,
-// and written to *_out; under tearing (inv_cnt_out not null) the predict
-// also writes relaxation / max(count of live edges, 1).  offsets is
-// [n_off, 4] rows of (di, dj, alpha / dt^2, rest).
-template <bool kExt, bool kFeat>
+// before the plane existed.  kWind: the wind force at x and v enters the
+// acceleration the same way, before f_ext.  kFeat: the tear and plastic
+// planes (as grid_euler.cu's) are updated from x, the substep's start,
+// unless `first`, and written to *_out; under tearing (inv_cnt_out not
+// null) the predict also writes relaxation / max(count of live edges, 1).
+// offsets is [n_off, 4] rows of (di, dj, alpha / dt^2, rest).
+template <bool kExt, bool kFeat, bool kWind>
 __global__ void __launch_bounds__(256) grid_xpbd_predict_kernel(
     const float* __restrict__ v, float* __restrict__ delta,
     float* __restrict__ lam, int n_off, unsigned char* __restrict__ flag,
@@ -106,15 +115,25 @@ __global__ void __launch_bounds__(256) grid_xpbd_predict_kernel(
     const float* __restrict__ alive_in, float* __restrict__ alive_out,
     const float* __restrict__ scale_in, float* __restrict__ scale_out,
     const float* __restrict__ tear_limits, int first, FeatParams fp,
-    float relaxation, float* __restrict__ inv_cnt_out, int ny, int nx,
-    Params p) {
+    float relaxation, float* __restrict__ inv_cnt_out, Wind wind, int ny,
+    int nx, Params p) {
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
   const int i = blockIdx.y * blockDim.y + threadIdx.y;
   if (i >= ny || j >= nx) return;
   const int ps = ny * nx;
   const int idx = i * nx + j;
   Vec3 vi = load3(v, idx, ps);
-  if (kExt) {
+  if (kWind) {  // g + f_wind w (+ f_ext w), as substep_xpbd sums them
+    const float w = inv_mass[idx];
+    const Vec3 fw = wind_force(x, i, j, ny, nx, ps, vi, wind);
+    Vec3 a = {p.gx + fw.x * w, p.gy + fw.y * w, p.gz + fw.z * w};
+    if (kExt) {
+      const Vec3 f = load3(f_ext, idx, ps);
+      a = {a.x + f.x * w, a.y + f.y * w, a.z + f.z * w};
+    }
+    vi = {(vi.x + p.dt * a.x) * p.decay, (vi.y + p.dt * a.y) * p.decay,
+          (vi.z + p.dt * a.z) * p.decay};
+  } else if (kExt) {
     const float w = inv_mass[idx];
     const Vec3 f = load3(f_ext, idx, ps);
     vi = {(vi.x + p.dt * (p.gx + f.x * w)) * p.decay,
@@ -161,6 +180,49 @@ __global__ void __launch_bounds__(256) grid_xpbd_predict_kernel(
     }
     if (inv_cnt_out) inv_cnt_out[idx] = relaxation / fmaxf(cnt, 1.0f);
   }
+}
+
+// Contact of a movable vertex inside the loop, in delta form: the plane
+// clamp as plane - xp (its pre-clamp contact sets *flag), then the spheres'
+// push-out as a displacement.
+__device__ __forceinline__ void project_delta(
+    Vec3& dl, Vec3 xpi, unsigned char* flag, const float* __restrict__ plane,
+    int plane_on, const float* __restrict__ spheres, int n_spheres) {
+  if (plane_on && xpi.y + dl.y < plane[0]) {
+    dl.y = plane[0] - xpi.y;
+    *flag = 1;
+  }
+  if (n_spheres > 0) {
+    const Vec3 e = {xpi.x + dl.x, xpi.y + dl.y, xpi.z + dl.z};
+    const Vec3 q = push_out_spheres(e, spheres, n_spheres);
+    dl = {dl.x + (q.x - e.x), dl.y + (q.y - e.y), dl.z + (q.z - e.z)};
+  }
+}
+
+// The substep's epilogue for vertex idx: friction once (the plane's on the
+// OR'd contact flag), pins masked, x = xp + delta to x_out, v = delta / dt.
+__device__ __forceinline__ void finish(
+    Vec3 dl, Vec3 xpi, int idx, int ps, bool movable, unsigned char flag,
+    const float* __restrict__ plane, int plane_fric,
+    const float* __restrict__ spheres, int n_spheres, int sphere_fric,
+    float* __restrict__ x_out, float* __restrict__ v, const Params& p) {
+  if (!movable) {
+    dl = {0.0f, 0.0f, 0.0f};
+  } else {
+    if (plane_fric && flag) {
+      const float wdx = plane[1] * p.dt, wdz = plane[3] * p.dt;
+      dl.x = wdx + (dl.x - wdx) * p.keep;
+      dl.z = wdz + (dl.z - wdz) * p.keep;
+    }
+    if (sphere_fric) {
+      const Vec3 e = {xpi.x + dl.x, xpi.y + dl.y, xpi.z + dl.z};
+      const Vec3 f =
+          sphere_friction(e, xpi, spheres, n_spheres, p.mu, p.dt, p.shell);
+      dl = {dl.x + (f.x - e.x), dl.y + (f.y - e.y), dl.z + (f.z - e.z)};
+    }
+  }
+  store3(x_out, idx, ps, {xpi.x + dl.x, xpi.y + dl.y, xpi.z + dl.z});
+  store3(v, idx, ps, {dl.x / p.dt, dl.y / p.dt, dl.z / p.dt});
 }
 
 // One Jacobi sweep (project = 1) and, on the last sweep (last = 1), the
@@ -238,42 +300,49 @@ __global__ void __launch_bounds__(256) grid_xpbd_sweep_kernel(
     }
     const float c = inv_cnt[idx];
     dl = {dl.x + dx * c, dl.y + dy * c, dl.z + dz * c};
-    if (movable) {
-      if (plane_on && xpi.y + dl.y < plane[0]) {
-        dl.y = plane[0] - xpi.y;
-        flag[idx] = 1;
-      }
-      if (n_spheres > 0) {
-        const Vec3 e = {xpi.x + dl.x, xpi.y + dl.y, xpi.z + dl.z};
-        const Vec3 q = push_out_spheres(e, spheres, n_spheres);
-        dl = {dl.x + (q.x - e.x), dl.y + (q.y - e.y), dl.z + (q.z - e.z)};
-      }
-    }
+    if (movable)
+      project_delta(dl, xpi, flag + idx, plane, plane_on, spheres, n_spheres);
     if (!last) {
       store3(delta_out, idx, ps, dl);
       return;
     }
   }
-
-  // epilogue: friction once, pins masked, x and v out
-  if (!movable) {
-    dl = {0.0f, 0.0f, 0.0f};
-  } else {
-    if (plane_fric && flag[idx]) {
-      const float wdx = plane[1] * p.dt, wdz = plane[3] * p.dt;
-      dl.x = wdx + (dl.x - wdx) * p.keep;
-      dl.z = wdz + (dl.z - wdz) * p.keep;
-    }
-    if (sphere_fric) {
-      const Vec3 e = {xpi.x + dl.x, xpi.y + dl.y, xpi.z + dl.z};
-      const Vec3 f =
-          sphere_friction(e, xpi, spheres, n_spheres, p.mu, p.dt, p.shell);
-      dl = {dl.x + (f.x - e.x), dl.y + (f.y - e.y), dl.z + (f.z - e.z)};
-    }
-  }
-  store3(x_out, idx, ps, {xpi.x + dl.x, xpi.y + dl.y, xpi.z + dl.z});
-  store3(v, idx, ps, {dl.x / p.dt, dl.y / p.dt, dl.z / p.dt});
+  finish(dl, xpi, idx, ps, movable, flag[idx], plane, plane_fric, spheres,
+         n_spheres, sphere_fric, x_out, v, p);
 }
+
+// The last strain sweep's epilogue (stencil.py::xpbd_substep_grid): the
+// change x_new - x0 from the sweeps' start x0 = xp + delta goes into delta,
+// the contact is projected once more (the plane clamp ORed into the flag),
+// and the epilogue of the last Jacobi sweep follows.
+struct XpbdStrainEpilogue {
+  const float* xp;
+  const float* delta;
+  unsigned char* flag;
+  const float* inv_mass;
+  const float* plane;
+  int plane_on;
+  int plane_fric;
+  const float* spheres;
+  int n_spheres;
+  int sphere_fric;
+  float* x_out;
+  float* v;
+  int ps;
+  Params p;
+
+  __device__ void operator()(int idx, Vec3 xn) const {
+    const Vec3 xpi = load3(xp, idx, ps);
+    Vec3 dl = load3(delta, idx, ps);
+    const Vec3 x0 = {xpi.x + dl.x, xpi.y + dl.y, xpi.z + dl.z};
+    dl = {dl.x + (xn.x - x0.x), dl.y + (xn.y - x0.y), dl.z + (xn.z - x0.z)};
+    const bool movable = inv_mass[idx] > 0.0f;
+    if (movable)
+      project_delta(dl, xpi, flag + idx, plane, plane_on, spheres, n_spheres);
+    finish(dl, xpi, idx, ps, movable, flag[idx], plane, plane_fric, spheres,
+           n_spheres, sphere_fric, x_out, v, p);
+  }
+};
 
 dim3 grid_of(int ny, int nx, dim3 block) {
   return dim3((nx + block.x - 1) / block.x, (ny + block.y - 1) / block.y);
@@ -294,26 +363,36 @@ extern "C" int grid_xpbd_predict(
     const float* scale_in, float* scale_out, const float* tear_limits,
     int first, float strain1, float yield_strain, float creep,
     float min_scale, float max_scale, float relaxation, float* inv_cnt_out,
+    int wind_on, float wvx, float wvy, float wvz, float drag, float lift,
     int ny, int nx, float dt, float gx, float gy, float gz, float decay,
     void* stream) {
   const Params p{dt, gx, gy, gz, decay, 0.0f, 1.0f, 1.0f};
   const FeatParams fp{strain1, yield_strain, creep, min_scale, max_scale};
+  const Wind wind{wvx, wvy, wvz, drag, lift};
   const dim3 block(32, 8);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define GRID_XPBD_PREDICT(EXT, FEAT)                                        \
-  grid_xpbd_predict_kernel<EXT, FEAT>                                       \
+#define GRID_XPBD_PREDICT(EXT, FEAT, WIND)                                  \
+  grid_xpbd_predict_kernel<EXT, FEAT, WIND>                                 \
       <<<grid_of(ny, nx, block), block, 0, st>>>(                           \
           v, delta, lam, n_off, flag, inv_mass, f_ext, x, offsets,          \
           alive_in, alive_out, scale_in, scale_out, tear_limits, first, fp, \
-          relaxation, inv_cnt_out, ny, nx, p)
+          relaxation, inv_cnt_out, wind, ny, nx, p)
+#define GRID_XPBD_WIND(EXT, FEAT)           \
+  do {                                      \
+    if (wind_on)                            \
+      GRID_XPBD_PREDICT(EXT, FEAT, true);   \
+    else                                    \
+      GRID_XPBD_PREDICT(EXT, FEAT, false);  \
+  } while (0)
   if (f_ext && feat)
-    GRID_XPBD_PREDICT(true, true);
+    GRID_XPBD_WIND(true, true);
   else if (f_ext)
-    GRID_XPBD_PREDICT(true, false);
+    GRID_XPBD_WIND(true, false);
   else if (feat)
-    GRID_XPBD_PREDICT(false, true);
+    GRID_XPBD_WIND(false, true);
   else
-    GRID_XPBD_PREDICT(false, false);
+    GRID_XPBD_WIND(false, false);
+#undef GRID_XPBD_WIND
 #undef GRID_XPBD_PREDICT
   return static_cast<int>(cudaGetLastError());
 }
@@ -345,6 +424,32 @@ extern "C" int grid_xpbd_sweep(
     GRID_XPBD_SWEEP(false);
 #undef GRID_XPBD_SWEEP
   return static_cast<int>(cudaGetLastError());
+}
+
+// Launch one strain-limit sweep (grid_common.cuh::grid_strain_sweep_kernel)
+// on `stream`, and with last = 1 the XPBD epilogue: xp is the substep's
+// start, delta the Jacobi loop's result (the first sweep's positions are
+// xp + delta), x_out receives the substep's positions and v its velocity.
+// Returns the cudaError_t of the launch.  Allocates nothing and does not
+// synchronise.
+extern "C" int grid_xpbd_strain(
+    const float* base, const float* add, float* xs_out,
+    const float* inv_mass, const float* offsets, const float* limits,
+    int n_off, const float* alive, const float* scale, float stretch1,
+    float compress1, int compress_on, int project, int last, const float* xp,
+    const float* delta, unsigned char* flag, const float* plane,
+    int plane_on, int plane_fric, const float* spheres, int n_spheres,
+    int sphere_fric, float* x_out, float* v, int ny, int nx, float dt,
+    float mu, float keep, float shell, void* stream) {
+  const Params p{dt, 0.0f, 0.0f, 0.0f, 1.0f, mu, keep, shell};
+  const XpbdStrainEpilogue epi{xp,         delta,     flag,     inv_mass,
+                               plane,      plane_on,  plane_fric,
+                               spheres,    n_spheres, sphere_fric,
+                               x_out,      v,         ny * nx,  p};
+  return launch_strain_sweep(base, add, xs_out, inv_mass, offsets, limits,
+                             n_off, alive, scale,
+                             StrainParams{stretch1, compress1, compress_on},
+                             project, last, ny, nx, epi, stream);
 }
 
 // Launch the frame-end feature update over the final positions x

@@ -39,9 +39,11 @@ __device__ __forceinline__ bool in_range(int j, int n) {
   return j >= 0 && j < n;
 }
 
-__device__ __forceinline__ Vec3 cross3(Vec3 a, Vec3 b) {
-  return {a.y * b.z - a.z * b.y, a.z * b.x - a.x * b.z,
-          a.x * b.y - a.y * b.x};
+// f + drag (velocity - v): the wind's drag (solver/step.py::wind_drag; the
+// lattice kernels run no lift, grid_common.cuh::Wind's lift is unused).
+__device__ __forceinline__ Vec3 add_drag(Vec3 f, Vec3 v, const Wind& w) {
+  return {f.x + w.drag * (w.vx - v.x), f.y + w.drag * (w.vy - v.y),
+          f.z + w.drag * (w.vz - v.z)};
 }
 
 __device__ __forceinline__ void add_scaled(Vec3& acc, float s, Vec3 g) {

@@ -8,8 +8,10 @@
 // pl.pallas_call, for the branches the tet-cube Euler path runs: banded
 // springs (Hooke + axial damper), gravity, global damping and pinning, the
 // banded PBD volume projection, and plane and sphere contact with the
-// colliders' kinematic velocities.  Its wind-drag and capsule/box branches
-// are not ported yet; the wrapper refuses configs that enable them.
+// colliders' kinematic velocities, and the wind's drag (the kDrag
+// instantiation; the TPU kernel gates lift off lattices, and so does the
+// wrapper).  Its capsule/box branch is not ported yet; the wrapper refuses
+// configs that enable it.
 //
 // Design.  The TPU kernel folds the state into [3, S, 128] lane planes and
 // keeps it in VMEM for all substeps of a frame, reaching a neighbour with a
@@ -75,19 +77,22 @@ __device__ __forceinline__ void contact(Vec3& x, Vec3& v, const Colliders& c,
 
 // x, v, x_out, v_out are [3, n] planes; edges is [n_edge, 3] rows of
 // (delta, k, rest).  finish = 1 when the substep has no volume projection.
+// kDrag: the wind's drag, drag (velocity - v), is added to the springs.
+template <bool kDrag>
 __global__ void __launch_bounds__(256) lattice_euler_integrate_kernel(
     const float* __restrict__ x, const float* __restrict__ v,
     float* __restrict__ x_out, float* __restrict__ v_out,
     const float* __restrict__ inv_mass, const unsigned* __restrict__ bits,
     const float* __restrict__ edges, int n_edge, Colliders col, int finish,
-    int n, Params p) {
+    Wind wind, int n, Params p) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   const Vec3 xi = load3(x, i, n);
   const Vec3 vi = load3(v, i, n);
-  const Vec3 f = banded_spring_sum(
+  Vec3 f = banded_spring_sum(
       x, [&](int j) { return load3(v, j, n); }, bits, edges, n_edge,
       p.damping, i, n, xi, vi);
+  if (kDrag) f = add_drag(f, vi, wind);
   const float im = inv_mass[i];
   const bool movable = im > 0.0f;
   Vec3 vn = {(vi.x + p.dt * (p.gx + f.x * im)) * p.decay,
@@ -138,15 +143,23 @@ extern "C" int lattice_euler_integrate(
     const float* x, const float* v, float* x_out, float* v_out,
     const float* inv_mass, const unsigned* bits, const float* edges,
     int n_edge, const float* plane, int plane_on, const float* spheres,
-    int n_spheres, int finish, int n, float dt, float damping, float gx,
-    float gy, float gz, float decay, float restitution, float restitution1,
-    float keep, void* stream) {
+    int n_spheres, int finish, int drag_on, float wvx, float wvy, float wvz,
+    float drag, int n, float dt, float damping, float gx, float gy, float gz,
+    float decay, float restitution, float restitution1, float keep,
+    void* stream) {
   const Params p{dt,    damping,     gx,           gy,   gz,
                  decay, restitution, restitution1, keep, 0.0f};
   const Colliders col{plane, plane_on, spheres, n_spheres};
-  lattice_euler_integrate_kernel<<<blocks_of(n), 256, 0,
-                                   static_cast<cudaStream_t>(stream)>>>(
-      x, v, x_out, v_out, inv_mass, bits, edges, n_edge, col, finish, n, p);
+  const Wind wind{wvx, wvy, wvz, drag, 0.0f};
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (drag_on)
+    lattice_euler_integrate_kernel<true><<<blocks_of(n), 256, 0, st>>>(
+        x, v, x_out, v_out, inv_mass, bits, edges, n_edge, col, finish, wind,
+        n, p);
+  else
+    lattice_euler_integrate_kernel<false><<<blocks_of(n), 256, 0, st>>>(
+        x, v, x_out, v_out, inv_mass, bits, edges, n_edge, col, finish, wind,
+        n, p);
   return static_cast<int>(cudaGetLastError());
 }
 

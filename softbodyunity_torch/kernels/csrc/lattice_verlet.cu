@@ -9,8 +9,9 @@
 // banded springs on the velocity estimate (x - xp) / dt, the damped
 // position update, pinning, the banded PBD volume projection, and
 // position-only plane and sphere contact with the plane and sphere
-// friction.  Its wind-drag and capsule/box branches are not ported yet;
-// the wrapper refuses configs that enable them.
+// friction, and the wind's drag at the velocity estimate (the kDrag
+// instantiation; lift is gated off lattices).  Its capsule/box branch is
+// not ported yet; the wrapper refuses configs that enable it.
 //
 // Design.  As lattice_euler.cu: flat [3, N] planes, one thread per vertex,
 // neighbours at i + delta, and two launches per substep because the volume
@@ -85,23 +86,26 @@ __device__ __forceinline__ Vec3 contact(Vec3 x, Vec3 x0, const Colliders& c,
 }
 
 // x, xp, xs are [3, n] planes; edges is [n_edge, 3] rows of (delta, k,
-// rest).  finish = 1 when the substep has no volume projection.
+// rest).  finish = 1 when the substep has no volume projection.  kDrag: the
+// wind's drag at the velocity estimate is added to the springs.
+template <bool kDrag>
 __global__ void __launch_bounds__(256) lattice_verlet_integrate_kernel(
     const float* __restrict__ x, const float* __restrict__ xp,
     float* __restrict__ xs, const float* __restrict__ inv_mass,
     const unsigned* __restrict__ bits, const float* __restrict__ edges,
-    int n_edge, Colliders col, int finish, int n, Params p) {
+    int n_edge, Colliders col, int finish, Wind wind, int n, Params p) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   const Vec3 xi = load3(x, i, n);
   const Vec3 pi = load3(xp, i, n);
-  const Vec3 f = banded_spring_sum(
+  const Vec3 vi = velocity_estimate(xi, pi, p.dt);
+  Vec3 f = banded_spring_sum(
       x,
       [&](int j) {
         return velocity_estimate(load3(x, j, n), load3(xp, j, n), p.dt);
       },
-      bits, edges, n_edge, p.damping, i, n, xi,
-      velocity_estimate(xi, pi, p.dt));
+      bits, edges, n_edge, p.damping, i, n, xi, vi);
+  if (kDrag) f = add_drag(f, vi, wind);
   const float im = inv_mass[i];
   if (!(im > 0.0f)) {          // pinned: x stays, bit for bit
     store3(xs, i, n, xi);
@@ -150,15 +154,21 @@ extern "C" int lattice_verlet_integrate(
     const float* x, const float* xp, float* xs, const float* inv_mass,
     const unsigned* bits, const float* edges, int n_edge, const float* plane,
     int plane_on, int plane_fric, const float* spheres, int n_spheres,
-    int sphere_fric, int finish, int n, float dt, float damping, float gx,
+    int sphere_fric, int finish, int drag_on, float wvx, float wvy,
+    float wvz, float drag, int n, float dt, float damping, float gx,
     float gy, float gz, float decay, float mu, float keep, float shell,
     void* stream) {
   const Params p{dt, damping, gx, gy, gz, decay, mu, keep, shell, 0.0f};
   const Colliders col{plane, plane_on, plane_fric, spheres, n_spheres,
                       sphere_fric};
-  lattice_verlet_integrate_kernel<<<blocks_of(n), 256, 0,
-                                    static_cast<cudaStream_t>(stream)>>>(
-      x, xp, xs, inv_mass, bits, edges, n_edge, col, finish, n, p);
+  const Wind wind{wvx, wvy, wvz, drag, 0.0f};
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (drag_on)
+    lattice_verlet_integrate_kernel<true><<<blocks_of(n), 256, 0, st>>>(
+        x, xp, xs, inv_mass, bits, edges, n_edge, col, finish, wind, n, p);
+  else
+    lattice_verlet_integrate_kernel<false><<<blocks_of(n), 256, 0, st>>>(
+        x, xp, xs, inv_mass, bits, edges, n_edge, col, finish, wind, n, p);
   return static_cast<int>(cudaGetLastError());
 }
 

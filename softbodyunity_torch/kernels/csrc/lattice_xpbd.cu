@@ -10,9 +10,10 @@
 // banded distance constraints and the banded tet-volume constraints, both
 // with compliance and per-group lambda planes, count-averaged and
 // under-relaxed, plane and sphere contact projected inside the loop, plane
-// and sphere friction once after it, and v = delta / dt.  Its wind-drag and
-// capsule/box branches are not ported yet; the wrapper refuses configs
-// that enable them.
+// and sphere friction once after it, v = delta / dt, and the wind's drag
+// in the predict (the kDrag instantiation; lift is gated off lattices).
+// Its capsule/box branch is not ported yet; the wrapper refuses configs
+// that enable it.
 //
 // Design.  A Jacobi sweep reads every neighbour's evaluation point and
 // lambdas, so each sweep needs a grid-wide barrier; here that barrier is a
@@ -77,15 +78,26 @@ struct Colliders {
   int sphere_fric;
 };
 
+// kDrag: the wind's drag enters the acceleration as g + drag (velocity -
+// v) w (pallas_lattice.py:521).
+template <bool kDrag>
 __global__ void __launch_bounds__(256) lattice_xpbd_predict_kernel(
     const float* __restrict__ v, float* __restrict__ delta,
     float* __restrict__ lam, int n_lam, unsigned char* __restrict__ flag,
-    const float* __restrict__ inv_mass, int n, Params p) {
+    const float* __restrict__ inv_mass, Wind wind, int n, Params p) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   Vec3 vi = load3(v, i, n);
-  vi = {(vi.x + p.dt * p.gx) * p.decay, (vi.y + p.dt * p.gy) * p.decay,
-        (vi.z + p.dt * p.gz) * p.decay};
+  if (kDrag) {
+    const float w = inv_mass[i];
+    const Vec3 f = add_drag({0.0f, 0.0f, 0.0f}, vi, wind);
+    vi = {(vi.x + p.dt * (p.gx + f.x * w)) * p.decay,
+          (vi.y + p.dt * (p.gy + f.y * w)) * p.decay,
+          (vi.z + p.dt * (p.gz + f.z * w)) * p.decay};
+  } else {
+    vi = {(vi.x + p.dt * p.gx) * p.decay, (vi.y + p.dt * p.gy) * p.decay,
+          (vi.z + p.dt * p.gz) * p.decay};
+  }
   if (!(inv_mass[i] > 0.0f)) vi = {0.0f, 0.0f, 0.0f};
   store3(delta, i, n, {p.dt * vi.x, p.dt * vi.y, p.dt * vi.z});
   for (int g = 0; g < n_lam; ++g) lam[g * n + i] = 0.0f;
@@ -194,13 +206,20 @@ unsigned blocks_of(int n) { return (n + 255) / 256; }
 // not synchronise.
 extern "C" int lattice_xpbd_predict(const float* v, float* delta, float* lam,
                                     int n_lam, unsigned char* flag,
-                                    const float* inv_mass, int n, float dt,
-                                    float gx, float gy, float gz, float decay,
+                                    const float* inv_mass, int drag_on,
+                                    float wvx, float wvy, float wvz,
+                                    float drag, int n, float dt, float gx,
+                                    float gy, float gz, float decay,
                                     void* stream) {
   const Params p{dt, gx, gy, gz, decay, 0.0f, 1.0f, 1.0f, 1.0f, 0.0f};
-  lattice_xpbd_predict_kernel<<<blocks_of(n), 256, 0,
-                                static_cast<cudaStream_t>(stream)>>>(
-      v, delta, lam, n_lam, flag, inv_mass, n, p);
+  const Wind wind{wvx, wvy, wvz, drag, 0.0f};
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (drag_on)
+    lattice_xpbd_predict_kernel<true><<<blocks_of(n), 256, 0, st>>>(
+        v, delta, lam, n_lam, flag, inv_mass, wind, n, p);
+  else
+    lattice_xpbd_predict_kernel<false><<<blocks_of(n), 256, 0, st>>>(
+        v, delta, lam, n_lam, flag, inv_mass, wind, n, p);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -39,6 +39,15 @@ JAX dispatcher sends such scenes off its fused grid kernels instead
 whole state in VMEM and have no input for an outside force; these kernels
 read the plane from device memory like the rest of their state.  Routing as
 the TPU does would put the plain spring code on the card's main path.
+
+Wind and the strain limit run on the grid kernels of every solver, as on
+the TPU's fused and row-tiled kernels (wind also with self-collision, where
+the force plane and the wind force add), and the wind's drag on the lattice
+kernels.  What the JAX package runs only on its general jnp path raises,
+naming ROADMAP Queue 1 item 3: wind lift and the strain limit on tet
+lattices (``pallas_lattice.py:211``, ``softbodyunity_tpu/kernels/
+dispatch.py:60-95``) and the strain limit with self-collision
+(:func:`.stencil.check_grid_ported`).
 """
 
 from __future__ import annotations

@@ -8,9 +8,10 @@ serves every grid size.  The plain PyTorch version is
 the CPU and this wrapper for tensors on a CUDA device, where it launches the
 kernel or raises.
 
-A frame is ``n_substeps`` launches; under tearing or plasticity one more,
-the frame-end feature update (:mod:`.grid_features`).  Each launch counts
-once.
+A substep is one launch, plus one per strain-limit sweep
+(:mod:`.grid_strain`); a frame is its substeps' launches and, under tearing
+or plasticity, one more, the frame-end feature update
+(:mod:`.grid_features`).  Each launch counts once.
 """
 
 from __future__ import annotations
@@ -23,10 +24,13 @@ import torch
 from ..core.config import SimConfig, Solver
 from ..core.state import State
 from ..core.topology import EDGE_BEND, EDGE_SHEAR, Topology
+from . import grid_features, grid_strain
 from .blocks import self_collision_planes_cuda
 from .grid_features import (FINISH_ARGTYPES, LAUNCH_ARGTYPES, NO_FEATURES,
-                            CudaFeatures, features_on, launches_per_frame)
-from .grid_scene import check_input, check_launch, pack_grid_scene
+                            CudaFeatures, features_on)
+from .grid_scene import (WIND_ARGTYPES, check_input, check_launch,
+                         pack_grid_scene, wind_args)
+from .grid_strain import SWEEP_ARGTYPES, CudaStrain
 from .stencil import _offsets, from_planes, to_planes
 
 _launches = 0
@@ -42,6 +46,17 @@ def reset_launch_count() -> None:
     _launches = 0
 
 
+def launches_per_substep(cfg: SimConfig) -> int:
+    """The substep launch, plus one per strain-limit sweep."""
+    return 1 + grid_strain.sweeps(cfg)
+
+
+def launches_per_frame(cfg: SimConfig, n_substeps: int) -> int:
+    """Each substep's launches, plus the frame-end feature update."""
+    return grid_features.launches_per_frame(cfg, n_substeps,
+                                            launches_per_substep(cfg))
+
+
 @functools.cache
 def _launcher():
     from .build import load_library
@@ -55,6 +70,7 @@ def _launcher():
         p, i, p, i,            # plane, plane_on, spheres, n_spheres
         p,                     # f_ext (or null)
         *LAUNCH_ARGTYPES,      # the feature planes and scalars
+        *WIND_ARGTYPES,        # the wind
         i, i,                  # ny, nx
         f, f, f, f, f,         # dt, damping, gx, gy, gz
         f, f, f, f,            # decay, restitution, restitution1, keep
@@ -63,9 +79,20 @@ def _launcher():
     fn.restype = ctypes.c_int
     lib.grid_euler_features.argtypes = FINISH_ARGTYPES
     lib.grid_euler_features.restype = ctypes.c_int
+    strain = lib.grid_euler_strain
+    strain.argtypes = [
+        *SWEEP_ARGTYPES,       # the sweep
+        p, p, p,               # epilogue: x0, x_out, v
+        p, i, p, i,            # plane, plane_on, spheres, n_spheres
+        i, i,                  # ny, nx
+        f, f, f, f,            # dt, restitution, restitution1, keep
+        p,                     # stream
+    ]
+    strain.restype = ctypes.c_int
     lib.grid_euler_error_string.argtypes = [ctypes.c_int]
     lib.grid_euler_error_string.restype = ctypes.c_char_p
-    return fn, lib.grid_euler_features, lib.grid_euler_error_string
+    return (fn, lib.grid_euler_features, strain,
+            lib.grid_euler_error_string)
 
 
 def make_cuda_step(top: Topology, cfg: SimConfig):
@@ -82,7 +109,10 @@ def make_cuda_step(top: Topology, cfg: SimConfig):
     ping-pong planes once a frame, every launch but the first updates them
     at its start, and one frame-end launch updates them over the final
     positions (:class:`.grid_features.CudaFeatures`, kept as
-    ``fn.features``)."""
+    ``fn.features``).  Wind adds its force in the substep launch.  Under
+    the strain limit that launch integrates with the contact left out, and
+    the sweep launches follow (:class:`.grid_strain.CudaStrain`), the last
+    adding the change to the velocity and running the contact."""
     sc = pack_grid_scene(top, cfg, Solver.SEMI_IMPLICIT_EULER, "grid_euler")
     ny, nx, device = sc.ny, sc.nx, sc.device
     n = ny * nx
@@ -93,9 +123,17 @@ def make_cuda_step(top: Topology, cfg: SimConfig):
     col = cfg.collision
     gx, gy, gz = cfg.gravity
     sc_force = self_collision_planes_cuda(cfg, ny, nx, device)
-    launch, finish, error_string = _launcher()
+    launch, finish, strain_fn, error_string = _launcher()
     feat = (CudaFeatures(top, cfg, offsets, finish, error_string, "grid_euler")
             if features_on(cfg) else None)
+    strain = (CudaStrain(cfg, offsets, sc.inv_mass, strain_fn, error_string,
+                         "grid_euler")
+              if cfg.strain_limit.enabled else None)
+    wind = wind_args(cfg)
+    # under the strain limit the contact runs in the last sweep
+    contact = ((sc.plane.data_ptr(), 0, sc.spheres.data_ptr(), 0) if strain
+               else (sc.plane.data_ptr(), sc.plane_on, sc.spheres.data_ptr(),
+                     sc.n_spheres))
 
     def fn(state: State, dt: float, n_substeps: int) -> State:
         global _launches
@@ -105,6 +143,8 @@ def make_cuda_step(top: Topology, cfg: SimConfig):
         scalars = (dt, cfg.springs.damping, gx, gy, gz,
                    1.0 - cfg.global_damping * dt, col.restitution,
                    1.0 + col.restitution, 1.0 - col.friction)
+        scalars_strain = (dt, col.restitution, 1.0 + col.restitution,
+                          1.0 - col.friction)
         xa = torch.empty((3, ny, nx), dtype=torch.float32, device=device)
         va = torch.empty_like(xa)
         xb = torch.empty_like(xa)
@@ -116,20 +156,33 @@ def make_cuda_step(top: Topology, cfg: SimConfig):
             stream = torch.cuda.current_stream(device).cuda_stream
             if feat:
                 feat.begin(state)
+            if strain:
+                strain.begin(xa)
             for k in range(n_substeps):
                 f_ext = sc_force(xa) if sc_force else None
                 check_launch(launch(
                     xa.data_ptr(), va.data_ptr(), xb.data_ptr(), vb.data_ptr(),
                     sc.inv_mass.data_ptr(), table.data_ptr(), len(offsets),
-                    sc.plane.data_ptr(), sc.plane_on, sc.spheres.data_ptr(),
-                    sc.n_spheres, None if f_ext is None else f_ext.data_ptr(),
+                    *contact, None if f_ext is None else f_ext.data_ptr(),
                     *(feat.launch_args(k == 0) if feat else NO_FEATURES),
-                    ny, nx, *scalars, stream),
+                    *wind, ny, nx, *scalars, stream),
                     "grid_euler", error_string)
                 _launches += 1
-                xa, xb, va, vb = xb, xa, vb, va
                 if feat:
                     feat.swap()
+                if strain:
+                    # sweeps from the integrated (xb, vb); the last writes
+                    # x into xa, the substep's input, and v in place
+                    _launches += strain.launch(
+                        xb, None, table, feat.alive if feat else None,
+                        feat.scale if feat else None,
+                        (xb.data_ptr(), xa.data_ptr(), vb.data_ptr(),
+                         sc.plane.data_ptr(), sc.plane_on,
+                         sc.spheres.data_ptr(), sc.n_spheres, ny, nx,
+                         *scalars_strain, stream))
+                    va, vb = vb, va
+                else:
+                    xa, xb, va, vb = xb, xa, vb, va
             if feat:
                 if n_substeps > 0:
                     feat.launch_finish(xa, table, stream)
@@ -141,4 +194,39 @@ def make_cuda_step(top: Topology, cfg: SimConfig):
                      rest_scale=rest_scale, cluster_quat=state.cluster_quat)
 
     fn.features = feat
+    return fn
+
+
+def make_strain_correction(top: Topology, cfg: SimConfig):
+    """Build ``fn(x3, alive=None, scale=None) -> x_new``: the strain
+    limit's sweeps alone (:class:`.grid_strain.CudaStrain`) from the
+    ``[3, ny, nx]`` positions ``x3`` on the card, the last sweep's epilogue
+    run with the contact left out, so ``x_new = x3 + dxl`` as the Euler
+    substep adds it.  ``alive``/``scale`` are tear and plastic planes or
+    None.  Its plain version is ``x3 + stencil.strain_limit_planes(...)``;
+    the card tests and ``chip_smoke.py`` hold the sweeps to it alone.  Each
+    launch counts here and in :mod:`.grid_strain`."""
+    sc = pack_grid_scene(top, cfg, Solver.SEMI_IMPLICIT_EULER, "grid_euler")
+    offsets = _offsets(cfg, top.grid_spacing,
+                       EDGE_SHEAR in top.edge_classes_present,
+                       EDGE_BEND in top.edge_classes_present)
+    table = torch.tensor(offsets, dtype=torch.float32, device=sc.device)
+    _, _, strain_fn, error_string = _launcher()
+    strain = CudaStrain(cfg, offsets, sc.inv_mass, strain_fn, error_string,
+                        "grid_euler")
+
+    def fn(x3: torch.Tensor, alive=None, scale=None) -> torch.Tensor:
+        global _launches
+        check_input("x3", x3, (3, sc.ny, sc.nx), sc.device)
+        out = torch.empty_like(x3)
+        v = torch.zeros_like(x3)
+        with torch.cuda.device(sc.device):
+            stream = torch.cuda.current_stream(sc.device).cuda_stream
+            strain.begin(x3)
+            _launches += strain.launch(
+                x3, None, table, alive, scale,
+                (x3.data_ptr(), out.data_ptr(), v.data_ptr(), None, 0, None,
+                 0, sc.ny, sc.nx, 1.0, 0.0, 1.0, 1.0, stream))
+        return out
+
     return fn

@@ -1,7 +1,7 @@
 """What the grid-cloth CUDA kernel wrappers (:mod:`.grid_euler`,
 :mod:`.grid_verlet`, :mod:`.grid_xpbd`) share: the scene's checks and its
-collider rows packed once on the card, the checks of each tensor handed to a
-kernel, and the launch-error check.
+collider rows packed once on the card, the wind's launch arguments, the
+checks of each tensor handed to a kernel, and the launch-error check.
 
 Counterpart of ``softbodyunity_tpu/kernels/pallas_substep.py``'s
 ``_pack_plane``/``_pack_spheres``.
@@ -9,13 +9,14 @@ Counterpart of ``softbodyunity_tpu/kernels/pallas_substep.py``'s
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 
 import torch
 
 from ..core.config import SimConfig, Solver
 from ..core.topology import Topology
-from .stencil import check_ported
+from .stencil import check_grid_ported
 
 
 @dataclasses.dataclass(frozen=True)
@@ -44,6 +45,18 @@ def pack_spheres(top: Topology) -> torch.Tensor:
     """[S, 7] rows: center (3), radius, kinematic velocity (3)."""
     return torch.cat([top.sphere_centers, top.sphere_radii[:, None],
                       top.sphere_velocities], dim=1).contiguous()
+
+
+# ctypes argument types of the wind in each grid library's substep (or XPBD
+# predict) launch: wind_on, wind velocity xyz, drag, lift
+WIND_ARGTYPES = [ctypes.c_int, *[ctypes.c_float] * 5]
+
+
+def wind_args(cfg: SimConfig) -> tuple:
+    """The wind arguments of a launch (:data:`WIND_ARGTYPES`); wind_on is 0
+    without wind, which runs the launch's instantiation without it."""
+    w = cfg.wind
+    return (int(w.enabled), *w.velocity, w.drag, w.lift)
 
 
 def check_input(name: str, t: torch.Tensor, shape, device) -> None:
@@ -75,7 +88,7 @@ def pack_grid_scene(top: Topology, cfg: SimConfig, solver: Solver,
                     kernel: str) -> GridScene:
     """Check that ``kernel``, which runs ``solver``, can run ``(top, cfg)``
     on the card, and pack the scene's fixed inputs there."""
-    check_ported(cfg)
+    check_grid_ported(cfg)
     if cfg.solver != solver:
         raise ValueError(f"{kernel} runs the {solver.value} solver, not "
                          f"{cfg.solver.value}")

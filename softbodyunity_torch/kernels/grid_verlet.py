@@ -9,9 +9,10 @@ branch, :func:`.stencil.verlet_substep_grid`); :mod:`.dispatch` takes it for
 tensors on the CPU and this wrapper for tensors on a CUDA device, where it
 launches the kernel or raises.
 
-A frame is ``n_substeps`` launches; under tearing or plasticity one more,
-the frame-end feature update (:mod:`.grid_features`).  Each launch counts
-once.
+A substep is one launch, plus one per strain-limit sweep
+(:mod:`.grid_strain`); a frame is its substeps' launches and, under tearing
+or plasticity, one more, the frame-end feature update
+(:mod:`.grid_features`).  Each launch counts once.
 """
 
 from __future__ import annotations
@@ -25,10 +26,13 @@ from ..core.config import SimConfig, Solver
 from ..core.state import State
 from ..core.topology import EDGE_BEND, EDGE_SHEAR, Topology
 from ..solver.collide import SPHERE_CONTACT_SHELL
+from . import grid_features, grid_strain
 from .blocks import self_collision_planes_cuda
 from .grid_features import (FINISH_ARGTYPES, LAUNCH_ARGTYPES, NO_FEATURES,
-                            CudaFeatures, features_on, launches_per_frame)
-from .grid_scene import check_input, check_launch, pack_grid_scene
+                            CudaFeatures, features_on)
+from .grid_scene import (WIND_ARGTYPES, check_input, check_launch,
+                         pack_grid_scene, wind_args)
+from .grid_strain import SWEEP_ARGTYPES, CudaStrain
 from .stencil import _offsets, from_planes, to_planes
 
 _launches = 0
@@ -42,6 +46,17 @@ def launch_count() -> int:
 def reset_launch_count() -> None:
     global _launches
     _launches = 0
+
+
+def launches_per_substep(cfg: SimConfig) -> int:
+    """The substep launch, plus one per strain-limit sweep."""
+    return 1 + grid_strain.sweeps(cfg)
+
+
+def launches_per_frame(cfg: SimConfig, n_substeps: int) -> int:
+    """Each substep's launches, plus the frame-end feature update."""
+    return grid_features.launches_per_frame(cfg, n_substeps,
+                                            launches_per_substep(cfg))
 
 
 @functools.cache
@@ -58,6 +73,7 @@ def _launcher():
         p, i, i,               # spheres, n_spheres, sphere_fric
         p,                     # f_ext (or null)
         *LAUNCH_ARGTYPES,      # the feature planes and scalars
+        *WIND_ARGTYPES,        # the wind
         i, i,                  # ny, nx
         f, f, f, f, f,         # dt, damping, gx, gy, gz
         f, f, f, f,            # decay, mu, keep, shell
@@ -66,9 +82,21 @@ def _launcher():
     fn.restype = ctypes.c_int
     lib.grid_verlet_features.argtypes = FINISH_ARGTYPES
     lib.grid_verlet_features.restype = ctypes.c_int
+    strain = lib.grid_verlet_strain
+    strain.argtypes = [
+        *SWEEP_ARGTYPES,       # the sweep
+        p, p, p,               # epilogue: x0, x_start, out
+        p, i, i,               # plane, plane_on, plane_fric
+        p, i, i,               # spheres, n_spheres, sphere_fric
+        i, i,                  # ny, nx
+        f, f, f, f,            # dt, mu, keep, shell
+        p,                     # stream
+    ]
+    strain.restype = ctypes.c_int
     lib.grid_verlet_error_string.argtypes = [ctypes.c_int]
     lib.grid_verlet_error_string.restype = ctypes.c_char_p
-    return fn, lib.grid_verlet_features, lib.grid_verlet_error_string
+    return (fn, lib.grid_verlet_features, strain,
+            lib.grid_verlet_error_string)
 
 
 def make_cuda_step(top: Topology, cfg: SimConfig):
@@ -82,7 +110,9 @@ def make_cuda_step(top: Topology, cfg: SimConfig):
     each substep first computes the repulsion at ``x`` (method ``block``:
     one ``block_pairs`` launch), which the kernel adds to the spring
     forces.  Tearing and plasticity as :func:`.grid_euler.make_cuda_step`
-    runs them (``fn.features``)."""
+    runs them (``fn.features``), and the wind and the strain limit too: the
+    last sweep runs the contact and friction, and writes the new x over the
+    history, which the integrate launch has read."""
     sc = pack_grid_scene(top, cfg, Solver.VERLET, "grid_verlet")
     ny, nx, device = sc.ny, sc.nx, sc.device
     n = ny * nx
@@ -93,9 +123,18 @@ def make_cuda_step(top: Topology, cfg: SimConfig):
     mu = cfg.collision.friction
     gx, gy, gz = cfg.gravity
     sc_force = self_collision_planes_cuda(cfg, ny, nx, device)
-    launch, finish, error_string = _launcher()
+    launch, finish, strain_fn, error_string = _launcher()
     feat = (CudaFeatures(top, cfg, offsets, finish, error_string,
                          "grid_verlet") if features_on(cfg) else None)
+    strain = (CudaStrain(cfg, offsets, sc.inv_mass, strain_fn, error_string,
+                         "grid_verlet")
+              if cfg.strain_limit.enabled else None)
+    wind = wind_args(cfg)
+    colliders = (sc.plane.data_ptr(), sc.plane_on, sc.plane_fric,
+                 sc.spheres.data_ptr(), sc.n_spheres, sc.sphere_fric)
+    # under the strain limit the contact runs in the last sweep
+    contact = ((sc.plane.data_ptr(), 0, 0, sc.spheres.data_ptr(), 0, 0)
+               if strain else colliders)
 
     def fn(state: State, dt: float, n_substeps: int) -> State:
         global _launches
@@ -115,21 +154,33 @@ def make_cuda_step(top: Topology, cfg: SimConfig):
             stream = torch.cuda.current_stream(device).cuda_stream
             if feat:
                 feat.begin(state)
+            if strain:
+                strain.begin(x)
             for k in range(n_substeps):
                 f_ext = sc_force(x) if sc_force else None
                 check_launch(launch(
                     x.data_ptr(), xp.data_ptr(), out.data_ptr(),
                     sc.inv_mass.data_ptr(), table.data_ptr(), len(offsets),
-                    sc.plane.data_ptr(), sc.plane_on, sc.plane_fric,
-                    sc.spheres.data_ptr(), sc.n_spheres, sc.sphere_fric,
-                    None if f_ext is None else f_ext.data_ptr(),
+                    *contact, None if f_ext is None else f_ext.data_ptr(),
                     *(feat.launch_args(k == 0) if feat else NO_FEATURES),
-                    ny, nx, *scalars, stream), "grid_verlet", error_string)
+                    *wind, ny, nx, *scalars, stream), "grid_verlet",
+                    error_string)
                 _launches += 1
-                # the new position, the new history, the next output
-                x, xp, out = out, x, xp
                 if feat:
                     feat.swap()
+                if strain:
+                    # sweeps from the integrated out; the last writes the
+                    # new position over xp, which nothing reads any more
+                    _launches += strain.launch(
+                        out, None, table, feat.alive if feat else None,
+                        feat.scale if feat else None,
+                        (out.data_ptr(), x.data_ptr(), xp.data_ptr(),
+                         *colliders, ny, nx, dt, mu, 1.0 - mu,
+                         SPHERE_CONTACT_SHELL, stream))
+                    x, xp = xp, x
+                else:
+                    # the new position, the new history, the next output
+                    x, xp, out = out, x, xp
             if feat:
                 if n_substeps > 0:
                     feat.launch_finish(x, table, stream)

@@ -10,7 +10,9 @@ launches the kernels or raises.
 
 A substep is ``1 + max(n_iterations, 1)`` launches: one predict pass, then
 one launch per Jacobi sweep, the grid-wide barrier between sweeps (with no
-sweep, one launch runs the epilogue alone).  Under tearing or plasticity
+sweep, one launch runs the epilogue alone).  Under the strain limit the
+sweeps of :mod:`.grid_strain` follow the ``n_iterations`` Jacobi sweeps and
+the last of them runs the epilogue: ``1 + n_iterations + iterations``.  Under tearing or plasticity
 the predict also updates the feature planes (and, under tearing, the
 substep's Jacobi weights), and a frame ends with one more launch, the
 frame-end feature update (:mod:`.grid_features`).  Each launch counts once.
@@ -27,11 +29,13 @@ from ..core.config import SimConfig, Solver
 from ..core.state import State
 from ..core.topology import EDGE_BEND, EDGE_SHEAR, Topology
 from ..solver.collide import SPHERE_CONTACT_SHELL
+from . import grid_features, grid_strain
 from .blocks import self_collision_planes_cuda
-from . import grid_features
 from .grid_features import (FINISH_ARGTYPES, LAUNCH_ARGTYPES, NO_FEATURES,
                             CudaFeatures, features_on)
-from .grid_scene import check_input, check_launch, pack_grid_scene
+from .grid_scene import (WIND_ARGTYPES, check_input, check_launch,
+                         pack_grid_scene, wind_args)
+from .grid_strain import SWEEP_ARGTYPES, CudaStrain
 from .stencil import (_valid_mask, _xpbd_offsets, from_planes, jacobi_count,
                       to_planes)
 
@@ -49,9 +53,16 @@ def reset_launch_count() -> None:
     _launches = 0
 
 
+def jacobi_launches(cfg: SimConfig) -> int:
+    """The Jacobi sweep launches of a substep: one per iteration, at least
+    one (for the epilogue) unless the strain sweeps run it."""
+    it = cfg.xpbd.n_iterations
+    return it if cfg.strain_limit.enabled else max(it, 1)
+
+
 def launches_per_substep(cfg: SimConfig) -> int:
-    """Predict plus one launch per sweep (at least one, for the epilogue)."""
-    return 1 + max(cfg.xpbd.n_iterations, 1)
+    """Predict, the Jacobi sweeps and the strain-limit sweeps."""
+    return 1 + jacobi_launches(cfg) + grid_strain.sweeps(cfg)
 
 
 def launches_per_frame(cfg: SimConfig, n_substeps: int) -> int:
@@ -72,6 +83,7 @@ def _launchers():
         p, p, p,               # f_ext (or null), x, offsets
         *LAUNCH_ARGTYPES,      # the feature planes and scalars
         f, p,                  # relaxation, inv_cnt out (tearing; or null)
+        *WIND_ARGTYPES,        # the wind
         i, i,                  # ny, nx
         f, f, f, f, f,         # dt, gx, gy, gz, decay
         p,                     # stream
@@ -93,9 +105,22 @@ def _launchers():
     sweep.restype = ctypes.c_int
     lib.grid_xpbd_features.argtypes = FINISH_ARGTYPES
     lib.grid_xpbd_features.restype = ctypes.c_int
+    strain = lib.grid_xpbd_strain
+    strain.argtypes = [
+        *SWEEP_ARGTYPES,       # the sweep
+        p, p, p,               # epilogue: xp, delta, flag
+        p, i, i,               # plane, plane_on, plane_fric
+        p, i, i,               # spheres, n_spheres, sphere_fric
+        p, p,                  # x_out, v
+        i, i,                  # ny, nx
+        f, f, f, f,            # dt, mu, keep, shell
+        p,                     # stream
+    ]
+    strain.restype = ctypes.c_int
     lib.grid_xpbd_error_string.argtypes = [ctypes.c_int]
     lib.grid_xpbd_error_string.restype = ctypes.c_char_p
-    return predict, sweep, lib.grid_xpbd_features, lib.grid_xpbd_error_string
+    return (predict, sweep, lib.grid_xpbd_features, strain,
+            lib.grid_xpbd_error_string)
 
 
 def make_cuda_step(top: Topology, cfg: SimConfig):
@@ -113,7 +138,11 @@ def make_cuda_step(top: Topology, cfg: SimConfig):
     plasticity the predict runs the launch-start feature update of
     :func:`.grid_euler.make_cuda_step` (``fn.features``) and, under
     tearing, writes the substep's ``relaxation / max(count, 1)`` from the
-    live edges, which the sweeps read in place of the scene's."""
+    live edges, which the sweeps read in place of the scene's.  Wind enters
+    the predict.  Under the strain limit every Jacobi sweep stores its
+    delta, and the strain sweeps (:class:`.grid_strain.CudaStrain`) start
+    from ``xp + delta``; the last projects the contact once more and runs
+    the epilogue."""
     sc = pack_grid_scene(top, cfg, Solver.XPBD, "grid_xpbd")
     ny, nx, device = sc.ny, sc.nx, sc.device
     n = ny * nx
@@ -125,14 +154,18 @@ def make_cuda_step(top: Topology, cfg: SimConfig):
              for di, dj, _, _ in xoffsets]
     inv_cnt = (cfg.xpbd.relaxation / jacobi_count(xoffsets, masks)).contiguous()
     mu = cfg.collision.friction
-    n_sweeps = max(cfg.xpbd.n_iterations, 1)
+    n_sweeps = jacobi_launches(cfg)
     project = int(cfg.xpbd.n_iterations > 0)
     gx, gy, gz = cfg.gravity
     tables = {}
     sc_force = self_collision_planes_cuda(cfg, ny, nx, device)
-    predict, sweep, finish, error_string = _launchers()
+    predict, sweep, finish, strain_fn, error_string = _launchers()
     feat = (CudaFeatures(top, cfg, xoffsets, finish, error_string,
                          "grid_xpbd") if features_on(cfg) else None)
+    strain = (CudaStrain(cfg, xoffsets, sc.inv_mass, strain_fn, error_string,
+                         "grid_xpbd")
+              if cfg.strain_limit.enabled else None)
+    wind = wind_args(cfg)
     tearing = cfg.tear.enabled
 
     def fn(state: State, dt: float, n_substeps: int) -> State:
@@ -164,6 +197,8 @@ def make_cuda_step(top: Topology, cfg: SimConfig):
             stream = torch.cuda.current_stream(device).cuda_stream
             if feat:
                 feat.begin(state)
+            if strain:
+                strain.begin(x)
             for k in range(n_substeps):
                 f_ext = sc_force(x) if sc_force else None
                 check_launch(predict(
@@ -173,7 +208,8 @@ def make_cuda_step(top: Topology, cfg: SimConfig):
                     x.data_ptr(), table.data_ptr(),
                     *(feat.launch_args(k == 0) if feat else NO_FEATURES),
                     cfg.xpbd.relaxation, cnt.data_ptr() if tearing else None,
-                    ny, nx, dt, gx, gy, gz, 1.0 - cfg.global_damping * dt,
+                    *wind, ny, nx, dt, gx, gy, gz,
+                    1.0 - cfg.global_damping * dt,
                     stream), "grid_xpbd predict", error_string)
                 _launches += 1
                 if feat:
@@ -189,13 +225,25 @@ def make_cuda_step(top: Topology, cfg: SimConfig):
                         cnt.data_ptr(), table.data_ptr(), n_off,
                         sc.plane.data_ptr(), sc.plane_on, sc.plane_fric,
                         sc.spheres.data_ptr(), sc.n_spheres, sc.sphere_fric,
-                        project, int(it == n_sweeps - 1), x_out.data_ptr(),
+                        project, int(not strain and it == n_sweeps - 1),
+                        x_out.data_ptr(),
                         v.data_ptr(), int(feat is not None), alive, scale,
                         ny, nx, dt, mu, 1.0 - mu, SPHERE_CONTACT_SHELL,
                         stream), "grid_xpbd sweep", error_string)
                     _launches += 1
                     d_in, d_out = d_out, d_in
                     lam_in, lam_out = lam_out, lam_in
+                if strain:
+                    # sweeps from xp + delta; the last projects the contact
+                    # once more and runs the epilogue
+                    _launches += strain.launch(
+                        x, d_in, table, feat.alive if feat else None,
+                        feat.scale if feat else None,
+                        (x.data_ptr(), d_in.data_ptr(), flag.data_ptr(),
+                         sc.plane.data_ptr(), sc.plane_on, sc.plane_fric,
+                         sc.spheres.data_ptr(), sc.n_spheres, sc.sphere_fric,
+                         x_out.data_ptr(), v.data_ptr(), ny, nx, dt, mu,
+                         1.0 - mu, SPHERE_CONTACT_SHELL, stream))
                 x, x_out = x_out, x
             if feat:
                 if n_substeps > 0:

@@ -14,6 +14,7 @@ once per launch in place of 19 float planes.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 
 import torch
@@ -48,6 +49,15 @@ def _gate_failure(top: Topology, cfg: SimConfig):
     if cfg.tear.enabled or cfg.plasticity.enabled:
         # the lattice kernels carry no feature planes (nor do the TPU's)
         return "tearing or plasticity on a tet scene"
+    if cfg.wind.lift != 0.0:
+        # lift needs surface-triangle normals, which the lattice kernels do
+        # not compute (nor do the TPU's: pallas_lattice.py:211); the drag
+        # alone runs here
+        return "wind lift on a tet scene"
+    if cfg.strain_limit.enabled:
+        # the JAX package runs it on its banded or gather jnp path
+        # (kernels/dispatch.py:60-95), never in a lattice kernel
+        return "strain limiting on a tet scene"
     if g is None or t is None:
         return "no banded groups were built for this topology"
     if len(g.deltas) == 0 or g.n_residual > 0:
@@ -179,6 +189,19 @@ def pack_lattice_scene(top: Topology, cfg: SimConfig, solver: Solver,
         plane_on=int(col.enable_plane), n_spheres=n_spheres,
         plane_fric=int(col.enable_plane and col.friction != 0.0),
         sphere_fric=int(n_spheres > 0 and col.friction != 0.0))
+
+
+# ctypes argument types of the wind's drag in each lattice library's
+# integrate or predict launch: drag_on, wind velocity xyz, drag
+DRAG_ARGTYPES = [ctypes.c_int, *[ctypes.c_float] * 4]
+
+
+def drag_args(cfg: SimConfig) -> tuple:
+    """The drag arguments of an integrate or predict launch
+    (:data:`DRAG_ARGTYPES`); drag_on is 0 without wind, which runs the
+    launch's instantiation without drag."""
+    w = cfg.wind
+    return (int(w.enabled), *w.velocity, w.drag)
 
 
 def to_planes(a: torch.Tensor) -> torch.Tensor:

@@ -21,7 +21,8 @@ from ..core.config import SimConfig, Solver
 from ..core.state import State
 from ..core.topology import Topology
 from .grid_scene import check_input, check_launch
-from .lattice import from_planes, pack_lattice_scene, to_planes, use_volume
+from .lattice import (DRAG_ARGTYPES, drag_args, from_planes,
+                      pack_lattice_scene, to_planes, use_volume)
 
 _launches = 0
 
@@ -53,7 +54,9 @@ def _launchers():
         p, p, p, p,            # x, v, x_out, v_out
         p, p, p, i,            # inv_mass, bits, edges, n_edge
         p, i, p, i,            # plane, plane_on, spheres, n_spheres
-        i, i,                  # finish, n
+        i,                     # finish
+        *DRAG_ARGTYPES,        # the wind's drag
+        i,                     # n
         f, f, f, f, f,         # dt, damping, gx, gy, gz
         f, f, f, f,            # decay, restitution, restitution1, keep
         p,                     # stream
@@ -87,6 +90,7 @@ def make_cuda_step(top: Topology, cfg: SimConfig):
     col = cfg.collision
     gx, gy, gz = cfg.gravity
     two_pass = sc.n_tet > 0
+    drag = drag_args(cfg)
     integrate, volume, error_string = _launchers()
 
     def fn(state: State, dt: float, n_substeps: int) -> State:
@@ -106,7 +110,8 @@ def make_cuda_step(top: Topology, cfg: SimConfig):
                     xa.data_ptr(), va.data_ptr(), xb.data_ptr(), vb.data_ptr(),
                     sc.inv_mass.data_ptr(), sc.bits.data_ptr(),
                     sc.edges.data_ptr(), sc.n_edge, *contact,
-                    int(not two_pass), n, dt, cfg.springs.damping, gx, gy, gz,
+                    int(not two_pass), *drag, n, dt, cfg.springs.damping,
+                    gx, gy, gz,
                     1.0 - cfg.global_damping * dt, *bounce, stream),
                     "lattice_euler integrate", error_string)
                 _launches += 1

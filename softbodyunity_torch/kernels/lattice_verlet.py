@@ -22,7 +22,8 @@ from ..core.state import State
 from ..core.topology import Topology
 from ..solver.collide import SPHERE_CONTACT_SHELL
 from .grid_scene import check_input, check_launch
-from .lattice import from_planes, pack_lattice_scene, to_planes, use_volume
+from .lattice import (DRAG_ARGTYPES, drag_args, from_planes,
+                      pack_lattice_scene, to_planes, use_volume)
 
 _launches = 0
 
@@ -54,7 +55,9 @@ def _launchers():
         p, p, p, p, p, p, i,   # x, xp, xs, inv_mass, bits, edges, n_edge
         p, i, i, p, i, i,      # plane, plane_on, plane_fric, spheres,
         #                        n_spheres, sphere_fric
-        i, i,                  # finish, n
+        i,                     # finish
+        *DRAG_ARGTYPES,        # the wind's drag
+        i,                     # n
         f, f, f, f, f,         # dt, damping, gx, gy, gz
         f, f, f, f,            # decay, mu, keep, shell
         p,                     # stream
@@ -90,6 +93,7 @@ def make_cuda_step(top: Topology, cfg: SimConfig):
     mu = cfg.collision.friction
     gx, gy, gz = cfg.gravity
     two_pass = sc.n_tet > 0
+    drag = drag_args(cfg)
     integrate, volume, error_string = _launchers()
 
     def fn(state: State, dt: float, n_substeps: int) -> State:
@@ -108,8 +112,8 @@ def make_cuda_step(top: Topology, cfg: SimConfig):
                     x.data_ptr(), xp.data_ptr(), xs.data_ptr(),
                     sc.inv_mass.data_ptr(), sc.bits.data_ptr(),
                     sc.edges.data_ptr(), sc.n_edge, *contact,
-                    int(not two_pass), n, dt, cfg.springs.damping, gx, gy, gz,
-                    1.0 - cfg.global_damping * dt, mu, 1.0 - mu,
+                    int(not two_pass), *drag, n, dt, cfg.springs.damping,
+                    gx, gy, gz, 1.0 - cfg.global_damping * dt, mu, 1.0 - mu,
                     SPHERE_CONTACT_SHELL, stream),
                     "lattice_verlet integrate", error_string)
                 _launches += 1

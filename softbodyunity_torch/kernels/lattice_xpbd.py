@@ -22,7 +22,8 @@ from ..core.state import State
 from ..core.topology import Topology
 from ..solver.collide import SPHERE_CONTACT_SHELL
 from .grid_scene import check_input, check_launch
-from .lattice import from_planes, pack_lattice_scene, to_planes
+from .lattice import (DRAG_ARGTYPES, drag_args, from_planes,
+                      pack_lattice_scene, to_planes)
 
 _launches = 0
 
@@ -52,6 +53,7 @@ def _launchers():
     predict = lib.lattice_xpbd_predict
     predict.argtypes = [
         p, p, p, i, p, p,      # v, delta, lam, n_lam, flag, inv_mass
+        *DRAG_ARGTYPES,        # the wind's drag
         i,                     # n
         f, f, f, f, f,         # dt, gx, gy, gz, decay
         p,                     # stream
@@ -93,6 +95,7 @@ def make_cuda_step(top: Topology, cfg: SimConfig):
     project = int(cfg.xpbd.n_iterations > 0)
     gx, gy, gz = cfg.gravity
     tables = {}
+    drag = drag_args(cfg)
     predict, sweep, error_string = _launchers()
 
     def fn(state: State, dt: float, n_substeps: int) -> State:
@@ -118,8 +121,8 @@ def make_cuda_step(top: Topology, cfg: SimConfig):
             for _ in range(n_substeps):
                 check_launch(predict(
                     v.data_ptr(), d_in.data_ptr(), lam_in.data_ptr(), n_lam,
-                    flag.data_ptr(), sc.inv_mass.data_ptr(), n, dt, gx, gy,
-                    gz, 1.0 - cfg.global_damping * dt, stream),
+                    flag.data_ptr(), sc.inv_mass.data_ptr(), *drag, n, dt,
+                    gx, gy, gz, 1.0 - cfg.global_damping * dt, stream),
                     "lattice_xpbd predict", error_string)
                 _launches += 1
                 for it in range(n_sweeps):

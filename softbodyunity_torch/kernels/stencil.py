@@ -10,7 +10,12 @@ with the same operations in the same order, tearing (TearParams) and
 plasticity (PlasticityParams) included: tear liveness and plastic rest
 scales ride as per-offset ``[n_off, ny, nx]`` planes and are updated at the
 end of every substep, plastic flow first, then the tear check against the
-flowed rest (:func:`update_features`).
+flowed rest (:func:`update_features`).  Wind (WindParams: drag, and lift
+along the grid's vertex normals, :func:`wind_forces_grid`) enters the
+forces, and strain limiting (StrainLimitParams) runs its Jacobi sweeps
+between integration and contact (:func:`strain_limit_planes`), as the TPU
+kernels run them (``pallas_substep.py::_strain_limit_planes``); the JAX
+stencil has no sweeps and routes such scenes elsewhere.
 
 A cloth grid has regular topology: every spring class is a constant offset
 ``(di, dj)`` on the grid —
@@ -39,9 +44,6 @@ from ..solver.forces import self_collision_planes
 # and these plain versions refuse them, so a scene never silently loses a
 # feature.
 _UNPORTED = (
-    ("wind", lambda c: c.wind.enabled, "Queue 1 item 6, Queue 2 item 1"),
-    ("strain limit", lambda c: c.strain_limit.enabled,
-     "Queue 1 item 6, Queue 2 item 1"),
     ("capsule colliders", lambda c: c.collision.enable_capsules,
      "Queue 1 item 2, Queue 2 item 1"),
     ("box colliders", lambda c: c.collision.enable_boxes,
@@ -65,6 +67,18 @@ def check_ported(cfg: SimConfig) -> None:
     if missing:
         raise NotImplementedError(
             "not ported to softbodyunity_torch yet: " + ", ".join(missing))
+
+
+def check_grid_ported(cfg: SimConfig) -> None:
+    """:func:`check_ported`, and the grid branch that the JAX package runs
+    only on its general edge-list path: strain limiting with self-collision
+    (``softbodyunity_tpu/kernels/dispatch.py:60-95``)."""
+    check_ported(cfg)
+    if cfg.strain_limit.enabled and cfg.self_collision.enabled:
+        raise NotImplementedError(
+            "not ported to softbodyunity_torch yet: strain limiting with "
+            "self-collision, which the JAX package runs on its general "
+            "edge-list path (ROADMAP Queue 1 item 3)")
 
 
 def _shift(a: torch.Tensor, di: int, dj: int) -> torch.Tensor:
@@ -268,6 +282,99 @@ def tear_plane_maps(top: Topology, offsets, ny: int, nx: int):
     return edge_to_planes, planes_to_edge, plane_idx
 
 
+# --- wind and strain limiting ------------------------------------------------
+
+def _cross3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Cross product of ``[3, ...]`` component planes."""
+    return torch.stack([a[1] * b[2] - a[2] * b[1],
+                        a[2] * b[0] - a[0] * b[2],
+                        a[0] * b[1] - a[1] * b[0]])
+
+
+def grid_vertex_normals(x3: torch.Tensor) -> torch.Tensor:
+    """Unit area-weighted vertex normals of the grid's triangles (the
+    oracle's ``vertex_normals`` over ``cloth_grid``'s triangulation), as
+    shifts: cell (i, j) holds the triangles ``(p(i,j), p(i+1,j), p(i,j+1))``
+    and ``(p(i,j+1), p(i+1,j), p(i+1,j+1))``, whose face normals are zero at
+    the cells past the last row or column; each vertex sums the six faces
+    around it, ``f1 + f1(-1,0) + f1(0,-1) + f2(0,-1) + f2(-1,0) + f2(-1,-1)``,
+    and divides by ``max(|sum|, 1e-12)``
+    (``softbodyunity_tpu/kernels/stencil.py::grid_vertex_normals``)."""
+    ny, nx = x3.shape[-2], x3.shape[-1]
+    cell = _valid_mask(ny, nx, 1, 1, x3.device, x3.dtype)
+    pi = _shift(x3, 1, 0)      # p(i+1, j)
+    pj = _shift(x3, 0, 1)      # p(i, j+1)
+    pij = _shift(x3, 1, 1)     # p(i+1, j+1)
+    f1 = _cross3(pi - x3, pj - x3) * cell
+    f2 = _cross3(pi - pj, pij - pj) * cell
+    acc = (f1 + _shift(f1, -1, 0) + _shift(f1, 0, -1)
+           + _shift(f2, 0, -1) + _shift(f2, -1, 0) + _shift(f2, -1, -1))
+    norm2 = acc[0] * acc[0] + acc[1] * acc[1] + acc[2] * acc[2]
+    return acc / torch.clamp_min(torch.sqrt(norm2), 1e-12)
+
+
+def wind_forces_grid(x3: torch.Tensor, v3: torch.Tensor, wind) -> torch.Tensor:
+    """The WindParams force on grid planes (the oracle's ``wind_forces``):
+    ``drag * v_rel``, plus ``lift * (v_rel . n) * n`` along the vertex
+    normals when lift is on, with ``v_rel = velocity - v``.  The wind
+    velocity enters as three Python floats."""
+    vrel = torch.stack([wind.velocity[c] - v3[c] for c in range(3)])
+    f = wind.drag * vrel
+    if wind.lift != 0.0:
+        n = grid_vertex_normals(x3)
+        vn = vrel[0] * n[0] + vrel[1] * n[1] + vrel[2] * n[2]
+        f = f + wind.lift * vn * n
+    return f
+
+
+def _clip(t: torch.Tensor, lo, hi) -> torch.Tensor:
+    """``min(max(t, lo), hi)`` for bounds that are floats or tensors."""
+    t = (torch.clamp_min(t, lo) if isinstance(lo, float)
+         else torch.maximum(t, lo))
+    return (torch.clamp_max(t, hi) if isinstance(hi, float)
+            else torch.minimum(t, hi))
+
+
+def strain_limit_planes(x3, offsets, masks, inv_mass2, sl, scales=None):
+    """The strain limit's position change on grid planes (StrainLimitParams
+    ``sl``; the oracle's ``strain_limit_dx``): ``sl.iterations`` Jacobi
+    sweeps, each projecting every live edge whose length lies outside
+    ``[rest * (1 - max_compress), rest * (1 + max_stretch)]`` back onto the
+    nearer bound, the endpoints' shares weighted by inverse mass, each
+    vertex's update divided by its count of live edges, owned and owning
+    (:func:`jacobi_count`).  ``masks`` are the edge-ownership masks (the
+    tear liveness planes under tearing: a torn edge limits nothing and
+    leaves the count), ``scales`` the plastic rest scales (or None).
+    Returns the total change ``x_final - x3``; pinned vertices (inverse
+    mass 0) do not move.
+
+    This ports ``softbodyunity_tpu/kernels/pallas_substep.py::
+    _strain_limit_planes``, the TPU kernels' form, with this module's
+    zero-fill shift for its wrap-roll, and follows ``solver/strainlimit.py``'s
+    banded form in the norm: ``sqrt`` and an IEEE divide by
+    ``max(length, 1e-12)``, where the TPU kernel multiplies by an
+    ``rsqrt``."""
+    w = inv_mass2[0]
+    inv_cnt = 1.0 / jacobi_count(offsets, masks)
+    xst = x3
+    for _ in range(sl.iterations):
+        dx = torch.zeros_like(xst)
+        for o, ((di, dj, _, rest), m) in enumerate(zip(offsets, masks)):
+            d = _shift(xst, di, dj) - xst
+            length = torch.sqrt(_dot(d, d))
+            n = d / torch.clamp_min(length, 1e-12)
+            rest_eff = rest if scales is None else rest * scales[o]
+            hi = rest_eff * (1.0 + sl.max_stretch)
+            lo = (rest_eff * (1.0 - sl.max_compress)
+                  if sl.max_compress >= 0.0 else 0.0)
+            c_val = (length - _clip(length, lo, hi)) * m
+            wn = _shift(w, di, dj)
+            corr = c_val / torch.clamp_min(w + wn, 1e-12)
+            dx = dx + (w * corr) * n - _shift((wn * corr) * n, -di, -dj)
+        xst = xst + dx * inv_cnt
+    return xst - x3
+
+
 def euler_substep_grid(x3, v3, inv_mass2, offsets, masks, gravity,
                        cfg: SimConfig, dt: float, top: Topology, f_ext=None,
                        scale=None):
@@ -279,16 +386,25 @@ def euler_substep_grid(x3, v3, inv_mass2, offsets, masks, gravity,
     ``x3``, the self-collision repulsion, added to the spring forces as
     ``total_forces`` adds it.  ``masks`` are the tear liveness planes under
     tearing, ``scale`` the plastic rest scales (or None); the feature
-    update is the caller's (:func:`update_features`).  Returns
-    ``(x3, v3)``."""
+    update is the caller's (:func:`update_features`).  Wind adds its force
+    after ``f_ext``, as ``total_forces`` sums them; the strain limit's
+    change ``dxl`` comes after the integration, before contact, and feeds
+    the velocity: ``x += dxl``, ``v += dxl / dt``.  Returns ``(x3, v3)``."""
     movable = inv_mass2 > 0.0
     f = stencil_spring_forces(x3, v3, offsets, masks, cfg.springs.damping,
                               rest_scale=scale)
     if f_ext is not None:
         f = f + f_ext
+    if cfg.wind.enabled:
+        f = f + wind_forces_grid(x3, v3, cfg.wind)
     v3 = (v3 + dt * (gravity + f * inv_mass2)) * (1.0 - cfg.global_damping * dt)
     v3 = torch.where(movable, v3, 0.0)
     x3 = x3 + dt * v3
+    if cfg.strain_limit.enabled:
+        dxl = strain_limit_planes(x3, offsets, masks, inv_mass2,
+                                  cfg.strain_limit, scales=scale)
+        x3 = x3 + dxl
+        v3 = v3 + dxl / dt
 
     col = cfg.collision
     if col.enable_plane:
@@ -401,24 +517,48 @@ def verlet_substep_grid(x3, xp3, inv_mass2, offsets, masks, gravity,
     semantics): springs on the velocity estimate ``(x - xp) / dt``, plus
     ``f_ext`` at ``x3`` when given, the damped position update, pinning,
     then position-only plane and sphere contact and their friction.
-    ``masks``/``scale`` as :func:`euler_substep_grid`'s.  Returns
-    ``(x_new, x3)``: the new position and the new history ``x_prev``."""
+    ``masks``/``scale`` and the wind as :func:`euler_substep_grid`'s (the
+    wind at ``v_est``); the strain limit moves positions only, after the
+    update and before contact.  Returns ``(x_new, x3)``: the new position
+    and the new history ``x_prev``."""
     movable = inv_mass2 > 0.0
     v_est = (x3 - xp3) / dt
     f = stencil_spring_forces(x3, v_est, offsets, masks, cfg.springs.damping,
                               rest_scale=scale)
     if f_ext is not None:
         f = f + f_ext
+    if cfg.wind.enabled:
+        f = f + wind_forces_grid(x3, v_est, cfg.wind)
     accel = gravity + f * inv_mass2
     x_new = (x3 + (x3 - xp3) * (1.0 - cfg.global_damping * dt)
              + accel * dt * dt)
     x_new = torch.where(movable, x_new, x3)
+    if cfg.strain_limit.enabled:
+        x_new = x_new + strain_limit_planes(x_new, offsets, masks, inv_mass2,
+                                            cfg.strain_limit, scales=scale)
     contact = ((x_new[1] < top.plane_height) & movable[0]
                if cfg.collision.enable_plane else None)
     x_new = _project_positions_grid(x_new, movable, cfg, top)
     x_new = _plane_friction_grid(x_new, x3, cfg, dt, contact, top)
     x_new = _sphere_friction_grid(x_new, x3, cfg, dt, movable, top)
     return x_new, x3
+
+
+def _project_delta_grid(x_prev, delta, contact, movable, cfg: SimConfig,
+                        top: Topology):
+    """XPBD's position contact in delta form: the plane clamp as ``plane -
+    x_prev`` (its pre-clamp mask ORed into ``contact``), then the spheres'
+    push-out as a displacement.  Returns ``(delta, contact)``."""
+    if cfg.collision.enable_plane:
+        ph = top.plane_height
+        pc = ((x_prev[1] + delta[1]) < ph) & movable[0]
+        delta = torch.stack(
+            [delta[0], torch.where(pc, ph - x_prev[1], delta[1]), delta[2]])
+        contact = contact | pc
+    if cfg.collision.enable_spheres and top.n_spheres > 0:
+        xe = x_prev + delta
+        delta = delta + (_push_out_spheres(xe, movable, top) - xe)
+    return delta, contact
 
 
 def xpbd_substep_grid(x3, v3, inv_mass2, xoffsets, masks, cnt, gravity,
@@ -434,8 +574,11 @@ def xpbd_substep_grid(x3, v3, inv_mass2, xoffsets, masks, cnt, gravity,
     ``scale`` (or None) holds the plastic rest scales, constant over the
     substep.  ``f_ext`` (or None), an external force at ``x3``, enters the
     predict as ``f_ext * inv_mass``, as ``substep_xpbd`` takes the
-    self-collision repulsion; the constraints cover only the springs.
-    Returns ``(x_new, v_new)``.
+    self-collision repulsion, after the wind force, which enters the same
+    way; the constraints cover only the springs.  The strain limit runs
+    after the Jacobi loop, on ``x_prev + delta``, followed by one more
+    contact projection (its plane contact joins the friction mask), as
+    ``pallas_xpbd.py`` orders them.  Returns ``(x_new, v_new)``.
 
     Delta form: the loop carries the substep's accumulated position change
     ``delta`` and never a rounded ``x``; only the evaluation point
@@ -444,7 +587,11 @@ def xpbd_substep_grid(x3, v3, inv_mass2, xoffsets, masks, cnt, gravity,
     col = cfg.collision
     movable = inv_mass2 > 0.0
     w = inv_mass2[0]
-    accel = gravity if f_ext is None else gravity + f_ext * inv_mass2
+    accel = gravity
+    if cfg.wind.enabled:
+        accel = accel + wind_forces_grid(x3, v3, cfg.wind) * inv_mass2
+    if f_ext is not None:
+        accel = accel + f_ext * inv_mass2
     v3 = (v3 + dt * accel) * (1.0 - cfg.global_damping * dt)
     v3 = torch.where(movable, v3, 0.0)
     x_prev = x3
@@ -470,17 +617,14 @@ def xpbd_substep_grid(x3, v3, inv_mass2, xoffsets, masks, cnt, gravity,
             contrib_b = (wn * dlam) * n
             dx = dx + contrib_a + _shift(contrib_b, -di, -dj)
         delta = delta + cfg.xpbd.relaxation * dx / cnt
-        # contact inside the loop, in delta form: the plane clamp as
-        # ``plane - x_prev``, the spheres as the push-out displacement
-        if col.enable_plane:
-            ph = top.plane_height
-            pc = ((x_prev[1] + delta[1]) < ph) & movable[0]
-            delta = torch.stack(
-                [delta[0], torch.where(pc, ph - x_prev[1], delta[1]), delta[2]])
-            contact = contact | pc
-        if col.enable_spheres and top.n_spheres > 0:
-            xe = x_prev + delta
-            delta = delta + (_push_out_spheres(xe, movable, top) - xe)
+        delta, contact = _project_delta_grid(x_prev, delta, contact,
+                                             movable, cfg, top)
+    if cfg.strain_limit.enabled:
+        delta = delta + strain_limit_planes(x_prev + delta, xoffsets, masks,
+                                            inv_mass2, cfg.strain_limit,
+                                            scales=scale)
+        delta, contact = _project_delta_grid(x_prev, delta, contact,
+                                             movable, cfg, top)
     # plane friction once per substep, on the OR of the iterations'
     # pre-clamp contact masks
     mu = col.friction
@@ -527,7 +671,7 @@ def make_stencil_step(top: Topology, cfg: SimConfig):
     once a frame, every substep ends with :func:`update_features`, and the
     planes come back to the edges at the end; under tearing the XPBD
     Jacobi count follows the liveness planes every substep."""
-    check_ported(cfg)
+    check_grid_ported(cfg)
     sc_force = self_collision_planes(cfg)
     ny, nx = top.grid_shape
     has_shear = EDGE_SHEAR in top.edge_classes_present

@@ -1,6 +1,6 @@
 """Workload presets of the grid-cloth (any size, with and without
-self-collision, tearing and plasticity) and tet-cube slices (Euler, Verlet,
-XPBD), under the JAX package's names (``softbodyunity_tpu/models/presets.py``).
+self-collision, tearing, plasticity, wind and strain limiting) and tet-cube
+slices (Euler, Verlet, XPBD), under the JAX package's names (``softbodyunity_tpu/models/presets.py``).
 
 Each preset returns ``(HostTopology, SimConfig)``; feed the topology to
 :func:`softbodyunity_torch.api.init` and the pair to ``step``.  The other
@@ -15,7 +15,8 @@ import numpy as np
 
 from ..core.config import (CollisionParams, PlasticityParams,
                            SelfCollisionParams, SimConfig, Solver,
-                           SpringParams, TearParams, XPBDParams)
+                           SpringParams, StrainLimitParams, TearParams,
+                           WindParams, XPBDParams)
 from ..core.topology import HostTopology, cloth_grid, tet_cube
 
 _REGISTRY: Dict[str, Callable[[], Tuple[HostTopology, SimConfig]]] = {}
@@ -487,6 +488,68 @@ def cloth_plastic_262k():
     )
     top = cloth_grid(
         512, 512, spacing=0.005, shear=True, bend=True, pinned=("top",),
+        springs=cfg.springs, xpbd=cfg.xpbd,
+        plane_height=-50.0, origin=(0.0, 0.0, 0.0), orientation="xy",
+    )
+    return top, cfg
+
+
+@register("cloth_strain_limited")
+def cloth_strain_limited():
+    """Strain-limited hanging banner (StrainLimitParams semantics; oracle
+    strain_limit_dx is binding): deliberately SOFT springs would stretch
+    >40% under gravity — the 10% hard limit holds the weave together
+    (the production-cloth stretch bound).  Pins down the Jacobi edge
+    clamp against the oracle in the golden/f64 tiers."""
+    cfg = SimConfig(
+        solver=Solver.SEMI_IMPLICIT_EULER,
+        strain_limit=StrainLimitParams(enabled=True, max_stretch=0.1),
+        springs=SpringParams(k_structural=25.0, k_shear=12.0, k_bend=5.0,
+                             damping=0.5),
+        global_damping=0.5,
+    )
+    host = cloth_grid(
+        16, 16, spacing=0.06, mass=0.05, pinned=("top",), shear=True,
+        bend=True, springs=cfg.springs, xpbd=cfg.xpbd, plane_height=-50.0,
+        orientation="xy",
+    )
+    return host, cfg
+
+
+@register("cloth_strain_64k")
+def cloth_strain_64k():
+    """64k cloth with strain limiting (soft springs, 10% hard bound): the
+    sweeps run in the grid kernels' strain-sweep launches."""
+    cfg = SimConfig(
+        solver=Solver.SEMI_IMPLICIT_EULER,
+        strain_limit=StrainLimitParams(enabled=True, max_stretch=0.1),
+        springs=SpringParams(k_structural=60.0, k_shear=30.0, k_bend=12.0,
+                             damping=0.4),
+        global_damping=0.3,
+    )
+    top = cloth_grid(
+        256, 256, spacing=0.01, mass=0.02, pinned=("top",), shear=True,
+        bend=True, springs=cfg.springs, xpbd=cfg.xpbd, plane_height=-50.0,
+        orientation="xy",
+    )
+    return top, cfg
+
+
+@register("cloth_wind_64k")
+def cloth_wind_64k():
+    """64k cloth in a strong cross-wind (WindParams drag + lift): the lift
+    normals are computed from each vertex's 1-ring inside the grid kernels
+    every substep."""
+    cfg = SimConfig(
+        solver=Solver.SEMI_IMPLICIT_EULER,
+        springs=SpringParams(k_structural=800.0, k_shear=400.0,
+                             k_bend=150.0, damping=0.8),
+        wind=WindParams(velocity=(3.0, 0.0, 1.0), drag=0.3, lift=0.8),
+        collision=CollisionParams(enable_plane=True, friction=0.2),
+        global_damping=0.3,
+    )
+    top = cloth_grid(
+        256, 256, spacing=0.01, shear=True, bend=True, pinned=("top",),
         springs=cfg.springs, xpbd=cfg.xpbd,
         plane_height=-50.0, origin=(0.0, 0.0, 0.0), orientation="xy",
     )

@@ -4,9 +4,10 @@ Counterpart of ``softbodyunity_tpu/solver/step.py`` for its banded branches:
 Euler (``euler_integrate`` + the velocity-level resolve), Verlet
 (``verlet_integrate`` + ``verlet_contact_project``) and XPBD (the banded
 Jacobi loop of ``substep_xpbd``, in delta form), with the same operations in
-the same order.  These are the plain versions of the tet-lattice CUDA
-kernels (``kernels/csrc/lattice_euler.cu``, ``lattice_verlet.cu``,
-``lattice_xpbd.cu``): :mod:`softbodyunity_torch.kernels.dispatch` takes
+the same order, the wind's drag included.  These are the plain versions of
+the tet-lattice CUDA kernels (``kernels/csrc/lattice_euler.cu``,
+``lattice_verlet.cu``, ``lattice_xpbd.cu``):
+:mod:`softbodyunity_torch.kernels.dispatch` takes
 :func:`make_plain_step` for tensors on the CPU, and ``chip_smoke.py`` holds
 each kernel to it on the card.  They run in float32 or float64.
 
@@ -35,8 +36,17 @@ def _volume_projection(top: Topology, x: torch.Tensor,
                                            top.inv_mass, stiffness).t()
 
 
-def euler_integrate(top: Topology, cfg: SimConfig, x, v, dt: float, g):
-    """The Euler substep before contact: banded spring forces, the
+def wind_drag(cfg: SimConfig, v, wvel):
+    """The wind's drag ``drag * (velocity - v)`` on ``[N, 3]`` velocities
+    (the oracle's ``wind_forces`` without lift, which the lattice path
+    refuses); ``wvel`` is the wind velocity row ``[1, 3]``."""
+    return cfg.wind.drag * (wvel - v)
+
+
+def euler_integrate(top: Topology, cfg: SimConfig, x, v, dt: float, g,
+                    wvel=None):
+    """The Euler substep before contact: banded spring forces plus the
+    wind's drag when ``wvel`` (its velocity row ``[1, 3]``) is given, the
     semi-implicit velocity and position update, pinning, and the banded
     volume projection.  ``g`` is the gravity row ``[1, 3]``.  Returns
     ``(x, v, movable)``."""
@@ -44,6 +54,8 @@ def euler_integrate(top: Topology, cfg: SimConfig, x, v, dt: float, g):
     movable = top.inv_mass > 0.0
     f = banded.banded_spring_forces(top.offset_groups, x.t(), v.t(),
                                     cfg.springs.damping).t()
+    if wvel is not None:
+        f = f + wind_drag(cfg, v, wvel)
     v = (v + dt * (g + f * w)) * (1.0 - cfg.global_damping * dt)
     v = torch.where(movable[:, None], v, 0.0)
     x = x + dt * v
@@ -54,21 +66,24 @@ def euler_integrate(top: Topology, cfg: SimConfig, x, v, dt: float, g):
     return x, v, movable
 
 
-def substep_euler(top: Topology, cfg: SimConfig, x, v, dt: float, g):
-    x, v, movable = euler_integrate(top, cfg, x, v, dt, g)
+def substep_euler(top: Topology, cfg: SimConfig, x, v, dt: float, g,
+                  wvel=None):
+    x, v, movable = euler_integrate(top, cfg, x, v, dt, g, wvel)
     return collide.resolve_velocity_level(top, cfg, x, v, movable)
 
 
 def verlet_integrate(top: Topology, cfg: SimConfig, x, x_prev, dt: float,
-                     g):
-    """The Verlet substep before contact: spring forces at the velocity
-    estimate, the damped position update, pinning, and the banded volume
-    projection.  Returns ``(x_new, movable)``."""
+                     g, wvel=None):
+    """The Verlet substep before contact: spring forces (and the wind's
+    drag) at the velocity estimate, the damped position update, pinning,
+    and the banded volume projection.  Returns ``(x_new, movable)``."""
     w = top.inv_mass[:, None]
     movable = top.inv_mass > 0.0
     v_est = (x - x_prev) / dt
     f = banded.banded_spring_forces(top.offset_groups, x.t(), v_est.t(),
                                     cfg.springs.damping).t()
+    if wvel is not None:
+        f = f + wind_drag(cfg, v_est, wvel)
     accel = g + f * w
     x_new = x + (x - x_prev) * (1.0 - cfg.global_damping * dt) + accel * dt * dt
     x_new = torch.where(movable[:, None], x_new, x)
@@ -89,14 +104,18 @@ def verlet_contact_project(top: Topology, cfg: SimConfig, x_new, x_old,
                                              movable)
 
 
-def substep_verlet(top: Topology, cfg: SimConfig, x, x_prev, dt: float, g):
+def substep_verlet(top: Topology, cfg: SimConfig, x, x_prev, dt: float, g,
+                   wvel=None):
     """Returns ``(x_new, x)``: the new position and the new history."""
-    x_new, movable = verlet_integrate(top, cfg, x, x_prev, dt, g)
+    x_new, movable = verlet_integrate(top, cfg, x, x_prev, dt, g, wvel)
     return verlet_contact_project(top, cfg, x_new, x, dt, movable), x
 
 
-def substep_xpbd(top: Topology, cfg: SimConfig, x, v, dt: float, g, cnt):
-    """One XPBD substep, banded: predict, ``n_iterations`` Jacobi sweeps
+def substep_xpbd(top: Topology, cfg: SimConfig, x, v, dt: float, g, cnt,
+                 wvel=None):
+    """One XPBD substep, banded: predict (the wind's drag, when ``wvel`` is
+    given, entering as ``g + drag * (velocity - v) * w``, as
+    ``pallas_lattice.py`` takes it), ``n_iterations`` Jacobi sweeps
     over the distance and volume constraints with contact projected inside
     the loop, plane friction once from the OR of the sweeps' pre-clamp
     contact masks, sphere friction, and ``v = delta / dt``.  ``cnt`` is
@@ -106,7 +125,9 @@ def substep_xpbd(top: Topology, cfg: SimConfig, x, v, dt: float, g, cnt):
     and never a rounded ``x``; only the evaluation point ``x_prev + delta``
     rounds large plus small, and it is never stored."""
     movable = top.inv_mass > 0.0
-    v = (v + dt * g) * (1.0 - cfg.global_damping * dt)
+    acc = (g if wvel is None
+           else g + wind_drag(cfg, v, wvel) * top.inv_mass[:, None])
+    v = (v + dt * acc) * (1.0 - cfg.global_damping * dt)
     v = torch.where(movable[:, None], v, 0.0)
     x_prev = x
     n = x.shape[0]
@@ -146,6 +167,10 @@ def make_plain_step(top: Topology, cfg: SimConfig):
 
     lattice_gate(top, cfg)
     g = torch.tensor(cfg.gravity, dtype=top.dtype, device=top.device)[None, :]
+    # the wind's drag (lift is refused on lattices: lattice_gate)
+    wvel = (torch.tensor(cfg.wind.velocity, dtype=top.dtype,
+                         device=top.device)[None, :]
+            if cfg.wind.enabled else None)
     if cfg.solver == Solver.XPBD:
         cnt = banded.xpbd_constraint_count(top)
 
@@ -155,14 +180,14 @@ def make_plain_step(top: Topology, cfg: SimConfig):
         if cfg.solver == Solver.VERLET:
             xp = state.x_prev
             for _ in range(n_substeps):
-                x, xp = substep_verlet(top, cfg, x, xp, dt, g)
+                x, xp = substep_verlet(top, cfg, x, xp, dt, g, wvel)
             return State(x=x, v=(x - xp) / dt, x_prev=xp)
         v = state.v
         for _ in range(n_substeps):
             if cfg.solver == Solver.XPBD:
-                x, v = substep_xpbd(top, cfg, x, v, dt, g, cnt)
+                x, v = substep_xpbd(top, cfg, x, v, dt, g, cnt, wvel)
             else:
-                x, v = substep_euler(top, cfg, x, v, dt, g)
+                x, v = substep_euler(top, cfg, x, v, dt, g, wvel)
         return State(x=x, v=v, x_prev=x - dt * v)
 
     return fn

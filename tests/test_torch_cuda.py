@@ -1,6 +1,7 @@
 """The hand-written CUDA kernels, grid (grid_euler, grid_verlet, grid_xpbd,
-with and without their tear and plastic planes),
-tet lattice (lattice_euler, lattice_verlet, lattice_xpbd) and the
+with and without their tear and plastic planes, wind, and the strain-limit
+sweeps), tet lattice (lattice_euler, lattice_verlet, lattice_xpbd, with and
+without the wind's drag) and the
 block-sparse self-collision pairs (block_pairs), against their plain
 PyTorch versions, on the card.  These tests skip without
 a CUDA device: the kernels have no CPU mode.  The file imports no jax, so it runs where JAX is absent; there run it
@@ -17,10 +18,14 @@ import torch
 
 import softbodyunity_torch as tsb
 from softbodyunity_torch.core.config import CollisionParams, Solver, XPBDParams
-from softbodyunity_torch.core.config import SelfCollisionParams
+from softbodyunity_torch.core.config import (PlasticityParams,
+                                             SelfCollisionParams,
+                                             StrainLimitParams, TearParams,
+                                             WindParams)
 from softbodyunity_torch.kernels import (blocks, dispatch, grid_euler,
-                                        grid_verlet, grid_xpbd, lattice_euler,
-                                        lattice_verlet, lattice_xpbd, stencil)
+                                        grid_strain, grid_verlet, grid_xpbd,
+                                        lattice_euler, lattice_verlet,
+                                        lattice_xpbd, stencil)
 from softbodyunity_torch.solver import blocksparse
 from softbodyunity_torch.solver.step import make_plain_step
 
@@ -537,3 +542,174 @@ def test_feature_rollout_launch_counts(cuda, solver):
     assert torch.equal(s.x, s_roll.x)
     assert torch.equal(s.edge_alive, s_roll.edge_alive)
     assert torch.equal(s.rest_scale, s_roll.rest_scale)
+
+
+# --- wind and the strain limit ------------------------------------------------
+
+def _wind_scene(solver, nx=10, ny=10, plane_height=-1.0):
+    """tests/test_wind.py's cloth in a cross-wind with drag and lift (10x10,
+    and 16x24 contact-free: past an 8-row tile)."""
+    cfg = tsb.SimConfig(
+        solver=solver,
+        wind=WindParams(velocity=(2.0, 0.5, 1.0), drag=0.3, lift=0.8),
+        xpbd=XPBDParams(n_iterations=3),
+        collision=CollisionParams(enable_plane=True),
+        global_damping=0.2,
+    )
+    host = tsb.cloth_grid(nx, ny, spacing=0.05, shear=True, bend=True,
+                          pinned=("tl", "tr"), springs=cfg.springs,
+                          xpbd=cfg.xpbd, plane_height=plane_height,
+                          orientation="xy")
+    return host, cfg
+
+
+# x: tests/test_wind.py's 5e-5 over 64 substeps (its kernel against its
+# stencil); v carries x's rounding over dt
+@pytest.mark.cuda
+@pytest.mark.parametrize("size", ["10x10", "16x24"])
+@pytest.mark.parametrize("solver", list(_WRAPPERS))
+def test_wind_kernel_matches_plain_on_card(cuda, solver, size):
+    host, cfg = (_wind_scene(solver) if size == "10x10"
+                 else _wind_scene(solver, 16, 24, plane_height=-3.0))
+    top, s0 = tsb.init(host, device=cuda)
+    want = stencil.make_stencil_step(top, cfg)(s0, cfg.dt, 64)
+    for w in _WRAPPERS.values():
+        w.reset_launch_count()
+    got = _WRAPPERS[solver].make_cuda_step(top, cfg)(s0, cfg.dt, 64)
+    torch.cuda.synchronize()
+    per_sub = (grid_xpbd.launches_per_substep(cfg) if solver == Solver.XPBD
+               else 1)
+    assert _WRAPPERS[solver].launch_count() == 64 * per_sub
+    torch.testing.assert_close(got.x, want.x, atol=5e-5, rtol=0)
+    torch.testing.assert_close(got.v, want.v, atol=5e-2, rtol=0)
+    pinned = torch.from_numpy(host.inv_mass == 0.0).to(cuda)
+    assert torch.equal(got.x[pinned], s0.x[pinned])
+    assert float(got.x[:, 0].mean()) > float(s0.x[:, 0].mean())
+
+
+def _strain_scene(solver, feature="none"):
+    """tests/test_strainlimit.py's soft 16x16 banner on a plane with an 8 %
+    stretch bound; "tear" tears at 20 %, "both" also creeps."""
+    cfg = tsb.SimConfig(
+        solver=solver,
+        strain_limit=StrainLimitParams(enabled=True, max_stretch=0.08),
+        springs=tsb.SpringParams(k_structural=30.0, k_shear=15.0,
+                                 k_bend=6.0, damping=0.5),
+        xpbd=XPBDParams(compliance_distance=5e-3, compliance_bend=5e-2),
+        tear=TearParams(enabled=feature != "none", strain_limit=0.2),
+        plasticity=PlasticityParams(enabled=feature == "both",
+                                    yield_strain=0.02, creep=0.1),
+        global_damping=0.4,
+    )
+    host = tsb.cloth_grid(16, 16, spacing=0.08, mass=0.04, pinned=("top",),
+                          shear=True, bend=True, springs=cfg.springs,
+                          xpbd=cfg.xpbd, plane_height=-0.9,
+                          orientation="xy")
+    return host, cfg
+
+
+# tests/test_strainlimit.py's kernel-vs-twin bounds on x over 64 substeps:
+# 3e-5, 2e-4 with tearing (the clamp at the boundary repeats); the masks
+# equal; the rest scales 1e-3: x's 2e-4 is 2.5e-3 of strain on these 0.08
+# edges, and the creep (0.1) integrates it into the scales (1.75e-4 was
+# measured under Verlet and XPBD); one strain-sweep launch per iteration
+# and substep
+@pytest.mark.cuda
+@pytest.mark.parametrize("feature", ["none", "tear", "both"])
+@pytest.mark.parametrize("solver", list(_WRAPPERS))
+def test_strain_kernel_matches_plain_on_card(cuda, solver, feature):
+    host, cfg = _strain_scene(solver, feature)
+    top, s0 = tsb.init(host, device=cuda)
+    s0 = tsb.api.ensure_plastic_state(top, cfg,
+                                      tsb.api.ensure_tear_state(top, cfg, s0))
+    want = stencil.make_stencil_step(top, cfg)(s0, cfg.dt, 64)
+    for w in (*_WRAPPERS.values(), grid_strain):
+        w.reset_launch_count()
+    got = _WRAPPERS[solver].make_cuda_step(top, cfg)(s0, cfg.dt, 64)
+    torch.cuda.synchronize()
+    assert (_WRAPPERS[solver].launch_count()
+            == _WRAPPERS[solver].launches_per_frame(cfg, 64))
+    assert grid_strain.launch_count() == 64 * cfg.strain_limit.iterations
+    atol = 2e-4 if cfg.tear.enabled else 3e-5
+    torch.testing.assert_close(got.x, want.x, atol=atol, rtol=0)
+    if cfg.tear.enabled:
+        assert torch.equal(got.edge_alive, want.edge_alive)
+    if cfg.plasticity.enabled:
+        torch.testing.assert_close(got.rest_scale, want.rest_scale,
+                                   atol=1e-3, rtol=0)
+    pinned = torch.from_numpy(host.inv_mass == 0.0).to(cuda)
+    assert torch.equal(got.x[pinned], s0.x[pinned])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("feature", ["none", "tear", "both"])
+def test_strain_sweeps_alone_match_plain_on_card(cuda, feature):
+    """The sweeps alone from identical positions (the banner stretched 15 %
+    with noise, random liveness and scales): x 1e-6 against
+    x + stencil.strain_limit_planes, FMA contraction only."""
+    host, cfg = _strain_scene(Solver.SEMI_IMPLICIT_EULER, feature)
+    top, s0 = tsb.init(host, device=cuda)
+    rng = np.random.default_rng(5)
+    ny, nx = top.grid_shape
+    x = 1.15 * s0.x + torch.tensor(0.01 * rng.standard_normal((ny * nx, 3)),
+                                   dtype=torch.float32, device=cuda)
+    x3 = stencil.to_planes(x, ny, nx).contiguous()
+    offsets = [(di, dj, k, r) for di, dj, k, r in stencil._offsets(
+        cfg, top.grid_spacing, True, True)]
+    masks = [stencil._valid_mask(ny, nx, di, dj, cuda, torch.float32)
+             for di, dj, _, _ in offsets]
+    alive = scale = None
+    if cfg.tear.enabled:
+        alive = torch.stack(masks) * torch.tensor(
+            rng.uniform(size=(6, ny, nx)) < 0.8, dtype=torch.float32,
+            device=cuda)
+    if cfg.plasticity.enabled:
+        scale = torch.tensor(rng.uniform(0.9, 1.2, (6, ny, nx)),
+                             dtype=torch.float32, device=cuda)
+    want = x3 + stencil.strain_limit_planes(
+        x3, offsets, masks if alive is None else list(alive),
+        top.inv_mass.reshape(1, ny, nx), cfg.strain_limit, scales=scale)
+    grid_strain.reset_launch_count()
+    got = grid_euler.make_strain_correction(top, cfg)(x3, alive, scale)
+    torch.cuda.synchronize()
+    assert grid_strain.launch_count() == cfg.strain_limit.iterations
+    torch.testing.assert_close(got, want, atol=1e-6, rtol=0)
+    assert float((want - x3).abs().max()) > 1e-3   # the sweeps moved it
+    pinned = (top.inv_mass == 0.0).reshape(ny, nx)
+    assert torch.equal(got[:, pinned], x3[:, pinned])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("solver", list(_WRAPPERS))
+def test_strain_without_sweeps_runs_the_epilogue(cuda, solver):
+    """iterations = 0: one sweep launch a substep that moves nothing and
+    runs the rest of the substep (contact, friction)."""
+    host, cfg = _strain_scene(solver)
+    cfg = cfg.replace(strain_limit=StrainLimitParams(enabled=True,
+                                                     iterations=0))
+    top, s0 = tsb.init(host, device=cuda)
+    want = stencil.make_stencil_step(top, cfg)(s0, cfg.dt, 32)
+    grid_strain.reset_launch_count()
+    got = _WRAPPERS[solver].make_cuda_step(top, cfg)(s0, cfg.dt, 32)
+    torch.cuda.synchronize()
+    assert grid_strain.launch_count() == 32
+    torch.testing.assert_close(got.x, want.x, atol=3e-5, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("solver", list(_LATTICE))
+def test_lattice_drag_kernel_matches_plain_on_card(cuda, solver):
+    """tests/test_wind.py:123-150's drag-only wind on the 6^3 cube: x 1e-5
+    (FMA contraction only), v 2e-3, the lattice kernels' bounds."""
+    host, cfg = _lattice_scene(solver)
+    cfg = cfg.replace(wind=WindParams(velocity=(3.0, 0.0, 1.0), drag=0.5))
+    top, s0 = tsb.init(host, device=cuda)
+    want = make_plain_step(top, cfg)(s0, cfg.dt, 48)
+    _LATTICE[solver].reset_launch_count()
+    got = _LATTICE[solver].make_cuda_step(top, cfg)(s0, cfg.dt, 48)
+    torch.cuda.synchronize()
+    assert (_LATTICE[solver].launch_count()
+            == 48 * _LATTICE[solver].launches_per_substep(top, cfg))
+    torch.testing.assert_close(got.x, want.x, atol=1e-5, rtol=0)
+    torch.testing.assert_close(got.v, want.v, atol=2e-3, rtol=0)
+    assert float(got.x[:, 0].mean()) > float(s0.x[:, 0].mean()) + 1e-3

@@ -283,9 +283,15 @@ def test_feature_grid_of_any_size_builds_a_step(feature):
 def test_feature_scene_with_unported_branch_raises(what, item):
     host, cfg = _scene(Solver.SEMI_IMPLICIT_EULER, "both")
     top, tcfg, s0 = _port_run(host, cfg)
+    # wind and the strain limit run with the feature planes since their
+    # branches were ported: those cases hold that an SDF collider beside
+    # them still refuses
+    sdf = TCollision(enable_sdf=True)
     tcfg = tcfg.replace(**{
-        "wind": dict(wind=WindParams(velocity=(1.0, 0.0, 0.0), drag=0.2)),
-        "strain_limit": dict(strain_limit=StrainLimitParams(enabled=True)),
+        "wind": dict(wind=WindParams(velocity=(1.0, 0.0, 0.0), drag=0.2),
+                     collision=sdf),
+        "strain_limit": dict(strain_limit=StrainLimitParams(enabled=True),
+                             collision=sdf),
         "capsules": dict(collision=TCollision(enable_capsules=True)),
         "boxes": dict(collision=TCollision(enable_boxes=True)),
         "sdf": dict(collision=TCollision(enable_sdf=True)),

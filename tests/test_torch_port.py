@@ -32,7 +32,8 @@ SLICE_PRESETS = ["cloth_32_euler", "cloth_hanging_sphere", "cloth_bench_64k",
                  "cloth_bench_64k_verlet", "softbody_cube",
                  "softbody_cube_xpbd_sub", "cloth_batch_rl",
                  "cloth_selfcollide_16k", "cloth_selfcollide_64k",
-                 "cloth_tearing_64k", "cloth_plastic_64k"]
+                 "cloth_tearing_64k", "cloth_plastic_64k",
+                 "cloth_strain_limited", "cloth_strain_64k", "cloth_wind_64k"]
 # tet_cube(40) is seconds of Python loops in each package: these presets are
 # held equal by their configs and their builder's arguments
 LATTICE_64K = ["softbody_cube_64k", "softbody_cube_64k_verlet",
@@ -217,6 +218,7 @@ def test_package_imports_no_jax():
             "import softbodyunity_torch.kernels.lattice_xpbd\n"
             "import softbodyunity_torch.kernels.blocks\n"
             "import softbodyunity_torch.kernels.grid_features\n"
+            "import softbodyunity_torch.kernels.grid_strain\n"
             "import softbodyunity_torch.solver.blocksparse\n"
             "import softbodyunity_torch.solver.forces\n"
             "import softbodyunity_torch.solver.step\n"
