@@ -3,9 +3,11 @@
 A port of ``softbodyunity_tpu`` (JAX on a TPU) to PyTorch on an NVIDIA H100,
 with the same module layout and names.  The port covers grid cloth and the
 volumetric tet cube (banded tet lattices) under the semi-implicit Euler,
-Verlet and XPBD solvers with plane and sphere contact, vertex-vertex
-self-collision on grid cloth (methods ``block`` and ``dense``), and grid
-cloth of any size with tearing and plasticity; each hot
+Verlet and XPBD solvers with plane, sphere, capsule and oriented-box
+contact (static or kinematic, moved between frames by ``move_colliders``),
+vertex-vertex self-collision on grid cloth (methods ``block`` and
+``dense``), and grid cloth of any size with tearing, plasticity, wind and
+strain limiting; each hot
 loop is a hand-written CUDA kernel (``kernels/csrc/grid_euler.cu``,
 ``grid_verlet.cu``, ``grid_xpbd.cu`` for cloth; ``lattice_euler.cu``,
 ``lattice_verlet.cu``, ``lattice_xpbd.cu`` for lattices; ``block_pairs.cu``
@@ -25,7 +27,7 @@ The package imports torch and numpy, never jax and never
 ``softbodyunity_tpu``: the card's machine has no JAX.
 """
 
-from .api import init, normals, rollout, step, suggest_dt
+from .api import init, move_colliders, normals, rollout, step, suggest_dt
 from .core.config import (
     CollisionParams,
     MotionConstraintParams,
@@ -42,17 +44,18 @@ from .core.config import (
     XPBDParams,
 )
 from .core.state import State, make_state
-from .core.topology import HostTopology, Topology, cloth_grid, tet_cube
+from .core.topology import (HostTopology, Topology, add_colliders,
+                            cloth_grid, tet_cube)
 from .models import presets
 
 __version__ = "0.1.0"
 __all__ = [
-    "init", "step", "rollout", "normals", "suggest_dt",
+    "init", "step", "rollout", "normals", "suggest_dt", "move_colliders",
     "SimConfig", "Solver", "SpringParams", "XPBDParams", "WindParams",
     "TearParams", "PlasticityParams", "PressureParams", "ShapeMatchParams",
     "StrainLimitParams", "MotionConstraintParams", "CollisionParams",
     "SelfCollisionParams",
     "State", "make_state", "Topology", "HostTopology", "cloth_grid",
-    "tet_cube",
+    "tet_cube", "add_colliders",
     "presets",
 ]

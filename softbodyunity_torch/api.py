@@ -1,15 +1,19 @@
-"""Public API: ``init`` / ``step`` / ``rollout`` / ``normals``.
+"""Public API: ``init`` / ``step`` / ``rollout`` / ``move_colliders`` /
+``normals``.
 
 Counterpart of ``softbodyunity_tpu/api.py`` for the grid-cloth and
 tet-lattice slices (Euler, Verlet, XPBD; the solver is ``cfg.solver``).
 ``init`` builds the device topology and rest state once; ``step`` advances one
-frame of ``n_substeps`` substeps.  PyTorch runs eagerly, so where the JAX
-package compiles one executable per config, this module builds one step
-function per ``(Topology, SimConfig)`` and keeps it.
+frame of ``n_substeps`` substeps; ``move_colliders`` animates the colliders
+between frames.  PyTorch runs eagerly, so where the JAX package compiles one
+executable per config, this module builds one step function per scene and
+``SimConfig`` and keeps it; the scene's collider rows are read from the
+topology of each call.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 from typing import Optional, Tuple
 
@@ -18,7 +22,7 @@ import torch
 
 from .core.config import SimConfig
 from .core.state import State, make_state
-from .core.topology import HostTopology, Topology
+from .core.topology import HostTopology, SceneKey, Topology
 from .solver.normals import vertex_normals as _vertex_normals
 
 
@@ -73,7 +77,17 @@ def device_topology(host: HostTopology, device,
     def i(a):
         return torch.tensor(np.asarray(a), dtype=torch.int64, device=device)
 
+    def rows(a, shape):
+        """A collider field as ``shape`` rows; zero rows where it is None."""
+        return f(np.zeros(shape) if a is None
+                 else np.asarray(a).reshape((-1,) + shape[1:]))
+
+    def velocities(a, n_rows):
+        return rows(np.zeros((n_rows, 3)) if a is None else a, (n_rows, 3))
+
     n_spheres = np.asarray(host.sphere_radii).shape[0]
+    n_caps = 0 if host.capsule_radii is None else len(host.capsule_radii)
+    n_boxes = 0 if host.box_centers is None else len(host.box_centers)
     return Topology(
         inv_mass=f(host.inv_mass),
         plane_height=f(host.plane_height),
@@ -81,9 +95,15 @@ def device_topology(host: HostTopology, device,
                          else np.zeros(3)),
         sphere_centers=f(np.asarray(host.sphere_centers).reshape(-1, 3)),
         sphere_radii=f(host.sphere_radii),
-        sphere_velocities=f(host.sphere_velocities
-                            if host.sphere_velocities is not None
-                            else np.zeros((n_spheres, 3))),
+        sphere_velocities=velocities(host.sphere_velocities, n_spheres),
+        capsule_p0=rows(host.capsule_p0, (n_caps, 3)),
+        capsule_p1=rows(host.capsule_p1, (n_caps, 3)),
+        capsule_radii=rows(host.capsule_radii, (n_caps,)),
+        capsule_velocities=velocities(host.capsule_velocities, n_caps),
+        box_centers=rows(host.box_centers, (n_boxes, 3)),
+        box_half_extents=rows(host.box_half_extents, (n_boxes, 3)),
+        box_rotations=rows(host.box_rotations, (n_boxes, 3, 3)),
+        box_velocities=velocities(host.box_velocities, n_boxes),
         triangles=i(host.triangles),
         edges=i(host.edges),
         rest_length=f(host.rest_length),
@@ -112,16 +132,75 @@ def init(host: HostTopology, device="cuda",
 
 
 @functools.lru_cache(maxsize=16)
-def _step_fn(top: Topology, cfg: SimConfig):
-    """One built step function per (topology, config): packing the collider
-    rows and the offset table happens once, not every frame."""
+def _build_step(key: SceneKey, cfg: SimConfig):
+    """One built step function per (scene, config): the offset table, the
+    plane index and the ownership words are built once, not every frame.
+    ``key`` leaves out the collider rows, so a topology from
+    :func:`move_colliders` reuses the function (``cache_info().misses``
+    counts the builds)."""
     from .kernels import dispatch
 
-    return dispatch.maybe_fast_step(top, cfg)
+    return dispatch.maybe_fast_step(key.top, cfg)
 
 
 def _dispatch_step(top, cfg, state, dt, n_substeps):
-    return _step_fn(top, cfg)(state, dt, n_substeps)
+    # the call's topology carries the collider rows the frame reads
+    return _build_step(SceneKey(top), cfg)(state, dt, n_substeps, top=top)
+
+
+def move_colliders(
+    top: Topology,
+    sphere_centers=None,
+    sphere_radii=None,
+    plane_height=None,
+    capsule_p0=None,
+    capsule_p1=None,
+    capsule_radii=None,
+    box_centers=None,
+    box_half_extents=None,
+    box_rotations=None,
+    plane_velocity=None,
+    sphere_velocities=None,
+    capsule_velocities=None,
+    box_velocities=None,
+) -> Topology:
+    """Animated colliders (the Unity moving-Collider analogue): a topology
+    with the given collider geometry and kinematic velocities replaced and
+    every other field shared with ``top``.  ``step`` reuses the step
+    function built for ``top`` and reads the new rows (a few hundred bytes)
+    in the next frame; a new collider count builds a new one.  Port of
+    ``softbodyunity_tpu.api.move_colliders`` without its SDF arguments (SDF
+    colliders are not ported).
+
+    The ``*_velocities`` rows are the colliders' kinematic velocities: the
+    velocity-level (Euler) contact responds relative to them, and the
+    position-level friction of Verlet and XPBD damps the tangential
+    displacement relative to them.  When animating geometry between frames,
+    also set the matching velocity (``(new - old) / frame_dt``)."""
+    kw = {}
+    for name, val in (
+        ("sphere_centers", sphere_centers),
+        ("sphere_radii", sphere_radii),
+        ("plane_height", plane_height),
+        ("capsule_p0", capsule_p0),
+        ("capsule_p1", capsule_p1),
+        ("capsule_radii", capsule_radii),
+        ("box_centers", box_centers),
+        ("box_half_extents", box_half_extents),
+        ("box_rotations", box_rotations),
+        ("plane_velocity", plane_velocity),
+        ("sphere_velocities", sphere_velocities),
+        ("capsule_velocities", capsule_velocities),
+        ("box_velocities", box_velocities),
+    ):
+        if val is not None:
+            old = getattr(top, name)
+            shape = (old.shape if name.startswith("plane_")
+                     else (-1,) + tuple(old.shape[1:]))
+            kw[name] = torch.as_tensor(
+                np.asarray(val) if not torch.is_tensor(val) else val,
+                dtype=top.dtype, device=top.device).reshape(shape)
+    return dataclasses.replace(top, **kw)
 
 
 def ensure_tear_state(top: Topology, cfg: SimConfig, state: State) -> State:

@@ -30,7 +30,8 @@ from .core.topology import HostTopology
 
 def host_from_arrays(fields: dict) -> HostTopology:
     """``HostTopology`` from the JAX ``HostTopology``'s fields (NumPy arrays
-    and plain values; the two classes have the same fields); an unknown or
+    and plain values; the two classes have the same fields, the capsule and
+    box colliders and their kinematic velocities included); an unknown or
     missing field raises ``TypeError``."""
     return HostTopology(**fields)
 

@@ -1,7 +1,7 @@
 """Mesh topology: the host-side NumPy builders and the device ``Topology``.
 
-The builders (``HostTopology``, ``cloth_grid``, ``tet_cube`` and their
-helpers) are copies of ``softbodyunity_tpu/core/topology.py``: that module
+The builders (``HostTopology``, ``add_colliders``, ``cloth_grid``,
+``tet_cube`` and their helpers) are copies of ``softbodyunity_tpu/core/topology.py``: that module
 imports jax to register its device pytree, so the port carries the NumPy
 parts itself and ``tests/test_torch_port.py`` and
 ``tests/test_torch_lattice.py`` hold the copies equal to the originals.
@@ -10,7 +10,9 @@ parts itself and ``tests/test_torch_port.py`` and
 :func:`softbodyunity_torch.api.device_topology`: a frozen dataclass of
 tensors holding what the grid-cloth and tet-lattice paths read.  Later
 slices add the fields their paths need; ``HostTopology`` already carries
-all of them.
+all of them.  A built step function depends on a topology's
+:class:`SceneKey`: everything but the colliders' rows, which
+:func:`softbodyunity_torch.api.move_colliders` replaces between frames.
 """
 
 from __future__ import annotations
@@ -29,13 +31,15 @@ EDGE_SHEAR = 1
 EDGE_BEND = 2
 
 
-# eq=False: identity equality and hashing, so a Topology can key the cache of
-# built step functions (field-wise == on tensors is elementwise, not a bool)
+# eq=False: identity equality and hashing (field-wise == on tensors is
+# elementwise, not a bool); the cache of built step functions is keyed by
+# SceneKey instead
 @dataclasses.dataclass(frozen=True, eq=False)
 class Topology:
     """Static scene description on one device.
 
-    Shapes: N vertices, E edges, F triangles, S spheres.  Float tensors share
+    Shapes: N vertices, E edges, F triangles, S spheres, C capsules, B
+    boxes (zero rows where the scene has none).  Float tensors share
     one dtype (float32 on the kernel path; the tests also run float64), index
     tensors are int64.  ``offset_groups``/``tet_groups`` are the banded
     (delta-grouped) springs and tets of :mod:`..solver.banded`, built for
@@ -49,6 +53,14 @@ class Topology:
     sphere_centers: torch.Tensor      # [S, 3]
     sphere_radii: torch.Tensor        # [S]
     sphere_velocities: torch.Tensor   # [S, 3]  kinematic sphere velocities
+    capsule_p0: torch.Tensor          # [C, 3]  segment start
+    capsule_p1: torch.Tensor          # [C, 3]  segment end
+    capsule_radii: torch.Tensor       # [C]
+    capsule_velocities: torch.Tensor  # [C, 3]  kinematic capsule velocities
+    box_centers: torch.Tensor         # [B, 3]
+    box_half_extents: torch.Tensor    # [B, 3]
+    box_rotations: torch.Tensor       # [B, 3, 3] columns = the box's axes
+    box_velocities: torch.Tensor      # [B, 3]  kinematic box velocities
     triangles: torch.Tensor           # i64[F, 3] for vertex normals
     edges: torch.Tensor               # i64[E, 2] endpoint vertex ids (a, b)
     rest_length: torch.Tensor         # [E]
@@ -71,6 +83,57 @@ class Topology:
     @property
     def n_spheres(self) -> int:
         return self.sphere_radii.shape[0]
+
+    @property
+    def n_capsules(self) -> int:
+        return self.capsule_radii.shape[0]
+
+    @property
+    def n_boxes(self) -> int:
+        return self.box_centers.shape[0]
+
+
+# The fields of a Topology that api.move_colliders replaces between frames:
+# the colliders' geometry and kinematic velocities.
+COLLIDER_FIELDS = (
+    "plane_height", "plane_velocity", "sphere_centers", "sphere_radii",
+    "sphere_velocities", "capsule_p0", "capsule_p1", "capsule_radii",
+    "capsule_velocities", "box_centers", "box_half_extents", "box_rotations",
+    "box_velocities")
+
+
+class SceneKey:
+    """What a step function built for a topology depends on: every field of
+    the topology but the colliders' rows (compared by identity, so a
+    topology from :func:`softbodyunity_torch.api.move_colliders`, which
+    shares them, has the same key) and the collider counts.  ``top`` is the
+    topology the key was made from; it takes no part in the comparison."""
+
+    def __init__(self, top: Topology):
+        self.top = top
+        self._fields = tuple(getattr(top, f.name)
+                             for f in dataclasses.fields(top)
+                             if f.name not in COLLIDER_FIELDS)
+        self._counts = (top.n_spheres, top.n_capsules, top.n_boxes)
+        self._hash = hash((tuple(map(id, self._fields)), self._counts))
+
+    def __hash__(self) -> int:
+        return self._hash
+
+    def __eq__(self, other) -> bool:
+        return (isinstance(other, SceneKey) and self._counts == other._counts
+                and all(a is b for a, b in zip(self._fields, other._fields)))
+
+
+def check_same_scene(built: Topology, top: Topology) -> None:
+    """Raise ``ValueError`` unless ``top`` is ``built`` with other collider
+    rows (same :class:`SceneKey`): what a step function built for
+    ``built`` accepts as the topology of a call."""
+    if top is not built and SceneKey(top) != SceneKey(built):
+        raise ValueError(
+            "this step function was built for another scene: a call's "
+            "topology may differ from the one it was built for only in its "
+            "collider rows (api.move_colliders), with the same counts")
 
 
 def _build_incidence(n: int, edges: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
@@ -255,6 +318,139 @@ class HostTopology:
     # vid(i,j,k) = (i*ny + j)*nz + k (set by tet_cube / lattice_from_mesh;
     # None for general topologies and merged scenes)
     lattice_shape: Optional[Tuple[int, int, int]] = None
+
+
+def add_colliders(
+    host: HostTopology,
+    *,
+    capsule_p0=None,
+    capsule_p1=None,
+    capsule_radii=None,
+    box_centers=None,
+    box_half_extents=None,
+    box_rotations=None,
+    sdf_grids=None,
+    sdf_origins=None,
+    sdf_spacings=None,
+    plane_velocity=None,
+    sphere_velocities=None,
+    capsule_velocities=None,
+    box_velocities=None,
+    sdf_velocities=None,
+) -> HostTopology:
+    """Attach capsule / box / mesh(SDF) colliders to any built topology (the
+    analogue of adding a Unity CapsuleCollider / BoxCollider / MeshCollider
+    to the scene).
+
+    Capsules are segments ``p0 -> p1`` with a radius; boxes are oriented
+    boxes given by center, per-axis half extents, and a world-from-local
+    rotation matrix (columns = the box's local axes in world space;
+    defaults to identity = axis-aligned).  Mesh colliders are baked signed
+    distance grids from the JAX package's ``core.sdf.sdf_from_mesh``:
+    pass one or more ``(grid, origin, spacing)`` bakes as stacked arrays
+    (all grids in a scene must share voxel dimensions).  Enable resolution
+    with ``CollisionParams(enable_capsules=True)`` / ``enable_boxes=True``
+    / ``enable_sdf=True``.
+    """
+    caps_args = (capsule_p0, capsule_p1, capsule_radii)
+    if any(a is not None for a in caps_args) and any(
+            a is None for a in caps_args):
+        # a partial capsule spec silently attaching nothing means the cloth
+        # falls straight through where the user placed a collider
+        raise ValueError(
+            "capsules need all of capsule_p0, capsule_p1, capsule_radii"
+        )
+    if (box_half_extents is not None or box_rotations is not None) \
+            and box_centers is None:
+        raise ValueError(
+            "boxes need box_centers (with box_half_extents; box_rotations "
+            "defaults to identity)"
+        )
+    if box_centers is not None and box_half_extents is None:
+        raise ValueError("boxes need box_half_extents")
+    if capsule_radii is not None:
+        host.capsule_p0 = np.asarray(capsule_p0, np.float64).reshape(-1, 3)
+        host.capsule_p1 = np.asarray(capsule_p1, np.float64).reshape(-1, 3)
+        host.capsule_radii = np.asarray(capsule_radii, np.float64).reshape(-1)
+        if not (host.capsule_p0.shape[0] == host.capsule_p1.shape[0]
+                == host.capsule_radii.shape[0]):
+            # on device a mismatched count silently CLAMPS out-of-range
+            # indices (jit gather semantics) => a phantom collider at the
+            # wrong geometry, with no error anywhere downstream
+            raise ValueError(
+                f"capsule_p0/p1/radii row counts disagree: "
+                f"{host.capsule_p0.shape[0]}/{host.capsule_p1.shape[0]}/"
+                f"{host.capsule_radii.shape[0]}"
+            )
+    if box_centers is not None:
+        host.box_centers = np.asarray(box_centers, np.float64).reshape(-1, 3)
+        host.box_half_extents = np.asarray(
+            box_half_extents, np.float64
+        ).reshape(-1, 3)
+        if host.box_half_extents.shape[0] != host.box_centers.shape[0]:
+            raise ValueError(
+                f"box_centers/half_extents row counts disagree: "
+                f"{host.box_centers.shape[0]}/"
+                f"{host.box_half_extents.shape[0]}"
+            )
+        nb = host.box_centers.shape[0]
+        if box_rotations is None:
+            host.box_rotations = np.broadcast_to(
+                np.eye(3), (nb, 3, 3)
+            ).copy()
+        else:
+            host.box_rotations = np.asarray(
+                box_rotations, np.float64
+            ).reshape(-1, 3, 3)
+            if host.box_rotations.shape[0] != nb:
+                raise ValueError(
+                    f"box_rotations rows ({host.box_rotations.shape[0]}) "
+                    f"must match box_centers ({nb})"
+                )
+    if sdf_grids is not None:
+        g = np.asarray(sdf_grids, np.float64)
+        if g.ndim == 3:
+            g = g[None]
+        if g.ndim != 4:
+            raise ValueError("sdf_grids must be [gx,gy,gz] or [S,gx,gy,gz]")
+        if sdf_origins is None or sdf_spacings is None:
+            raise ValueError(
+                "sdf colliders need all of sdf_grids, sdf_origins, "
+                "sdf_spacings (from core.sdf.sdf_from_mesh)"
+            )
+        host.sdf_grids = g
+        host.sdf_origins = np.asarray(
+            sdf_origins, np.float64).reshape(-1, 3)
+        host.sdf_spacings = np.asarray(
+            sdf_spacings, np.float64).reshape(-1)
+        if not (host.sdf_origins.shape[0] == g.shape[0]
+                == host.sdf_spacings.shape[0]):
+            raise ValueError("sdf_grids / sdf_origins / sdf_spacings "
+                             "leading dimensions disagree")
+    # kinematic collider velocities: contact friction/restitution act on
+    # the velocity RELATIVE to the collider (see Topology *_velocities)
+    if plane_velocity is not None:
+        host.plane_velocity = np.asarray(
+            plane_velocity, np.float64).reshape(3)
+    for name, vel, count in (
+        ("sphere_velocities", sphere_velocities,
+         np.asarray(host.sphere_radii).shape[0]),
+        ("capsule_velocities", capsule_velocities,
+         0 if host.capsule_radii is None else host.capsule_radii.shape[0]),
+        ("box_velocities", box_velocities,
+         0 if host.box_centers is None else host.box_centers.shape[0]),
+        ("sdf_velocities", sdf_velocities,
+         0 if host.sdf_spacings is None else host.sdf_spacings.shape[0]),
+    ):
+        if vel is not None:
+            v = np.asarray(vel, np.float64).reshape(-1, 3)
+            if v.shape[0] != count:
+                raise ValueError(
+                    f"{name} rows ({v.shape[0]}) must match the collider "
+                    f"count ({count})"
+                )
+            setattr(host, name, v)
+    return host
 
 
 def cloth_grid(

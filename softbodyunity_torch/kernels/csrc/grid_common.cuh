@@ -54,19 +54,288 @@ __device__ __forceinline__ Vec3 edge_force(Vec3 xa, Vec3 va, Vec3 xb,
   return {fmag * nx, fmag * ny, fmag * nz};
 }
 
+// --- the colliders ----------------------------------------------------------
+//
+// Every collider's rows lie in device memory, read through const __restrict__
+// pointers: every thread of a warp reads the same row, a broadcast.  The
+// wrappers pack them from the topology of each call
+// (kernels/grid_scene.py::ColliderRows), so a collider moved between frames
+// (api.move_colliders) needs no new step function.  A count of 0 (the
+// collider is off, or the scene has none) skips its loop.
+struct Colliders {
+  const float* plane;     // [1, 4] height, surface (conveyor) velocity xyz
+  int plane_on;
+  int plane_fric;         // position-level plane friction is on
+  const float* spheres;   // [S, 7] center xyz, radius, velocity xyz
+  int n_spheres;          // 0 when spheres are off
+  int sphere_fric;        // position-level sphere friction is on
+  const float* capsules;  // [C, 10] p0 xyz, p1 xyz, radius, velocity xyz
+  int n_capsules;         // 0 when capsules are off
+  const float* boxes;     // [B, 18] center xyz, half extents xyz, R
+                          // row-major (R[c][i] = row[6 + 3c + i], columns =
+                          // the box's axes), velocity xyz
+  int n_boxes;            // 0 when boxes are off
+  int rest_fric;          // position-level capsule/box friction is on
+};
+
+// The collider arguments of every launch function's C interface, in the
+// order of kernels/grid_scene.py::COLLIDER_ARGTYPES, and the struct made of
+// them.
+#define COLLIDER_PARAMS                                                     \
+  const float *plane, int plane_on, int plane_fric, const float *spheres,  \
+      int n_spheres, int sphere_fric, const float *capsules,               \
+      int n_capsules, const float *boxes, int n_boxes, int rest_fric
+#define COLLIDERS                                                           \
+  Colliders {                                                               \
+    plane, plane_on, plane_fric, spheres, n_spheres, sphere_fric, capsules, \
+        n_capsules, boxes, n_boxes, rest_fric                               \
+  }
+
+// Capsule and box math (collide.py's component primitives, the JAX
+// package's collide.py:30-117): the closest point on a capsule's segment,
+// t = (x - p0) . ax / max(|ax|^2, 1e-12) clipped to [0, 1], and its
+// outward normal n = d * (1 / max(|d|, 1e-12)); a box's local coordinates
+// q_i = sum_c d_c R[c][i], its penetrations pen_i = half_i - |q_i|, and its
+// exit face, the axis of least penetration with ties broken x < y < z, on
+// the side q_k >= 0 ? +1 : -1 (a -0 gives +1, as the plain version's
+// where(q >= 0) does; copysignf would give -1).
+
+__device__ __forceinline__ Vec3 capsule_closest(Vec3 x, const float* cp) {
+  const Vec3 ax = {cp[3] - cp[0], cp[4] - cp[1], cp[5] - cp[2]};
+  const float l2 = ax.x * ax.x + ax.y * ax.y + ax.z * ax.z;
+  const Vec3 dp = {x.x - cp[0], x.y - cp[1], x.z - cp[2]};
+  const float t = fminf(
+      fmaxf((dp.x * ax.x + dp.y * ax.y + dp.z * ax.z) / fmaxf(l2, 1e-12f),
+            0.0f),
+      1.0f);
+  return {cp[0] + t * ax.x, cp[1] + t * ax.y, cp[2] + t * ax.z};
+}
+
+// |x - c| and the unit direction n from c toward x.
+__device__ __forceinline__ float radial(Vec3 x, Vec3 c, Vec3& n) {
+  const Vec3 d = {x.x - c.x, x.y - c.y, x.z - c.z};
+  const float dist = sqrtf(d.x * d.x + d.y * d.y + d.z * d.z);
+  const float inv = 1.0f / fmaxf(dist, 1e-12f);
+  n = {d.x * inv, d.y * inv, d.z * inv};
+  return dist;
+}
+
+struct BoxFace {
+  float pen[3];   // half_i - |q_i|
+  int k;          // the exit face's axis
+  float sgn;      // its side
+};
+
+__device__ __forceinline__ BoxFace box_face(Vec3 x, const float* b) {
+  const Vec3 d = {x.x - b[0], x.y - b[1], x.z - b[2]};
+  float q[3];
+  BoxFace f;
+  for (int i = 0; i < 3; ++i) {
+    q[i] = d.x * b[6 + i] + d.y * b[9 + i] + d.z * b[12 + i];
+    f.pen[i] = b[3 + i] - fabsf(q[i]);
+  }
+  const bool k0 = f.pen[0] <= f.pen[1] && f.pen[0] <= f.pen[2];
+  const bool k1 = !k0 && f.pen[1] <= f.pen[2];
+  f.k = k0 ? 0 : (k1 ? 1 : 2);
+  f.sgn = q[f.k] >= 0.0f ? 1.0f : -1.0f;
+  return f;
+}
+
+__device__ __forceinline__ bool box_inside(const BoxFace& f) {
+  return f.pen[0] > 0.0f && f.pen[1] > 0.0f && f.pen[2] > 0.0f;
+}
+
+// The exit face's outward normal: column k of R, times its side.
+__device__ __forceinline__ Vec3 box_normal(const BoxFace& f, const float* b) {
+  return {f.sgn * b[6 + f.k], f.sgn * b[9 + f.k], f.sgn * b[12 + f.k]};
+}
+
+// Velocity-level response of a contact with penetration pen along n, the
+// collider moving at w (collide.py::_normal_velocity_response): push out,
+// bounce the inward normal velocity relative to w by restitution1 = 1 +
+// restitution, then keep `keep` = 1 - friction of the relative tangential
+// velocity.
+__device__ __forceinline__ void normal_response(
+    float& px, float& py, float& pz, float& vx, float& vy, float& vz,
+    float pen, Vec3 n, const float* w, float restitution1, float keep) {
+  px += pen * n.x;
+  py += pen * n.y;
+  pz += pen * n.z;
+  const float wx = w[0], wy = w[1], wz = w[2];
+  const float un = (vx - wx) * n.x + (vy - wy) * n.y + (vz - wz) * n.z;
+  if (un < 0.0f) {
+    const float r = restitution1 * un;
+    vx -= r * n.x;
+    vy -= r * n.y;
+    vz -= r * n.z;
+  }
+  const float ux = vx - wx, uy = vy - wy, uz = vz - wz;
+  const float un2 = ux * n.x + uy * n.y + uz * n.z;
+  const float n2x = un2 * n.x, n2y = un2 * n.y, n2z = un2 * n.z;
+  vx = wx + n2x + (ux - n2x) * keep;
+  vy = wy + n2y + (uy - n2y) * keep;
+  vz = wz + n2z + (uz - n2z) * keep;
+}
+
+// Velocity-level contact of a movable vertex with every capsule in turn
+// (collide.py::resolve_capsules_boxes_components, its capsule loop).
+__device__ __forceinline__ void capsule_resolve(
+    float& px, float& py, float& pz, float& vx, float& vy, float& vz,
+    const Colliders& c, float restitution1, float keep) {
+  for (int s = 0; s < c.n_capsules; ++s) {
+    const float* cp = c.capsules + 10 * s;
+    Vec3 n;
+    const float pen = cp[6] - radial({px, py, pz},
+                                     capsule_closest({px, py, pz}, cp), n);
+    if (pen > 0.0f)
+      normal_response(px, py, pz, vx, vy, vz, pen, n, cp + 7, restitution1,
+                      keep);
+  }
+}
+
+// Velocity-level contact of a movable vertex with every box in turn, after
+// the capsules.
+__device__ __forceinline__ void box_resolve(float& px, float& py, float& pz,
+                                            float& vx, float& vy, float& vz,
+                                            const Colliders& c,
+                                            float restitution1, float keep) {
+  for (int s = 0; s < c.n_boxes; ++s) {
+    const float* b = c.boxes + 18 * s;
+    const BoxFace f = box_face({px, py, pz}, b);
+    if (box_inside(f))
+      normal_response(px, py, pz, vx, vy, vz, f.pen[f.k], box_normal(f, b),
+                      b + 15, restitution1, keep);
+  }
+}
+
+// Position-only push-out of a movable vertex out of every capsule, then
+// every box (collide.py::project_capsules_boxes_components).
+__device__ __forceinline__ Vec3 capsule_box_project(Vec3 x,
+                                                    const Colliders& c) {
+  for (int s = 0; s < c.n_capsules; ++s) {
+    const float* cp = c.capsules + 10 * s;
+    Vec3 n;
+    const float pen = cp[6] - radial(x, capsule_closest(x, cp), n);
+    if (pen > 0.0f) x = {x.x + pen * n.x, x.y + pen * n.y, x.z + pen * n.z};
+  }
+  for (int s = 0; s < c.n_boxes; ++s) {
+    const float* b = c.boxes + 18 * s;
+    const BoxFace f = box_face(x, b);
+    if (!box_inside(f)) continue;
+    const Vec3 n = box_normal(f, b);
+    const float pen = f.pen[f.k];
+    x = {x.x + pen * n.x, x.y + pen * n.y, x.z + pen * n.z};
+  }
+  return x;
+}
+
+// The same in XPBD's delta form (collide.py::project_positions_delta): the
+// push-out at the evaluation point xp + dl, added to dl as a displacement.
+// Without capsules and boxes dl is returned untouched.
+__device__ __forceinline__ Vec3 capsule_box_project_delta(
+    Vec3 dl, Vec3 xp, const Colliders& c) {
+  if (c.n_capsules + c.n_boxes == 0) return dl;
+  const Vec3 e = {xp.x + dl.x, xp.y + dl.y, xp.z + dl.z};
+  const Vec3 q = capsule_box_project(e, c);
+  return {dl.x + (q.x - e.x), dl.y + (q.y - e.y), dl.z + (q.z - e.z)};
+}
+
+// Position-level friction of the tangential displacement x - x0 relative
+// to a collider moving at w, along the unit normal n
+// (collide.py::_friction_tangent_components).
+__device__ __forceinline__ Vec3 friction_tangent(Vec3 x, Vec3 x0, Vec3 n,
+                                                 const float* w, float mu,
+                                                 float dt) {
+  const Vec3 rel = {x.x - x0.x - w[0] * dt, x.y - x0.y - w[1] * dt,
+                    x.z - x0.z - w[2] * dt};
+  const float rn = rel.x * n.x + rel.y * n.y + rel.z * n.z;
+  return {x.x - mu * (rel.x - rn * n.x), x.y - mu * (rel.y - rn * n.y),
+          x.z - mu * (rel.z - rn * n.z)};
+}
+
+// The contact tests of the friction, rounded as the plain version rounds
+// them (one rounding per operation, no FMA): a vertex that a projection
+// has just put on a surface sits within ulps of it, and the shells exist
+// for that; a test rounded otherwise could take a vertex the plain version
+// leaves (or the other way round).
+__device__ __forceinline__ float dot3_rn(Vec3 a, Vec3 b) {
+  return __fadd_rn(__fadd_rn(__fmul_rn(a.x, b.x), __fmul_rn(a.y, b.y)),
+                   __fmul_rn(a.z, b.z));
+}
+
+// |x - closest point of the capsule's segment|, every step rounded.
+__device__ __forceinline__ float capsule_distance_rn(Vec3 x,
+                                                     const float* cp) {
+  const Vec3 ax = {__fsub_rn(cp[3], cp[0]), __fsub_rn(cp[4], cp[1]),
+                   __fsub_rn(cp[5], cp[2])};
+  const Vec3 dp = {__fsub_rn(x.x, cp[0]), __fsub_rn(x.y, cp[1]),
+                   __fsub_rn(x.z, cp[2])};
+  const float t = fminf(
+      fmaxf(__fdiv_rn(dot3_rn(dp, ax), fmaxf(dot3_rn(ax, ax), 1e-12f)),
+            0.0f),
+      1.0f);
+  const Vec3 d = {__fsub_rn(x.x, __fadd_rn(cp[0], __fmul_rn(t, ax.x))),
+                  __fsub_rn(x.y, __fadd_rn(cp[1], __fmul_rn(t, ax.y))),
+                  __fsub_rn(x.z, __fadd_rn(cp[2], __fmul_rn(t, ax.z)))};
+  return sqrtf(dot3_rn(d, d));
+}
+
+// min_i (half_i - |q_i|) of a box, every step rounded.
+__device__ __forceinline__ float box_min_pen_rn(Vec3 x, const float* b) {
+  const Vec3 d = {__fsub_rn(x.x, b[0]), __fsub_rn(x.y, b[1]),
+                  __fsub_rn(x.z, b[2])};
+  float mn = 0.0f;
+  for (int i = 0; i < 3; ++i) {
+    const float q = dot3_rn(d, {b[6 + i], b[9 + i], b[12 + i]});
+    const float pen = __fsub_rn(b[3 + i], fabsf(q));
+    mn = i == 0 ? pen : fminf(mn, pen);
+  }
+  return mn;
+}
+
+// Capsule, then box, position-level friction of a movable vertex that ends
+// the substep at x, having started it at x0
+// (collide.py::rest_friction_components): within a capsule's shell
+// radius * shell (SPHERE_CONTACT_SHELL) of its segment, or within
+// 1e-5 * max(half) (BOX_CONTACT_SHELL) of a box's nearest face, the
+// tangential displacement relative to the collider's velocity is damped by
+// 1 - mu.  Each collider reads the previous one's output.
+__device__ __forceinline__ Vec3 capsule_box_friction(Vec3 x, Vec3 x0,
+                                                     const Colliders& c,
+                                                     float mu, float dt,
+                                                     float shell) {
+  for (int s = 0; s < c.n_capsules; ++s) {
+    const float* cp = c.capsules + 10 * s;
+    if (!(capsule_distance_rn(x, cp) <= __fmul_rn(cp[6], shell))) continue;
+    Vec3 n;
+    radial(x, capsule_closest(x, cp), n);
+    x = friction_tangent(x, x0, n, cp + 7, mu, dt);
+  }
+  for (int s = 0; s < c.n_boxes; ++s) {
+    const float* b = c.boxes + 18 * s;
+    const float mn = box_min_pen_rn(x, b);
+    const float sh = __fmul_rn(1e-5f, fmaxf(fmaxf(b[3], b[4]), b[5]));
+    if (!(mn >= -sh && mn <= sh)) continue;
+    x = friction_tangent(x, x0, box_normal(box_face(x, b), b), b + 15, mu,
+                         dt);
+  }
+  return x;
+}
+
 // Velocity-level contact of a movable vertex at position p with velocity v
 // (the Euler solver; collide.py::resolve_velocity_level): clamp onto the
 // plane (plane[0] is its height, plane[1..3] its surface velocity), bounce
 // the normal velocity relative to the surface by restitution and keep
 // `keep` = 1 - friction of the tangential part; then each sphere in turn:
 // push out, bounce by restitution1 = 1 + restitution, damp the tangential
-// part.
+// part; then each capsule and each box in turn, the same way.
 __device__ __forceinline__ void resolve_velocity_contact(
     float& px, float& py, float& pz, float& vx, float& vy, float& vz,
-    const float* __restrict__ plane, int plane_on,
-    const float* __restrict__ spheres, int n_spheres, float restitution,
-    float restitution1, float keep) {
-  if (plane_on && py < plane[0]) {
+    const Colliders& c, float restitution, float restitution1, float keep) {
+  const float* __restrict__ plane = c.plane;
+  const float* __restrict__ spheres = c.spheres;
+  const int n_spheres = c.n_spheres;
+  if (c.plane_on && py < plane[0]) {
     const float wx = plane[1], wy = plane[2], wz = plane[3];
     py = plane[0];
     const float uy = vy - wy;
@@ -101,6 +370,8 @@ __device__ __forceinline__ void resolve_velocity_contact(
     vy = wy + n2y + (uy - n2y) * keep;
     vz = wz + n2z + (uz - n2z) * keep;
   }
+  capsule_resolve(px, py, pz, vx, vy, vz, c, restitution1, keep);
+  box_resolve(px, py, pz, vx, vy, vz, c, restitution1, keep);
 }
 
 // Position-only sphere push-out of a movable vertex, sphere by sphere
@@ -125,14 +396,14 @@ __device__ __forceinline__ Vec3 push_out_spheres(Vec3 x,
 
 // Position-only contact of a movable vertex (stencil.py::
 // _project_positions_grid): clamp to the plane (plane[0] is its height),
-// then push out of the spheres.  Returns whether the plane clamp fired, the
-// pre-clamp contact that the plane friction reads.
-__device__ __forceinline__ bool project_plane_spheres(
-    Vec3& x, const float* __restrict__ plane, int plane_on,
-    const float* __restrict__ spheres, int n_spheres) {
-  const bool contact = plane_on && x.y < plane[0];
-  if (contact) x.y = plane[0];
-  x = push_out_spheres(x, spheres, n_spheres);
+// then push out of the spheres, the capsules and the boxes.  Returns
+// whether the plane clamp fired, the pre-clamp contact that the plane
+// friction reads.
+__device__ __forceinline__ bool project_contact(Vec3& x, const Colliders& c) {
+  const bool contact = c.plane_on && x.y < c.plane[0];
+  if (contact) x.y = c.plane[0];
+  x = push_out_spheres(x, c.spheres, c.n_spheres);
+  x = capsule_box_project(x, c);
   return contact;
 }
 
@@ -159,6 +430,75 @@ __device__ __forceinline__ Vec3 sphere_friction(Vec3 x, Vec3 x0,
     x.z = x.z - mu * (rel.z - rn * n.z);
   }
   return x;
+}
+
+// The position-level contact chain of a movable vertex that ends the
+// substep at x, having started it at x0 (the Verlet solver;
+// stencil.py::verlet_substep_grid, step.py::verlet_contact_project): the
+// projection, then the plane friction where the clamp fired (mu, keep =
+// 1 - mu), the sphere friction within the shell, the capsule/box friction.
+__device__ __forceinline__ Vec3 position_contact(Vec3 x, Vec3 x0,
+                                                 const Colliders& c,
+                                                 float mu, float keep,
+                                                 float dt, float shell) {
+  const bool hit = project_contact(x, c);
+  if (c.plane_fric && hit) {
+    // toward the substep start moved with the plane's surface velocity
+    const float tx = x0.x + c.plane[1] * dt;
+    const float tz = x0.z + c.plane[3] * dt;
+    x.x = tx + (x.x - tx) * keep;
+    x.z = tz + (x.z - tz) * keep;
+  }
+  if (c.sphere_fric)
+    x = sphere_friction(x, x0, c.spheres, c.n_spheres, mu, dt, shell);
+  if (c.rest_fric) x = capsule_box_friction(x, x0, c, mu, dt, shell);
+  return x;
+}
+
+// XPBD's contact inside the loop, in delta form, of a movable vertex that
+// started the substep at xp (collide.py::project_positions_delta): the
+// plane clamp as plane - xp (its pre-clamp contact sets *flag), then the
+// spheres' push-out as a displacement, then the capsules' and boxes'.
+__device__ __forceinline__ void project_delta(Vec3& dl, Vec3 xp,
+                                              unsigned char* flag,
+                                              const Colliders& c) {
+  if (c.plane_on && xp.y + dl.y < c.plane[0]) {
+    dl.y = c.plane[0] - xp.y;
+    *flag = 1;
+  }
+  if (c.n_spheres > 0) {
+    const Vec3 e = {xp.x + dl.x, xp.y + dl.y, xp.z + dl.z};
+    const Vec3 q = push_out_spheres(e, c.spheres, c.n_spheres);
+    dl = {dl.x + (q.x - e.x), dl.y + (q.y - e.y), dl.z + (q.z - e.z)};
+  }
+  dl = capsule_box_project_delta(dl, xp, c);
+}
+
+// XPBD's friction, once per substep, of the delta dl of a vertex that
+// started at xp: the plane's where the OR'd flag is set, then the sphere
+// and capsule/box friction at xp + dl, added to dl as one displacement
+// (stencil.py::xpbd_substep_grid).  Pinned vertices take a zero delta.
+__device__ __forceinline__ Vec3 friction_delta(Vec3 dl, Vec3 xp,
+                                               bool movable,
+                                               unsigned char flag,
+                                               const Colliders& c, float mu,
+                                               float keep, float dt,
+                                               float shell) {
+  if (!movable) return {0.0f, 0.0f, 0.0f};
+  if (c.plane_fric && flag) {
+    const float wdx = c.plane[1] * dt, wdz = c.plane[3] * dt;
+    dl.x = wdx + (dl.x - wdx) * keep;
+    dl.z = wdz + (dl.z - wdz) * keep;
+  }
+  if (c.sphere_fric || c.rest_fric) {
+    const Vec3 e = {xp.x + dl.x, xp.y + dl.y, xp.z + dl.z};
+    Vec3 f = e;
+    if (c.sphere_fric)
+      f = sphere_friction(f, xp, c.spheres, c.n_spheres, mu, dt, shell);
+    if (c.rest_fric) f = capsule_box_friction(f, xp, c, mu, dt, shell);
+    dl = {dl.x + (f.x - e.x), dl.y + (f.y - e.y), dl.z + (f.z - e.z)};
+  }
+  return dl;
 }
 
 // Verlet velocity estimate (x - xp) / dt, a divide as in the plain versions.

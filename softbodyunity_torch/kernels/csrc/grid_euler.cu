@@ -11,8 +11,9 @@
 // and the row-tiled pallas_tiled.py::_make_kernel, launched by
 // ::_tiled_substeps (grids past that cap).  It runs their branches of the
 // grid-cloth Euler path: the six-offset spring stencil (Hooke + axial
-// damper), gravity, global damping and pinning, plane contact and sphere
-// contact with the colliders' kinematic velocities, the tear-liveness and
+// damper), gravity, global damping and pinning, plane, sphere, capsule and
+// oriented-box contact with the colliders' kinematic velocities
+// (grid_common.cuh::resolve_velocity_contact), the tear-liveness and
 // plastic rest-scale planes (the kFeat instantiation), the wind's drag and
 // lift along the grid's vertex normals (the kWind instantiation), and the
 // strain limit's Jacobi sweeps (grid_common.cuh::grid_strain_sweep_kernel,
@@ -20,8 +21,7 @@
 // optional external force plane (the self-collision repulsion,
 // block_pairs.cu) is added to the spring forces, where the JAX package's
 // general path adds self_collision_force (solver/step.py::total_forces);
-// the TPU routes such scenes off these kernels.  Their capsule/box branch
-// is not ported yet; the wrapper refuses configs that enable it.
+// the TPU routes such scenes off these kernels.
 //
 // Design.  The TPU's whole-VMEM kernel keeps the state in VMEM and runs
 // every substep of a frame in one launch, which caps it at 128k vertices;
@@ -97,11 +97,10 @@ struct Params {
 
 // One thread per vertex (i, j) of the [ny, nx] grid.  x, v, x_out and v_out
 // are [3, ny, nx] component planes; offsets is [n_off, 4] rows of
-// (di, dj, k, rest); plane is (height, surface velocity xyz); spheres is
-// [n_spheres, 7] rows of (center xyz, radius, velocity xyz).  kExt: f_ext,
-// [3, ny, nx], is added to the spring forces; the instantiation without it
-// is the kernel as it was before the plane existed.  kFeat: the tear and
-// plastic planes, [n_off, ny, nx], are read from *_in (null: the feature is
+// (di, dj, k, rest); col holds the collider rows (grid_common.cuh).
+// kExt: f_ext, [3, ny, nx], is added to the spring forces; the
+// instantiation without it is the kernel as it was before the plane
+// existed.  kFeat: the tear and plastic planes, [n_off, ny, nx], are read from *_in (null: the feature is
 // off), updated at the launch's start unless `first`, used by the springs
 // and written to *_out; tear_limits[o] is rest * (1 + strain_limit).  kWind:
 // the wind force, at x and v, is added after f_ext.
@@ -110,9 +109,7 @@ __global__ void __launch_bounds__(256) grid_euler_substep_kernel(
     const float* __restrict__ x, const float* __restrict__ v,
     float* __restrict__ x_out, float* __restrict__ v_out,
     const float* __restrict__ inv_mass, const float* __restrict__ offsets,
-    int n_off, const float* __restrict__ plane, int plane_on,
-    const float* __restrict__ spheres, int n_spheres,
-    const float* __restrict__ f_ext, const float* __restrict__ alive_in,
+    int n_off, Colliders col, const float* __restrict__ f_ext, const float* __restrict__ alive_in,
     float* __restrict__ alive_out, const float* __restrict__ scale_in,
     float* __restrict__ scale_out, const float* __restrict__ tear_limits,
     int first, FeatParams fp, Wind wind, int ny, int nx, Params p) {
@@ -200,8 +197,8 @@ __global__ void __launch_bounds__(256) grid_euler_substep_kernel(
   float pz = xi.z + p.dt * vz;
 
   if (movable)
-    resolve_velocity_contact(px, py, pz, vx, vy, vz, plane, plane_on, spheres,
-                             n_spheres, p.restitution, p.restitution1, p.keep);
+    resolve_velocity_contact(px, py, pz, vx, vy, vz, col, p.restitution,
+                             p.restitution1, p.keep);
 
   x_out[idx] = px;
   x_out[ps + idx] = py;
@@ -221,10 +218,7 @@ struct EulerStrainEpilogue {
   float* x_out;
   float* v;
   const float* inv_mass;
-  const float* plane;
-  int plane_on;
-  const float* spheres;
-  int n_spheres;
+  Colliders col;
   int ps;
   Params p;
 
@@ -236,8 +230,7 @@ struct EulerStrainEpilogue {
     float vx = vi.x + d.x / p.dt, vy = vi.y + d.y / p.dt,
           vz = vi.z + d.z / p.dt;
     if (inv_mass[idx] > 0.0f)
-      resolve_velocity_contact(px, py, pz, vx, vy, vz, plane, plane_on,
-                               spheres, n_spheres, p.restitution,
+      resolve_velocity_contact(px, py, pz, vx, vy, vz, col, p.restitution,
                                p.restitution1, p.keep);
     store3(x_out, idx, ps, {px, py, pz});
     store3(v, idx, ps, {vx, vy, vz});
@@ -253,8 +246,7 @@ struct EulerStrainEpilogue {
 // not synchronise.
 extern "C" int grid_euler_substep(
     const float* x, const float* v, float* x_out, float* v_out,
-    const float* inv_mass, const float* offsets, int n_off,
-    const float* plane, int plane_on, const float* spheres, int n_spheres,
+    const float* inv_mass, const float* offsets, int n_off, COLLIDER_PARAMS,
     const float* f_ext, int feat, const float* alive_in, float* alive_out,
     const float* scale_in, float* scale_out, const float* tear_limits,
     int first, float strain1, float yield_strain, float creep,
@@ -269,11 +261,12 @@ extern "C" int grid_euler_substep(
   const dim3 block(32, 8);
   const dim3 grid((nx + block.x - 1) / block.x, (ny + block.y - 1) / block.y);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Colliders col = COLLIDERS;
 #define GRID_EULER_LAUNCH(EXT, FEAT, WIND)                                  \
   grid_euler_substep_kernel<EXT, FEAT, WIND><<<grid, block, 0, st>>>(       \
-      x, v, x_out, v_out, inv_mass, offsets, n_off, plane, plane_on,        \
-      spheres, n_spheres, f_ext, alive_in, alive_out, scale_in, scale_out,  \
-      tear_limits, first, fp, wind, ny, nx, p)
+      x, v, x_out, v_out, inv_mass, offsets, n_off, col, f_ext, alive_in,   \
+      alive_out, scale_in, scale_out, tear_limits, first, fp, wind, ny, nx, \
+      p)
 #define GRID_EULER_WIND(EXT, FEAT)          \
   do {                                      \
     if (wind_on)                            \
@@ -304,13 +297,12 @@ extern "C" int grid_euler_strain(
     const float* inv_mass, const float* offsets, const float* limits,
     int n_off, const float* alive, const float* scale, float stretch1,
     float compress1, int compress_on, int project, int last, const float* x0,
-    float* x_out, float* v, const float* plane, int plane_on,
-    const float* spheres, int n_spheres, int ny, int nx, float dt,
+    float* x_out, float* v, COLLIDER_PARAMS, int ny, int nx, float dt,
     float restitution, float restitution1, float keep, void* stream) {
   const Params p{dt,  0.0f,        0.0f,         0.0f, 0.0f,
                  1.0f, restitution, restitution1, keep};
-  const EulerStrainEpilogue epi{x0,      x_out,   v,         inv_mass, plane,
-                                plane_on, spheres, n_spheres, ny * nx,  p};
+  const EulerStrainEpilogue epi{x0, x_out, v, inv_mass, COLLIDERS, ny * nx,
+                                p};
   return launch_strain_sweep(base, add, xs_out, inv_mass, offsets, limits,
                              n_off, alive, scale,
                              StrainParams{stretch1, compress1, compress_on},

@@ -12,8 +12,8 @@
 // ::_tiled_verlet_substeps (grids past the whole-VMEM cap).  It runs their
 // branches of the grid-cloth Verlet path: the six-offset spring stencil on
 // the velocity estimate (x - xp) / dt, the damped position update,
-// pinning, position-only plane and sphere contact, the plane and sphere
-// friction, and the tear-liveness and plastic rest-scale planes (the kFeat
+// pinning, position-only plane, sphere, capsule and oriented-box contact,
+// their friction (grid_common.cuh::position_contact), and the tear-liveness and plastic rest-scale planes (the kFeat
 // instantiation, in the row-tiled kernel's launch-start form: see
 // grid_euler.cu), the wind's drag and lift at the velocity estimate (the
 // kWind instantiation), and the strain limit's sweeps
@@ -21,8 +21,6 @@
 // running the contact chain: VerletStrainEpilogue below), with an optional
 // external force plane (the self-collision repulsion at x, block_pairs.cu)
 // added to the spring forces as solver/step.py::verlet_integrate adds it.
-// Their capsule/box branch is not ported yet; the wrapper refuses configs
-// that enable it.
 //
 // Design.  As grid_euler.cu: one launch per substep, one thread per vertex,
 // the state in L2 or device memory between launches, no vertex cap, the
@@ -67,9 +65,9 @@ struct Params {
 };
 
 // One thread per vertex (i, j).  x, xp, out are [3, ny, nx] planes; offsets
-// is [n_off, 4] rows of (di, dj, k, rest); plane is (height, surface
-// velocity xyz); spheres is [n_spheres, 7] rows (center, radius, velocity).
-// plane_fric / sphere_fric are 0 when friction is 0 or the collider is off.
+// is [n_off, 4] rows of (di, dj, k, rest); col holds the collider rows
+// (grid_common.cuh; its friction flags are 0 when friction is 0 or the
+// collider is off).
 // kExt: f_ext, [3, ny, nx], is added to the spring forces; the
 // instantiation without it is the kernel as it was before the plane existed.
 // kFeat: the tear and plastic planes, as grid_euler.cu's.  kWind: the wind
@@ -78,9 +76,7 @@ template <bool kExt, bool kFeat, bool kWind>
 __global__ void __launch_bounds__(256) grid_verlet_substep_kernel(
     const float* __restrict__ x, const float* __restrict__ xp,
     float* __restrict__ out, const float* __restrict__ inv_mass,
-    const float* __restrict__ offsets, int n_off,
-    const float* __restrict__ plane, int plane_on, int plane_fric,
-    const float* __restrict__ spheres, int n_spheres, int sphere_fric,
+    const float* __restrict__ offsets, int n_off, Colliders col,
     const float* __restrict__ f_ext, const float* __restrict__ alive_in,
     float* __restrict__ alive_out, const float* __restrict__ scale_in,
     float* __restrict__ scale_out, const float* __restrict__ tear_limits,
@@ -166,18 +162,8 @@ __global__ void __launch_bounds__(256) grid_verlet_substep_kernel(
   Vec3 xnew = {xi.x + (xi.x - pi.x) * p.decay + ax * p.dt * p.dt,
                xi.y + (xi.y - pi.y) * p.decay + ay * p.dt * p.dt,
                xi.z + (xi.z - pi.z) * p.decay + az * p.dt * p.dt};
-  const bool contact =
-      project_plane_spheres(xnew, plane, plane_on, spheres, n_spheres);
-  if (plane_fric && contact) {
-    // toward the substep start moved with the plane's surface velocity
-    const float tx = xi.x + plane[1] * p.dt;
-    const float tz = xi.z + plane[3] * p.dt;
-    xnew.x = tx + (xnew.x - tx) * p.keep;
-    xnew.z = tz + (xnew.z - tz) * p.keep;
-  }
-  if (sphere_fric)
-    xnew = sphere_friction(xnew, xi, spheres, n_spheres, p.mu, p.dt, p.shell);
-  store3(out, idx, ps, xnew);
+  store3(out, idx, ps,
+         position_contact(xnew, xi, col, p.mu, p.keep, p.dt, p.shell));
 }
 
 // The last strain sweep's epilogue (stencil.py::verlet_substep_grid): the
@@ -189,12 +175,7 @@ struct VerletStrainEpilogue {
   const float* x_start;
   float* out;
   const float* inv_mass;
-  const float* plane;
-  int plane_on;
-  int plane_fric;
-  const float* spheres;
-  int n_spheres;
-  int sphere_fric;
+  Colliders col;
   int ps;
   Params p;
 
@@ -202,19 +183,9 @@ struct VerletStrainEpilogue {
     const Vec3 a = load3(x0, idx, ps);
     const Vec3 d = sub3(xn, a);
     Vec3 x = {a.x + d.x, a.y + d.y, a.z + d.z};
-    if (inv_mass[idx] > 0.0f) {
-      const Vec3 xi = load3(x_start, idx, ps);
-      const bool contact =
-          project_plane_spheres(x, plane, plane_on, spheres, n_spheres);
-      if (plane_fric && contact) {
-        const float tx = xi.x + plane[1] * p.dt;
-        const float tz = xi.z + plane[3] * p.dt;
-        x.x = tx + (x.x - tx) * p.keep;
-        x.z = tz + (x.z - tz) * p.keep;
-      }
-      if (sphere_fric)
-        x = sphere_friction(x, xi, spheres, n_spheres, p.mu, p.dt, p.shell);
-    }
+    if (inv_mass[idx] > 0.0f)
+      x = position_contact(x, load3(x_start, idx, ps), col, p.mu, p.keep,
+                           p.dt, p.shell);
     store3(out, idx, ps, x);
   }
 };
@@ -227,9 +198,8 @@ struct VerletStrainEpilogue {
 // not synchronise.
 extern "C" int grid_verlet_substep(
     const float* x, const float* xp, float* out, const float* inv_mass,
-    const float* offsets, int n_off, const float* plane, int plane_on,
-    int plane_fric, const float* spheres, int n_spheres, int sphere_fric,
-    const float* f_ext, int feat, const float* alive_in, float* alive_out,
+    const float* offsets, int n_off, COLLIDER_PARAMS, const float* f_ext,
+    int feat, const float* alive_in, float* alive_out,
     const float* scale_in, float* scale_out, const float* tear_limits,
     int first, float strain1, float yield_strain, float creep,
     float min_scale, float max_scale, int wind_on, float wvx, float wvy,
@@ -242,11 +212,12 @@ extern "C" int grid_verlet_substep(
   const dim3 block(32, 8);
   const dim3 grid((nx + block.x - 1) / block.x, (ny + block.y - 1) / block.y);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Colliders col = COLLIDERS;
 #define GRID_VERLET_LAUNCH(EXT, FEAT, WIND)                                 \
   grid_verlet_substep_kernel<EXT, FEAT, WIND><<<grid, block, 0, st>>>(      \
-      x, xp, out, inv_mass, offsets, n_off, plane, plane_on, plane_fric,    \
-      spheres, n_spheres, sphere_fric, f_ext, alive_in, alive_out,          \
-      scale_in, scale_out, tear_limits, first, fp, wind, ny, nx, p)
+      x, xp, out, inv_mass, offsets, n_off, col, f_ext, alive_in,           \
+      alive_out, scale_in, scale_out, tear_limits, first, fp, wind, ny, nx, \
+      p)
 #define GRID_VERLET_WIND(EXT, FEAT)          \
   do {                                       \
     if (wind_on)                             \
@@ -277,15 +248,11 @@ extern "C" int grid_verlet_strain(
     const float* inv_mass, const float* offsets, const float* limits,
     int n_off, const float* alive, const float* scale, float stretch1,
     float compress1, int compress_on, int project, int last, const float* x0,
-    const float* x_start, float* out, const float* plane, int plane_on,
-    int plane_fric, const float* spheres, int n_spheres, int sphere_fric,
-    int ny, int nx, float dt, float mu, float keep, float shell,
-    void* stream) {
+    const float* x_start, float* out, COLLIDER_PARAMS, int ny, int nx,
+    float dt, float mu, float keep, float shell, void* stream) {
   const Params p{dt, 0.0f, 0.0f, 0.0f, 0.0f, 1.0f, mu, keep, shell};
-  const VerletStrainEpilogue epi{x0,        x_start,    out,     inv_mass,
-                                 plane,     plane_on,   plane_fric,
-                                 spheres,   n_spheres,  sphere_fric,
-                                 ny * nx,   p};
+  const VerletStrainEpilogue epi{x0,        x_start, out, inv_mass,
+                                 COLLIDERS, ny * nx, p};
   return launch_strain_sweep(base, add, xs_out, inv_mass, offsets, limits,
                              n_off, alive, scale,
                              StrainParams{stretch1, compress1, compress_on},

@@ -12,15 +12,14 @@
 // runs their branches of the grid-cloth XPBD path: predict (gravity, global
 // damping, pinning), n_iterations Jacobi sweeps of distance constraints
 // with compliance over the six grid offsets, with per-offset lambda planes,
-// count-averaged and under-relaxed, plane and sphere contact projected
-// inside the loop, plane and sphere friction once after it, the velocity
-// recovered from the position change, and the tear-liveness and plastic
-// rest-scale planes (the kFeat instantiations), the wind's drag and lift in
-// the predict (the kWind instantiation), and the strain limit's sweeps after
-// the Jacobi loop (grid_common.cuh::grid_strain_sweep_kernel; its last
+// count-averaged and under-relaxed, plane, sphere, capsule and oriented-box
+// contact projected inside the loop in delta form, their friction once
+// after it, the velocity recovered from the position change, and the
+// tear-liveness and plastic rest-scale planes (the kFeat instantiations),
+// the wind's drag and lift in the predict (the kWind instantiation), and
+// the strain limit's sweeps after the Jacobi loop (grid_common.cuh::grid_strain_sweep_kernel; its last
 // sweep runs one more contact projection and the epilogue:
-// XpbdStrainEpilogue below).  Their capsule/box branch is not ported yet;
-// the wrapper refuses configs that enable it.
+// XpbdStrainEpilogue below).
 //
 // Design.  A Jacobi sweep reads every neighbour's evaluation point, so each
 // sweep needs a grid-wide barrier; here that barrier is a kernel boundary.
@@ -47,14 +46,17 @@
 //             and old lambda, dlam of the edge owned by p - o; write only the
 //             vertex's own new lambdas; delta += dx * inv_cnt; then the
 //             plane clamp in ``plane - xp`` form (OR'd into the contact
-//             flag) and the sphere push-out as a delta.  delta and the
-//             lambda planes ping-pong between sweeps (an in-place update
-//             would let thread p - o overwrite the lambda thread p still
-//             reads); the contact flag is the vertex's own and stays put.
+//             flag), the sphere push-out as a delta, then the capsules'
+//             and boxes' as another (grid_common.cuh::project_delta).
+//             delta and the lambda planes ping-pong between sweeps (an
+//             in-place update would let thread p - o overwrite the lambda
+//             thread p still reads); the contact flag is the vertex's own
+//             and stays put.
 //             kFeat: a torn edge is skipped and a plastic one's rest is
 //             rest * scale, both read from the predict's planes.
 //   epilogue  run by the last sweep for its own vertex: plane friction on
-//             the OR'd flag, sphere friction, pins masked, x = xp + delta
+//             the OR'd flag, sphere and capsule/box friction
+//             (grid_common.cuh::friction_delta), pins masked, x = xp + delta
 //             written to the other x buffer, v = delta / dt in place.
 //   strain    under the strain limit, iterations more launches after the
 //             Jacobi sweeps (which then all store delta): the strain sweeps
@@ -182,45 +184,17 @@ __global__ void __launch_bounds__(256) grid_xpbd_predict_kernel(
   }
 }
 
-// Contact of a movable vertex inside the loop, in delta form: the plane
-// clamp as plane - xp (its pre-clamp contact sets *flag), then the spheres'
-// push-out as a displacement.
-__device__ __forceinline__ void project_delta(
-    Vec3& dl, Vec3 xpi, unsigned char* flag, const float* __restrict__ plane,
-    int plane_on, const float* __restrict__ spheres, int n_spheres) {
-  if (plane_on && xpi.y + dl.y < plane[0]) {
-    dl.y = plane[0] - xpi.y;
-    *flag = 1;
-  }
-  if (n_spheres > 0) {
-    const Vec3 e = {xpi.x + dl.x, xpi.y + dl.y, xpi.z + dl.z};
-    const Vec3 q = push_out_spheres(e, spheres, n_spheres);
-    dl = {dl.x + (q.x - e.x), dl.y + (q.y - e.y), dl.z + (q.z - e.z)};
-  }
-}
-
-// The substep's epilogue for vertex idx: friction once (the plane's on the
-// OR'd contact flag), pins masked, x = xp + delta to x_out, v = delta / dt.
-__device__ __forceinline__ void finish(
-    Vec3 dl, Vec3 xpi, int idx, int ps, bool movable, unsigned char flag,
-    const float* __restrict__ plane, int plane_fric,
-    const float* __restrict__ spheres, int n_spheres, int sphere_fric,
-    float* __restrict__ x_out, float* __restrict__ v, const Params& p) {
-  if (!movable) {
-    dl = {0.0f, 0.0f, 0.0f};
-  } else {
-    if (plane_fric && flag) {
-      const float wdx = plane[1] * p.dt, wdz = plane[3] * p.dt;
-      dl.x = wdx + (dl.x - wdx) * p.keep;
-      dl.z = wdz + (dl.z - wdz) * p.keep;
-    }
-    if (sphere_fric) {
-      const Vec3 e = {xpi.x + dl.x, xpi.y + dl.y, xpi.z + dl.z};
-      const Vec3 f =
-          sphere_friction(e, xpi, spheres, n_spheres, p.mu, p.dt, p.shell);
-      dl = {dl.x + (f.x - e.x), dl.y + (f.y - e.y), dl.z + (f.z - e.z)};
-    }
-  }
+// The substep's epilogue for vertex idx: friction once
+// (grid_common.cuh::friction_delta, the plane's on the OR'd contact flag),
+// pins masked, x = xp + delta to x_out, v = delta / dt.
+__device__ __forceinline__ void finish(Vec3 dl, Vec3 xpi, int idx, int ps,
+                                       bool movable, unsigned char flag,
+                                       const Colliders& col,
+                                       float* __restrict__ x_out,
+                                       float* __restrict__ v,
+                                       const Params& p) {
+  dl = friction_delta(dl, xpi, movable, flag, col, p.mu, p.keep, p.dt,
+                      p.shell);
   store3(x_out, idx, ps, {xpi.x + dl.x, xpi.y + dl.y, xpi.z + dl.z});
   store3(v, idx, ps, {dl.x / p.dt, dl.y / p.dt, dl.z / p.dt});
 }
@@ -228,20 +202,18 @@ __device__ __forceinline__ void finish(
 // One Jacobi sweep (project = 1) and, on the last sweep (last = 1), the
 // substep's epilogue.  xp, delta_*, x_out, v are [3, ny, nx] planes;
 // lam_* are [n_off, ny, nx]; offsets is [n_off, 4] rows of
-// (di, dj, alpha / dt^2, rest); plane is (height, surface velocity xyz);
-// spheres is [n_spheres, 7] rows (center, radius, velocity).  With
-// n_iterations = 0 the wrapper launches one sweep with project = 0, which
-// runs only the epilogue.  kFeat: alive and scale (either may be null: that
-// feature is off) are the substep's planes, written by the predict.
+// (di, dj, alpha / dt^2, rest); col holds the collider rows
+// (grid_common.cuh).  With n_iterations = 0 the wrapper launches one sweep
+// with project = 0, which runs only the epilogue.  kFeat: alive and scale
+// (either may be null: that feature is off) are the substep's planes,
+// written by the predict.
 template <bool kFeat>
 __global__ void __launch_bounds__(256) grid_xpbd_sweep_kernel(
     const float* __restrict__ xp, const float* __restrict__ delta_in,
     float* __restrict__ delta_out, const float* __restrict__ lam_in,
     float* __restrict__ lam_out, unsigned char* __restrict__ flag,
     const float* __restrict__ inv_mass, const float* __restrict__ inv_cnt,
-    const float* __restrict__ offsets, int n_off,
-    const float* __restrict__ plane, int plane_on, int plane_fric,
-    const float* __restrict__ spheres, int n_spheres, int sphere_fric,
+    const float* __restrict__ offsets, int n_off, Colliders col,
     int project, int last, float* __restrict__ x_out, float* __restrict__ v,
     const float* __restrict__ alive, const float* __restrict__ scale,
     int ny, int nx, Params p) {
@@ -300,15 +272,13 @@ __global__ void __launch_bounds__(256) grid_xpbd_sweep_kernel(
     }
     const float c = inv_cnt[idx];
     dl = {dl.x + dx * c, dl.y + dy * c, dl.z + dz * c};
-    if (movable)
-      project_delta(dl, xpi, flag + idx, plane, plane_on, spheres, n_spheres);
+    if (movable) project_delta(dl, xpi, flag + idx, col);
     if (!last) {
       store3(delta_out, idx, ps, dl);
       return;
     }
   }
-  finish(dl, xpi, idx, ps, movable, flag[idx], plane, plane_fric, spheres,
-         n_spheres, sphere_fric, x_out, v, p);
+  finish(dl, xpi, idx, ps, movable, flag[idx], col, x_out, v, p);
 }
 
 // The last strain sweep's epilogue (stencil.py::xpbd_substep_grid): the
@@ -320,12 +290,7 @@ struct XpbdStrainEpilogue {
   const float* delta;
   unsigned char* flag;
   const float* inv_mass;
-  const float* plane;
-  int plane_on;
-  int plane_fric;
-  const float* spheres;
-  int n_spheres;
-  int sphere_fric;
+  Colliders col;
   float* x_out;
   float* v;
   int ps;
@@ -337,10 +302,8 @@ struct XpbdStrainEpilogue {
     const Vec3 x0 = {xpi.x + dl.x, xpi.y + dl.y, xpi.z + dl.z};
     dl = {dl.x + (xn.x - x0.x), dl.y + (xn.y - x0.y), dl.z + (xn.z - x0.z)};
     const bool movable = inv_mass[idx] > 0.0f;
-    if (movable)
-      project_delta(dl, xpi, flag + idx, plane, plane_on, spheres, n_spheres);
-    finish(dl, xpi, idx, ps, movable, flag[idx], plane, plane_fric, spheres,
-           n_spheres, sphere_fric, x_out, v, p);
+    if (movable) project_delta(dl, xpi, flag + idx, col);
+    finish(dl, xpi, idx, ps, movable, flag[idx], col, x_out, v, p);
   }
 };
 
@@ -405,19 +368,19 @@ extern "C" int grid_xpbd_sweep(
     const float* xp, const float* delta_in, float* delta_out,
     const float* lam_in, float* lam_out, unsigned char* flag,
     const float* inv_mass, const float* inv_cnt, const float* offsets,
-    int n_off, const float* plane, int plane_on, int plane_fric,
-    const float* spheres, int n_spheres, int sphere_fric, int project,
-    int last, float* x_out, float* v, int feat, const float* alive,
+    int n_off, COLLIDER_PARAMS, int project, int last, float* x_out,
+    float* v, int feat, const float* alive,
     const float* scale, int ny, int nx, float dt, float mu, float keep,
     float shell, void* stream) {
   const Params p{dt, 0.0f, 0.0f, 0.0f, 1.0f, mu, keep, shell};
   const dim3 block(32, 8);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Colliders col = COLLIDERS;
 #define GRID_XPBD_SWEEP(FEAT)                                               \
   grid_xpbd_sweep_kernel<FEAT><<<grid_of(ny, nx, block), block, 0, st>>>(   \
       xp, delta_in, delta_out, lam_in, lam_out, flag, inv_mass, inv_cnt,    \
-      offsets, n_off, plane, plane_on, plane_fric, spheres, n_spheres,      \
-      sphere_fric, project, last, x_out, v, alive, scale, ny, nx, p)
+      offsets, n_off, col, project, last, x_out, v, alive, scale, ny, nx,   \
+      p)
   if (feat)
     GRID_XPBD_SWEEP(true);
   else
@@ -437,15 +400,12 @@ extern "C" int grid_xpbd_strain(
     const float* inv_mass, const float* offsets, const float* limits,
     int n_off, const float* alive, const float* scale, float stretch1,
     float compress1, int compress_on, int project, int last, const float* xp,
-    const float* delta, unsigned char* flag, const float* plane,
-    int plane_on, int plane_fric, const float* spheres, int n_spheres,
-    int sphere_fric, float* x_out, float* v, int ny, int nx, float dt,
-    float mu, float keep, float shell, void* stream) {
+    const float* delta, unsigned char* flag, COLLIDER_PARAMS, float* x_out,
+    float* v, int ny, int nx, float dt, float mu, float keep, float shell,
+    void* stream) {
   const Params p{dt, 0.0f, 0.0f, 0.0f, 1.0f, mu, keep, shell};
-  const XpbdStrainEpilogue epi{xp,         delta,     flag,     inv_mass,
-                               plane,      plane_on,  plane_fric,
-                               spheres,    n_spheres, sphere_fric,
-                               x_out,      v,         ny * nx,  p};
+  const XpbdStrainEpilogue epi{xp,    delta, flag,    inv_mass, COLLIDERS,
+                               x_out, v,     ny * nx, p};
   return launch_strain_sweep(base, add, xs_out, inv_mass, offsets, limits,
                              n_off, alive, scale,
                              StrainParams{stretch1, compress1, compress_on},

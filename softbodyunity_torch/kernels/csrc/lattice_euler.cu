@@ -7,11 +7,11 @@
 // ::_make_kernel, launched by ::_pallas_lattice_substeps through
 // pl.pallas_call, for the branches the tet-cube Euler path runs: banded
 // springs (Hooke + axial damper), gravity, global damping and pinning, the
-// banded PBD volume projection, and plane and sphere contact with the
-// colliders' kinematic velocities, and the wind's drag (the kDrag
-// instantiation; the TPU kernel gates lift off lattices, and so does the
-// wrapper).  Its capsule/box branch is not ported yet; the wrapper refuses
-// configs that enable it.
+// banded PBD volume projection, plane, sphere, capsule and oriented-box
+// contact with the colliders' kinematic velocities
+// (grid_common.cuh::resolve_velocity_contact), and the wind's drag (the
+// kDrag instantiation; the TPU kernel gates lift off lattices, and so does
+// the wrapper).
 //
 // Design.  The TPU kernel folds the state into [3, S, 128] lane planes and
 // keeps it in VMEM for all substeps of a frame, reaching a neighbour with a
@@ -61,17 +61,9 @@ struct Params {
   float vol_stiff;      // volume_stiffness
 };
 
-struct Colliders {
-  const float* plane;   // (height, surface velocity xyz)
-  int plane_on;
-  const float* spheres; // [n_spheres, 7] (center, radius, velocity)
-  int n_spheres;        // 0 when spheres are off
-};
-
 __device__ __forceinline__ void contact(Vec3& x, Vec3& v, const Colliders& c,
                                         const Params& p) {
-  resolve_velocity_contact(x.x, x.y, x.z, v.x, v.y, v.z, c.plane, c.plane_on,
-                           c.spheres, c.n_spheres, p.restitution,
+  resolve_velocity_contact(x.x, x.y, x.z, v.x, v.y, v.z, c, p.restitution,
                            p.restitution1, p.keep);
 }
 
@@ -142,14 +134,13 @@ unsigned blocks_of(int n) { return (n + 255) / 256; }
 extern "C" int lattice_euler_integrate(
     const float* x, const float* v, float* x_out, float* v_out,
     const float* inv_mass, const unsigned* bits, const float* edges,
-    int n_edge, const float* plane, int plane_on, const float* spheres,
-    int n_spheres, int finish, int drag_on, float wvx, float wvy, float wvz,
+    int n_edge, COLLIDER_PARAMS, int finish, int drag_on, float wvx, float wvy, float wvz,
     float drag, int n, float dt, float damping, float gx, float gy, float gz,
     float decay, float restitution, float restitution1, float keep,
     void* stream) {
   const Params p{dt,    damping,     gx,           gy,   gz,
                  decay, restitution, restitution1, keep, 0.0f};
-  const Colliders col{plane, plane_on, spheres, n_spheres};
+  const Colliders col = COLLIDERS;
   const Wind wind{wvx, wvy, wvz, drag, 0.0f};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (drag_on)
@@ -168,12 +159,11 @@ extern "C" int lattice_euler_integrate(
 extern "C" int lattice_euler_volume(
     const float* xs, const float* vs, float* x_out, float* v_out,
     const float* inv_mass, const unsigned* bits, const float* tets, int n_tet,
-    const float* cnt, const float* plane, int plane_on, const float* spheres,
-    int n_spheres, int n, float dt, float vol_stiff, float restitution,
+    const float* cnt, COLLIDER_PARAMS, int n, float dt, float vol_stiff, float restitution,
     float restitution1, float keep, void* stream) {
   const Params p{dt,          0.0f,         0.0f, 0.0f,     0.0f,
                  1.0f,        restitution,  restitution1, keep, vol_stiff};
-  const Colliders col{plane, plane_on, spheres, n_spheres};
+  const Colliders col = COLLIDERS;
   lattice_euler_volume_kernel<<<blocks_of(n), 256, 0,
                                 static_cast<cudaStream_t>(stream)>>>(
       xs, vs, x_out, v_out, inv_mass, bits, tets, n_tet, cnt, col, n, p);

@@ -7,11 +7,10 @@
 // ::_make_verlet_kernel, launched by ::_pallas_lattice_verlet_substeps
 // through pl.pallas_call, for the branches the tet-cube Verlet path runs:
 // banded springs on the velocity estimate (x - xp) / dt, the damped
-// position update, pinning, the banded PBD volume projection, and
-// position-only plane and sphere contact with the plane and sphere
-// friction, and the wind's drag at the velocity estimate (the kDrag
-// instantiation; lift is gated off lattices).  Its capsule/box branch is
-// not ported yet; the wrapper refuses configs that enable it.
+// position update, pinning, the banded PBD volume projection,
+// position-only plane, sphere, capsule and oriented-box contact with their
+// friction (grid_common.cuh::position_contact), and the wind's drag at the
+// velocity estimate (the kDrag instantiation; lift is gated off lattices).
 //
 // Design.  As lattice_euler.cu: flat [3, N] planes, one thread per vertex,
 // neighbours at i + delta, and two launches per substep because the volume
@@ -56,33 +55,11 @@ struct Params {
   float vol_stiff;    // volume_stiffness
 };
 
-struct Colliders {
-  const float* plane;   // (height, surface velocity xyz)
-  int plane_on;
-  int plane_fric;       // position-level plane friction is on
-  const float* spheres; // [n_spheres, 7] (center, radius, velocity)
-  int n_spheres;        // 0 when spheres are off
-  int sphere_fric;
-};
-
 // The position-level contact chain of a movable vertex that ends the
-// substep at x, having started it at x0 (step.py::verlet_contact_project):
-// the plane clamp and sphere push-out, then plane friction where the clamp
-// fired, then sphere friction.
+// substep at x, having started it at x0 (step.py::verlet_contact_project).
 __device__ __forceinline__ Vec3 contact(Vec3 x, Vec3 x0, const Colliders& c,
                                         const Params& p) {
-  const bool hit =
-      project_plane_spheres(x, c.plane, c.plane_on, c.spheres, c.n_spheres);
-  if (c.plane_fric && hit) {
-    // toward the substep start moved with the plane's surface velocity
-    const float tx = x0.x + c.plane[1] * p.dt;
-    const float tz = x0.z + c.plane[3] * p.dt;
-    x.x = tx + (x.x - tx) * p.keep;
-    x.z = tz + (x.z - tz) * p.keep;
-  }
-  if (c.sphere_fric)
-    x = sphere_friction(x, x0, c.spheres, c.n_spheres, p.mu, p.dt, p.shell);
-  return x;
+  return position_contact(x, x0, c, p.mu, p.keep, p.dt, p.shell);
 }
 
 // x, xp, xs are [3, n] planes; edges is [n_edge, 3] rows of (delta, k,
@@ -152,15 +129,13 @@ unsigned blocks_of(int n) { return (n + 255) / 256; }
 // not synchronise.
 extern "C" int lattice_verlet_integrate(
     const float* x, const float* xp, float* xs, const float* inv_mass,
-    const unsigned* bits, const float* edges, int n_edge, const float* plane,
-    int plane_on, int plane_fric, const float* spheres, int n_spheres,
-    int sphere_fric, int finish, int drag_on, float wvx, float wvy,
+    const unsigned* bits, const float* edges, int n_edge, COLLIDER_PARAMS,
+    int finish, int drag_on, float wvx, float wvy,
     float wvz, float drag, int n, float dt, float damping, float gx,
     float gy, float gz, float decay, float mu, float keep, float shell,
     void* stream) {
   const Params p{dt, damping, gx, gy, gz, decay, mu, keep, shell, 0.0f};
-  const Colliders col{plane, plane_on, plane_fric, spheres, n_spheres,
-                      sphere_fric};
+  const Colliders col = COLLIDERS;
   const Wind wind{wvx, wvy, wvz, drag, 0.0f};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (drag_on)
@@ -177,12 +152,10 @@ extern "C" int lattice_verlet_integrate(
 extern "C" int lattice_verlet_volume(
     const float* xs, const float* x, float* out, const float* inv_mass,
     const unsigned* bits, const float* tets, int n_tet, const float* cnt,
-    const float* plane, int plane_on, int plane_fric, const float* spheres,
-    int n_spheres, int sphere_fric, int n, float dt, float mu, float keep,
+    COLLIDER_PARAMS, int n, float dt, float mu, float keep,
     float shell, float vol_stiff, void* stream) {
   const Params p{dt, 0.0f, 0.0f, 0.0f, 0.0f, 1.0f, mu, keep, shell, vol_stiff};
-  const Colliders col{plane, plane_on, plane_fric, spheres, n_spheres,
-                      sphere_fric};
+  const Colliders col = COLLIDERS;
   lattice_verlet_volume_kernel<<<blocks_of(n), 256, 0,
                                  static_cast<cudaStream_t>(stream)>>>(
       xs, x, out, inv_mass, bits, tets, n_tet, cnt, col, n, p);

@@ -9,11 +9,10 @@
 // (gravity, global damping, pinning), n_iterations Jacobi sweeps over the
 // banded distance constraints and the banded tet-volume constraints, both
 // with compliance and per-group lambda planes, count-averaged and
-// under-relaxed, plane and sphere contact projected inside the loop, plane
-// and sphere friction once after it, v = delta / dt, and the wind's drag
-// in the predict (the kDrag instantiation; lift is gated off lattices).
-// Its capsule/box branch is not ported yet; the wrapper refuses configs
-// that enable it.
+// under-relaxed, plane, sphere, capsule and oriented-box contact projected
+// inside the loop, their friction once after it, v = delta / dt, and the
+// wind's drag in the predict (the kDrag instantiation; lift is gated off
+// lattices).
 //
 // Design.  A Jacobi sweep reads every neighbour's evaluation point and
 // lambdas, so each sweep needs a grid-wide barrier; here that barrier is a
@@ -29,12 +28,15 @@
 //             own tet and its share as corner k of the tet based at i - d_k
 //             (lattice_common.cuh); the vertex writes only its own new
 //             lambdas; delta += relaxation dx / count; then the plane clamp
-//             as plane - xp (OR'd into the contact flag) and the sphere
-//             push-out as a delta.  delta and the lambda planes ping-pong;
+//             as plane - xp (OR'd into the contact flag), the sphere
+//             push-out as a delta and the capsules' and boxes' as another
+//             (grid_common.cuh::project_delta).  delta and the lambda
+//             planes ping-pong;
 //             the flag is the vertex's own and stays in place.
 //   epilogue  run by the last sweep: plane friction on the OR'd flag,
-//             sphere friction, pins masked, x = xp + delta into the other
-//             x buffer, v = delta / dt in place.
+//             sphere and capsule/box friction
+//             (grid_common.cuh::friction_delta), pins masked, x = xp +
+//             delta into the other x buffer, v = delta / dt in place.
 // Delta form: the loop carries the substep's position change and never a
 // rounded x (the f32 drift bound depends on it).
 //
@@ -67,15 +69,6 @@ struct Params {
   float shell;        // SPHERE_CONTACT_SHELL
   float relax;        // xpbd.relaxation
   float alpha_v;      // compliance_volume / dt^2
-};
-
-struct Colliders {
-  const float* plane;   // (height, surface velocity xyz)
-  int plane_on;
-  int plane_fric;       // position-level plane friction is on
-  const float* spheres; // [n_spheres, 7] (center, radius, velocity)
-  int n_spheres;        // 0 when spheres are off
-  int sphere_fric;
 };
 
 // kDrag: the wind's drag enters the acceleration as g + drag (velocity -
@@ -160,17 +153,7 @@ __global__ void __launch_bounds__(256) lattice_xpbd_sweep_kernel(
     const float c = cnt[i];
     dl = {dl.x + p.relax * dx.x / c, dl.y + p.relax * dx.y / c,
           dl.z + p.relax * dx.z / c};
-    if (movable) {
-      if (col.plane_on && xpi.y + dl.y < col.plane[0]) {
-        dl.y = col.plane[0] - xpi.y;
-        flag[i] = 1;
-      }
-      if (col.n_spheres > 0) {
-        const Vec3 e = {xpi.x + dl.x, xpi.y + dl.y, xpi.z + dl.z};
-        const Vec3 q = push_out_spheres(e, col.spheres, col.n_spheres);
-        dl = {dl.x + (q.x - e.x), dl.y + (q.y - e.y), dl.z + (q.z - e.z)};
-      }
-    }
+    if (movable) project_delta(dl, xpi, flag + i, col);
     if (!last) {
       store3(delta_out, i, n, dl);
       return;
@@ -178,21 +161,8 @@ __global__ void __launch_bounds__(256) lattice_xpbd_sweep_kernel(
   }
 
   // epilogue: friction once, pins masked, x and v out
-  if (!movable) {
-    dl = {0.0f, 0.0f, 0.0f};
-  } else {
-    if (col.plane_fric && flag[i]) {
-      const float wdx = col.plane[1] * p.dt, wdz = col.plane[3] * p.dt;
-      dl.x = wdx + (dl.x - wdx) * p.keep;
-      dl.z = wdz + (dl.z - wdz) * p.keep;
-    }
-    if (col.sphere_fric) {
-      const Vec3 e = {xpi.x + dl.x, xpi.y + dl.y, xpi.z + dl.z};
-      const Vec3 f = sphere_friction(e, xpi, col.spheres, col.n_spheres,
-                                     p.mu, p.dt, p.shell);
-      dl = {dl.x + (f.x - e.x), dl.y + (f.y - e.y), dl.z + (f.z - e.z)};
-    }
-  }
+  dl = friction_delta(dl, xpi, movable, flag[i], col, p.mu, p.keep, p.dt,
+                      p.shell);
   store3(x_out, i, n, {xpi.x + dl.x, xpi.y + dl.y, xpi.z + dl.z});
   store3(v, i, n, {dl.x / p.dt, dl.y / p.dt, dl.z / p.dt});
 }
@@ -231,13 +201,11 @@ extern "C" int lattice_xpbd_sweep(
     const float* lam_in, float* lam_out, unsigned char* flag,
     const float* inv_mass, const unsigned* bits, const float* edges,
     int n_edge, const float* tets, int n_tet, const float* cnt,
-    const float* plane, int plane_on, int plane_fric, const float* spheres,
-    int n_spheres, int sphere_fric, int project, int last, float* x_out,
+    COLLIDER_PARAMS, int project, int last, float* x_out,
     float* v, int n, float dt, float mu, float keep, float shell, float relax,
     float alpha_v, void* stream) {
   const Params p{dt, 0.0f, 0.0f, 0.0f, 1.0f, mu, keep, shell, relax, alpha_v};
-  const Colliders col{plane, plane_on, plane_fric, spheres, n_spheres,
-                      sphere_fric};
+  const Colliders col = COLLIDERS;
   lattice_xpbd_sweep_kernel<<<blocks_of(n), 256, 0,
                               static_cast<cudaStream_t>(stream)>>>(
       xp, delta_in, delta_out, lam_in, lam_out, flag, inv_mass, bits, edges,

@@ -43,7 +43,12 @@ the TPU does would put the plain spring code on the card's main path.
 Wind and the strain limit run on the grid kernels of every solver, as on
 the TPU's fused and row-tiled kernels (wind also with self-collision, where
 the force plane and the wind force add), and the wind's drag on the lattice
-kernels.  What the JAX package runs only on its general jnp path raises,
+kernels.  Capsule and oriented-box contact, static or kinematic, runs in
+all six grid and lattice kernels and their plain versions, after the plane
+and the spheres, with every other branch, as in TPU kernels #1-9; the rows
+are read from the topology of each call, so a collider moved between frames
+(:func:`softbodyunity_torch.api.move_colliders`) builds no new step
+function.  SDF colliders still raise (ROADMAP Queue 1 item 6).  What the JAX package runs only on its general jnp path raises,
 naming ROADMAP Queue 1 item 3: wind lift and the strain limit on tet
 lattices (``pallas_lattice.py:211``, ``softbodyunity_tpu/kernels/
 dispatch.py:60-95``) and the strain limit with self-collision

@@ -28,8 +28,9 @@ from . import grid_features, grid_strain
 from .blocks import self_collision_planes_cuda
 from .grid_features import (FINISH_ARGTYPES, LAUNCH_ARGTYPES, NO_FEATURES,
                             CudaFeatures, features_on)
-from .grid_scene import (WIND_ARGTYPES, check_input, check_launch,
-                         pack_grid_scene, wind_args)
+from .grid_scene import (COLLIDER_ARGTYPES, NO_CONTACT, WIND_ARGTYPES,
+                         check_input, check_launch, pack_grid_scene,
+                         wind_args)
 from .grid_strain import SWEEP_ARGTYPES, CudaStrain
 from .stencil import _offsets, from_planes, to_planes
 
@@ -67,7 +68,7 @@ def _launcher():
     fn.argtypes = [
         p, p, p, p,            # x, v, x_out, v_out
         p, p, i,               # inv_mass, offsets, n_off
-        p, i, p, i,            # plane, plane_on, spheres, n_spheres
+        *COLLIDER_ARGTYPES,    # the colliders
         p,                     # f_ext (or null)
         *LAUNCH_ARGTYPES,      # the feature planes and scalars
         *WIND_ARGTYPES,        # the wind
@@ -83,7 +84,7 @@ def _launcher():
     strain.argtypes = [
         *SWEEP_ARGTYPES,       # the sweep
         p, p, p,               # epilogue: x0, x_out, v
-        p, i, p, i,            # plane, plane_on, spheres, n_spheres
+        *COLLIDER_ARGTYPES,    # the colliders
         i, i,                  # ny, nx
         f, f, f, f,            # dt, restitution, restitution1, keep
         p,                     # stream
@@ -99,9 +100,12 @@ def make_cuda_step(top: Topology, cfg: SimConfig):
     """Build ``fn(state, dt, n_substeps) -> state`` that runs each substep as
     one launch of the fused Euler grid kernel.
 
-    The collider geometry and the offset table (di, dj, k, rest) are packed
-    once, here, into float32 rows on the device; the kernel reads them from
-    device memory, so a frame makes no host round trip.  With self-collision
+    The offset table (di, dj, k, rest) is packed once, here, and the
+    collider rows (plane, spheres, capsules, boxes) once per topology a call
+    brings (:class:`.grid_scene.ColliderRows`: ``fn(state, dt, n, top=)``
+    with a topology from :func:`softbodyunity_torch.api.move_colliders`),
+    into float32 rows on the device; the kernel reads them from device
+    memory, so a frame makes no host round trip.  With self-collision
     on, each substep first computes the repulsion at its start position
     (method ``block``: one launch of the ``block_pairs`` kernel) and the
     Euler kernel adds that force plane to the spring forces.  Under tearing
@@ -130,13 +134,13 @@ def make_cuda_step(top: Topology, cfg: SimConfig):
                          "grid_euler")
               if cfg.strain_limit.enabled else None)
     wind = wind_args(cfg)
-    # under the strain limit the contact runs in the last sweep
-    contact = ((sc.plane.data_ptr(), 0, sc.spheres.data_ptr(), 0) if strain
-               else (sc.plane.data_ptr(), sc.plane_on, sc.spheres.data_ptr(),
-                     sc.n_spheres))
 
-    def fn(state: State, dt: float, n_substeps: int) -> State:
+    def fn(state: State, dt: float, n_substeps: int, top=None) -> State:
         global _launches
+        colliders = sc.colliders.args(sc.colliders.built if top is None
+                                      else top)
+        # under the strain limit the contact runs in the last sweep
+        contact = NO_CONTACT if strain else colliders
         check_input("state.x", state.x, (n, 3), device)
         check_input("state.v", state.v, (n, 3), device)
         dt = float(dt)
@@ -177,9 +181,7 @@ def make_cuda_step(top: Topology, cfg: SimConfig):
                         xb, None, table, feat.alive if feat else None,
                         feat.scale if feat else None,
                         (xb.data_ptr(), xa.data_ptr(), vb.data_ptr(),
-                         sc.plane.data_ptr(), sc.plane_on,
-                         sc.spheres.data_ptr(), sc.n_spheres, ny, nx,
-                         *scalars_strain, stream))
+                         *colliders, ny, nx, *scalars_strain, stream))
                     va, vb = vb, va
                 else:
                     xa, xb, va, vb = xb, xa, vb, va
@@ -225,8 +227,8 @@ def make_strain_correction(top: Topology, cfg: SimConfig):
             strain.begin(x3)
             _launches += strain.launch(
                 x3, None, table, alive, scale,
-                (x3.data_ptr(), out.data_ptr(), v.data_ptr(), None, 0, None,
-                 0, sc.ny, sc.nx, 1.0, 0.0, 1.0, 1.0, stream))
+                (x3.data_ptr(), out.data_ptr(), v.data_ptr(), *NO_CONTACT,
+                 sc.ny, sc.nx, 1.0, 0.0, 1.0, 1.0, stream))
         return out
 
     return fn

@@ -1,10 +1,11 @@
-"""What the grid-cloth CUDA kernel wrappers (:mod:`.grid_euler`,
-:mod:`.grid_verlet`, :mod:`.grid_xpbd`) share: the scene's checks and its
-collider rows packed once on the card, the wind's launch arguments, the
-checks of each tensor handed to a kernel, and the launch-error check.
+"""What the CUDA kernel wrappers share: the grid scene's checks and fixed
+inputs (:mod:`.grid_euler`, :mod:`.grid_verlet`, :mod:`.grid_xpbd`), the
+collider rows of every grid and lattice kernel, packed on the card from the
+topology of each call (:class:`ColliderRows`), the wind's launch arguments,
+the checks of each tensor handed to a kernel, and the launch-error check.
 
 Counterpart of ``softbodyunity_tpu/kernels/pallas_substep.py``'s
-``_pack_plane``/``_pack_spheres``.
+``_pack_plane``/``_pack_spheres``/``_pack_capsules``/``_pack_boxes``.
 """
 
 from __future__ import annotations
@@ -15,24 +16,8 @@ import dataclasses
 import torch
 
 from ..core.config import SimConfig, Solver
-from ..core.topology import Topology
+from ..core.topology import Topology, check_same_scene
 from .stencil import check_grid_ported
-
-
-@dataclasses.dataclass(frozen=True)
-class GridScene:
-    """A grid scene's kernel inputs that stay fixed from frame to frame."""
-
-    device: torch.device
-    ny: int
-    nx: int
-    inv_mass: torch.Tensor   # [ny, nx]
-    plane: torch.Tensor      # [1, 4] height, surface (conveyor) velocity
-    spheres: torch.Tensor    # [S, 7] center, radius, kinematic velocity
-    plane_on: int
-    n_spheres: int           # 0 when spheres are off
-    plane_fric: int          # position-level friction (Verlet, XPBD) is on
-    sphere_fric: int
 
 
 def pack_plane(top: Topology) -> torch.Tensor:
@@ -45,6 +30,90 @@ def pack_spheres(top: Topology) -> torch.Tensor:
     """[S, 7] rows: center (3), radius, kinematic velocity (3)."""
     return torch.cat([top.sphere_centers, top.sphere_radii[:, None],
                       top.sphere_velocities], dim=1).contiguous()
+
+
+def pack_capsules(top: Topology) -> torch.Tensor:
+    """[C, 10] rows: p0 (3), p1 (3), radius, kinematic velocity (3)."""
+    return torch.cat([top.capsule_p0, top.capsule_p1,
+                      top.capsule_radii[:, None], top.capsule_velocities],
+                     dim=1).contiguous()
+
+
+def pack_boxes(top: Topology) -> torch.Tensor:
+    """[B, 18] rows: center (3), half extents (3), the rotation row-major
+    (9: R[c][i] at 6 + 3c + i, its columns the box's axes), kinematic
+    velocity (3)."""
+    return torch.cat([top.box_centers, top.box_half_extents,
+                      top.box_rotations.reshape(-1, 9), top.box_velocities],
+                     dim=1).contiguous()
+
+
+# ctypes argument types of the colliders in every grid and lattice launch
+# that runs contact (csrc/grid_common.cuh::COLLIDER_PARAMS): plane,
+# plane_on, plane_fric, spheres, n_spheres, sphere_fric, capsules,
+# n_capsules, boxes, n_boxes, rest_fric
+COLLIDER_ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                     ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                     ctypes.c_void_p, ctypes.c_int,
+                     ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
+# the collider arguments of a launch that runs no contact
+NO_CONTACT = (None, 0, 0, None, 0, 0, None, 0, None, 0, 0)
+
+
+class ColliderRows:
+    """The collider rows a kernel reads, as launch arguments
+    (:data:`COLLIDER_ARGTYPES`): float32 rows on the card, packed from a
+    topology, with the count of a collider that is off forced to 0 and the
+    friction flags of the position-level solvers.  :meth:`args` packs them
+    again only when a call brings another topology than the last, one that
+    :func:`softbodyunity_torch.api.move_colliders` made from the built one:
+    a moved collider costs a few hundred bytes, not a new step function."""
+
+    def __init__(self, top: Topology, cfg: SimConfig):
+        self.built = top
+        self.collision = cfg.collision
+        self.top = None
+        self.args(top)
+
+    def args(self, top: Topology) -> tuple:
+        """The launch arguments of ``top``'s colliders."""
+        if top is self.top:
+            return self._args
+        check_same_scene(self.built, top)
+        rows = (pack_plane(top), pack_spheres(top), pack_capsules(top),
+                pack_boxes(top))
+        for name, t, shape in zip(
+                ("plane", "spheres", "capsules", "boxes"), rows,
+                ((1, 4), (top.n_spheres, 7), (top.n_capsules, 10),
+                 (top.n_boxes, 18))):
+            check_input(name, t, shape, self.built.device)
+        col = self.collision
+        n_spheres = top.n_spheres if col.enable_spheres else 0
+        n_caps = top.n_capsules if col.enable_capsules else 0
+        n_boxes = top.n_boxes if col.enable_boxes else 0
+        fric = col.friction != 0.0
+        # the rows stay referenced while launches may read them; a later
+        # call's rows are written in stream order after those launches
+        self.rows, self.top = rows, top
+        self._args = (
+            rows[0].data_ptr(), int(col.enable_plane),
+            int(col.enable_plane and fric),
+            rows[1].data_ptr(), n_spheres, int(n_spheres > 0 and fric),
+            rows[2].data_ptr(), n_caps, rows[3].data_ptr(), n_boxes,
+            int(n_caps + n_boxes > 0 and fric))
+        return self._args
+
+
+@dataclasses.dataclass(frozen=True)
+class GridScene:
+    """A grid scene's kernel inputs: fixed from frame to frame, but for the
+    collider rows, which each call reads from its topology."""
+
+    device: torch.device
+    ny: int
+    nx: int
+    inv_mass: torch.Tensor   # [ny, nx]
+    colliders: ColliderRows
 
 
 # ctypes argument types of the wind in each grid library's substep (or XPBD
@@ -87,7 +156,7 @@ def check_launch(err: int, what: str, error_string) -> None:
 def pack_grid_scene(top: Topology, cfg: SimConfig, solver: Solver,
                     kernel: str) -> GridScene:
     """Check that ``kernel``, which runs ``solver``, can run ``(top, cfg)``
-    on the card, and pack the scene's fixed inputs there."""
+    on the card, and pack the scene's inputs there."""
     check_grid_ported(cfg)
     if cfg.solver != solver:
         raise ValueError(f"{kernel} runs the {solver.value} solver, not "
@@ -100,16 +169,6 @@ def pack_grid_scene(top: Topology, cfg: SimConfig, solver: Solver,
                          f"not {device}")
     ny, nx = top.grid_shape
     inv_mass = top.inv_mass.reshape(ny, nx)
-    plane = pack_plane(top)
-    spheres = pack_spheres(top)
-    for name, t, shape in (("inv_mass", inv_mass, (ny, nx)),
-                           ("plane", plane, (1, 4)),
-                           ("spheres", spheres, (top.n_spheres, 7))):
-        check_input(name, t, shape, device)
-    col = cfg.collision
-    n_spheres = top.n_spheres if col.enable_spheres else 0
-    return GridScene(
-        device=device, ny=ny, nx=nx, inv_mass=inv_mass, plane=plane,
-        spheres=spheres, plane_on=int(col.enable_plane), n_spheres=n_spheres,
-        plane_fric=int(col.enable_plane and col.friction != 0.0),
-        sphere_fric=int(n_spheres > 0 and col.friction != 0.0))
+    check_input("inv_mass", inv_mass, (ny, nx), device)
+    return GridScene(device=device, ny=ny, nx=nx, inv_mass=inv_mass,
+                     colliders=ColliderRows(top, cfg))

@@ -30,8 +30,9 @@ from . import grid_features, grid_strain
 from .blocks import self_collision_planes_cuda
 from .grid_features import (FINISH_ARGTYPES, LAUNCH_ARGTYPES, NO_FEATURES,
                             CudaFeatures, features_on)
-from .grid_scene import (WIND_ARGTYPES, check_input, check_launch,
-                         pack_grid_scene, wind_args)
+from .grid_scene import (COLLIDER_ARGTYPES, NO_CONTACT, WIND_ARGTYPES,
+                         check_input, check_launch, pack_grid_scene,
+                         wind_args)
 from .grid_strain import SWEEP_ARGTYPES, CudaStrain
 from .stencil import _offsets, from_planes, to_planes
 
@@ -69,8 +70,7 @@ def _launcher():
     fn.argtypes = [
         p, p, p,               # x, xp, out
         p, p, i,               # inv_mass, offsets, n_off
-        p, i, i,               # plane, plane_on, plane_fric
-        p, i, i,               # spheres, n_spheres, sphere_fric
+        *COLLIDER_ARGTYPES,    # the colliders
         p,                     # f_ext (or null)
         *LAUNCH_ARGTYPES,      # the feature planes and scalars
         *WIND_ARGTYPES,        # the wind
@@ -86,8 +86,7 @@ def _launcher():
     strain.argtypes = [
         *SWEEP_ARGTYPES,       # the sweep
         p, p, p,               # epilogue: x0, x_start, out
-        p, i, i,               # plane, plane_on, plane_fric
-        p, i, i,               # spheres, n_spheres, sphere_fric
+        *COLLIDER_ARGTYPES,    # the colliders
         i, i,                  # ny, nx
         f, f, f, f,            # dt, mu, keep, shell
         p,                     # stream
@@ -105,8 +104,9 @@ def make_cuda_step(top: Topology, cfg: SimConfig):
     Verlet history; the result carries ``x_prev`` = the last substep's start
     and ``v = (x - x_prev) / dt``.
 
-    The collider rows and the offset table (di, dj, k, rest) are packed
-    once, here, into float32 rows on the device.  With self-collision on,
+    The offset table (di, dj, k, rest) is packed once, here, into float32
+    rows on the device, and the collider rows once per topology a call
+    brings, as :func:`.grid_euler.make_cuda_step` packs them.  With self-collision on,
     each substep first computes the repulsion at ``x`` (method ``block``:
     one ``block_pairs`` launch), which the kernel adds to the spring
     forces.  Tearing and plasticity as :func:`.grid_euler.make_cuda_step`
@@ -130,14 +130,13 @@ def make_cuda_step(top: Topology, cfg: SimConfig):
                          "grid_verlet")
               if cfg.strain_limit.enabled else None)
     wind = wind_args(cfg)
-    colliders = (sc.plane.data_ptr(), sc.plane_on, sc.plane_fric,
-                 sc.spheres.data_ptr(), sc.n_spheres, sc.sphere_fric)
-    # under the strain limit the contact runs in the last sweep
-    contact = ((sc.plane.data_ptr(), 0, 0, sc.spheres.data_ptr(), 0, 0)
-               if strain else colliders)
 
-    def fn(state: State, dt: float, n_substeps: int) -> State:
+    def fn(state: State, dt: float, n_substeps: int, top=None) -> State:
         global _launches
+        colliders = sc.colliders.args(sc.colliders.built if top is None
+                                      else top)
+        # under the strain limit the contact runs in the last sweep
+        contact = NO_CONTACT if strain else colliders
         check_input("state.x", state.x, (n, 3), device)
         check_input("state.x_prev", state.x_prev, (n, 3), device)
         dt = float(dt)

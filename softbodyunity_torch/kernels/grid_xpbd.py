@@ -33,8 +33,8 @@ from . import grid_features, grid_strain
 from .blocks import self_collision_planes_cuda
 from .grid_features import (FINISH_ARGTYPES, LAUNCH_ARGTYPES, NO_FEATURES,
                             CudaFeatures, features_on)
-from .grid_scene import (WIND_ARGTYPES, check_input, check_launch,
-                         pack_grid_scene, wind_args)
+from .grid_scene import (COLLIDER_ARGTYPES, WIND_ARGTYPES, check_input,
+                         check_launch, pack_grid_scene, wind_args)
 from .grid_strain import SWEEP_ARGTYPES, CudaStrain
 from .stencil import (_valid_mask, _xpbd_offsets, from_planes, jacobi_count,
                       to_planes)
@@ -94,8 +94,7 @@ def _launchers():
         p, p, p,               # xp, delta_in, delta_out
         p, p, p,               # lam_in, lam_out, flag
         p, p, p, i,            # inv_mass, inv_cnt, offsets, n_off
-        p, i, i,               # plane, plane_on, plane_fric
-        p, i, i,               # spheres, n_spheres, sphere_fric
+        *COLLIDER_ARGTYPES,    # the colliders
         i, i, p, p,            # project, last, x_out, v
         i, p, p,               # feat, the substep's alive and scale planes
         i, i,                  # ny, nx
@@ -109,8 +108,7 @@ def _launchers():
     strain.argtypes = [
         *SWEEP_ARGTYPES,       # the sweep
         p, p, p,               # epilogue: xp, delta, flag
-        p, i, i,               # plane, plane_on, plane_fric
-        p, i, i,               # spheres, n_spheres, sphere_fric
+        *COLLIDER_ARGTYPES,    # the colliders
         p, p,                  # x_out, v
         i, i,                  # ny, nx
         f, f, f, f,            # dt, mu, keep, shell
@@ -129,8 +127,9 @@ def make_cuda_step(top: Topology, cfg: SimConfig):
     kernels.  The result carries ``x_prev = x - dt * v``, as the plain
     version's.
 
-    The collider rows and ``inv_cnt = relaxation / max(count, 1)`` are
-    packed once, here; the offset table (di, dj, alpha / dt^2, rest) once
+    ``inv_cnt = relaxation / max(count, 1)`` is packed once, here, the
+    collider rows once per topology a call brings (as
+    :func:`.grid_euler.make_cuda_step` packs them); the offset table (di, dj, alpha / dt^2, rest) once
     per substep size ``dt``.  With self-collision on, each substep first
     computes the repulsion at its start position (method ``block``: one
     ``block_pairs`` launch), which the predict launch takes into the
@@ -168,8 +167,10 @@ def make_cuda_step(top: Topology, cfg: SimConfig):
     wind = wind_args(cfg)
     tearing = cfg.tear.enabled
 
-    def fn(state: State, dt: float, n_substeps: int) -> State:
+    def fn(state: State, dt: float, n_substeps: int, top=None) -> State:
         global _launches
+        colliders = sc.colliders.args(sc.colliders.built if top is None
+                                      else top)
         check_input("state.x", state.x, (n, 3), device)
         check_input("state.v", state.v, (n, 3), device)
         dt = float(dt)
@@ -222,9 +223,7 @@ def make_cuda_step(top: Topology, cfg: SimConfig):
                         x.data_ptr(), d_in.data_ptr(), d_out.data_ptr(),
                         lam_in.data_ptr(), lam_out.data_ptr(),
                         flag.data_ptr(), sc.inv_mass.data_ptr(),
-                        cnt.data_ptr(), table.data_ptr(), n_off,
-                        sc.plane.data_ptr(), sc.plane_on, sc.plane_fric,
-                        sc.spheres.data_ptr(), sc.n_spheres, sc.sphere_fric,
+                        cnt.data_ptr(), table.data_ptr(), n_off, *colliders,
                         project, int(not strain and it == n_sweeps - 1),
                         x_out.data_ptr(),
                         v.data_ptr(), int(feat is not None), alive, scale,
@@ -240,9 +239,7 @@ def make_cuda_step(top: Topology, cfg: SimConfig):
                         x, d_in, table, feat.alive if feat else None,
                         feat.scale if feat else None,
                         (x.data_ptr(), d_in.data_ptr(), flag.data_ptr(),
-                         sc.plane.data_ptr(), sc.plane_on, sc.plane_fric,
-                         sc.spheres.data_ptr(), sc.n_spheres, sc.sphere_fric,
-                         x_out.data_ptr(), v.data_ptr(), ny, nx, dt, mu,
+                         *colliders, x_out.data_ptr(), v.data_ptr(), ny, nx, dt, mu,
                          1.0 - mu, SPHERE_CONTACT_SHELL, stream))
                 x, x_out = x_out, x
             if feat:

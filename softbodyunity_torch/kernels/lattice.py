@@ -1,6 +1,7 @@
 """What the tet-lattice CUDA kernel wrappers (:mod:`.lattice_euler`,
 :mod:`.lattice_verlet`, :mod:`.lattice_xpbd`) share: the gates and the
-scene's fixed inputs packed once on the card.
+scene's inputs packed on the card (the collider rows by
+:class:`.grid_scene.ColliderRows`, from the topology of each call).
 
 Counterpart of ``softbodyunity_tpu/kernels/pallas_lattice.py``'s gates
 (``lattice_applicable``, ``lattice_verlet_applicable``,
@@ -22,7 +23,7 @@ import torch
 from ..core.config import SimConfig, Solver
 from ..core.topology import Topology
 from ..solver import banded
-from .grid_scene import check_input, pack_plane, pack_spheres
+from .grid_scene import ColliderRows, check_input
 from .stencil import _UNPORTED, check_ported
 
 # The ownership word holds the edge groups in bits 0..15 and the tet groups
@@ -109,7 +110,8 @@ def lattice_xpbd_applicable(top: Topology, cfg: SimConfig) -> bool:
 
 @dataclasses.dataclass(frozen=True)
 class LatticeScene:
-    """A lattice scene's kernel inputs that stay fixed from frame to frame."""
+    """A lattice scene's kernel inputs: fixed from frame to frame, but for
+    the collider rows, which each call reads from its topology."""
 
     device: torch.device
     n: int
@@ -121,12 +123,7 @@ class LatticeScene:
     #                          without the volume constraint
     cnt: torch.Tensor        # [N] Euler/Verlet: tet count; XPBD: constraint
     #                          count; at least 1
-    plane: torch.Tensor      # [1, 4] height, surface (conveyor) velocity
-    spheres: torch.Tensor    # [S, 7] center, radius, kinematic velocity
-    plane_on: int
-    n_spheres: int           # 0 when spheres are off
-    plane_fric: int          # position-level friction (Verlet, XPBD) is on
-    sphere_fric: int
+    colliders: ColliderRows
 
     @property
     def n_edge(self) -> int:
@@ -152,7 +149,7 @@ def ownership_bits(top: Topology, with_tets: bool) -> torch.Tensor:
 def pack_lattice_scene(top: Topology, cfg: SimConfig, solver: Solver,
                        kernel: str) -> LatticeScene:
     """Check that ``kernel``, which runs ``solver``, can run ``(top, cfg)``
-    on the card, and pack the scene's fixed inputs there."""
+    on the card, and pack the scene's inputs there."""
     lattice_gate(top, cfg)
     if cfg.solver != solver:
         raise ValueError(f"{kernel} runs the {solver.value} solver, not "
@@ -173,22 +170,13 @@ def pack_lattice_scene(top: Topology, cfg: SimConfig, solver: Solver,
         cnt = torch.clamp_min(banded.tet_count(t, n, top.dtype, device), 1.0)
     tets = ([(*p, rv) for p, rv in zip(t.deltas, t.uniform_rest_volume)]
             if volume else [])
-    plane, spheres = pack_plane(top), pack_spheres(top)
-    for name, a, shape in (("inv_mass", top.inv_mass, (n,)),
-                           ("plane", plane, (1, 4)),
-                           ("spheres", spheres, (top.n_spheres, 7))):
-        check_input(name, a, shape, device)
-    col = cfg.collision
-    n_spheres = top.n_spheres if col.enable_spheres else 0
+    check_input("inv_mass", top.inv_mass, (n,), device)
     return LatticeScene(
         device=device, n=n, inv_mass=top.inv_mass,
         bits=ownership_bits(top, volume),
         edges=torch.tensor(edges, **f32).reshape(-1, 3),
         tets=torch.tensor(tets, **f32).reshape(-1, 4),
-        cnt=cnt.contiguous(), plane=plane, spheres=spheres,
-        plane_on=int(col.enable_plane), n_spheres=n_spheres,
-        plane_fric=int(col.enable_plane and col.friction != 0.0),
-        sphere_fric=int(n_spheres > 0 and col.friction != 0.0))
+        cnt=cnt.contiguous(), colliders=ColliderRows(top, cfg))
 
 
 # ctypes argument types of the wind's drag in each lattice library's

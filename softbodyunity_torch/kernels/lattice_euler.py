@@ -20,7 +20,7 @@ import torch
 from ..core.config import SimConfig, Solver
 from ..core.state import State
 from ..core.topology import Topology
-from .grid_scene import check_input, check_launch
+from .grid_scene import COLLIDER_ARGTYPES, check_input, check_launch
 from .lattice import (DRAG_ARGTYPES, drag_args, from_planes,
                       pack_lattice_scene, to_planes, use_volume)
 
@@ -53,7 +53,7 @@ def _launchers():
     integrate.argtypes = [
         p, p, p, p,            # x, v, x_out, v_out
         p, p, p, i,            # inv_mass, bits, edges, n_edge
-        p, i, p, i,            # plane, plane_on, spheres, n_spheres
+        *COLLIDER_ARGTYPES,    # the colliders
         i,                     # finish
         *DRAG_ARGTYPES,        # the wind's drag
         i,                     # n
@@ -66,7 +66,7 @@ def _launchers():
     volume.argtypes = [
         p, p, p, p,            # xs, vs, x_out, v_out
         p, p, p, i, p,         # inv_mass, bits, tets, n_tet, cnt
-        p, i, p, i,            # plane, plane_on, spheres, n_spheres
+        *COLLIDER_ARGTYPES,    # the colliders
         i,                     # n
         f, f, f, f, f,         # dt, vol_stiff, restitution, restitution1, keep
         p,                     # stream
@@ -82,8 +82,9 @@ def make_cuda_step(top: Topology, cfg: SimConfig):
     the integrate and volume launches of the fused Euler lattice kernels.
     The result carries ``x_prev = x - dt * v``, as the plain version's.
 
-    The ownership words, the group tables, the tet counts and the collider
-    rows are packed once, here, on the device."""
+    The ownership words, the group tables and the tet counts are packed
+    once, here, on the device, the collider rows once per topology a call
+    brings (``fn(state, dt, n, top=)``, :class:`.grid_scene.ColliderRows`)."""
     sc = pack_lattice_scene(top, cfg, Solver.SEMI_IMPLICIT_EULER,
                             "lattice_euler")
     n, device = sc.n, sc.device
@@ -93,13 +94,13 @@ def make_cuda_step(top: Topology, cfg: SimConfig):
     drag = drag_args(cfg)
     integrate, volume, error_string = _launchers()
 
-    def fn(state: State, dt: float, n_substeps: int) -> State:
+    def fn(state: State, dt: float, n_substeps: int, top=None) -> State:
         global _launches
+        contact = sc.colliders.args(sc.colliders.built if top is None
+                                    else top)
         check_input("state.x", state.x, (n, 3), device)
         check_input("state.v", state.v, (n, 3), device)
         dt = float(dt)
-        contact = (sc.plane.data_ptr(), sc.plane_on, sc.spheres.data_ptr(),
-                   sc.n_spheres)
         bounce = (col.restitution, 1.0 + col.restitution, 1.0 - col.friction)
         xa, va = to_planes(state.x), to_planes(state.v)
         xb, vb = torch.empty_like(xa), torch.empty_like(va)

@@ -21,7 +21,7 @@ from ..core.config import SimConfig, Solver
 from ..core.state import State
 from ..core.topology import Topology
 from ..solver.collide import SPHERE_CONTACT_SHELL
-from .grid_scene import check_input, check_launch
+from .grid_scene import COLLIDER_ARGTYPES, check_input, check_launch
 from .lattice import (DRAG_ARGTYPES, drag_args, from_planes,
                       pack_lattice_scene, to_planes, use_volume)
 
@@ -53,8 +53,7 @@ def _launchers():
     integrate = lib.lattice_verlet_integrate
     integrate.argtypes = [
         p, p, p, p, p, p, i,   # x, xp, xs, inv_mass, bits, edges, n_edge
-        p, i, i, p, i, i,      # plane, plane_on, plane_fric, spheres,
-        #                        n_spheres, sphere_fric
+        *COLLIDER_ARGTYPES,    # the colliders
         i,                     # finish
         *DRAG_ARGTYPES,        # the wind's drag
         i,                     # n
@@ -67,8 +66,7 @@ def _launchers():
     volume.argtypes = [
         p, p, p, p, p,         # xs, x, out, inv_mass, bits
         p, i, p,               # tets, n_tet, cnt
-        p, i, i, p, i, i,      # plane, plane_on, plane_fric, spheres,
-        #                        n_spheres, sphere_fric
+        *COLLIDER_ARGTYPES,    # the colliders
         i,                     # n
         f, f, f, f, f,         # dt, mu, keep, shell, vol_stiff
         p,                     # stream
@@ -86,8 +84,10 @@ def make_cuda_step(top: Topology, cfg: SimConfig):
 
     Three buffers rotate: integrate reads (x, xp) and writes the scratch
     buffer; volume reads the scratch buffer and x and writes over xp, which
-    then holds the new x.  The ownership words, the group tables, the tet
-    counts and the collider rows are packed once, here, on the device."""
+    then holds the new x.  The ownership words, the group tables and the
+    tet counts are packed once, here, on the device, the collider rows once
+    per topology a call brings, as :func:`.lattice_euler.make_cuda_step`
+    packs them."""
     sc = pack_lattice_scene(top, cfg, Solver.VERLET, "lattice_verlet")
     n, device = sc.n, sc.device
     mu = cfg.collision.friction
@@ -96,13 +96,13 @@ def make_cuda_step(top: Topology, cfg: SimConfig):
     drag = drag_args(cfg)
     integrate, volume, error_string = _launchers()
 
-    def fn(state: State, dt: float, n_substeps: int) -> State:
+    def fn(state: State, dt: float, n_substeps: int, top=None) -> State:
         global _launches
+        contact = sc.colliders.args(sc.colliders.built if top is None
+                                    else top)
         check_input("state.x", state.x, (n, 3), device)
         check_input("state.x_prev", state.x_prev, (n, 3), device)
         dt = float(dt)
-        contact = (sc.plane.data_ptr(), sc.plane_on, sc.plane_fric,
-                   sc.spheres.data_ptr(), sc.n_spheres, sc.sphere_fric)
         x, xp = to_planes(state.x), to_planes(state.x_prev)
         xs = torch.empty_like(x)
         with torch.cuda.device(device):

@@ -21,7 +21,7 @@ from ..core.config import SimConfig, Solver
 from ..core.state import State
 from ..core.topology import Topology
 from ..solver.collide import SPHERE_CONTACT_SHELL
-from .grid_scene import check_input, check_launch
+from .grid_scene import COLLIDER_ARGTYPES, check_input, check_launch
 from .lattice import (DRAG_ARGTYPES, drag_args, from_planes,
                       pack_lattice_scene, to_planes)
 
@@ -65,8 +65,7 @@ def _launchers():
         p, p, p,               # lam_in, lam_out, flag
         p, p, p, i,            # inv_mass, bits, edges, n_edge
         p, i, p,               # tets, n_tet, cnt
-        p, i, i, p, i, i,      # plane, plane_on, plane_fric, spheres,
-        #                        n_spheres, sphere_fric
+        *COLLIDER_ARGTYPES,    # the colliders
         i, i, p, p,            # project, last, x_out, v
         i,                     # n
         f, f, f, f, f, f,      # dt, mu, keep, shell, relax, alpha_v
@@ -84,8 +83,9 @@ def make_cuda_step(top: Topology, cfg: SimConfig):
     lattice kernels.  The result carries ``x_prev = x - dt * v``, as the
     plain version's.
 
-    The ownership words, the constraint counts and the collider rows are
-    packed once, here; the edge table (delta, rest, compliance / dt^2) once
+    The ownership words and the constraint counts are packed once, here,
+    the collider rows once per topology a call brings (as
+    :func:`.lattice_euler.make_cuda_step` packs them); the edge table (delta, rest, compliance / dt^2) once
     per substep size ``dt``, by the plain version's float32 divide."""
     sc = pack_lattice_scene(top, cfg, Solver.XPBD, "lattice_xpbd")
     n, device = sc.n, sc.device
@@ -98,8 +98,10 @@ def make_cuda_step(top: Topology, cfg: SimConfig):
     drag = drag_args(cfg)
     predict, sweep, error_string = _launchers()
 
-    def fn(state: State, dt: float, n_substeps: int) -> State:
+    def fn(state: State, dt: float, n_substeps: int, top=None) -> State:
         global _launches
+        contact = sc.colliders.args(sc.colliders.built if top is None
+                                    else top)
         check_input("state.x", state.x, (n, 3), device)
         check_input("state.v", state.v, (n, 3), device)
         dt = float(dt)
@@ -114,8 +116,6 @@ def make_cuda_step(top: Topology, cfg: SimConfig):
         lam_in = torch.empty((n_lam, n), dtype=torch.float32, device=device)
         lam_out = torch.empty_like(lam_in)
         flag = torch.empty((n,), dtype=torch.uint8, device=device)
-        contact = (sc.plane.data_ptr(), sc.plane_on, sc.plane_fric,
-                   sc.spheres.data_ptr(), sc.n_spheres, sc.sphere_fric)
         with torch.cuda.device(device):
             stream = torch.cuda.current_stream(device).cuda_stream
             for _ in range(n_substeps):

@@ -15,7 +15,10 @@ along the grid's vertex normals, :func:`wind_forces_grid`) enters the
 forces, and strain limiting (StrainLimitParams) runs its Jacobi sweeps
 between integration and contact (:func:`strain_limit_planes`), as the TPU
 kernels run them (``pallas_substep.py::_strain_limit_planes``); the JAX
-stencil has no sweeps and routes such scenes elsewhere.
+stencil has no sweeps and routes such scenes elsewhere.  Capsule and
+oriented-box contact runs after the plane and the spheres, through the
+component-list primitives of :mod:`softbodyunity_torch.solver.collide`,
+with the JAX stencil's stages.
 
 A cloth grid has regular topology: every spring class is a constant offset
 ``(di, dj)`` on the grid —
@@ -35,8 +38,12 @@ import torch
 
 from ..core.config import SimConfig, Solver
 from ..core.state import State
-from ..core.topology import EDGE_BEND, EDGE_SHEAR, Topology
-from ..solver.collide import SPHERE_CONTACT_SHELL
+from ..core.topology import (EDGE_BEND, EDGE_SHEAR, Topology,
+                             check_same_scene)
+from ..solver.collide import (SPHERE_CONTACT_SHELL, needs_capsule_box,
+                              project_capsules_boxes_components,
+                              resolve_capsules_boxes_components,
+                              rest_friction_components)
 from ..solver.forces import self_collision_planes
 
 # Config branches of the fused grid kernels that the port does not run yet,
@@ -44,10 +51,6 @@ from ..solver.forces import self_collision_planes
 # and these plain versions refuse them, so a scene never silently loses a
 # feature.
 _UNPORTED = (
-    ("capsule colliders", lambda c: c.collision.enable_capsules,
-     "Queue 1 item 2, Queue 2 item 1"),
-    ("box colliders", lambda c: c.collision.enable_boxes,
-     "Queue 1 item 2, Queue 2 item 1"),
     ("SDF colliders", lambda c: c.collision.enable_sdf, "Queue 1 item 6"),
     ("self-collision methods hash and dense_mxu",
      lambda c: (c.self_collision.enabled
@@ -380,9 +383,9 @@ def euler_substep_grid(x3, v3, inv_mass2, offsets, masks, gravity,
                        scale=None):
     """One semi-implicit Euler substep on grid planes (oracle
     ``substep_euler`` semantics): springs, gravity and global damping,
-    pinning, then plane and sphere contact relative to the colliders'
-    kinematic velocities.  ``gravity`` is ``[3, 1, 1]`` on the planes'
-    device.  ``f_ext`` (``[3, ny, nx]`` or None) is an external force at
+    pinning, then plane, sphere, capsule and box contact, in that order,
+    relative to the colliders' kinematic velocities.  ``gravity`` is
+    ``[3, 1, 1]`` on the planes' device.  ``f_ext`` (``[3, ny, nx]`` or None) is an external force at
     ``x3``, the self-collision repulsion, added to the spring forces as
     ``total_forces`` adds it.  ``masks`` are the tear liveness planes under
     tearing, ``scale`` the plastic rest scales (or None); the feature
@@ -439,6 +442,10 @@ def euler_substep_grid(x3, v3, inv_mass2, offsets, masks, gravity,
             un2 = _dot(u2, n) * n
             ut = u2 - un2
             v3 = torch.where(contact, w + un2 + ut * (1.0 - col.friction), v3)
+    if needs_capsule_box(top, cfg):
+        xz, vz = resolve_capsules_boxes_components(
+            top, cfg, list(x3), list(v3), movable[0])
+        x3, v3 = torch.stack(xz), torch.stack(vz)
     return x3, v3
 
 
@@ -460,7 +467,8 @@ def _push_out_spheres(x3, movable, top: Topology):
 
 def _project_positions_grid(x3, movable, cfg: SimConfig, top: Topology):
     """Position-only contact: clamp to the plane, then push out of the
-    spheres.  Capsules, boxes and SDFs are refused by :func:`check_ported`."""
+    spheres, the capsules and the boxes.  SDFs are refused by
+    :func:`check_ported`."""
     col = cfg.collision
     if col.enable_plane:
         ph = top.plane_height
@@ -468,6 +476,9 @@ def _project_positions_grid(x3, movable, cfg: SimConfig, top: Topology):
         x3 = torch.stack([x3[0], torch.where(contact, ph, x3[1]), x3[2]])
     if col.enable_spheres:
         x3 = _push_out_spheres(x3, movable, top)
+    if needs_capsule_box(top, cfg):
+        x3 = torch.stack(project_capsules_boxes_components(
+            top, cfg, list(x3), movable[0]))
     return x3
 
 
@@ -510,6 +521,17 @@ def _sphere_friction_grid(x3, x_start3, cfg: SimConfig, dt: float, movable,
     return x3
 
 
+def _rest_friction_grid(x3, x_start3, cfg: SimConfig, dt: float, movable,
+                        top: Topology):
+    """Capsule, then box, position-level friction
+    (``collide.rest_friction_components``) on grid planes; once per
+    substep, after the sphere friction."""
+    if cfg.collision.friction == 0.0 or not needs_capsule_box(top, cfg):
+        return x3
+    return torch.stack(rest_friction_components(
+        top, cfg, list(x3), list(x_start3), movable[0], dt))
+
+
 def verlet_substep_grid(x3, xp3, inv_mass2, offsets, masks, gravity,
                         cfg: SimConfig, dt: float, top: Topology, f_ext=None,
                         scale=None):
@@ -541,6 +563,7 @@ def verlet_substep_grid(x3, xp3, inv_mass2, offsets, masks, gravity,
     x_new = _project_positions_grid(x_new, movable, cfg, top)
     x_new = _plane_friction_grid(x_new, x3, cfg, dt, contact, top)
     x_new = _sphere_friction_grid(x_new, x3, cfg, dt, movable, top)
+    x_new = _rest_friction_grid(x_new, x3, cfg, dt, movable, top)
     return x_new, x3
 
 
@@ -548,7 +571,8 @@ def _project_delta_grid(x_prev, delta, contact, movable, cfg: SimConfig,
                         top: Topology):
     """XPBD's position contact in delta form: the plane clamp as ``plane -
     x_prev`` (its pre-clamp mask ORed into ``contact``), then the spheres'
-    push-out as a displacement.  Returns ``(delta, contact)``."""
+    push-out as a displacement, then the capsules' and boxes' as another.
+    Returns ``(delta, contact)``."""
     if cfg.collision.enable_plane:
         ph = top.plane_height
         pc = ((x_prev[1] + delta[1]) < ph) & movable[0]
@@ -558,6 +582,10 @@ def _project_delta_grid(x_prev, delta, contact, movable, cfg: SimConfig,
     if cfg.collision.enable_spheres and top.n_spheres > 0:
         xe = x_prev + delta
         delta = delta + (_push_out_spheres(xe, movable, top) - xe)
+    if needs_capsule_box(top, cfg):
+        xe = x_prev + delta
+        delta = delta + (torch.stack(project_capsules_boxes_components(
+            top, cfg, list(xe), movable[0])) - xe)
     return delta, contact
 
 
@@ -637,6 +665,7 @@ def xpbd_substep_grid(x3, v3, inv_mass2, xoffsets, masks, cnt, gravity,
         delta = torch.stack(out)
     xe = x_prev + delta
     xf = _sphere_friction_grid(xe, x_prev, cfg, dt, movable, top)
+    xf = _rest_friction_grid(xf, x_prev, cfg, dt, movable, top)
     delta = delta + (xf - xe)
     delta = torch.where(movable, delta, 0.0)
     return x_prev + delta, delta / dt
@@ -670,7 +699,9 @@ def make_stencil_step(top: Topology, cfg: SimConfig):
     and plasticity the state's ``edge_alive``/``rest_scale`` go into planes
     once a frame, every substep ends with :func:`update_features`, and the
     planes come back to the edges at the end; under tearing the XPBD
-    Jacobi count follows the liveness planes every substep."""
+    Jacobi count follows the liveness planes every substep.  The collider
+    rows are read from ``top`` (the call's, when it passes one that shares
+    everything else with the built one, :func:`softbodyunity_torch.api.move_colliders`)."""
     check_grid_ported(cfg)
     sc_force = self_collision_planes(cfg)
     ny, nx = top.grid_shape
@@ -692,7 +723,13 @@ def make_stencil_step(top: Topology, cfg: SimConfig):
                                                             ny, nx)
     n_edges = int(top.edges.shape[0])
 
-    def fn(state: State, dt: float, n_substeps: int) -> State:
+    built = top
+
+    def fn(state: State, dt: float, n_substeps: int, top=None) -> State:
+        # the call's topology (api.move_colliders) carries the colliders
+        if top is None:
+            top = built
+        check_same_scene(built, top)
         x3 = to_planes(state.x, ny, nx)
         alive = scale = None
         if tearing:

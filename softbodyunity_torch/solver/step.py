@@ -4,8 +4,9 @@ Counterpart of ``softbodyunity_tpu/solver/step.py`` for its banded branches:
 Euler (``euler_integrate`` + the velocity-level resolve), Verlet
 (``verlet_integrate`` + ``verlet_contact_project``) and XPBD (the banded
 Jacobi loop of ``substep_xpbd``, in delta form), with the same operations in
-the same order, the wind's drag included.  These are the plain versions of
-the tet-lattice CUDA kernels (``kernels/csrc/lattice_euler.cu``,
+the same order, the wind's drag and the capsule and box contact included.
+These are the plain versions of the tet-lattice CUDA kernels
+(``kernels/csrc/lattice_euler.cu``,
 ``lattice_verlet.cu``, ``lattice_xpbd.cu``):
 :mod:`softbodyunity_torch.kernels.dispatch` takes
 :func:`make_plain_step` for tensors on the CPU, and ``chip_smoke.py`` holds
@@ -22,7 +23,7 @@ import torch
 
 from ..core.config import SimConfig, Solver
 from ..core.state import State
-from ..core.topology import Topology
+from ..core.topology import Topology, check_same_scene
 from . import banded, collide
 
 
@@ -95,13 +96,16 @@ def verlet_integrate(top: Topology, cfg: SimConfig, x, x_prev, dt: float,
 def verlet_contact_project(top: Topology, cfg: SimConfig, x_new, x_old,
                            dt: float, movable):
     """The Verlet substep's position-level contact chain: the pre-clamp
-    contact record, the projection, then plane and sphere friction."""
+    contact record, the projection, then plane, sphere and capsule/box
+    friction."""
     contact = collide.plane_contact_preclamp(top, cfg, x_new, movable)
     x_new = collide.project_positions_only(top, cfg, x_new, movable)
     x_new = collide.plane_friction_positions(top, cfg, x_new, x_old, dt,
                                              contact)
-    return collide.sphere_friction_positions(top, cfg, x_new, x_old, dt,
-                                             movable)
+    x_new = collide.sphere_friction_positions(top, cfg, x_new, x_old, dt,
+                                              movable)
+    return collide.rest_friction_positions(top, cfg, x_new, x_old, dt,
+                                           movable)
 
 
 def substep_verlet(top: Topology, cfg: SimConfig, x, x_prev, dt: float, g,
@@ -118,7 +122,7 @@ def substep_xpbd(top: Topology, cfg: SimConfig, x, v, dt: float, g, cnt,
     ``pallas_lattice.py`` takes it), ``n_iterations`` Jacobi sweeps
     over the distance and volume constraints with contact projected inside
     the loop, plane friction once from the OR of the sweeps' pre-clamp
-    contact masks, sphere friction, and ``v = delta / dt``.  ``cnt`` is
+    contact masks, sphere and capsule/box friction, and ``v = delta / dt``.  ``cnt`` is
     :func:`.banded.xpbd_constraint_count`.  Returns ``(x, v)``.
 
     Delta form: the loop carries the substep's position change ``delta``
@@ -150,6 +154,7 @@ def substep_xpbd(top: Topology, cfg: SimConfig, x, v, dt: float, g, cnt,
     delta = collide.plane_friction_delta(top, cfg, delta, dt, contact)
     xe = x_prev + delta
     xf = collide.sphere_friction_positions(top, cfg, xe, x_prev, dt, movable)
+    xf = collide.rest_friction_positions(top, cfg, xf, x_prev, dt, movable)
     delta = delta + (xf - xe)
     delta = torch.where(movable[:, None], delta, 0.0)
     return x_prev + delta, delta / dt
@@ -161,8 +166,10 @@ def make_plain_step(top: Topology, cfg: SimConfig):
     dtype ``top`` has.  Euler and XPBD return ``x_prev = x - dt * v``, as the
     JAX package's fused lattice paths do; Verlet returns its history.
 
-    Everything a substep reads besides the state is built here, once, on the
-    device, so a frame makes no host-to-device copy."""
+    Everything a substep reads besides the state and the collider rows is
+    built here, once, on the device, so a frame makes no host-to-device
+    copy.  The collider rows are read from the call's ``top`` where one is
+    passed (:func:`softbodyunity_torch.api.move_colliders`)."""
     from ..kernels.lattice import lattice_gate
 
     lattice_gate(top, cfg)
@@ -174,7 +181,13 @@ def make_plain_step(top: Topology, cfg: SimConfig):
     if cfg.solver == Solver.XPBD:
         cnt = banded.xpbd_constraint_count(top)
 
-    def fn(state: State, dt: float, n_substeps: int) -> State:
+    built = top
+
+    def fn(state: State, dt: float, n_substeps: int, top=None) -> State:
+        # the call's topology (api.move_colliders) carries the colliders
+        if top is None:
+            top = built
+        check_same_scene(built, top)
         dt = float(dt)
         x = state.x
         if cfg.solver == Solver.VERLET:

@@ -21,8 +21,10 @@ from softbodyunity_tpu.models import presets as jpresets
 import softbodyunity_torch as tsb
 from softbodyunity_torch import convert
 from softbodyunity_torch.core.config import (CollisionParams,
+                                             MotionConstraintParams,
                                              PlasticityParams,
-                                             SelfCollisionParams, Solver,
+                                             SelfCollisionParams,
+                                             ShapeMatchParams, Solver,
                                              StrainLimitParams, TearParams,
                                              WindParams)
 from softbodyunity_torch.kernels import (build, dispatch, grid_euler,
@@ -179,15 +181,18 @@ def test_ported_solver_runs_on_cpu(solver):
 
 
 _UNPORTED = {
-    # grid cloth runs wind and the strain limit since their branches were
-    # ported: wind with capsules still refuses (capsule/box contact), and
-    # so do wind lift and the strain limit on the tet lattices (the JAX
-    # package runs both on its general path)
+    # grid cloth runs wind, the strain limit and capsule and box contact
+    # since their branches were ported: beside them an SDF collider, shape
+    # matching or motion constraints still refuse; wind lift and the strain
+    # limit on the tet lattices refuse (the JAX package runs both on its
+    # general path)
     "xpbd+wind": dict(solver=Solver.XPBD,
                       wind=WindParams(velocity=(1.0, 0.0, 0.0), drag=0.2),
-                      collision=CollisionParams(enable_capsules=True)),
+                      collision=CollisionParams(enable_capsules=True,
+                                                enable_sdf=True)),
     "verlet+capsules": dict(solver=Solver.VERLET,
-                            collision=CollisionParams(enable_capsules=True)),
+                            collision=CollisionParams(enable_capsules=True),
+                            shape_match=ShapeMatchParams(enabled=True)),
     "wind": dict(preset="softbody_cube",
                  wind=WindParams(velocity=(1.0, 0.0, 0.0), drag=0.2,
                                  lift=0.5)),
@@ -198,8 +203,11 @@ _UNPORTED = {
     "tear": dict(preset="softbody_cube", tear=TearParams(enabled=True)),
     "plasticity": dict(preset="softbody_cube",
                        plasticity=PlasticityParams(enabled=True)),
-    "capsules": dict(collision=CollisionParams(enable_capsules=True)),
-    "boxes": dict(collision=CollisionParams(enable_boxes=True)),
+    "capsules": dict(collision=CollisionParams(enable_capsules=True),
+                     motion=MotionConstraintParams(enabled=True)),
+    "boxes": dict(preset="softbody_cube",
+                  collision=CollisionParams(enable_boxes=True,
+                                            enable_sdf=True)),
     "sdf": dict(collision=CollisionParams(enable_sdf=True)),
     "self_collision": dict(self_collision=SelfCollisionParams(enabled=True)),
     "general_path": dict(backend="jnp"),

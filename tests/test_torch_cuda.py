@@ -713,3 +713,188 @@ def test_lattice_drag_kernel_matches_plain_on_card(cuda, solver):
     torch.testing.assert_close(got.x, want.x, atol=1e-5, rtol=0)
     torch.testing.assert_close(got.v, want.v, atol=2e-3, rtol=0)
     assert float(got.x[:, 0].mean()) > float(s0.x[:, 0].mean()) + 1e-3
+
+
+# --- capsule and box contact ---------------------------------------------------
+
+def _rot_z(deg):
+    a = np.deg2rad(deg)
+    c, s = np.cos(a), np.sin(a)
+    return np.array([[c, -s, 0.0], [s, c, 0.0], [0.0, 0.0, 1.0]])
+
+
+def _collider_scene(solver, kind="grid", moving=True):
+    """tests/test_torch_colliders.py's scenes in contact from the start: the
+    12x12 cloth in the band of a capsule and a box turned 30 degrees, or
+    the 5^3 cube straddling a capsule and a box turned 20 degrees; each
+    collider with a kinematic velocity unless ``moving`` is off."""
+    cfg = tsb.SimConfig(
+        solver=solver,
+        collision=CollisionParams(enable_plane=True, enable_capsules=True,
+                                  enable_boxes=True, restitution=0.1,
+                                  friction=0.3),
+        volume_stiffness=0.5, global_damping=0.3)
+    if kind == "grid":
+        host = tsb.cloth_grid(
+            12, 12, spacing=0.05, shear=True, bend=True, pinned=("tl",),
+            springs=cfg.springs, xpbd=cfg.xpbd, plane_height=-2.0,
+            origin=(-0.28, 0.05, -0.28), orientation="xz")
+        geometry = dict(
+            capsule_p0=[[-0.3, 0.0, 0.0]], capsule_p1=[[0.05, 0.0, 0.0]],
+            capsule_radii=[0.12], box_centers=[[0.18, -0.05, 0.1]],
+            box_half_extents=[[0.15, 0.1, 0.12]],
+            box_rotations=[_rot_z(30.0)])
+    else:
+        host = tsb.tet_cube(5, spacing=0.05, springs=cfg.springs,
+                            xpbd=cfg.xpbd, plane_height=-0.5,
+                            origin=(-0.1, -0.02, -0.1))
+        host.inv_mass[:3] = 0.0
+        geometry = dict(
+            capsule_p0=[[-0.15, 0.0, 0.1]], capsule_p1=[[0.25, 0.0, 0.1]],
+            capsule_radii=[0.06], box_centers=[[0.05, -0.06, -0.05]],
+            box_half_extents=[[0.12, 0.05, 0.1]],
+            box_rotations=[_rot_z(20.0)])
+    if moving:
+        geometry.update(capsule_velocities=[[0.3, 0.0, 0.1]],
+                        box_velocities=[[0.0, 0.1, -0.2]])
+    return tsb.add_colliders(host, **geometry), cfg
+
+
+def _kernel_module(solver, kind):
+    return (_WRAPPERS if kind == "grid" else _LATTICE)[solver]
+
+
+def _plain_step(top, cfg, kind):
+    return (stencil.make_stencil_step(top, cfg) if kind == "grid"
+            else make_plain_step(top, cfg))
+
+
+def _assert_pins_frozen(host, got, s0, cuda):
+    pinned = torch.from_numpy(host.inv_mass == 0.0).to(cuda)
+    assert bool(pinned.any())
+    assert torch.equal(got.x[pinned], s0.x[pinned])
+
+
+# 48 substeps in contact from the start, float32 kernel against float32 plain
+# version: x 5e-5, the JAX kernel-vs-twin bound of tests/test_colliders.py
+# (rounding, here nvcc's FMA contraction, amplified by capsule and box
+# contact), v 5e-2 (v carries x's rounding over dt)
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["grid", "lattice"])
+@pytest.mark.parametrize("solver", list(_WRAPPERS))
+def test_collider_kernel_matches_plain_on_card(cuda, solver, kind):
+    host, cfg = _collider_scene(solver, kind)
+    top, s0 = tsb.init(host, device=cuda)
+    want = _plain_step(top, cfg, kind)(s0, cfg.dt, 48)
+    module = _kernel_module(solver, kind)
+    module.reset_launch_count()
+    got = module.make_cuda_step(top, cfg)(s0, cfg.dt, 48)
+    torch.cuda.synchronize()
+    per_sub = (module.launches_per_substep(top, cfg) if kind == "lattice"
+               else module.launches_per_substep(cfg))
+    assert module.launch_count() == 48 * per_sub
+    torch.testing.assert_close(got.x, want.x, atol=5e-5, rtol=0)
+    torch.testing.assert_close(got.v, want.v, atol=5e-2, rtol=0)
+    assert float((want.x - s0.x).abs().max()) > 1e-2
+    _assert_pins_frozen(host, got, s0, cuda)
+
+
+# the strain limit's epilogues run the capsule and box contact: Euler and
+# Verlet in the last sweep, XPBD as the projection after the sweeps; x 5e-5
+# as above
+@pytest.mark.cuda
+@pytest.mark.parametrize("solver", list(_WRAPPERS))
+def test_collider_strain_kernel_matches_plain_on_card(cuda, solver):
+    host, cfg = _collider_scene(solver)
+    cfg = cfg.replace(strain_limit=StrainLimitParams(
+        enabled=True, max_stretch=0.05, iterations=4))
+    top, s0 = tsb.init(host, device=cuda)
+    want = stencil.make_stencil_step(top, cfg)(s0, cfg.dt, 32)
+    grid_strain.reset_launch_count()
+    got = _WRAPPERS[solver].make_cuda_step(top, cfg)(s0, cfg.dt, 32)
+    torch.cuda.synchronize()
+    assert grid_strain.launch_count() == 32 * 4
+    torch.testing.assert_close(got.x, want.x, atol=5e-5, rtol=0)
+    _assert_pins_frozen(host, got, s0, cuda)
+
+
+# the feature instantiation with capsules and boxes: x 5e-5 as above, the
+# masks equal, the rest scales 1e-4 (x's rounding over the 0.05 rest length,
+# integrated by the 0.2 creep)
+@pytest.mark.cuda
+@pytest.mark.parametrize("solver", list(_WRAPPERS))
+def test_collider_feature_kernel_matches_plain_on_card(cuda, solver):
+    host, cfg = _collider_scene(solver)
+    cfg = cfg.replace(tear=TearParams(enabled=True, strain_limit=0.3),
+                      plasticity=PlasticityParams(enabled=True,
+                                                  yield_strain=0.02,
+                                                  creep=0.2))
+    top, s0 = tsb.init(host, device=cuda)
+    s0 = tsb.api.ensure_plastic_state(top, cfg,
+                                      tsb.api.ensure_tear_state(top, cfg, s0))
+    want = stencil.make_stencil_step(top, cfg)(s0, cfg.dt, 32)
+    got = _WRAPPERS[solver].make_cuda_step(top, cfg)(s0, cfg.dt, 32)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.x, want.x, atol=5e-5, rtol=0)
+    assert torch.equal(got.edge_alive, want.edge_alive)
+    torch.testing.assert_close(got.rest_scale, want.rest_scale, atol=1e-4,
+                               rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["grid", "lattice"])
+@pytest.mark.parametrize("solver", list(_WRAPPERS))
+def test_colliders_off_are_the_kernel_without_them(cuda, solver, kind):
+    """Capsule and box rows that the config turns off launch with counts 0
+    and give, bit for bit, what the scene without them gives: the branch is
+    a loop over no rows, and the plane and sphere path is untouched."""
+    host, cfg = _collider_scene(solver, kind)
+    bare = dataclasses.replace(
+        host, capsule_p0=None, capsule_p1=None, capsule_radii=None,
+        capsule_velocities=None, box_centers=None, box_half_extents=None,
+        box_rotations=None, box_velocities=None)
+    off = cfg.replace(collision=dataclasses.replace(
+        cfg.collision, enable_capsules=False, enable_boxes=False))
+    module = _kernel_module(solver, kind)
+    out = []
+    for h in (host, bare):
+        top, s0 = tsb.init(h, device=cuda)
+        out.append(module.make_cuda_step(top, off)(s0, cfg.dt, 32))
+    torch.cuda.synchronize()
+    assert torch.equal(out[0].x, out[1].x)
+    assert torch.equal(out[0].v, out[1].v)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["grid", "lattice"])
+@pytest.mark.parametrize("solver", list(_WRAPPERS))
+def test_move_colliders_rollout_launch_counts(cuda, solver, kind):
+    """Moving the capsule every frame through api.move_colliders: no
+    launch beyond frames x substeps x launches per substep, no other
+    kernel, one step function built, and each frame equal to the bit to a
+    step function built fresh on the moved topology."""
+    host, cfg = _collider_scene(solver, kind)
+    top, s = tsb.init(host, device=cuda)
+    ref = s
+    module = _kernel_module(solver, kind)
+    for w in (*_WRAPPERS.values(), *_LATTICE.values(), blocks):
+        w.reset_launch_count()
+    misses = tsb.api._build_step.cache_info().misses
+    frames = 6
+    for i in range(frames):
+        moved = tsb.move_colliders(
+            top, capsule_p0=top.capsule_p0 + 0.01 * i,
+            capsule_velocities=[[0.6, 0.6, 0.6]])
+        s = tsb.step(moved, cfg, s)
+        fresh = module.make_cuda_step(moved, cfg)
+        ref = fresh(ref, cfg.dt, cfg.n_substeps)
+    torch.cuda.synchronize()
+    per_sub = (module.launches_per_substep(top, cfg) if kind == "lattice"
+               else module.launches_per_substep(cfg))
+    # the fresh step functions launched as many again
+    assert module.launch_count() == 2 * frames * cfg.n_substeps * per_sub
+    assert sum(w.launch_count() for w in (*_WRAPPERS.values(),
+                                          *_LATTICE.values(), blocks)) \
+        == 2 * frames * cfg.n_substeps * per_sub
+    assert tsb.api._build_step.cache_info().misses == misses + 1
+    assert torch.equal(s.x, ref.x) and torch.equal(s.v, ref.v)

@@ -278,22 +278,27 @@ def test_feature_grid_of_any_size_builds_a_step(feature):
 
 @pytest.mark.parametrize("what,item", [
     ("wind", "Queue 1 item 6"), ("strain_limit", "Queue 1 item 6"),
-    ("capsules", "Queue 1 item 2"), ("boxes", "Queue 1 item 2"),
+    # capsule and box contact refused under Queue 1 item 2 until its branch
+    # was ported; the ids stay, and an SDF collider beside them refuses
+    pytest.param("capsules", "Queue 1 item 6", id="capsules-Queue 1 item 2"),
+    pytest.param("boxes", "Queue 1 item 6", id="boxes-Queue 1 item 2"),
     ("sdf", "Queue 1 item 6")])
 def test_feature_scene_with_unported_branch_raises(what, item):
     host, cfg = _scene(Solver.SEMI_IMPLICIT_EULER, "both")
     top, tcfg, s0 = _port_run(host, cfg)
-    # wind and the strain limit run with the feature planes since their
-    # branches were ported: those cases hold that an SDF collider beside
-    # them still refuses
+    # wind, the strain limit and capsule and box contact run with the
+    # feature planes since their branches were ported: those cases hold
+    # that an SDF collider beside them still refuses
     sdf = TCollision(enable_sdf=True)
     tcfg = tcfg.replace(**{
         "wind": dict(wind=WindParams(velocity=(1.0, 0.0, 0.0), drag=0.2),
                      collision=sdf),
         "strain_limit": dict(strain_limit=StrainLimitParams(enabled=True),
                              collision=sdf),
-        "capsules": dict(collision=TCollision(enable_capsules=True)),
-        "boxes": dict(collision=TCollision(enable_boxes=True)),
+        "capsules": dict(collision=TCollision(enable_capsules=True,
+                                              enable_sdf=True)),
+        "boxes": dict(collision=TCollision(enable_boxes=True,
+                                           enable_sdf=True)),
         "sdf": dict(collision=TCollision(enable_sdf=True)),
     }[what])
     with pytest.raises(NotImplementedError, match=item):

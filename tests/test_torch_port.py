@@ -147,6 +147,54 @@ def test_self_collision_params_match_jax():
             self_collision=jp))).self_collision) == dataclasses.asdict(jp)
 
 
+_COLLIDERS = [
+    dict(capsule_p0=[[-0.3, 0.0, 0.0]], capsule_p1=[[0.05, 0.0, 0.0]],
+         capsule_radii=[0.12], box_centers=[[0.18, -0.05, 0.1]],
+         box_half_extents=[[0.15, 0.1, 0.12]]),
+    dict(capsule_p0=[[0, 0, 0], [1, 0, 0]], capsule_p1=[[0, 1, 0], [1, 1, 0]],
+         capsule_radii=[0.1, 0.2], capsule_velocities=[[0.3, 0, 0], [0, 0, 1]],
+         box_centers=[0.2, 0.1, 0.0], box_half_extents=[0.1, 0.2, 0.3],
+         box_rotations=[[[0, -1, 0], [1, 0, 0], [0, 0, 1]]],
+         box_velocities=[[0.0, 0.5, 0.0]], plane_velocity=[0.5, 0.0, 0.1],
+         sphere_velocities=[[0.1, 0.0, 0.0]]),
+    dict(sdf_grids=np.zeros((4, 4, 4)), sdf_origins=[0.0, 0.0, 0.0],
+         sdf_spacings=[0.1], sdf_velocities=[[0.0, 0.0, 1.0]]),
+]
+
+
+@pytest.mark.parametrize("kw", _COLLIDERS)
+def test_add_colliders_matches_jax(kw):
+    """The copied add_colliders fills the same fields with the same arrays
+    (box_rotations defaults to identity)."""
+    grid = dict(sphere_centers=[[0.0, -0.5, 0.0]], sphere_radii=[0.2])
+    _assert_hosts_equal(
+        ttopo.add_colliders(ttopo.cloth_grid(5, 4, **grid), **kw),
+        jtopo.add_colliders(jtopo.cloth_grid(5, 4, **grid), **kw))
+
+
+@pytest.mark.parametrize("kw,match", [
+    # tests/test_colliders.py:345's cases
+    (dict(capsule_p0=[[0, 0, 0]], capsule_p1=[[1, 0, 0]],
+          capsule_radii=[0.1, 0.2]), "disagree"),
+    (dict(box_centers=[[0, 0, 0]], box_half_extents=[[0.1] * 3, [0.2] * 3]),
+     "disagree"),
+    (dict(box_centers=[[0, 0, 0]], box_half_extents=[[0.1] * 3],
+          box_rotations=np.broadcast_to(np.eye(3), (2, 3, 3))),
+     "box_rotations"),
+    # a partial capsule or box, and velocities of the wrong count
+    (dict(capsule_p0=[[0, 0, 0]], capsule_radii=[0.1]), "capsules need"),
+    (dict(box_half_extents=[[0.1] * 3]), "boxes need box_centers"),
+    (dict(box_centers=[[0, 0, 0]]), "box_half_extents"),
+    (dict(capsule_p0=[[0, 0, 0]], capsule_p1=[[1, 0, 0]], capsule_radii=[0.1],
+          capsule_velocities=[[0, 0, 0], [0, 0, 0]]), "capsule_velocities"),
+    (dict(sdf_grids=np.zeros((4, 4, 4))), "sdf colliders need"),
+])
+def test_add_colliders_rejects_as_jax(kw, match):
+    for module in (ttopo, jtopo):
+        with pytest.raises(ValueError, match=match):
+            module.add_colliders(module.cloth_grid(4, 4, spacing=0.1), **kw)
+
+
 def test_cloth_grid_rejects_unknown_pin():
     with pytest.raises(ValueError):
         ttopo.cloth_grid(4, 4, pinned=("middle",))

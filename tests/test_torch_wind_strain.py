@@ -476,13 +476,15 @@ def test_general_path_branches_raise(what):
 
 @pytest.mark.parametrize("what", ["capsules", "boxes"])
 def test_capsule_box_with_wind_still_raises(what):
-    """Capsule and box contact, the last branch of the grid and lattice
-    kernels still to port, refuse with wind on, naming Queue 2 item 1."""
+    """Capsule and box contact run with wind since their branch was ported
+    (tests/test_torch_colliders.py); an SDF collider beside them, which no
+    grid kernel runs yet, still refuses with wind on, naming Queue 1 item
+    6."""
     host, cfg = _wind_scene(Solver.SEMI_IMPLICIT_EULER)
     top, tcfg, s0 = _port_run(host, cfg)
     tcfg = tcfg.replace(collision=dataclasses.replace(
-        tcfg.collision, **{f"enable_{what}": True}))
-    with pytest.raises(NotImplementedError, match="Queue 2 item 1"):
+        tcfg.collision, enable_sdf=True, **{f"enable_{what}": True}))
+    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
         tsb.step(top, tcfg, s0)
 
 
