@@ -48,6 +48,16 @@ turned box, and the 64k cubes dropped onto a turned box and a capsule:
     Euler   cloth_colliders_64k (Verlet, XPBD: solver replaced)  grid_*     as above
     Euler   softbody_cube_64k, _verlet, _xpbd with colliders      lattice_*  as above
 
+Then the row-sharded grid cloth of parallel/halo.py, the multi-device path:
+each rank steps its rows of the cloth in plain PyTorch with a two-row halo
+from its neighbours, all-gathers the cloth's positions, and launches the
+dual form of block_pairs (TPU kernel #11) for its rows' self-collision, on
+a ring of one NCCL rank (torch.distributed) and on four ranks of one
+process (LocalRing, which runs them in turns on the one card):
+
+    Euler   cloth_selfcollide_64k (Verlet, XPBD: solver replaced)
+            block_pairs_dual   1 a substep and rank
+
 Phases, each printed as one JSON line; any failure raises and exits nonzero:
 
 1. device     the card's name and power limit (nvidia-smi) and torch's view;
@@ -80,7 +90,11 @@ Phases, each printed as one JSON line; any failure raises and exits nonzero:
               with a moving capsule and box (the grid kernels also under
               the strain limit and with tear and plastic planes), and one
               frame of each 64k collider path from rest and one from its
-              state in contact;
+              state in contact; then block_pairs_dual on the 64k
+              self-collision preset after 24 substeps, cut into 1 and 4 row
+              shards, each launch against the plain dual form (with one
+              rank, against block_pairs to the bit: printed), with its µs a
+              launch from CUDA events, bound and dropped pairs;
 4. main_path  each 64k preset through init(device="cuda") and 300 frames of
               step() (the self-collision preset 60), every launch count set
               to 0 just before and read just after: the path's kernels
@@ -97,7 +111,15 @@ Phases, each printed as one JSON line; any failure raises and exits nonzero:
               then the six collider paths (phase main_path_colliders), the
               capsule raised by 0.05 m halfway through move_colliders with
               no step function built, and no vertex inside a capsule or a
-              box by more than 1e-4 at the end;
+              box by more than 1e-4 at the end; then the halo paths (phase
+              main_path_halo): per solver and ring, the first 4 substeps
+              held to the single-device kernel path at 1e-5 (from rest
+              under Euler and Verlet; from the curtain shrunk to 70 %
+              under all three), then
+              2 frames with the counts set to 0 just before (block_pairs_dual
+              once a substep and rank, no other kernel), finite, the pins
+              held, nothing below the plane, and the rate (four ranks in
+              turns on one card: not a scaling number);
 5. sphere     cloth_hanging_sphere (Euler), 120 frames: the pins hold, no
               vertex inside the sphere;
 6. golden     the float64 oracle trajectories of tests/golden replayed
@@ -428,14 +450,15 @@ def _bound(nbytes, ops):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def block_pairs_bound(n, blk, n_tiles, sum_nvalid):
+def block_pairs_bound(n, blk, n_tiles, sum_nvalid, n_tiles_j=0):
     """(least ms the card could take for the pair forces of one state,
     "bytes" or "operations"): the kernel's inputs (tiles, partner counts, the
     interacting partner ids, the sort order) read once and the [3, N] force
     planes written once, against OPS_PAIR per vertex pair of the interacting
-    tile pairs this state has."""
-    nbytes = (4 * 3 * n_tiles * blk + 8 * n_tiles + 8 * sum_nvalid + 8 * n
-              + 4 * 3 * n)
+    tile pairs this state has.  The dual form reads ``n_tiles_j`` partner
+    tiles besides the ``n_tiles`` i-tiles of its ``n`` vertices."""
+    nbytes = (4 * 3 * (n_tiles + n_tiles_j) * blk + 8 * n_tiles
+              + 8 * sum_nvalid + 8 * n + 4 * 3 * n)
     return _bound(nbytes, OPS_PAIR * blk * blk * sum_nvalid)
 
 
@@ -490,10 +513,12 @@ def main() -> int:
                                             grid_xpbd, lattice_euler,
                                             lattice_verlet, lattice_xpbd)
     from softbodyunity_torch.kernels.stencil import (_offsets, _valid_mask,
+                                                    from_planes,
                                                     make_stencil_step,
                                                     strain_limit_planes,
                                                     to_planes,
                                                     update_features)
+    from softbodyunity_torch.parallel import DistRing, LocalRing, halo
     from softbodyunity_torch.solver import blocksparse
     from softbodyunity_torch.solver.forces import self_collision_forces_dense
     from softbodyunity_torch.solver.step import make_plain_step
@@ -693,13 +718,37 @@ def main() -> int:
                  "pallas_substep.py:534 (414-422), :801 (679-686) and "
                  "pallas_xpbd.py:334 (186-225)")
 
+    # TPU kernel #11, the dual form of block_pairs (csrc/block_pairs.cu), on
+    # the row-sharded halo paths of parallel/halo.py: the 64k self-collision
+    # preset under each solver, on a ring of one NCCL rank and on four
+    # ranks of one process (LocalRing, run in turns on the one card)
+    dual = dict(
+        name="block_pairs_dual",
+        source="softbodyunity_torch/kernels/csrc/block_pairs.cu",
+        replaces="softbodyunity_tpu/kernels/pallas_blocks.py:180 "
+                 "_block_pairs_dual_pallas",
+        ranks=4, launches=0)
+
     def reset_counts():
         for k in kernels.values():
             k["module"].reset_launch_count()
         grid_strain.reset_launch_count()
 
     def counts():
-        return {n: k["module"].launch_count() for n, k in kernels.items()}
+        c = {n: k["module"].launch_count() for n, k in kernels.items()}
+        c["block_pairs_dual"] = blocks.launch_count("block_pairs_dual")
+        return c
+
+    def events_ms(body, n):
+        """ms per unit of ``body()``, which does ``n`` units, from CUDA
+        events."""
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        body()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / n
 
     # 1. device -------------------------------------------------------------
     smi = subprocess.run(
@@ -1002,6 +1051,211 @@ def main() -> int:
                 and int(flat.sum()) < x.shape[0] // 2,
                 f"self-collision normals: {int(flat.sum())} collapsed")
         require(unit_err <= 1e-5, f"self-collision normals {unit_err:.3e}")
+
+    def compare_halo(sc_state):
+        """The dual pair form (TPU kernel #11) on the row shards of the 64k
+        self-collision preset after 24 substeps: one rank (the whole cloth:
+        the single form's tiles, so its output to the bit) and four ranks
+        (64 x 256 = 16,384 vertices each against the 65,536 gathered), each
+        launch held to the plain dual form, with its µs a launch (CUDA
+        events), its bound and its dropped pairs."""
+        _, s24 = sc_state
+        p = sc["cfg"].self_collision
+        x = s24.x
+        n, blk = x.shape[0], p.block_size
+        single = blocks.make_block_pairs(p, n, cuda)(x)
+        for n_ranks in (1, dual["ranks"]):
+            ni = n // n_ranks
+            rows = []
+            for r in range(n_ranks):
+                xi = x[r * ni:(r + 1) * ni]
+                fn = blocks.make_block_pairs_dual(p, ni, n, cuda)
+                got = fn(xi, x)
+                want = blocksparse.self_collision_forces_block_dual(
+                    xi, x, p).t()
+                torch.cuda.synchronize()
+                err = (got - want).abs()
+                ok = bool(torch.isfinite(got).all() and (
+                    err <= pair_tol[0] + pair_tol[1] * want.abs()).all())
+                d = blocksparse.self_collision_block_dual_diagnostics(xi, x,
+                                                                      p)
+                dropped, sum_nvalid = (int(d["dropped_pairs"]),
+                                       int(d["sum_nvalid"]))
+                ms = min(events_ms(lambda: [fn(xi, x) for _ in range(20)],
+                                   20) for _ in range(2))
+                plain_ms = events_ms(
+                    lambda: [blocksparse.self_collision_forces_block_dual(
+                        xi, x, p) for _ in range(2)], 2)
+                bound_ms, bound_by = block_pairs_bound(
+                    ni, blk, -(-ni // blk), sum_nvalid, n_tiles_j=-(-n // blk))
+                equal = bool(torch.equal(got, single)) if n_ranks == 1 else None
+                emit("compare", kernel="block_pairs_dual",
+                     scene="cloth_selfcollide_64k after 24 substeps",
+                     ranks=n_ranks, rank=r, vertices=ni, gathered=n,
+                     sum_nvalid=sum_nvalid, dropped_pairs=dropped,
+                     max_abs_err=float(err.max()),
+                     max_abs_force=float(want.abs().max()),
+                     atol=pair_tol[0], rtol=pair_tol[1], card=smi,
+                     us_per_launch=ms * 1e3, plain_ms=plain_ms,
+                     bound_us=bound_ms * 1e3, bound_by=bound_by,
+                     equal_to_block_pairs=equal,
+                     why="rsqrt and another sum order")
+                require(ok, f"block_pairs_dual, rank {r} of {n_ranks}: "
+                        f"|err| {float(err.max()):.3e}")
+                rows.append((float(err.max()), ms, plain_ms, bound_ms,
+                             bound_by, float(want.abs().max())))
+            # the rows by the pins touch nothing; the pile's rows do
+            require(max(row[5] for row in rows) > 0.0,
+                    f"block_pairs_dual, {n_ranks} ranks: no pair interacts")
+            if n_ranks == dual["ranks"]:
+                # the kernels line: per launch, averaged over the shards
+                dual["err"] = max(e for e, *_ in rows)
+                dual["ms"] = sum(r[1] for r in rows) / n_ranks
+                dual["plain_ms"] = sum(r[2] for r in rows) / n_ranks
+                dual["bound_ms"] = sum(r[3] for r in rows) / n_ranks
+                dual["bound_by"] = rows[0][4]
+
+    def halo_maker(solver):
+        return {sb.Solver.SEMI_IMPLICIT_EULER: halo.make_halo_step,
+                sb.Solver.VERLET: halo.make_halo_verlet_step,
+                sb.Solver.XPBD: halo.make_halo_xpbd_step}[solver]
+
+    def main_path_halo():
+        """The row-sharded grid cloth (parallel/halo.py): the 64k
+        self-collision preset under each solver through make_halo_step and
+        its Verlet and XPBD twins, on a ring of one NCCL rank (DistRing,
+        torch.distributed through a FileStore) and on LocalRing(4) (four
+        ranks in turns on the one card).  The first 4 substeps are held to
+        the single-device kernel path at 1e-5 (PERF.md's rule for this
+        crushed pile) from rest under Euler and Verlet, and under all three
+        from the curtain shrunk to 70 % (every neighbour in range, no pile;
+        at 60 % the whole cloth's tiles drop 19 tile pairs, the row shards'
+        none, so the two pair sets differ), where no tiling drops a pair.
+        XPBD from rest is printed, not held: deep contact makes its Jacobi
+        sweeps amplify any difference in operation order (the single-device
+        plain version leaves the kernel by as much, printed beside it).
+        Then two frames from rest with every count set to 0 just before and
+        read just after: block_pairs_dual launched once a substep and rank,
+        and no other kernel (the rest of the substep is plain PyTorch, as
+        the JAX halo path is plain XLA)."""
+        import torch.distributed as dist
+
+        store = os.path.join(ROOT, "build", "halo_filestore")
+        os.makedirs(os.path.dirname(store), exist_ok=True)
+        if os.path.exists(store):
+            os.remove(store)
+        torch.cuda.set_device(0)
+        dist.init_process_group("nccl", init_method="file://" + store,
+                                rank=0, world_size=1)
+        held, frames_h = 4, 2
+        try:
+            rings = {"nccl, world size 1": DistRing(),
+                     f"LocalRing({dual['ranks']}), serialised ranks on one "
+                     "card": LocalRing(dual["ranks"])}
+            for solver, module in ((sb.Solver.SEMI_IMPLICIT_EULER,
+                                    grid_euler),
+                                   (sb.Solver.VERLET, grid_verlet),
+                                   (sb.Solver.XPBD, grid_xpbd)):
+                host, cfg = sc["host"], sc["cfg"].replace(solver=solver)
+                top, s0 = sb.init(host, device=cuda)
+                ny, nx = top.grid_shape
+                starts = {"rest": s0, "shrunk to 70 %": s0.replace(
+                    x=0.7 * s0.x, x_prev=0.7 * s0.x_prev)}
+                kern_fn = module.make_cuda_step(top, cfg)
+                plain_fn = make_stencil_step(top, cfg)
+                ref, plain_dx = {}, {}
+                for name, st0 in starts.items():
+                    ref[name] = to_planes(kern_fn(st0, cfg.dt, held).x, ny,
+                                          nx)
+                    plain_dx[name] = float((to_planes(plain_fn(
+                        st0, cfg.dt, held).x, ny, nx) - ref[name]).abs().max())
+                held_on = (("shrunk to 70 %",) if solver == sb.Solver.XPBD
+                           else tuple(starts))
+                # the pair sets are exact (no tile pair dropped) in the
+                # whole cloth's tiling and in each rank's
+                p_sc, dropped = cfg.self_collision, {}
+                for name, st0 in starts.items():
+                    xs = st0.x
+                    dropped[name] = [int(blocksparse.
+                                         self_collision_block_diagnostics(
+                                             xs, p_sc)["dropped_pairs"])]
+                    ni = xs.shape[0] // dual["ranks"]
+                    dropped[name] += [int(
+                        blocksparse.self_collision_block_dual_diagnostics(
+                            xs[r * ni:(r + 1) * ni], xs, p_sc)[
+                                "dropped_pairs"])
+                        for r in range(dual["ranks"])]
+                pinned = torch.from_numpy(host.inv_mass == 0.0).to(cuda)
+                for label, ring in rings.items():
+                    fn = halo_maker(solver)(top, cfg, ring)
+
+                    def rank_main(n_sub, st0):
+                        x3, v3, im3, ph = halo.shard_grid_state(top, st0,
+                                                                ring)
+                        xp3 = halo.shard_grid_state(
+                            top, st0.replace(x=st0.x_prev), ring)[0]
+                        out = fn(x3, xp3 if solver == sb.Solver.VERLET
+                                 else v3, im3, ph, cfg.dt, n_sub)
+                        return ring.gather_rows(out[0]), ring.gather_rows(
+                            out[1])
+
+                    def on_ring(n_sub, st0):
+                        if isinstance(ring, LocalRing):
+                            return ring.run(lambda: rank_main(n_sub, st0))[0]
+                        return rank_main(n_sub, st0)
+
+                    dx = {}
+                    for name, st0 in starts.items():
+                        x4, _ = on_ring(held, st0)
+                        torch.cuda.synchronize()
+                        dx[name] = float((x4 - ref[name]).abs().max())
+                    n_sub = frames_h * cfg.n_substeps
+                    reset_counts()
+                    t = time.perf_counter()
+                    x3, v3 = on_ring(n_sub, s0)
+                    torch.cuda.synchronize()
+                    secs = time.perf_counter() - t
+                    launched = counts()
+                    expected = n_sub * ring.size
+                    dual["launches"] += launched["block_pairs_dual"]
+                    x = from_planes(x3)
+                    emit("main_path_halo", kernel="block_pairs_dual",
+                         preset=sc["preset"], solver=cfg.solver.value,
+                         ring=label, ranks=ring.size, vertices=x.shape[0],
+                         held_substeps=held, halo_vs_kernel_path_dx=dx,
+                         plain_vs_kernel_path_dx=plain_dx,
+                         dropped_pairs_whole_then_ranks=dropped,
+                         held_atol_x=1e-5, held_on=held_on,
+                         frames=frames_h, substeps=n_sub, launches=launched,
+                         expected_launches={"block_pairs_dual": expected},
+                         seconds=secs, substeps_per_s=n_sub / secs,
+                         rate_is=("four ranks run in turns on one card, not "
+                                  "a scaling number" if ring.size > 1
+                                  else "one rank"),
+                         y_min=float(x[:, 1].min()),
+                         max_abs_v=float(v3.abs().max()), card=smi)
+                    for name in held_on:
+                        require(not any(dropped[name]),
+                                f"halo {cfg.solver.value} from {name}: "
+                                f"dropped tile pairs {dropped[name]}")
+                        require(dx[name] <= 1e-5,
+                                f"halo {cfg.solver.value} on {label} from "
+                                f"{name}: first {held} substeps |dx| "
+                                f"{dx[name]:.3e} against the kernel path")
+                    require(launched["block_pairs_dual"] == expected
+                            and sum(launched.values()) == expected,
+                            f"halo {cfg.solver.value} on {label}: launches "
+                            f"{launched}, expected {expected} block_pairs_dual")
+                    require(bool(torch.isfinite(x3).all()
+                                 and torch.isfinite(v3).all()),
+                            f"halo {cfg.solver.value} on {label}: not finite")
+                    require(torch.equal(x[pinned], s0.x[pinned]),
+                            f"halo {cfg.solver.value} on {label}: pins moved")
+                    require(bool((x[:, 1] >= top.plane_height).all()),
+                            f"halo {cfg.solver.value} on {label}: vertex "
+                            "below the plane")
+        finally:
+            dist.destroy_process_group()
 
     def golden_self_collision():
         # tests/test_golden.py's 5e-2 for self-collision chaos; the first
@@ -1932,6 +2186,7 @@ def main() -> int:
                              k["cfg"].n_substeps, 1e-5, 1e-3,
                              "one smooth frame: rounding only")
     sc_state = compare_self_collision()
+    compare_halo(sc_state)
     compare_large()
     compare_branches()
     compare_colliders()
@@ -1999,6 +2254,7 @@ def main() -> int:
     main_path_large()
     main_path_branches()
     main_path_colliders()
+    main_path_halo()
     emit("main_path", seconds=phase_seconds())
 
     # 5. hanging cloth on a sphere ------------------------------------------
@@ -2315,17 +2571,6 @@ def main() -> int:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    def events_ms(body, n):
-        """ms per unit of ``body()``, which does ``n`` units, from CUDA
-        events."""
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        body()
-        end.record()
-        end.synchronize()
-        return start.elapsed_time(end) / n
-
     def substep_ms(fn, s0, cfg, n_frames, n_sub):
         """ms per substep of ``n_frames`` calls ``fn(s, dt, n_sub)`` from
         ``s0``."""
@@ -2562,6 +2807,36 @@ def main() -> int:
          launches={n: c for n, (_, c) in dev.items()},
          other_device_us_per_substep=busy - named,
          device_us_per_substep=busy)
+    # the dual form alone on the row shards (block_pairs_kernel is its
+    # kernel too): device µs a launch, and of the sort and partner search
+    # around it
+    p_sc, x24 = sc["cfg"].self_collision, sc_state[1].x
+    for n_ranks in (1, dual["ranks"]):
+        ni = x24.shape[0] // n_ranks
+        per_rank = []
+        for r in range(n_ranks):
+            xi = x24[r * ni:(r + 1) * ni]
+            fn = blocks.make_block_pairs_dual(p_sc, ni, x24.shape[0], cuda)
+            fn(xi, x24)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(10):
+                    fn(xi, x24)
+                torch.cuda.synchronize()
+            kernel_us, busy = None, 0.0
+            for ev in prof.key_averages():
+                total = getattr(ev, "device_time_total", None)
+                if total is None:
+                    total = getattr(ev, "cuda_time_total", 0.0)
+                if ev.device_type != DeviceType.CPU:
+                    busy += total
+                if "block_pairs_kernel" in ev.key and ev.count > 0:
+                    kernel_us = total / ev.count
+            per_rank.append({"kernel_us": kernel_us,
+                             "all_device_us": busy / 10})
+        emit("timing", kernel="block_pairs_dual", profiler_calls=10,
+             start="24 substeps", ranks=n_ranks, card=smi,
+             device_us_per_call=per_rank)
     for label, p in large.items():
         cfg = p["cfg"]
         names = kernels[p["kernel"]]["device_names"]
@@ -2638,6 +2913,12 @@ def main() -> int:
             "max_abs_err": p["err"], "ms": p["ms"], "plain_ms": p["plain_ms"],
             "bound_ms": p["bound_ms"], "bound_by": p["bound_by"],
             "library_ms": None})
+    line.append({
+        "name": dual["name"], "route": "cuda", "source": dual["source"],
+        "replaces": dual["replaces"], "launches": dual["launches"],
+        "max_abs_err": dual["err"], "ms": dual["ms"],
+        "plain_ms": dual["plain_ms"], "bound_ms": dual["bound_ms"],
+        "bound_by": dual["bound_by"], "library_ms": None})
     print(json.dumps({"kernels": line}), flush=True)
     emit("done", seconds=time.perf_counter() - t_start)
     print(smi, flush=True)

@@ -10,12 +10,18 @@ and one launch of the pair kernel writes the forces straight into vertex
 order.  Nothing here waits for the device: the partner counts stay on it and
 the kernel reads them there.  The kernel's plain version is
 :func:`softbodyunity_torch.solver.blocksparse.self_collision_forces_block`.
+The dual form (:func:`make_block_pairs_dual`, TPU kernel #11) takes the
+i-tiles from one rank's rows and the partner tiles from the whole gathered
+cloth, for the row-sharded halo paths
+(:mod:`softbodyunity_torch.parallel.halo`); its plain version is
+``self_collision_forces_block_dual``.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 
 import torch
 
@@ -28,17 +34,28 @@ from .grid_scene import check_input, check_launch
 # ceil(nvalid / CHUNK) CTAs (csrc/block_pairs.cu, "Design").
 CHUNK = 4
 
-_launches = 0
+# launches of each form; the halo paths launch the dual form from one thread
+# per rank (parallel/ring.py::LocalRing), hence the lock
+_launches = {"block_pairs": 0, "block_pairs_dual": 0}
+_count_lock = threading.Lock()
 
 
-def launch_count() -> int:
-    """Kernel launches since the last :func:`reset_launch_count`."""
-    return _launches
+def launch_count(form: str = "block_pairs") -> int:
+    """Launches of the single (``"block_pairs"``) or the dual
+    (``"block_pairs_dual"``) form since the last
+    :func:`reset_launch_count`."""
+    return _launches[form]
 
 
 def reset_launch_count() -> None:
-    global _launches
-    _launches = 0
+    with _count_lock:
+        for form in _launches:
+            _launches[form] = 0
+
+
+def _count(form: str) -> None:
+    with _count_lock:
+        _launches[form] += 1
 
 
 @functools.cache
@@ -46,10 +63,11 @@ def _launcher():
     from .build import load_library
 
     lib = load_library("block_pairs")
-    fn = lib.block_pairs_forces
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    fn = lib.block_pairs_dual_forces
     fn.argtypes = [
-        p, p, p, i, p,         # x_tiles, nvalid, partners, p_stride, order
+        p, p, p, p, i, p,      # xi_tiles, xj_tiles, nvalid, partners,
+                               # p_stride, order
         i, i, i, i, i,         # n, n_tiles, k_budget, chunk, blk
         p, p, p,               # partial, arrivals, f_out
         f, f, f,               # eps2, c1, c2
@@ -61,21 +79,22 @@ def _launcher():
     return fn, lib.block_pairs_error_string
 
 
-def make_block_pairs(p: SelfCollisionParams, n: int, device):
-    """Build ``fn(x [n, 3]) -> [3, n]`` float32 force planes, one launch of
-    the pair kernel per call, for ``n`` vertices on the CUDA ``device``.
-    ``x`` may be a view (the grid paths pass their ``[3, ny, nx]`` planes
-    transposed).  The kernel's scratch is allocated once, here."""
+def _pair_launch(p: SelfCollisionParams, n: int, n_j: int, device, form):
+    """Check the parameters, allocate the scratch of one launch at a time
+    for the tiles of ``n`` vertices against the partner tiles of ``n_j``,
+    and return ``(launch, blk, k)``: ``launch(xi_tiles, xj_tiles, nvalid,
+    partners, order) -> [3, n]`` launches the kernel once on the tensors'
+    stream."""
     device = torch.device(device)
     if device.type != "cuda":
-        raise ValueError(f"the block_pairs kernel runs on a CUDA device, not "
+        raise ValueError(f"the {form} kernel runs on a CUDA device, not "
                          f"{device}")
     blk = int(p.block_size)
     if blk % 32 != 0 or not 32 <= blk <= 1024:
         raise ValueError(f"block_size {blk}: the kernel takes a multiple of "
                          "32 from 32 to 1024 (one thread per tile vertex)")
-    b = -(-n // blk)
-    k = min(p.block_partners, b)
+    b, b_j = -(-n // blk), -(-n_j // blk)
+    k = min(p.block_partners, b_j)
     n_chunks = -(-k // CHUNK)
     partial = torch.empty((n_chunks, b, 3, blk), dtype=torch.float32,
                           device=device)
@@ -83,22 +102,54 @@ def make_block_pairs(p: SelfCollisionParams, n: int, device):
     eps2 = (1e-3 * p.radius) ** 2
     c1 = p.stiffness * p.radius
     c2 = p.stiffness
-    launch, error_string = _launcher()
+    fn, error_string = _launcher()
+
+    def launch(xi_tiles, xj_tiles, nvalid, partners, order):
+        dev = xi_tiles.device
+        check_input("xi_tiles", xi_tiles, (b, 3, blk), dev)
+        check_input("xj_tiles", xj_tiles, (b_j, 3, blk), dev)
+        if partners.stride(1) != 1 or order.stride(0) != 1:
+            raise ValueError("partners and order must have unit inner stride")
+        out = torch.empty((3, n), dtype=torch.float32, device=dev)
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            check_launch(fn(
+                xi_tiles.data_ptr(), xj_tiles.data_ptr(), nvalid.data_ptr(),
+                partners.data_ptr(), partners.stride(0), order.data_ptr(), n,
+                b, k, CHUNK, blk, partial.data_ptr(), arrivals.data_ptr(),
+                out.data_ptr(), eps2, c1, c2, stream), form, error_string)
+        _count(form)
+        return out
+
+    return launch, blk, k
+
+
+def _check_positions(name: str, x: torch.Tensor, n: int, device) -> None:
+    if x.device.type != "cuda" or (device.index is not None
+                                   and x.device != device):
+        raise ValueError(f"{name} is on {x.device}; the kernel runs on "
+                         f"{device}")
+    if x.dtype != torch.float32:
+        raise TypeError(f"{name} is {x.dtype}; the kernel takes float32 only")
+    if tuple(x.shape) != (n, 3):
+        raise ValueError(f"{name} has shape {tuple(x.shape)}, expected "
+                         f"{(n, 3)}")
+    if x.requires_grad:
+        raise NotImplementedError(
+            f"{name} requires grad; the backward kernel is not ported yet "
+            "(ROADMAP Queue 1 item 9)")
+
+
+def make_block_pairs(p: SelfCollisionParams, n: int, device):
+    """Build ``fn(x [n, 3]) -> [3, n]`` float32 force planes, one launch of
+    the pair kernel per call, for ``n`` vertices on the CUDA ``device``.
+    ``x`` may be a view (the grid paths pass their ``[3, ny, nx]`` planes
+    transposed).  The kernel's scratch is allocated once, here."""
+    device = torch.device(device)
+    launch, blk, k = _pair_launch(p, n, n, device, "block_pairs")
 
     def fn(x: torch.Tensor) -> torch.Tensor:
-        global _launches
-        if x.device.type != "cuda" or (device.index is not None
-                                       and x.device != device):
-            raise ValueError(f"x is on {x.device}; the kernel runs on "
-                             f"{device}")
-        if x.dtype != torch.float32:
-            raise TypeError(f"x is {x.dtype}; the kernel takes float32 only")
-        if tuple(x.shape) != (n, 3):
-            raise ValueError(f"x has shape {tuple(x.shape)}, expected {(n, 3)}")
-        if x.requires_grad:
-            raise NotImplementedError(
-                "x requires grad; the backward kernel is not ported yet "
-                "(ROADMAP Queue 1 item 9)")
+        _check_positions("x", x, n, device)
         xb, valid, order, _ = _sorted_tiles(x, p.cell_size, blk)
         partners, pvalid, _ = _tile_partners(xb, valid, p.radius, k)
         nvalid = pvalid.sum(dim=1)
@@ -106,19 +157,41 @@ def make_block_pairs(p: SelfCollisionParams, n: int, device):
         # [B, 3, blk] tile layout
         x_tiles = torch.where(valid[..., None], xb, 1e6).transpose(1, 2)
         x_tiles = x_tiles.contiguous()
-        out = torch.empty((3, n), dtype=torch.float32, device=x.device)
-        check_input("x_tiles", x_tiles, (b, 3, blk), x.device)
-        if partners.stride(1) != 1 or order.stride(0) != 1:
-            raise ValueError("partners and order must have unit inner stride")
-        with torch.cuda.device(x.device):
-            stream = torch.cuda.current_stream(x.device).cuda_stream
-            check_launch(launch(
-                x_tiles.data_ptr(), nvalid.data_ptr(), partners.data_ptr(),
-                partners.stride(0), order.data_ptr(), n, b, k, CHUNK, blk,
-                partial.data_ptr(), arrivals.data_ptr(), out.data_ptr(),
-                eps2, c1, c2, stream), "block_pairs", error_string)
-        _launches += 1
-        return out
+        return launch(x_tiles, x_tiles, nvalid, partners, order)
+
+    return fn
+
+
+def make_block_pairs_dual(p: SelfCollisionParams, ni: int, n: int, device):
+    """Build ``fn(xi [ni, 3], xall [n, 3]) -> [3, ni]``: the repulsion on
+    ``xi`` (one rank's rows of a row-sharded cloth) from every vertex of
+    ``xall`` (the gathered cloth, ``xi`` among them), float32 planes in
+    ``xi``'s vertex order, one launch of the pair kernel per call on the
+    CUDA ``device``.  Counterpart of ``pallas_blocks.py:201-230``
+    ``self_collision_forces_block_dual_pallas``: each side is Morton-sorted
+    into its own tiles, the partner budget follows the gathered cloth's tile
+    count, and the pads of the i-tiles sit at -1e6, those of the partner
+    tiles at +1e6.  Its plain version is
+    ``softbodyunity_torch.solver.blocksparse.
+    self_collision_forces_block_dual``.
+    The scratch is allocated here and serves one launch at a time: build one
+    ``fn`` per rank."""
+    device = torch.device(device)
+    launch, blk, k = _pair_launch(p, ni, n, device, "block_pairs_dual")
+
+    def fn(xi: torch.Tensor, xall: torch.Tensor) -> torch.Tensor:
+        _check_positions("xi", xi, ni, device)
+        _check_positions("xall", xall, n, device)
+        xb_i, valid_i, order_i, _ = _sorted_tiles(xi, p.cell_size, blk)
+        xb_g, valid_g, _, _ = _sorted_tiles(xall, p.cell_size, blk)
+        partners, pvalid, _ = _tile_partners(xb_i, valid_i, p.radius, k,
+                                             xb_j=xb_g, valid_j=valid_g)
+        nvalid = pvalid.sum(dim=1)
+        xi_tiles = torch.where(valid_i[..., None], xb_i, -1e6)
+        xj_tiles = torch.where(valid_g[..., None], xb_g, 1e6)
+        return launch(xi_tiles.transpose(1, 2).contiguous(),
+                      xj_tiles.transpose(1, 2).contiguous(), nvalid, partners,
+                      order_i)
 
     return fn
 
@@ -129,6 +202,17 @@ def self_collision_forces_block_cuda(x: torch.Tensor,
     one launch of the pair kernel: ``[N, 3]``, as
     ``pallas_blocks.self_collision_forces_block_pallas`` returns."""
     return make_block_pairs(p, x.shape[0], x.device)(x).t()
+
+
+def self_collision_forces_block_dual_cuda(xi: torch.Tensor, xall: torch.Tensor,
+                                          p: SelfCollisionParams
+                                          ) -> torch.Tensor:
+    """Repulsion forces on ``xi`` [ni, 3] from all of ``xall`` [N, 3]
+    (float32, CUDA) from one launch of the pair kernel's dual form:
+    ``[ni, 3]``, as ``pallas_blocks.self_collision_forces_block_dual_pallas``
+    returns."""
+    return make_block_pairs_dual(p, xi.shape[0], xall.shape[0],
+                                 xi.device)(xi, xall).t()
 
 
 def self_collision_planes_cuda(cfg: SimConfig, ny: int, nx: int, device):

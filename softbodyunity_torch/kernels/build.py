@@ -17,6 +17,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -58,11 +59,24 @@ def load_libraries(names) -> None:
         list(pool.map(load_library, names))
 
 
-@functools.cache
+_build_locks: dict = {}
+_build_locks_guard = threading.Lock()
+
+
 def load_library(name: str) -> ctypes.CDLL:
     """Build ``csrc/<name>.cu`` unless its library exists, then load it.
     nvcc's messages (ptxas register and spill counts) go to a ``.log`` file
-    beside the library."""
+    beside the library.  Safe from several threads (the halo paths' ranks
+    of ``parallel/ring.py::LocalRing``): one build of a library at a time,
+    and each library loaded once."""
+    with _build_locks_guard:
+        lock = _build_locks.setdefault(name, threading.Lock())
+    with lock:
+        return _load_library(name)
+
+
+@functools.cache
+def _load_library(name: str) -> ctypes.CDLL:
     out = library_path(name)
     if not out.exists():
         nvcc = _find_nvcc()

@@ -1,7 +1,8 @@
 // Block-sparse self-collision pair forces for Hopper (sm_90a).  Built by
 // softbodyunity_torch/kernels/build.py, wrapped by
-// softbodyunity_torch/kernels/blocks.py; its plain PyTorch version is
-// softbodyunity_torch/solver/blocksparse.py::self_collision_forces_block.
+// softbodyunity_torch/kernels/blocks.py; its plain PyTorch versions are
+// softbodyunity_torch/solver/blocksparse.py::self_collision_forces_block and
+// ::self_collision_forces_block_dual.
 //
 // Replaces the TPU kernel softbodyunity_tpu/kernels/pallas_blocks.py
 // ::_make_kernel, launched by ::_block_pairs_pallas through pl.pallas_call:
@@ -9,9 +10,15 @@
 // nvalid[i] partner tiles p, the repulsion of every vertex of tile i from
 // every vertex of tile p,
 //   f_i += w(d) (x_i - x_j),  w = max(k r / d - k, 0),  d = sqrt(max(d2, eps2)),
-// which is k (r - d) / d for d < r and 0 beyond.  The Morton sort, the
-// bounding-box partner search and the far-coordinate padding stay in
-// PyTorch (solver/blocksparse.py), as they stay in XLA on the TPU.
+// which is k (r - d) / d for d < r and 0 beyond.  It also replaces the dual
+// form, ::_block_pairs_dual_pallas (TPU kernel #11), which the row-sharded
+// halo paths run (softbodyunity_tpu/parallel/halo.py::_self_collision_rows):
+// the i-tiles are the Morton tiles of one rank's rows, the partner tiles
+// those of the whole gathered cloth, two arrays in place of one.  The
+// kernel body is the same; the single form passes one array as both.
+// The Morton sort, the bounding-box partner search and the far-coordinate
+// padding stay in PyTorch (solver/blocksparse.py), as they stay in XLA on
+// the TPU.
 //
 // Design.  The TPU kernel is one program that walks all tiles in order with
 // the whole tile array in VMEM.  Here a CTA of blk threads (one per vertex of
@@ -31,12 +38,16 @@
 // elects that CTA, and resets itself for the next launch, so the sum and
 // its rounding are the same on every run.  The result is written in vertex
 // order through the sort permutation `order` (each vertex once), into
-// [3, N] component planes: the grid kernels' force-plane input.
+// [3, N] component planes: the grid kernels' force-plane input (the dual
+// form: the rank's [3, ni] planes, through its own rows' permutation).
 //
 // Self pairs are not masked: a vertex meeting itself has dx exactly 0 and a
 // finite w (the eps2 clamp), so it adds exactly 0.  Padded tile slots enter
 // at +1e6: their distance to every real vertex exceeds r, so w = 0; their
-// own rows are never written.  Built without fast-math, so 0 * w stays 0.
+// own rows are never written.  In the dual form the i-tiles' pads sit at
+// -1e6 and the partner tiles' at +1e6, so pad meets pad 2e6 apart, as in
+// the TPU kernel; either way w = 0 or dx = 0.  Built without fast-math, so
+// 0 * w stays 0.
 //
 // What bounds it.  A pair costs ~16 operations (3 differences, the squared
 // norm, max, rsqrt, w, three multiply-adds), so the function needs about
@@ -55,10 +66,12 @@
 namespace {
 
 __global__ void __launch_bounds__(1024) block_pairs_kernel(
-    const float* __restrict__ x_tiles,      // [B, 3, blk], pads at +1e6
+    const float* __restrict__ xi_tiles,     // [B, 3, blk]: the i-tiles
+    const float* __restrict__ xj_tiles,     // [Bj, 3, blk]: partner tiles
     const long long* __restrict__ nvalid,   // [B] interacting partners
-    const long long* __restrict__ partners, // [B, >= K], row stride p_stride
-    int p_stride, const long long* __restrict__ order,   // [N] sorted -> vertex
+    const long long* __restrict__ partners, // [B, >= K] ids into xj_tiles,
+    int p_stride,                           //   row stride p_stride
+    const long long* __restrict__ order,    // [N] sorted i slot -> vertex
     int n, int n_tiles, int chunk, int blk, float* __restrict__ partial,
     int* __restrict__ arrivals, float* __restrict__ f_out,   // [3, N]
     float eps2, float c1, float c2) {
@@ -71,14 +84,14 @@ __global__ void __launch_bounds__(1024) block_pairs_kernel(
   const int n_chunks = nv > 0 ? (nv + chunk - 1) / chunk : 1;
   if (s >= n_chunks) return;                // uniform over the CTA
 
-  const float* xi_tile = x_tiles + static_cast<size_t>(i) * 3 * blk;
+  const float* xi_tile = xi_tiles + static_cast<size_t>(i) * 3 * blk;
   const float xi0 = xi_tile[l], xi1 = xi_tile[blk + l],
               xi2 = xi_tile[2 * blk + l];
   float ax = 0.0f, ay = 0.0f, az = 0.0f;
   const int k_end = min(s * chunk + chunk, nv);
   for (int k = s * chunk; k < k_end; ++k) {
     const long long pk = partners[static_cast<size_t>(i) * p_stride + k];
-    const float* xp = x_tiles + static_cast<size_t>(pk) * 3 * blk;
+    const float* xp = xj_tiles + static_cast<size_t>(pk) * 3 * blk;
     __syncthreads();                        // the last sweep is done with sj
     sj[l] = xp[l];
     sj[blk + l] = xp[blk + l];
@@ -130,21 +143,24 @@ __global__ void __launch_bounds__(1024) block_pairs_kernel(
 
 }  // namespace
 
-// Launch the pair forces of one state on `stream`; returns the cudaError_t
-// of the launch (0 = cudaSuccess).  `partial` holds ceil(k_budget / chunk)
-// x n_tiles x 3 x blk floats; `arrivals` n_tiles ints, zero before the first
-// launch (each launch leaves them zero).  Allocates nothing and does not
+// Launch the pair forces on the n vertices of the i-tiles from the partner
+// tiles on `stream` (the single form: the same tiles twice, pads at +1e6);
+// returns the cudaError_t of the launch (0 = cudaSuccess).  `partial` holds
+// ceil(k_budget / chunk) x n_tiles x 3 x blk floats; `arrivals` n_tiles
+// ints, zero before the first launch (each launch leaves them zero), so a
+// scratch serves one launch at a time.  Allocates nothing and does not
 // synchronise.
-extern "C" int block_pairs_forces(
-    const float* x_tiles, const long long* nvalid, const long long* partners,
-    int p_stride, const long long* order, int n, int n_tiles, int k_budget,
-    int chunk, int blk, float* partial, int* arrivals, float* f_out,
-    float eps2, float c1, float c2, void* stream) {
+extern "C" int block_pairs_dual_forces(
+    const float* xi_tiles, const float* xj_tiles, const long long* nvalid,
+    const long long* partners, int p_stride, const long long* order, int n,
+    int n_tiles, int k_budget, int chunk, int blk, float* partial,
+    int* arrivals, float* f_out, float eps2, float c1, float c2,
+    void* stream) {
   const dim3 grid(n_tiles, (k_budget + chunk - 1) / chunk);
   const size_t smem = 3 * static_cast<size_t>(blk) * sizeof(float);
   block_pairs_kernel<<<grid, blk, smem, static_cast<cudaStream_t>(stream)>>>(
-      x_tiles, nvalid, partners, p_stride, order, n, n_tiles, chunk, blk,
-      partial, arrivals, f_out, eps2, c1, c2);
+      xi_tiles, xj_tiles, nvalid, partners, p_stride, order, n, n_tiles,
+      chunk, blk, partial, arrivals, f_out, eps2, c1, c2);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -294,7 +294,7 @@ def _cross3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
                         a[0] * b[1] - a[1] * b[0]])
 
 
-def grid_vertex_normals(x3: torch.Tensor) -> torch.Tensor:
+def grid_vertex_normals(x3: torch.Tensor, cell_mask=None) -> torch.Tensor:
     """Unit area-weighted vertex normals of the grid's triangles (the
     oracle's ``vertex_normals`` over ``cloth_grid``'s triangulation), as
     shifts: cell (i, j) holds the triangles ``(p(i,j), p(i+1,j), p(i,j+1))``
@@ -302,9 +302,13 @@ def grid_vertex_normals(x3: torch.Tensor) -> torch.Tensor:
     the cells past the last row or column; each vertex sums the six faces
     around it, ``f1 + f1(-1,0) + f1(0,-1) + f2(0,-1) + f2(-1,0) + f2(-1,-1)``,
     and divides by ``max(|sum|, 1e-12)``
-    (``softbodyunity_tpu/kernels/stencil.py::grid_vertex_normals``)."""
+    (``softbodyunity_tpu/kernels/stencil.py::grid_vertex_normals``).
+    ``cell_mask`` ([ny, nx], or None for the block's own last row and
+    column) marks the cells that hold triangles: a row-sharded block with
+    its halos (``parallel/halo.py``) judges them by global row."""
     ny, nx = x3.shape[-2], x3.shape[-1]
-    cell = _valid_mask(ny, nx, 1, 1, x3.device, x3.dtype)
+    cell = (_valid_mask(ny, nx, 1, 1, x3.device, x3.dtype)
+            if cell_mask is None else cell_mask)
     pi = _shift(x3, 1, 0)      # p(i+1, j)
     pj = _shift(x3, 0, 1)      # p(i, j+1)
     pij = _shift(x3, 1, 1)     # p(i+1, j+1)
@@ -316,15 +320,17 @@ def grid_vertex_normals(x3: torch.Tensor) -> torch.Tensor:
     return acc / torch.clamp_min(torch.sqrt(norm2), 1e-12)
 
 
-def wind_forces_grid(x3: torch.Tensor, v3: torch.Tensor, wind) -> torch.Tensor:
+def wind_forces_grid(x3: torch.Tensor, v3: torch.Tensor, wind,
+                     cell_mask=None) -> torch.Tensor:
     """The WindParams force on grid planes (the oracle's ``wind_forces``):
     ``drag * v_rel``, plus ``lift * (v_rel . n) * n`` along the vertex
     normals when lift is on, with ``v_rel = velocity - v``.  The wind
-    velocity enters as three Python floats."""
+    velocity enters as three Python floats; ``cell_mask`` goes to
+    :func:`grid_vertex_normals`."""
     vrel = torch.stack([wind.velocity[c] - v3[c] for c in range(3)])
     f = wind.drag * vrel
     if wind.lift != 0.0:
-        n = grid_vertex_normals(x3)
+        n = grid_vertex_normals(x3, cell_mask=cell_mask)
         vn = vrel[0] * n[0] + vrel[1] * n[1] + vrel[2] * n[2]
         f = f + wind.lift * vn * n
     return f
@@ -361,21 +367,30 @@ def strain_limit_planes(x3, offsets, masks, inv_mass2, sl, scales=None):
     inv_cnt = 1.0 / jacobi_count(offsets, masks)
     xst = x3
     for _ in range(sl.iterations):
-        dx = torch.zeros_like(xst)
-        for o, ((di, dj, _, rest), m) in enumerate(zip(offsets, masks)):
-            d = _shift(xst, di, dj) - xst
-            length = torch.sqrt(_dot(d, d))
-            n = d / torch.clamp_min(length, 1e-12)
-            rest_eff = rest if scales is None else rest * scales[o]
-            hi = rest_eff * (1.0 + sl.max_stretch)
-            lo = (rest_eff * (1.0 - sl.max_compress)
-                  if sl.max_compress >= 0.0 else 0.0)
-            c_val = (length - _clip(length, lo, hi)) * m
-            wn = _shift(w, di, dj)
-            corr = c_val / torch.clamp_min(w + wn, 1e-12)
-            dx = dx + (w * corr) * n - _shift((wn * corr) * n, -di, -dj)
+        dx = strain_sweep_dx(xst, offsets, masks, w, sl, scales)
         xst = xst + dx * inv_cnt
     return xst - x3
+
+
+def strain_sweep_dx(xst, offsets, masks, w, sl, scales=None):
+    """One strain-limit sweep's summed corrections at ``xst`` (before the
+    division by the count), inverse masses ``w`` [ny, nx]: the body of
+    :func:`strain_limit_planes`, and of the row-sharded sweeps on a block
+    with its halos (``parallel/halo.py``)."""
+    dx = torch.zeros_like(xst)
+    for o, ((di, dj, _, rest), m) in enumerate(zip(offsets, masks)):
+        d = _shift(xst, di, dj) - xst
+        length = torch.sqrt(_dot(d, d))
+        n = d / torch.clamp_min(length, 1e-12)
+        rest_eff = rest if scales is None else rest * scales[o]
+        hi = rest_eff * (1.0 + sl.max_stretch)
+        lo = (rest_eff * (1.0 - sl.max_compress)
+              if sl.max_compress >= 0.0 else 0.0)
+        c_val = (length - _clip(length, lo, hi)) * m
+        wn = _shift(w, di, dj)
+        corr = c_val / torch.clamp_min(w + wn, 1e-12)
+        dx = dx + (w * corr) * n - _shift((wn * corr) * n, -di, -dj)
+    return dx
 
 
 def euler_substep_grid(x3, v3, inv_mass2, offsets, masks, gravity,

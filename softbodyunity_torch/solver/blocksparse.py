@@ -154,3 +154,19 @@ def self_collision_block_diagnostics(x: torch.Tensor,
     _, pvalid, overflow = _tile_partners(xb, valid, p.radius, k)
     return {"candidate_pairs": pvalid.sum() + overflow,
             "dropped_pairs": overflow}
+
+
+def self_collision_block_dual_diagnostics(xi: torch.Tensor,
+                                          xall: torch.Tensor,
+                                          p: SelfCollisionParams) -> dict:
+    """:func:`self_collision_block_diagnostics` of the dual form (``xi``'s
+    tiles against ``xall``'s), as 0-dim tensors on ``xi``'s device:
+    ``{'candidate_pairs', 'dropped_pairs', 'sum_nvalid'}``, the last the
+    interacting tile pairs that the pair kernel's dual form sweeps."""
+    xb_i, valid_i, _, _ = _sorted_tiles(xi, p.cell_size, p.block_size)
+    xb_g, valid_g, _, b_g = _sorted_tiles(xall, p.cell_size, p.block_size)
+    k = min(p.block_partners, b_g)
+    _, pvalid, overflow = _tile_partners(xb_i, valid_i, p.radius, k,
+                                         xb_j=xb_g, valid_j=valid_g)
+    return {"candidate_pairs": pvalid.sum() + overflow,
+            "dropped_pairs": overflow, "sum_nvalid": pvalid.sum()}

@@ -2,8 +2,10 @@
 with and without their tear and plastic planes, wind, and the strain-limit
 sweeps), tet lattice (lattice_euler, lattice_verlet, lattice_xpbd, with and
 without the wind's drag) and the
-block-sparse self-collision pairs (block_pairs), against their plain
-PyTorch versions, on the card.  These tests skip without
+block-sparse self-collision pairs (block_pairs, and its dual form for the
+row-sharded halo paths), against their plain
+PyTorch versions, on the card; the halo paths on one card (LocalRing) and,
+with two cards, on NCCL.  These tests skip without
 a CUDA device: the kernels have no CPU mode.  The file imports no jax, so it runs where JAX is absent; there run it
 without the repository's conftest (which sets JAX up):
 
@@ -350,6 +352,134 @@ def test_block_pairs_matches_plain_on_card(cuda, n, blk, partners):
     assert torch.equal(got, again)             # deterministic
     torch.testing.assert_close(got.t(), want, atol=5e-4, rtol=1e-3)
     assert float(want.abs().max()) > 0.0
+
+
+# the dual form (TPU kernel #11): one rank's rows against the whole cloth, at
+# the single form's tolerance; with one rank it is the single form, to the bit
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_ranks", [1, 2, 4, 8])
+def test_block_pairs_dual_matches_plain_on_card(cuda, n_ranks):
+    rng = np.random.default_rng(n_ranks)
+    n = 2048
+    x = torch.tensor(rng.uniform(0, 0.5, (n, 3)), dtype=torch.float32,
+                     device=cuda)
+    p = SelfCollisionParams(enabled=True, method="block", radius=0.05,
+                            stiffness=10.0, cell_size=0.05, block_partners=8)
+    ni = n // n_ranks
+    blocks.reset_launch_count()
+    for r in range(n_ranks):
+        xi = x[r * ni:(r + 1) * ni]
+        fn = blocks.make_block_pairs_dual(p, ni, n, cuda)
+        got = fn(xi, x)
+        again = fn(xi, x)
+        want = blocksparse.self_collision_forces_block_dual(xi, x, p)
+        torch.cuda.synchronize()
+        assert torch.equal(got, again)
+        torch.testing.assert_close(got.t(), want, atol=5e-4, rtol=1e-3)
+        assert float(want.abs().max()) > 0.0
+    assert blocks.launch_count("block_pairs_dual") == 2 * n_ranks
+    assert blocks.launch_count() == 0
+    if n_ranks == 1:
+        # 256 divides n, so no tile holds a pad: the same tiles, partners
+        # and sums as the single form
+        assert torch.equal(got, blocks.make_block_pairs(p, n, cuda)(x))
+
+
+def _halo_scene(solver):
+    """cloth_batch_rl (16x16, method block) with its positions scaled by
+    0.6 (chip_smoke.py's shrink): every neighbour inside the self-collision
+    radius."""
+    host, cfg = _batch_rl(solver)
+    top, s0 = tsb.init(host, device="cuda")
+    return top, cfg, s0.replace(x=0.6 * s0.x, x_prev=0.6 * s0.x_prev)
+
+
+def _halo_steps(top, cfg, s0, ring, n_sub):
+    """The halo path of ``cfg.solver`` on ``ring`` from ``s0``: each rank's
+    ``[3, h, nx]`` position planes."""
+    from softbodyunity_torch.parallel import halo
+
+    make = {Solver.SEMI_IMPLICIT_EULER: halo.make_halo_step,
+            Solver.VERLET: halo.make_halo_verlet_step,
+            Solver.XPBD: halo.make_halo_xpbd_step}[cfg.solver]
+    fn = make(top, cfg, ring)
+    x3, v3, im3, ph = halo.shard_grid_state(top, s0, ring)
+    xp3 = halo.shard_grid_state(top, s0.replace(x=s0.x_prev), ring)[0]
+    second = xp3 if cfg.solver == Solver.VERLET else v3
+    return fn(x3, second, im3, ph, cfg.dt, n_sub)[0]
+
+
+# the halo path (plain stencil on each rank, the dual pair kernel) against
+# the single-device kernel path: rounding only over 4 substeps (x 1e-5)
+@pytest.mark.cuda
+@pytest.mark.parametrize("solver", list(_WRAPPERS))
+def test_halo_local_ring_matches_kernel_path_on_card(cuda, solver):
+    from softbodyunity_torch.parallel.ring import LocalRing
+
+    top, cfg, s0 = _halo_scene(solver)
+    n_sub, n_ranks = 4, 4
+    want = _WRAPPERS[solver].make_cuda_step(top, cfg)(s0, cfg.dt, n_sub)
+    ring = LocalRing(n_ranks)
+    blocks.reset_launch_count()
+    parts = ring.run(lambda: _halo_steps(top, cfg, s0, ring, n_sub))
+    torch.cuda.synchronize()
+    assert blocks.launch_count("block_pairs_dual") == n_sub * n_ranks
+    got = torch.cat(parts, dim=1)
+    ny, nx = top.grid_shape
+    torch.testing.assert_close(got, stencil.to_planes(want.x, ny, nx),
+                               atol=1e-5, rtol=0)
+
+
+_NCCL_CHILD = """
+import sys
+import torch
+import torch.distributed as dist
+sys.path.insert(0, {tests!r})
+import test_torch_cuda as t
+rank, world = int(sys.argv[1]), int(sys.argv[2])
+torch.cuda.set_device(rank)
+dist.init_process_group("nccl", init_method="file://" + sys.argv[3],
+                        rank=rank, world_size=world)
+try:
+    from softbodyunity_torch.parallel.ring import DistRing
+    top, cfg, s0 = t._halo_scene(t.Solver.SEMI_IMPLICIT_EULER)
+    torch.save(t._halo_steps(top, cfg, s0, DistRing(), 4).cpu(), sys.argv[4])
+finally:
+    dist.destroy_process_group()
+"""
+
+
+# two processes, one card each, on NCCL: needs two cards, so a one-card
+# machine skips it (PERF.md says so)
+@pytest.mark.cuda
+def test_halo_nccl_two_ranks_on_card(cuda, tmp_path):
+    import os
+    import subprocess
+    import sys
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices: NCCL takes one rank per card")
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    code = _NCCL_CHILD.format(tests=os.path.join(repo, "tests"))
+    env = dict(os.environ, PYTHONPATH=repo)
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", code, str(r), "2", str(tmp_path / "store"),
+         str(tmp_path / f"rank{r}.pt")], cwd=repo, env=env,
+        stderr=subprocess.PIPE, text=True) for r in range(2)]
+    try:
+        errs = [p.communicate(timeout=300)[1] for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    for r, p in enumerate(procs):
+        assert p.returncode == 0, errs[r]
+    got = torch.cat([torch.load(tmp_path / f"rank{r}.pt") for r in range(2)],
+                    dim=1)
+    top, cfg, s0 = _halo_scene(Solver.SEMI_IMPLICIT_EULER)
+    want = grid_euler.make_cuda_step(top, cfg)(s0, cfg.dt, 4)
+    ny, nx = top.grid_shape
+    torch.testing.assert_close(got, stencil.to_planes(want.x, ny, nx).cpu(),
+                               atol=1e-5, rtol=0)
 
 
 def _batch_rl(solver, method="block"):

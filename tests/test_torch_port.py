@@ -273,6 +273,8 @@ def test_package_imports_no_jax():
             "import softbodyunity_torch.solver.collide\n"
             "import softbodyunity_torch.kernels.dispatch\n"
             "import softbodyunity_torch.convert\n"
+            "import softbodyunity_torch.parallel.ring\n"
+            "import softbodyunity_torch.parallel.halo\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith(("
             "'jax.', 'jaxlib', 'softbodyunity_tpu'))]\n"
             "assert not bad, bad\n")
