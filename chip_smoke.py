@@ -10,8 +10,11 @@ The port's paths, one hand-written CUDA kernel each:
     XPBD    cloth_bench_64k_xpbd      grid_xpbd       1 + n_iterations
     Euler   softbody_cube_64k         lattice_euler   2 (integrate, volume)
     Verlet  softbody_cube_64k_verlet  lattice_verlet  2 (integrate, volume)
-    XPBD    softbody_cube_64k_xpbd    lattice_xpbd    1 + n_iterations
+    XPBD    softbody_cube_64k_xpbd    lattice_xpbd    1 + 2 n_iterations
     Euler   cloth_selfcollide_64k     block_pairs     1, then grid_euler 1
+
+Both XPBD wrappers launch a substep from one ctypes call into C; a lattice
+XPBD sweep is a constraint pass (each edge and tet once) and a gather pass.
 
 The seventh path is self-collision on grid cloth: each substep the Morton
 sort and the partner search (PyTorch ops on the card), one block_pairs
@@ -154,7 +157,8 @@ Phases, each printed as one JSON line; any failure raises and exits nonzero:
               preset's state after 24 substeps.  The paths past the cap and
               with feature planes, and the wind, strain and drag paths, are
               timed from rest, and the strain sweeps alone; the collider
-              paths from their state in contact.
+              paths from their state in contact.  Each XPBD path prints
+              its launches a substep.
 
 Then a JSON line of the kernels (launches on the main path, error against
 the plain version, times, bound), the nvidia-smi line, and as the last line
@@ -561,7 +565,8 @@ def main() -> int:
             module=lattice_xpbd, preset="softbody_cube_64k_xpbd",
             replaces="softbodyunity_tpu/kernels/pallas_lattice.py:699",
             device_names=("lattice_xpbd_predict_kernel",
-                          "lattice_xpbd_sweep_kernel")),
+                          "lattice_xpbd_constraint_kernel",
+                          "lattice_xpbd_gather_kernel")),
         "block_pairs": dict(
             module=blocks, preset="cloth_selfcollide_64k",
             replaces="softbodyunity_tpu/kernels/pallas_blocks.py:151",
@@ -2591,6 +2596,14 @@ def main() -> int:
             ms[which].append(runs[which]())
         return ms
 
+    def xpbd_launches(name, dev, n_sub):
+        """An XPBD path's launches a substep in a profiler window of
+        ``n_sub`` substeps, from the per-kernel counts ``dev``."""
+        if not name.endswith("xpbd"):
+            return {}
+        return {"launches_per_substep":
+                sum(c for _, c in dev.values()) / n_sub}
+
     def device_us_per_launch(fn, s0, cfg, n_frames, names):
         """Device time per launch of each named kernel over n_frames, from
         torch.profiler (None where the trace shows no device time), and the
@@ -2793,7 +2806,8 @@ def main() -> int:
             emit("timing", kernel=name, profiler_frames=5,
                  start=label or "rest",
                  device_us_per_launch={n: us for n, (us, _) in dev.items()},
-                 device_us_per_substep=per_sub)
+                 device_us_per_substep=per_sub,
+                 **xpbd_launches(name, dev, 5 * cfg.n_substeps))
     # the self-collision substep: block_pairs, grid_euler, and the sort and
     # partner search (every other kernel of the trace)
     cfg = sc["cfg"]
@@ -2848,7 +2862,8 @@ def main() -> int:
              start="rest",
              device_us_per_launch={n: us for n, (us, _) in dev.items()},
              launches={n: c for n, (_, c) in dev.items()},
-             device_us_per_substep=busy)
+             device_us_per_substep=busy,
+             **xpbd_launches(p["kernel"], dev, 3 * cfg.n_substeps))
     for label, p in branches.items():
         cfg = p["cfg"]
         names = kernels[p["kernel"]]["device_names"]
@@ -2860,7 +2875,8 @@ def main() -> int:
              start="rest",
              device_us_per_launch={n: us for n, (us, _) in dev.items()},
              launches={n: c for n, (_, c) in dev.items()},
-             device_us_per_substep=busy)
+             device_us_per_substep=busy,
+             **xpbd_launches(p["kernel"], dev, 3 * cfg.n_substeps))
     for label, p in collider_paths.items():
         cfg = p["cfg"]
         dev, busy = device_us_per_launch(p["timing_fn"], p["timing_s0"], cfg,
@@ -2869,7 +2885,8 @@ def main() -> int:
              start=f"{p['contact_frames']} frames",
              device_us_per_launch={n: us for n, (us, _) in dev.items()},
              launches={n: c for n, (_, c) in dev.items()},
-             device_us_per_substep=busy)
+             device_us_per_substep=busy,
+             **xpbd_launches(p["kernel"], dev, 3 * cfg.n_substeps))
     emit("timing", seconds=phase_seconds())
 
     line = [{

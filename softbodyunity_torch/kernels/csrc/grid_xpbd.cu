@@ -25,9 +25,10 @@
 // sweep needs a grid-wide barrier; here that barrier is a kernel boundary.
 // The row-tiled TPU kernel instead runs a whole substep per tile on halos
 // of reach x n_iterations rows, recomputing the overlap; global Jacobi with
-// one launch per sweep is what that computes.
-// A substep is 1 + n_iterations launches, one thread per vertex each:
-//   predict   v <- (v + dt g)(1 - gdamp dt), 0 on pins; delta <- dt v; the
+// one launch per sweep is what that computes.  One C call
+// (grid_xpbd_substep) launches a substep, 1 + n_iterations launches:
+//   predict   one thread per vertex: v <- (v + dt g)(1 - gdamp dt), 0 on
+//             pins; delta <- dt v; the
 //             lambda planes and the contact flag <- 0.  x is the substep's
 //             start position xp and stays read-only until the next substep.
 //             An optional external force plane f (the self-collision
@@ -40,18 +41,32 @@
 //             the Jacobi weights inv_cnt from the updated liveness: the
 //             count of live edges at a vertex changes as edges tear.  The
 //             plastic rest scales stay constant over the substep.
-//   sweep     (n_iterations launches) evaluate xe = xp + delta at the
-//             vertex and its 12 neighbours; per offset, dlam of the edge the
-//             vertex owns and, from the same device function, argument order
-//             and old lambda, dlam of the edge owned by p - o; write only the
-//             vertex's own new lambdas; delta += dx * inv_cnt; then the
-//             plane clamp in ``plane - xp`` form (OR'd into the contact
-//             flag), the sphere push-out as a delta, then the capsules'
-//             and boxes' as another (grid_common.cuh::project_delta).
-//             delta and the lambda planes ping-pong between sweeps (an
-//             in-place update would let thread p - o overwrite the lambda
-//             thread p still reads); the contact flag is the vertex's own
-//             and stays put.
+//   sweep     (n_iterations launches) a CTA owns a 32 x 8 tile of the grid
+//             (the fastest of 32 x 8, 16 x 16 and 64 x 4 at 64k and at
+//             262k, PERF.md), one thread per tile
+//             vertex, and is compiled for the offsets' pattern (structural,
+//             with shear, with bend, with both), so that its indices are
+//             constants.  It stages xe = xp + delta and the inverse mass of
+//             the tile and a frame of H rows and columns around it (H = the
+//             largest |di|, |dj|: 2 with bend springs) in shared memory;
+//             evaluates each edge with an endpoint in the tile once
+//             (grid_common.cuh::xpbd_dlam: dlam and the unit direction n
+//             into shared memory), each thread its own vertex's entry of
+//             every offset and the frame-owned rest spread one a thread;
+//             writes the new lambdas of the tile's own edges only; then
+//             each vertex sums, per offset, -(w dlam) n of the edge it owns
+//             and +(w dlam) n of the edge owned by p - o, the plain
+//             version's order and the one-pass kernel's products, so the
+//             result is that kernel's to the bit; delta += dx * inv_cnt;
+//             then the plane clamp in ``plane - xp`` form (OR'd into the
+//             contact flag), the sphere push-out as a delta, then the
+//             capsules' and boxes' as another (grid_common.cuh::
+//             project_delta).  Only the edges owned by the frame's
+//             vertices are evaluated again, by the neighbouring tile (13 %
+//             past one evaluation an edge at 32 x 8).  delta and the lambda
+//             planes ping-pong between sweeps (a tile reads the lambdas of
+//             its frame's owners, which the neighbouring tile writes); the
+//             contact flag is the vertex's own and stays put.
 //             kFeat: a torn edge is skipped and a plastic one's rest is
 //             rest * scale, both read from the predict's planes.
 //   epilogue  run by the last sweep for its own vertex: plane friction on
@@ -59,7 +74,8 @@
 //             (grid_common.cuh::friction_delta), pins masked, x = xp + delta
 //             written to the other x buffer, v = delta / dt in place.
 //   strain    under the strain limit, iterations more launches after the
-//             Jacobi sweeps (which then all store delta): the strain sweeps
+//             Jacobi sweeps (which then all store delta), each its own
+//             ctypes call: the strain sweeps
 //             on xp + delta, and the last of them adds its change to delta,
 //             projects the contact once more (its plane clamp ORed into the
 //             flag) and runs the epilogue instead of the last Jacobi sweep.
@@ -71,11 +87,16 @@
 // What bounds it.  At 64k vertices one substep must read x, v and inv_mass
 // and write x and v (3.4 MB, ~1.0 us at 3.35 TB/s), and does ~36 flops per
 // edge and sweep: 8 sweeps over 391k edges are ~120 MFLOP, ~1.8 us at the
-// 67 TFLOP/s float32 peak, so the work is bound by operations.  Each sweep
-// launch moves ~6 MB through L2 (xp, delta, lambdas), and 9 launches per
-// substep each cost several microseconds of launch latency: at 64k the path
-// is bound by launches, not by the card.  A cooperative single-launch form
-// or a CUDA graph is later work.
+// 67 TFLOP/s float32 peak, so the work is bound by operations.  A sweep
+// moves ~6 MB through L2 (xp, delta, lambdas).  What a sweep costs on the
+// card is instructions at low occupancy: at 64k an SM holds two CTAs, and
+// a sweep's index arithmetic, bounds tests and IEEE divides issue from few
+// warps.  Evaluating each edge once halves the divides, which pays only
+// when the indices are constants and no warp evaluates more than about
+// one entry past its own: with per-offset loops, rectangles sized at run
+// time or more threads a vertex the tiled sweep measured slower than the
+// one-pass kernel it replaces (PERF.md).  The C-side loop takes the host's
+// ctypes call out of every launch but one a substep.
 //
 // Rounding.  sqrtf and IEEE divides in the plain version's order (the
 // divide-form norm d / max(len, 1e-12)); FMA contraction and the folded
@@ -84,6 +105,9 @@
 // vertices keep x bit for bit (their delta is masked to 0 and xp + 0 == xp).
 
 #include <cuda_runtime.h>
+
+#include <type_traits>
+#include <utility>
 
 #include "grid_common.cuh"
 
@@ -199,86 +223,250 @@ __device__ __forceinline__ void finish(Vec3 dl, Vec3 xpi, int idx, int ps,
   store3(v, idx, ps, {dl.x / p.dt, dl.y / p.dt, dl.z / p.dt});
 }
 
+// The grid's offset patterns, in the order of the offsets table
+// (kernels/stencil.py::_xpbd_offsets): structural (0, 1), (1, 0), then
+// shear (1, 1), (1, -1), then bend (0, 2), (2, 0).  A sweep is compiled for
+// each pattern, so that every index below is a constant.
+enum Pattern { kStructural, kShear, kBend, kShearBend };
+
+// Offset o of pattern P as (di, dj): the structural two, then the shear
+// two unless P is kBend, then the bend two.
+template <int P>
+struct Offsets {
+  static constexpr int n = P == kShearBend ? 6 : (P == kStructural ? 2 : 4);
+  // o's place in the six offsets of kShearBend
+  __host__ __device__ static constexpr int six(int o) {
+    return P == kBend && o >= 2 ? o + 2 : o;
+  }
+  __host__ __device__ static constexpr int di(int o) {
+    switch (six(o)) {
+      case 0: case 4: return 0;
+      case 5: return 2;
+      default: return 1;
+    }
+  }
+  __host__ __device__ static constexpr int dj(int o) {
+    switch (six(o)) {
+      case 0: case 2: return 1;
+      case 3: return -1;
+      case 4: return 2;
+      default: return 0;
+    }
+  }
+};
+
+__host__ __device__ constexpr int abs_c(int a) { return a < 0 ? -a : a; }
+__host__ __device__ constexpr int min0(int a) { return a < 0 ? a : 0; }
+
+// The sweep's tile, columns x rows, one thread a vertex.
+constexpr int kTileX = 32, kTileY = 8;
+
+// A CTA's tile, TX x TY vertices, one thread each, and its frame of H
+// vertices around (H = the largest |di|, |dj|).  Offset o's rectangle holds
+// the edges owned by a vertex q with q or q + o in the tile: NR(o) x NC(o)
+// owners from row min(0, -di), column min(0, -dj) of the tile, its entries
+// from B(o) on.  Thread (x, y) evaluates entry (y, x) of every rectangle;
+// the rest of each rectangle, the strips past row TY and column TX
+// (S(o) entries, from SB(o) on in one list), goes one entry a thread.
+template <int P>
+struct Tile {
+  using O = Offsets<P>;
+  static constexpr int TX = kTileX, TY = kTileY;
+  static constexpr int H = P == kBend || P == kShearBend ? 2 : 1;
+  static constexpr int FW = TX + 2 * H, FH = TY + 2 * H;
+  __host__ __device__ static constexpr int NR(int o) {
+    return TY + abs_c(O::di(o));
+  }
+  __host__ __device__ static constexpr int NC(int o) {
+    return TX + abs_c(O::dj(o));
+  }
+  __host__ __device__ static constexpr int B(int o) {
+    int b = 0;
+    for (int k = 0; k < o; ++k) b += NR(k) * NC(k);
+    return b;
+  }
+  __host__ __device__ static constexpr int S(int o) {
+    return abs_c(O::di(o)) * NC(o) + TY * abs_c(O::dj(o));
+  }
+  __host__ __device__ static constexpr int SB(int o) {
+    int b = 0;
+    for (int k = 0; k < o; ++k) b += S(k);
+    return b;
+  }
+};
+
+// f(std::integral_constant<int, o>) for o = 0 .. n - 1, unrolled.
+template <class F, int... O>
+__device__ __forceinline__ void each_offset(F&& f,
+                                            std::integer_sequence<int, O...>) {
+  (f(std::integral_constant<int, O>{}), ...);
+}
+
 // One Jacobi sweep (project = 1) and, on the last sweep (last = 1), the
-// substep's epilogue.  xp, delta_*, x_out, v are [3, ny, nx] planes;
-// lam_* are [n_off, ny, nx]; offsets is [n_off, 4] rows of
-// (di, dj, alpha / dt^2, rest); col holds the collider rows
+// substep's epilogue, on a CTA of TX x TY threads that owns a TX x TY
+// (kTileX x kTileY) tile of the grid.  xp, delta_*, x_out, v are [3, ny, nx] planes; lam_* are
+// [n_off, ny, nx]; offsets is [n_off, 4] rows of (di, dj, alpha / dt^2,
+// rest), di and dj those of pattern P; col holds the collider rows
 // (grid_common.cuh).  With n_iterations = 0 the wrapper launches one sweep
 // with project = 0, which runs only the epilogue.  kFeat: alive and scale
 // (either may be null: that feature is off) are the substep's planes,
 // written by the predict.
-template <bool kFeat>
-__global__ void __launch_bounds__(256) grid_xpbd_sweep_kernel(
+//
+// Each edge with an endpoint in the tile is evaluated once into shared
+// memory, (dlam, n) as a float4, zeros where there is no edge; the tile
+// writes its own edges' lambdas; then each vertex sums its terms.  At 64k
+// vertices an SM holds about two CTAs: a thread that evaluated a strip
+// entry in every offset that has one (lanes 0-1 of every warp, warps 0-1)
+// would cost about as much as recomputing every edge from both ends, so
+// the strips are spread one entry a thread, and the lambdas of each
+// thread's own entries load before the first barrier.
+template <int P, bool kFeat>
+__global__ void __launch_bounds__(kTileX * kTileY) grid_xpbd_sweep_kernel(
     const float* __restrict__ xp, const float* __restrict__ delta_in,
     float* __restrict__ delta_out, const float* __restrict__ lam_in,
     float* __restrict__ lam_out, unsigned char* __restrict__ flag,
     const float* __restrict__ inv_mass, const float* __restrict__ inv_cnt,
-    const float* __restrict__ offsets, int n_off, Colliders col,
-    int project, int last, float* __restrict__ x_out, float* __restrict__ v,
+    const float* __restrict__ offsets, Colliders col, int project, int last,
+    float* __restrict__ x_out, float* __restrict__ v,
     const float* __restrict__ alive, const float* __restrict__ scale,
     int ny, int nx, Params p) {
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  const int i = blockIdx.y * blockDim.y + threadIdx.y;
-  if (i >= ny || j >= nx) return;
+  using O = Offsets<P>;
+  using T = Tile<P>;
+  constexpr int TX = T::TX, TY = T::TY;
+  constexpr int kN = O::n;
+  using Seq = std::make_integer_sequence<int, kN>;
+  __shared__ float4 frame[T::FH * T::FW];   // xe, w
+  __shared__ float4 terms[T::B(kN)];        // dlam, n
+  const int x = threadIdx.x, y = threadIdx.y;
+  const int i0 = blockIdx.y * TY, j0 = blockIdx.x * TX;
+  const int i = i0 + y, j = j0 + x;
   const int ps = ny * nx;
   const int idx = i * nx + j;
-  const Vec3 xpi = load3(xp, idx, ps);
-  Vec3 dl = load3(delta_in, idx, ps);
-  const float wi = inv_mass[idx];
-  const bool movable = wi > 0.0f;
+  auto in_grid = [&](int a, int b) {
+    return a >= 0 && a < ny && b >= 0 && b < nx;
+  };
+  const bool mine = in_grid(i, j);
+  // the vertex's own inputs first: their loads overlap the staging's
+  Vec3 xpi{}, dl{};
+  float wi = 0.0f, c = 0.0f;
+  if (mine) {
+    xpi = load3(xp, idx, ps);
+    dl = load3(delta_in, idx, ps);
+    wi = inv_mass[idx];
+    if (project) c = inv_cnt[idx];
+  }
 
   if (project) {
-    const Vec3 xe = {xpi.x + dl.x, xpi.y + dl.y, xpi.z + dl.z};
-    float dx = 0.0f, dy = 0.0f, dz = 0.0f;
-    for (int o = 0; o < n_off; ++o) {
-      const int di = static_cast<int>(offsets[4 * o]);
-      const int dj = static_cast<int>(offsets[4 * o + 1]);
-      const float at = offsets[4 * o + 2];
-      const float rest = offsets[4 * o + 3];
-      Vec3 n;
-      // the edge this vertex owns, to (i + di, j + dj): lambda and -w dlam n
-      float lam = lam_in[o * ps + idx];
-      int ii = i + di, jj = j + dj;
-      if (ii >= 0 && ii < ny && jj >= 0 && jj < nx &&
-          (!kFeat || !alive || alive[o * ps + idx] != 0.0f)) {
-        const int nb = ii * nx + jj;
-        const float r = kFeat && scale ? __fmul_rn(rest, scale[o * ps + idx])
-                                       : rest;
-        const float dlam = xpbd_dlam(xe, eval_point(xp, delta_in, nb, ps),
-                                     wi, inv_mass[nb], at, r, lam, n);
-        lam += dlam;
-        const float s = -(wi * dlam);
-        dx += s * n.x;
-        dy += s * n.y;
-        dz += s * n.z;
-      }
-      lam_out[o * ps + idx] = lam;
-      // the edge owned by (i - di, j - dj), recomputed: +w dlam n here
-      ii = i - di;
-      jj = j - dj;
-      if (ii >= 0 && ii < ny && jj >= 0 && jj < nx) {
-        const int nb = ii * nx + jj;
-        if (kFeat && alive && alive[o * ps + nb] == 0.0f) continue;
-        const float r = kFeat && scale ? __fmul_rn(rest, scale[o * ps + nb])
-                                       : rest;
-        const float dlam = xpbd_dlam(eval_point(xp, delta_in, nb, ps), xe,
-                                     inv_mass[nb], wi, at, r,
-                                     lam_in[o * ps + nb], n);
-        const float s = wi * dlam;
-        dx += s * n.x;
-        dy += s * n.y;
-        dz += s * n.z;
-      }
+    // the owner of rectangle entry (r, cc) of offset o, in the grid
+    auto owner = [&](auto oc, int r, int cc, int& qi, int& qj) {
+      constexpr int o = decltype(oc)::value;
+      qi = i0 + min0(-O::di(o)) + r;
+      qj = j0 + min0(-O::dj(o)) + cc;
+      return in_grid(qi, qj);
+    };
+    // the lambda (and feature values) of entry (y, x) of every offset
+    float lam0[kN], alive0[kN], scale0[kN];
+    each_offset([&](auto oc) {
+      constexpr int o = decltype(oc)::value;
+      int qi, qj;
+      lam0[o] = 0.0f;
+      alive0[o] = scale0[o] = 1.0f;
+      if (!owner(oc, y, x, qi, qj)) return;
+      const int q = o * ps + qi * nx + qj;
+      lam0[o] = lam_in[q];
+      if (kFeat && alive) alive0[o] = alive[q];
+      if (kFeat && scale) scale0[o] = scale[q];
+    }, Seq{});
+    // stage the frame's evaluation points xe = xp + delta and masses
+#pragma unroll
+    for (int k = 0; k < (T::FH * T::FW + TX * TY - 1) / (TX * TY); ++k) {
+      const int cell = y * TX + x + k * TX * TY;
+      if (cell >= T::FH * T::FW) break;
+      const int gi = i0 - T::H + cell / T::FW, gj = j0 - T::H + cell % T::FW;
+      if (!in_grid(gi, gj)) continue;
+      const int q = gi * nx + gj;
+      const Vec3 e = eval_point(xp, delta_in, q, ps);
+      frame[cell] = make_float4(e.x, e.y, e.z, inv_mass[q]);
     }
-    const float c = inv_cnt[idx];
+    __syncthreads();
+    // rectangle entry (r, cc) of offset o: (dlam, n) or zeros, the tile's
+    // own lambdas out; `own` marks the thread's entry (y, x)
+    auto evaluate = [&](auto oc, int r, int cc, bool own) {
+      constexpr int o = decltype(oc)::value;
+      int qi, qj;
+      float4 term = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      if (owner(oc, r, cc, qi, qj)) {
+        const int q = o * ps + qi * nx + qj;
+        const int bi = qi + O::di(o), bj = qj + O::dj(o);
+        float lam = own ? lam0[o] : lam_in[q];
+        float a = 1.0f, sc = 1.0f;
+        if (kFeat && alive) a = own ? alive0[o] : alive[q];
+        if (kFeat && scale) sc = own ? scale0[o] : scale[q];
+        if (in_grid(bi, bj) && a != 0.0f) {
+          const float4 pa =
+              frame[(qi - i0 + T::H) * T::FW + (qj - j0 + T::H)];
+          const float4 pb =
+              frame[(bi - i0 + T::H) * T::FW + (bj - j0 + T::H)];
+          const float rest = offsets[4 * o + 3];
+          const float rr = kFeat && scale ? __fmul_rn(rest, sc) : rest;
+          Vec3 nrm;
+          const float dlam =
+              xpbd_dlam({pa.x, pa.y, pa.z}, {pb.x, pb.y, pb.z}, pa.w, pb.w,
+                        offsets[4 * o + 2], rr, lam, nrm);
+          lam += dlam;
+          term = make_float4(dlam, nrm.x, nrm.y, nrm.z);
+        }
+        if (qi >= i0 && qi < i0 + TY && qj >= j0 && qj < j0 + TX)
+          lam_out[q] = lam;
+      }
+      terms[T::B(o) + r * T::NC(o) + cc] = term;
+    };
+    each_offset([&](auto oc) { evaluate(oc, y, x, true); }, Seq{});
+    // the strips, rows past TY (all NC columns) then columns past TX
+#pragma unroll
+    for (int e0 = y * TX + x; e0 < T::SB(kN); e0 += TX * TY) {
+      each_offset([&](auto oc) {
+        constexpr int o = decltype(oc)::value;
+        constexpr int rows = abs_c(O::di(o)) * T::NC(o);
+        constexpr int cols = abs_c(O::dj(o)) > 0 ? abs_c(O::dj(o)) : 1;
+        const int e = e0 - T::SB(o);
+        if (e < 0 || e >= T::S(o)) return;
+        if (e < rows)
+          evaluate(oc, TY + e / T::NC(o), e % T::NC(o), false);
+        else
+          evaluate(oc, (e - rows) / cols, TX + (e - rows) % cols, false);
+      }, Seq{});
+    }
+    __syncthreads();
+    if (!mine) return;
+    float dx = 0.0f, dy = 0.0f, dz = 0.0f;
+    each_offset([&](auto oc) {
+      constexpr int o = decltype(oc)::value;
+      constexpr int di = O::di(o), dj = O::dj(o);
+      constexpr int r0 = min0(-di), c0 = min0(-dj);
+      // the edge this vertex owns: -(w dlam) n (zeros where it has none)
+      const float4 a = terms[T::B(o) + (y - r0) * T::NC(o) + (x - c0)];
+      float s = -(wi * a.x);
+      dx += s * a.y;
+      dy += s * a.z;
+      dz += s * a.w;
+      // the edge owned by (i - di, j - dj): +(w dlam) n here
+      const float4 b =
+          terms[T::B(o) + (y - di - r0) * T::NC(o) + (x - dj - c0)];
+      s = wi * b.x;
+      dx += s * b.y;
+      dy += s * b.z;
+      dz += s * b.w;
+    }, Seq{});
     dl = {dl.x + dx * c, dl.y + dy * c, dl.z + dz * c};
-    if (movable) project_delta(dl, xpi, flag + idx, col);
+    if (wi > 0.0f) project_delta(dl, xpi, flag + idx, col);
     if (!last) {
       store3(delta_out, idx, ps, dl);
       return;
     }
   }
-  finish(dl, xpi, idx, ps, movable, flag[idx], col, x_out, v, p);
+  if (!mine) return;
+  finish(dl, xpi, idx, ps, wi > 0.0f, flag[idx], col, x_out, v, p);
 }
 
 // The last strain sweep's epilogue (stencil.py::xpbd_substep_grid): the
@@ -313,80 +501,132 @@ dim3 grid_of(int ny, int nx, dim3 block) {
 
 }  // namespace
 
-// Launch the predict pass of one substep on `stream`; returns the
-// cudaError_t of the launch (0 = cudaSuccess).  f_ext may be null (no
-// external force plane).  With feat = 1 the predict also runs the feature
-// update from x (a null alive_* or scale_* pair turns that feature off;
-// inv_cnt_out is null without tearing).  Allocates nothing and does not
-// synchronise.
-extern "C" int grid_xpbd_predict(
-    const float* v, float* delta, float* lam, int n_off, unsigned char* flag,
-    const float* inv_mass, const float* f_ext, const float* x,
-    const float* offsets, int feat, const float* alive_in, float* alive_out,
-    const float* scale_in, float* scale_out, const float* tear_limits,
-    int first, float strain1, float yield_strain, float creep,
-    float min_scale, float max_scale, float relaxation, float* inv_cnt_out,
-    int wind_on, float wvx, float wvy, float wvz, float drag, float lift,
-    int ny, int nx, float dt, float gx, float gy, float gz, float decay,
-    void* stream) {
-  const Params p{dt, gx, gy, gz, decay, 0.0f, 1.0f, 1.0f};
-  const FeatParams fp{strain1, yield_strain, creep, min_scale, max_scale};
-  const Wind wind{wvx, wvy, wvz, drag, lift};
+// What one substep launches with, fixed over a call of the step function:
+// softbodyunity_torch/kernels/grid_xpbd.py::_Substep mirrors it field by
+// field (grid_xpbd_substep_size checks the two agree).
+struct GridXpbdSubstep {
+  float* v;                   // [3, ny, nx], in place
+  float* delta[2];            // [3, ny, nx] ping-pong
+  float* lam[2];              // [n_off, ny, nx] ping-pong
+  unsigned char* flag;        // [ny, nx]
+  const float* inv_mass;      // [ny, nx]
+  const float* inv_cnt;       // [ny, nx] the sweeps' Jacobi weights
+  float* inv_cnt_out;         // where the predict writes them under
+                              // tearing (= inv_cnt), else null
+  const float* offsets;       // [n_off, 4]
+  const float* tear_limits;   // [n_off] (feat)
+  void* stream;
+  int n_off;
+  int pattern;                // the offsets' Pattern
+  int feat, wind_on;
+  int n_sweeps;               // Jacobi sweep launches
+  int project;                // 0: n_iterations = 0, the epilogue alone
+  int epilogue;               // the last sweep runs the epilogue (else the
+                              // strain sweeps that follow do)
+  int ny, nx;
+  float relaxation;
+  FeatParams fp;
+  Colliders col;
+  Wind wind;
+  Params p;
+};
+
+extern "C" int grid_xpbd_substep_size() {
+  return static_cast<int>(sizeof(GridXpbdSubstep));
+}
+
+// The sweeps of one substep on pattern P: s->n_sweeps launches from
+// delta[0] and lam[0], ping-pong; the last runs the epilogue unless the
+// strain sweeps follow.
+template <int P>
+int launch_sweeps(const GridXpbdSubstep* s, cudaStream_t st, const float* x,
+                  float* x_out, const float* alive, const float* scale,
+                  int* launches) {
+  const dim3 block(kTileX, kTileY);
+  const dim3 grid = grid_of(s->ny, s->nx, block);
+  for (int it = 0; it < s->n_sweeps; ++it) {
+    const int a = it % 2, b = 1 - a;
+    const int last = s->epilogue && it == s->n_sweeps - 1;
+#define GRID_XPBD_SWEEP(FEAT)                                             \
+  grid_xpbd_sweep_kernel<P, FEAT><<<grid, block, 0, st>>>(                \
+      x, s->delta[a], s->delta[b], s->lam[a], s->lam[b], s->flag,         \
+      s->inv_mass, s->inv_cnt, s->offsets, s->col, s->project, last,      \
+      x_out, s->v, alive, scale, s->ny, s->nx, s->p)
+    if (s->feat)
+      GRID_XPBD_SWEEP(true);
+    else
+      GRID_XPBD_SWEEP(false);
+#undef GRID_XPBD_SWEEP
+    ++*launches;
+    if (int err = static_cast<int>(cudaGetLastError())) return err;
+  }
+  return 0;
+}
+
+// Launch one substep on s->stream: the predict, then s->n_sweeps Jacobi
+// sweeps, the last running the epilogue unless the strain sweeps follow
+// (then every sweep stores delta, into s->delta[n_sweeps % 2]).  x is the
+// substep's start, x_out receives its end; f_ext may be null (no external
+// force plane).  With s->feat the predict also runs the feature update from
+// x unless `first`, from the *_in planes into the *_out planes (a null pair
+// turns that feature off), which the sweeps then read.  *launches counts
+// the kernels launched; returns the first launch's cudaError_t that is not
+// cudaSuccess, after which it launches nothing more.  Allocates nothing and
+// does not synchronise.
+extern "C" int grid_xpbd_substep(const GridXpbdSubstep* s, const float* x,
+                                 float* x_out, const float* f_ext,
+                                 const float* alive_in, float* alive_out,
+                                 const float* scale_in, float* scale_out,
+                                 int first, int* launches) {
+  const cudaStream_t st = static_cast<cudaStream_t>(s->stream);
+  const int ny = s->ny, nx = s->nx;
+  *launches = 0;
+  auto done = [&]() {
+    ++*launches;
+    return static_cast<int>(cudaGetLastError());
+  };
   const dim3 block(32, 8);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define GRID_XPBD_PREDICT(EXT, FEAT, WIND)                                  \
   grid_xpbd_predict_kernel<EXT, FEAT, WIND>                                 \
       <<<grid_of(ny, nx, block), block, 0, st>>>(                           \
-          v, delta, lam, n_off, flag, inv_mass, f_ext, x, offsets,          \
-          alive_in, alive_out, scale_in, scale_out, tear_limits, first, fp, \
-          relaxation, inv_cnt_out, wind, ny, nx, p)
+          s->v, s->delta[0], s->lam[0], s->n_off, s->flag, s->inv_mass,     \
+          f_ext, x, s->offsets, alive_in, alive_out, scale_in, scale_out,   \
+          s->tear_limits, first, s->fp, s->relaxation, s->inv_cnt_out,      \
+          s->wind, ny, nx, s->p)
 #define GRID_XPBD_WIND(EXT, FEAT)           \
   do {                                      \
-    if (wind_on)                            \
+    if (s->wind_on)                         \
       GRID_XPBD_PREDICT(EXT, FEAT, true);   \
     else                                    \
       GRID_XPBD_PREDICT(EXT, FEAT, false);  \
   } while (0)
-  if (f_ext && feat)
+  if (f_ext && s->feat)
     GRID_XPBD_WIND(true, true);
   else if (f_ext)
     GRID_XPBD_WIND(true, false);
-  else if (feat)
+  else if (s->feat)
     GRID_XPBD_WIND(false, true);
   else
     GRID_XPBD_WIND(false, false);
 #undef GRID_XPBD_WIND
 #undef GRID_XPBD_PREDICT
-  return static_cast<int>(cudaGetLastError());
-}
+  if (int err = done()) return err;
 
-// Launch one Jacobi sweep (and, with last = 1, the epilogue) on `stream`;
-// returns the cudaError_t of the launch.  feat = 1 reads the substep's
-// alive and scale planes (either may be null).  Allocates nothing and does
-// not synchronise.
-extern "C" int grid_xpbd_sweep(
-    const float* xp, const float* delta_in, float* delta_out,
-    const float* lam_in, float* lam_out, unsigned char* flag,
-    const float* inv_mass, const float* inv_cnt, const float* offsets,
-    int n_off, COLLIDER_PARAMS, int project, int last, float* x_out,
-    float* v, int feat, const float* alive,
-    const float* scale, int ny, int nx, float dt, float mu, float keep,
-    float shell, void* stream) {
-  const Params p{dt, 0.0f, 0.0f, 0.0f, 1.0f, mu, keep, shell};
-  const dim3 block(32, 8);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const Colliders col = COLLIDERS;
-#define GRID_XPBD_SWEEP(FEAT)                                               \
-  grid_xpbd_sweep_kernel<FEAT><<<grid_of(ny, nx, block), block, 0, st>>>(   \
-      xp, delta_in, delta_out, lam_in, lam_out, flag, inv_mass, inv_cnt,    \
-      offsets, n_off, col, project, last, x_out, v, alive, scale, ny, nx,   \
-      p)
-  if (feat)
-    GRID_XPBD_SWEEP(true);
-  else
-    GRID_XPBD_SWEEP(false);
-#undef GRID_XPBD_SWEEP
-  return static_cast<int>(cudaGetLastError());
+  switch (s->pattern) {
+    case kStructural:
+      return launch_sweeps<kStructural>(s, st, x, x_out, alive_out, scale_out,
+                                        launches);
+    case kShear:
+      return launch_sweeps<kShear>(s, st, x, x_out, alive_out, scale_out,
+                                   launches);
+    case kBend:
+      return launch_sweeps<kBend>(s, st, x, x_out, alive_out, scale_out,
+                                  launches);
+    case kShearBend:
+      return launch_sweeps<kShearBend>(s, st, x, x_out, alive_out, scale_out,
+                                       launches);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // Launch one strain-limit sweep (grid_common.cuh::grid_strain_sweep_kernel)

@@ -1,7 +1,8 @@
 // Fused XPBD substep for banded tet lattices, for Hopper (sm_90a).  Built
 // by softbodyunity_torch/kernels/build.py, wrapped by
 // softbodyunity_torch/kernels/lattice_xpbd.py; its plain PyTorch version is
-// softbodyunity_torch/solver/step.py::substep_xpbd.
+// softbodyunity_torch/solver/step.py::substep_xpbd (its sweep
+// solver/banded.py::xpbd_iteration_banded).
 //
 // Replaces the TPU kernel softbodyunity_tpu/kernels/pallas_lattice.py
 // ::_make_xpbd_kernel, launched by ::_pallas_lattice_xpbd_substeps through
@@ -14,43 +15,69 @@
 // wind's drag in the predict (the kDrag instantiation; lift is gated off
 // lattices).
 //
-// Design.  A Jacobi sweep reads every neighbour's evaluation point and
-// lambdas, so each sweep needs a grid-wide barrier; here that barrier is a
-// kernel boundary, as in grid_xpbd.cu.  A substep is 1 + n_iterations
-// launches over flat [3, N] planes, one thread per vertex:
-//   predict   v <- (v + dt g)(1 - gdamp dt), 0 on pins; delta <- dt v; the
-//             edge and tet lambda planes and the contact flag <- 0.  x is
-//             the substep's start xp and stays read-only.
-//   sweep     (n_iterations launches) at the evaluation point xe = xp +
-//             delta: per edge group, dlam of the edge the vertex owns and,
-//             from the same device function, argument order and old
-//             lambda, dlam of the edge owned by i - d; per tet group, its
-//             own tet and its share as corner k of the tet based at i - d_k
-//             (lattice_common.cuh); the vertex writes only its own new
-//             lambdas; delta += relaxation dx / count; then the plane clamp
-//             as plane - xp (OR'd into the contact flag), the sphere
-//             push-out as a delta and the capsules' and boxes' as another
-//             (grid_common.cuh::project_delta).  delta and the lambda
-//             planes ping-pong;
-//             the flag is the vertex's own and stays in place.
-//   epilogue  run by the last sweep: plane friction on the OR'd flag,
-//             sphere and capsule/box friction
-//             (grid_common.cuh::friction_delta), pins masked, x = xp +
-//             delta into the other x buffer, v = delta / dt in place.
+// Design.  A Jacobi sweep reads every neighbour's evaluation point, so each
+// sweep needs a grid-wide barrier; here that barrier is a kernel boundary.
+// Each constraint is evaluated once per sweep, by one thread, and a second
+// pass gathers the terms at each vertex.  One C call (lattice_xpbd_substep)
+// launches a substep, 1 + 2 n_iterations launches, over flat [3, N] planes:
+//   predict     one thread per vertex: v <- (v + dt g)(1 - gdamp dt), 0 on
+//               pins; delta <- dt v; the edge and tet lambda planes and the
+//               contact flag <- 0.  x is the substep's start xp and stays
+//               read-only.
+//   constraint  one thread per (constraint group, base vertex), masked by
+//               the owner's bit: at the evaluation points xe (xp + delta
+//               on a substep's first sweep, else the plane the last gather
+//               wrote), the edge's dlam and unit direction n
+//               (grid_common.cuh::xpbd_dlam) or the tet's dlam and
+//               gradients g1, g2, g3 (lattice_common.cuh::tet_term); the
+//               new lambda back into the owner's entry, in place (no other
+//               thread reads it), and the terms into the scratch planes,
+//               zeros where the vertex owns no such constraint.
+//   gather      one thread per vertex sums, in the plain version's order,
+//               per edge group -(w dlam) n of the edge it owns and
+//               +(w dlam) n of the edge owned by i - d, then per tet group
+//               (w dlam) g0 of its own tet, g0 = -(g1 + g2 + g3) summed as
+//               tet_term sums it, and (w dlam) g_k as corner k = 1, 2, 3 of
+//               the tet based at i - d_k (a zero term adds a signed zero,
+//               which leaves dx as skipping it would); delta += relaxation
+//               dx / count; then the plane clamp as plane - xp (OR'd into
+//               the contact flag), the sphere push-out as a delta and the
+//               capsules' and boxes' as another (grid_common.cuh::
+//               project_delta); delta, in place, and xe = xp + delta out
+//               (a gather reads only its own vertex's delta and flag).
+//   epilogue    run by the last gather: plane friction on the OR'd flag,
+//               sphere and capsule/box friction (grid_common.cuh::
+//               friction_delta), pins masked, x = xp + delta into the other
+//               x buffer, v = delta / dt in place.  With n_iterations = 0
+//               a gather with project = 0 runs it alone (2 launches).
 // Delta form: the loop carries the substep's position change and never a
 // rounded x (the f32 drift bound depends on it).
+//
+// Scratch.  An edge's (n, dlam) sits in a float4 plane a group and a tet's
+// (g1, dlam), (g2, dlam), (g3, dlam) in three, [Ge, N] and [Gt * 3, N]
+// float4 (a corner's term is one 16-byte load): 9.2 MB + 30.7 MB at 40^3
+// (9 edge and 10 tet groups), 47 MB a sweep with the lambdas, delta, xe, x
+// and the masks.  That is about the whole 50 MB L2, whose two halves each
+// serve half the SMs, and the gather reads the terms at i - d_k (d_k up to
+// 1,641 vertices back) after other SMs wrote them, so the scratch does not
+// stay in L2: part of it goes to device memory and back each sweep.  A
+// narrower form that kept dlam alone and had the gather recompute each
+// owned direction and gradient measured 1.7x slower a sweep (PERF.md).
 //
 // What bounds it.  One substep must read x, v, inv_mass, the ownership word
 // and the constraint count and write x, v: 60 B per vertex, 3.8 MB at 64k,
 // ~1.2 us at 3.35 TB/s; 8 sweeps over 370k distance and 297k volume
 // constraints are ~430 MFLOP, ~6.4 us at 67 TFLOP/s: bound by operations.
-// Each sweep moves the 19 lambda planes and delta through L2 (~12 MB at
-// 64k), recomputes the shared constraints (2x edges, 4x tets), and 9
-// launches per substep each pay the launch latency.
+// On the card the constraint pass is bound by its instructions (a tet's
+// ten IEEE divides) and the gather by the scratch it reads, ~290 floats a
+// vertex from L2 and device memory.
 //
-// Rounding.  sqrtf and IEEE divides in the plain version's order; FMA
-// contraction makes the agreement one of rounding.  Pinned vertices keep x
-// bit for bit (their delta is masked to 0 and xp + 0 == xp).
+// Rounding.  sqrtf and IEEE divides in the plain version's order: the
+// products keep the order (w dlam) n and (w dlam) g_k of the earlier
+// one-pass kernel and the plain version, whose results these passes give
+// to the bit; FMA contraction makes the agreement with the plain version
+// one of rounding.  Pinned vertices keep x bit for bit (their
+// delta is masked to 0 and xp + 0 == xp).
 
 #include <cuda_runtime.h>
 
@@ -70,6 +97,11 @@ struct Params {
   float relax;        // xpbd.relaxation
   float alpha_v;      // compliance_volume / dt^2
 };
+
+// float4 planes of one tet group in the scratch: (g1, dlam), (g2, dlam),
+// (g3, dlam), so that a corner's term is one 16-byte load; an edge group
+// has one, (n, dlam).
+constexpr int kTetPlanes = 3;
 
 // kDrag: the wind's drag enters the acceleration as g + drag (velocity -
 // v) w (pallas_lattice.py:521).
@@ -97,65 +129,137 @@ __global__ void __launch_bounds__(256) lattice_xpbd_predict_kernel(
   flag[i] = 0;
 }
 
-// One Jacobi sweep (project = 1) and, on the last sweep (last = 1), the
-// substep's epilogue.  xp, delta_*, x_out, v are [3, n] planes; lam_* are
-// [n_edge + n_tet, n] (edge groups first); edges is [n_edge, 3] rows of
-// (delta, rest, alpha / dt^2); tets is [n_tet, 4] rows of (d1, d2, d3,
-// rest volume); cnt is the constraint count, at least 1.  With
-// n_iterations = 0 the wrapper launches one sweep with project = 0, which
-// runs only the epilogue.
-__global__ void __launch_bounds__(256) lattice_xpbd_sweep_kernel(
-    const float* __restrict__ xp, const float* __restrict__ delta_in,
-    float* __restrict__ delta_out, const float* __restrict__ lam_in,
-    float* __restrict__ lam_out, unsigned char* __restrict__ flag,
+// One constraint pass: thread t evaluates constraint group t / n (edge
+// groups first) at base vertex t % n, at the evaluation points xe, [3, n]
+// (the last gather's; the first sweep of a substep passes null and reads
+// xp + delta, the same float sums).  lam is [n_edge + n_tet, n] and
+// updated in place where the vertex owns the constraint; edges is
+// [n_edge, 3] rows of (delta, rest, alpha / dt^2), tets [n_tet, 4] rows of
+// (d1, d2, d3, rest volume); escr is [n_edge, n] float4 (n, dlam), tscr
+// [n_tet * 3, n] float4 (g_k, dlam).  A vertex that does not own the
+// constraint writes zeros, so that the gather reads every entry without the
+// ownership word; the corners' loads do not wait for that word either (a
+// corner out of range reads the base vertex, and the result is dropped).
+__global__ void __launch_bounds__(256) lattice_xpbd_constraint_kernel(
+    const float* __restrict__ xp, const float* __restrict__ delta,
+    const float* __restrict__ xe, float* __restrict__ lam,
     const float* __restrict__ inv_mass, const unsigned* __restrict__ bits,
     const float* __restrict__ edges, int n_edge,
-    const float* __restrict__ tets, int n_tet, const float* __restrict__ cnt,
-    Colliders col, int project, int last, float* __restrict__ x_out,
+    const float* __restrict__ tets, int n_tet, float4* __restrict__ escr,
+    float4* __restrict__ tscr, float alpha_v, int n) {
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  const int g = t / n;
+  const int i = t - g * n;
+  if (g >= n_edge + n_tet) return;
+  auto clamp = [&](int j) { return in_range(j, n) ? j : i; };
+  auto xe_of = [&](int j) {
+    return xe ? load3(xe, j, n) : eval_point(xp, delta, j, n);
+  };
+  const unsigned bi = bits[i];
+  const float lam_i = lam[t];
+  if (g < n_edge) {
+    const int nb = clamp(i + static_cast<int>(edges[3 * g]));
+    Vec3 nrm;
+    float dlam = xpbd_dlam(xe_of(i), xe_of(nb), inv_mass[i], inv_mass[nb],
+                           edges[3 * g + 2], edges[3 * g + 1], lam_i, nrm);
+    if (has_bit(bi, g)) {
+      lam[t] = lam_i + dlam;
+    } else {
+      dlam = 0.0f;
+      nrm = {0.0f, 0.0f, 0.0f};
+    }
+    escr[t] = make_float4(nrm.x, nrm.y, nrm.z, dlam);
+    return;
+  }
+  const int tg = g - n_edge;
+  const int b1 = clamp(i + static_cast<int>(tets[4 * tg]));
+  const int b2 = clamp(i + static_cast<int>(tets[4 * tg + 1]));
+  const int b3 = clamp(i + static_cast<int>(tets[4 * tg + 2]));
+  TetTerm tt = tet_term(xe_of(i), xe_of(b1), xe_of(b2), xe_of(b3),
+                        inv_mass[i], inv_mass[b1], inv_mass[b2], inv_mass[b3],
+                        tets[4 * tg + 3], alpha_v, lam_i);
+  if (has_bit(bi, kTetBit + tg)) {
+    lam[t] = lam_i + tt.dlam;
+  } else {
+    tt.dlam = 0.0f;
+    tt.g1 = tt.g2 = tt.g3 = {0.0f, 0.0f, 0.0f};
+  }
+  float4* s = tscr + kTetPlanes * tg * n + i;
+  s[0] = make_float4(tt.g1.x, tt.g1.y, tt.g1.z, tt.dlam);
+  s[n] = make_float4(tt.g2.x, tt.g2.y, tt.g2.z, tt.dlam);
+  s[2 * n] = make_float4(tt.g3.x, tt.g3.y, tt.g3.z, tt.dlam);
+}
+
+// One gather pass (project = 1) and, on the last sweep (last = 1), the
+// substep's epilogue; with project = 0 the epilogue alone.  xp, delta,
+// xe_out, x_out, v are [3, n] planes (delta updated in place; a sweep but
+// the last writes the next constraint pass's evaluation points xp + delta
+// to xe_out); the scratch as the constraint pass wrote it (zeros where a
+// vertex owns no constraint: such a term adds a signed zero, which leaves
+// dx as skipping it would), so no ownership word is read; cnt is the
+// constraint count, at least 1.
+__global__ void __launch_bounds__(256) lattice_xpbd_gather_kernel(
+    const float* __restrict__ xp, float* __restrict__ delta,
+    unsigned char* __restrict__ flag, const float* __restrict__ inv_mass,
+    const float* __restrict__ edges, int n_edge,
+    const float* __restrict__ tets, int n_tet,
+    const float4* __restrict__ escr, const float4* __restrict__ tscr,
+    const float* __restrict__ cnt, Colliders col, int project, int last,
+    float* __restrict__ xe_out, float* __restrict__ x_out,
     float* __restrict__ v, int n, Params p) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   const Vec3 xpi = load3(xp, i, n);
-  Vec3 dl = load3(delta_in, i, n);
+  Vec3 dl = load3(delta, i, n);
   const float wi = inv_mass[i];
   const bool movable = wi > 0.0f;
 
   if (project) {
-    auto xe_of = [&](int j) { return eval_point(xp, delta_in, j, n); };
-    const Vec3 xe = {xpi.x + dl.x, xpi.y + dl.y, xpi.z + dl.z};
-    const unsigned bi = bits[i];
     Vec3 dx = {0.0f, 0.0f, 0.0f};
     for (int g = 0; g < n_edge; ++g) {
-      const int d = static_cast<int>(edges[3 * g]);
-      const float rest = edges[3 * g + 1];
-      const float at = edges[3 * g + 2];
-      Vec3 nrm;
-      // the edge this vertex owns, to i + d: lambda and -w dlam n
-      float lam = lam_in[g * n + i];
-      if (has_bit(bi, g)) {
-        const int nb = i + d;
-        const float dlam = xpbd_dlam(xe, xe_of(nb), wi, inv_mass[nb], at,
-                                     rest, lam, nrm);
-        lam += dlam;
-        add_scaled(dx, -(wi * dlam), nrm);
-      }
-      lam_out[g * n + i] = lam;
-      // the edge owned by i - d, recomputed: +w dlam n here
-      const int o = i - d;
-      if (in_range(o, n) && has_bit(bits[o], g)) {
-        const float dlam = xpbd_dlam(xe_of(o), xe, inv_mass[o], wi, at, rest,
-                                     lam_in[g * n + o], nrm);
-        add_scaled(dx, wi * dlam, nrm);
+      // the edge this vertex owns, to i + d: -(w dlam) n
+      float4 e = escr[g * n + i];
+      add_scaled(dx, -(wi * e.w), {e.x, e.y, e.z});
+      // the edge owned by i - d: +(w dlam) n here
+      const int o = i - static_cast<int>(edges[3 * g]);
+      if (in_range(o, n)) {
+        e = escr[g * n + o];
+        add_scaled(dx, wi * e.w, {e.x, e.y, e.z});
       }
     }
-    dx = banded_tet_sum(dx, xe_of, inv_mass, bits, tets, n_tet, p.alpha_v,
-                        lam_in + n_edge * n, lam_out + n_edge * n, i, n);
+    for (int t = 0; t < n_tet; ++t) {
+      // (dlam, g_k) of the tet based at b; k = 0 gives g0.  k is a
+      // constant of each unrolled call, so only g_k is loaded
+      auto corner = [&](int b, int k, Vec3& gk) {
+        const float4* s = tscr + kTetPlanes * t * n + b;
+        Vec3 g1{}, g2{}, g3{};
+        float4 q;
+        if (k != 2 && k != 3) q = s[0], g1 = {q.x, q.y, q.z};
+        if (k != 1 && k != 3) q = s[n], g2 = {q.x, q.y, q.z};
+        if (k != 1 && k != 2) q = s[2 * n], g3 = {q.x, q.y, q.z};
+        gk = k == 0 ? Vec3{-(g1.x + g2.x + g3.x), -(g1.y + g2.y + g3.y),
+                           -(g1.z + g2.z + g3.z)}
+                    : (k == 1 ? g1 : (k == 2 ? g2 : g3));
+        return q.w;
+      };
+      Vec3 gk;
+      float dlam = corner(i, 0, gk);
+      add_scaled(dx, wi * dlam, gk);
+#pragma unroll
+      for (int k = 1; k <= 3; ++k) {
+        const int b = i - static_cast<int>(tets[4 * t + k - 1]);
+        if (!in_range(b, n)) continue;
+        dlam = corner(b, k, gk);
+        add_scaled(dx, wi * dlam, gk);
+      }
+    }
     const float c = cnt[i];
     dl = {dl.x + p.relax * dx.x / c, dl.y + p.relax * dx.y / c,
           dl.z + p.relax * dx.z / c};
     if (movable) project_delta(dl, xpi, flag + i, col);
     if (!last) {
-      store3(delta_out, i, n, dl);
+      store3(delta, i, n, dl);
+      store3(xe_out, i, n, {xpi.x + dl.x, xpi.y + dl.y, xpi.z + dl.z});
       return;
     }
   }
@@ -171,46 +275,78 @@ unsigned blocks_of(int n) { return (n + 255) / 256; }
 
 }  // namespace
 
-// Launch the predict pass of one substep on `stream`; returns the
-// cudaError_t of the launch (0 = cudaSuccess).  Allocates nothing and does
-// not synchronise.
-extern "C" int lattice_xpbd_predict(const float* v, float* delta, float* lam,
-                                    int n_lam, unsigned char* flag,
-                                    const float* inv_mass, int drag_on,
-                                    float wvx, float wvy, float wvz,
-                                    float drag, int n, float dt, float gx,
-                                    float gy, float gz, float decay,
-                                    void* stream) {
-  const Params p{dt, gx, gy, gz, decay, 0.0f, 1.0f, 1.0f, 1.0f, 0.0f};
-  const Wind wind{wvx, wvy, wvz, drag, 0.0f};
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (drag_on)
-    lattice_xpbd_predict_kernel<true><<<blocks_of(n), 256, 0, st>>>(
-        v, delta, lam, n_lam, flag, inv_mass, wind, n, p);
-  else
-    lattice_xpbd_predict_kernel<false><<<blocks_of(n), 256, 0, st>>>(
-        v, delta, lam, n_lam, flag, inv_mass, wind, n, p);
-  return static_cast<int>(cudaGetLastError());
+// What one substep launches with, fixed over a call of the step function:
+// softbodyunity_torch/kernels/lattice_xpbd.py::_Substep mirrors it field by
+// field (lattice_xpbd_substep_size checks the two agree).
+struct LatticeXpbdSubstep {
+  float* v;                 // [3, n], in place
+  float* delta;             // [3, n], in place
+  float* xe;                // [3, n] the evaluation points after a sweep
+  float* lam;               // [n_edge + n_tet, n]
+  unsigned char* flag;      // [n]
+  const float* inv_mass;    // [n]
+  const unsigned* bits;     // [n]
+  const float* edges;       // [n_edge, 3]
+  const float* tets;        // [n_tet, 4]
+  const float* cnt;         // [n]
+  float4* escr;             // the scratch planes (kernel notes above)
+  float4* tscr;
+  void* stream;
+  int n_edge, n_tet, n;
+  int n_iterations;
+  int drag_on;
+  Colliders col;
+  Wind wind;
+  Params p;
+};
+
+extern "C" int lattice_xpbd_substep_size() {
+  return static_cast<int>(sizeof(LatticeXpbdSubstep));
 }
 
-// Launch one Jacobi sweep (and, with last = 1, the epilogue) on `stream`;
-// returns the cudaError_t of the launch.  Allocates nothing and does not
-// synchronise.
-extern "C" int lattice_xpbd_sweep(
-    const float* xp, const float* delta_in, float* delta_out,
-    const float* lam_in, float* lam_out, unsigned char* flag,
-    const float* inv_mass, const unsigned* bits, const float* edges,
-    int n_edge, const float* tets, int n_tet, const float* cnt,
-    COLLIDER_PARAMS, int project, int last, float* x_out,
-    float* v, int n, float dt, float mu, float keep, float shell, float relax,
-    float alpha_v, void* stream) {
-  const Params p{dt, 0.0f, 0.0f, 0.0f, 1.0f, mu, keep, shell, relax, alpha_v};
-  const Colliders col = COLLIDERS;
-  lattice_xpbd_sweep_kernel<<<blocks_of(n), 256, 0,
-                              static_cast<cudaStream_t>(stream)>>>(
-      xp, delta_in, delta_out, lam_in, lam_out, flag, inv_mass, bits, edges,
-      n_edge, tets, n_tet, cnt, col, project, last, x_out, v, n, p);
-  return static_cast<int>(cudaGetLastError());
+// Launch one substep on s->stream: the predict, then per Jacobi sweep a
+// constraint and a gather pass, the last gather running the epilogue (with
+// no sweep, one gather runs the epilogue alone).  x is the substep's start,
+// x_out receives its end.  *launches counts the kernels launched; returns
+// the first launch's cudaError_t that is not cudaSuccess, after which it
+// launches nothing more.  Allocates nothing and does not synchronise.
+extern "C" int lattice_xpbd_substep(const LatticeXpbdSubstep* s,
+                                    const float* x, float* x_out,
+                                    int* launches) {
+  const cudaStream_t st = static_cast<cudaStream_t>(s->stream);
+  const int n = s->n, n_lam = s->n_edge + s->n_tet;
+  *launches = 0;
+  auto done = [&]() {
+    ++*launches;
+    return static_cast<int>(cudaGetLastError());
+  };
+  if (s->drag_on)
+    lattice_xpbd_predict_kernel<true><<<blocks_of(n), 256, 0, st>>>(
+        s->v, s->delta, s->lam, n_lam, s->flag, s->inv_mass, s->wind, n,
+        s->p);
+  else
+    lattice_xpbd_predict_kernel<false><<<blocks_of(n), 256, 0, st>>>(
+        s->v, s->delta, s->lam, n_lam, s->flag, s->inv_mass, s->wind, n,
+        s->p);
+  if (int err = done()) return err;
+  const int sweeps = s->n_iterations > 0 ? s->n_iterations : 1;
+  const int project = s->n_iterations > 0;
+  for (int it = 0; it < sweeps; ++it) {
+    const int last = it == sweeps - 1;
+    if (project) {
+      lattice_xpbd_constraint_kernel<<<blocks_of(n_lam * n), 256, 0, st>>>(
+          x, s->delta, it ? s->xe : nullptr, s->lam, s->inv_mass, s->bits,
+          s->edges, s->n_edge, s->tets, s->n_tet, s->escr, s->tscr,
+          s->p.alpha_v, n);
+      if (int err = done()) return err;
+    }
+    lattice_xpbd_gather_kernel<<<blocks_of(n), 256, 0, st>>>(
+        x, s->delta, s->flag, s->inv_mass, s->edges, s->n_edge, s->tets,
+        s->n_tet, s->escr, s->tscr, s->cnt, s->col, project, last, s->xe,
+        x_out, s->v, n, s->p);
+    if (int err = done()) return err;
+  }
+  return 0;
 }
 
 extern "C" const char* lattice_xpbd_error_string(int err) {

@@ -60,6 +60,24 @@ COLLIDER_ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
 NO_CONTACT = (None, 0, 0, None, 0, 0, None, 0, None, 0, 0)
 
 
+class CollidersStruct(ctypes.Structure):
+    """``csrc/grid_common.cuh::Colliders`` field by field, for the structs
+    of the substep entries (``grid_xpbd_substep``, ``lattice_xpbd_substep``);
+    built from :meth:`ColliderRows.args`, whose order is the struct's."""
+
+    _fields_ = [(name, t) for name, t in zip(
+        ("plane", "plane_on", "plane_fric", "spheres", "n_spheres",
+         "sphere_fric", "capsules", "n_capsules", "boxes", "n_boxes",
+         "rest_fric"), COLLIDER_ARGTYPES)]
+
+
+class WindStruct(ctypes.Structure):
+    """``csrc/grid_common.cuh::Wind``: velocity, drag, lift."""
+
+    _fields_ = [(name, ctypes.c_float)
+                for name in ("vx", "vy", "vz", "drag", "lift")]
+
+
 class ColliderRows:
     """The collider rows a kernel reads, as launch arguments
     (:data:`COLLIDER_ARGTYPES`): float32 rows on the card, packed from a

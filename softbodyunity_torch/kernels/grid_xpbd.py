@@ -8,14 +8,16 @@ branch, :func:`.stencil.xpbd_substep_grid`); :mod:`.dispatch` takes it for
 tensors on the CPU and this wrapper for tensors on a CUDA device, where it
 launches the kernels or raises.
 
-A substep is ``1 + max(n_iterations, 1)`` launches: one predict pass, then
-one launch per Jacobi sweep, the grid-wide barrier between sweeps (with no
+A substep is one ``ctypes`` call, ``grid_xpbd_substep``, which launches
+``1 + max(n_iterations, 1)`` kernels: one predict pass, then one tiled
+launch per Jacobi sweep, the grid-wide barrier between sweeps (with no
 sweep, one launch runs the epilogue alone).  Under the strain limit the
 sweeps of :mod:`.grid_strain` follow the ``n_iterations`` Jacobi sweeps and
-the last of them runs the epilogue: ``1 + n_iterations + iterations``.  Under tearing or plasticity
-the predict also updates the feature planes (and, under tearing, the
-substep's Jacobi weights), and a frame ends with one more launch, the
-frame-end feature update (:mod:`.grid_features`).  Each launch counts once.
+the last of them runs the epilogue: ``1 + n_iterations + iterations``.
+Under tearing or plasticity the predict also updates the feature planes
+(and, under tearing, the substep's Jacobi weights), and a frame ends with
+one more launch, the frame-end feature update (:mod:`.grid_features`).
+Each launch counts once.
 """
 
 from __future__ import annotations
@@ -31,15 +33,23 @@ from ..core.topology import EDGE_BEND, EDGE_SHEAR, Topology
 from ..solver.collide import SPHERE_CONTACT_SHELL
 from . import grid_features, grid_strain
 from .blocks import self_collision_planes_cuda
-from .grid_features import (FINISH_ARGTYPES, LAUNCH_ARGTYPES, NO_FEATURES,
-                            CudaFeatures, features_on)
-from .grid_scene import (COLLIDER_ARGTYPES, WIND_ARGTYPES, check_input,
-                         check_launch, pack_grid_scene, wind_args)
+from .grid_features import (FINISH_ARGTYPES, CudaFeatures, _ptr,
+                            features_on)
+from .grid_scene import (COLLIDER_ARGTYPES, CollidersStruct, WindStruct,
+                         check_input, check_launch, pack_grid_scene)
 from .grid_strain import SWEEP_ARGTYPES, CudaStrain
 from .stencil import (_valid_mask, _xpbd_offsets, from_planes, jacobi_count,
                       to_planes)
 
 _launches = 0
+
+# The grid's offset patterns (csrc/grid_xpbd.cu Pattern), as (di, dj) rows of
+# the offsets table (kernels/stencil.py::_xpbd_offsets): structural, with
+# shear, with bend, with both
+PATTERNS = (((0, 1), (1, 0)),
+            ((0, 1), (1, 0), (1, 1), (1, -1)),
+            ((0, 1), (1, 0), (0, 2), (2, 0)),
+            ((0, 1), (1, 0), (1, 1), (1, -1), (0, 2), (2, 0)))
 
 
 def launch_count() -> int:
@@ -71,39 +81,69 @@ def launches_per_frame(cfg: SimConfig, n_substeps: int) -> int:
                                             launches_per_substep(cfg))
 
 
+def sweep_pattern(offsets) -> int:
+    """The index in :data:`PATTERNS` of the sweep compiled for the offsets
+    table's (di, dj, ...) rows; raises for a pattern no sweep is compiled
+    for."""
+    rows = tuple((int(o[0]), int(o[1])) for o in offsets)
+    if rows not in PATTERNS:
+        raise ValueError(f"no XPBD sweep is compiled for the offsets {rows}")
+    return PATTERNS.index(rows)
+
+
+class _FeatParams(ctypes.Structure):
+    _fields_ = [(name, ctypes.c_float) for name in (
+        "strain1", "yield_strain", "creep", "min_scale", "max_scale")]
+
+
+class _Params(ctypes.Structure):
+    _fields_ = [(name, ctypes.c_float) for name in (
+        "dt", "gx", "gy", "gz", "decay", "mu", "keep", "shell")]
+
+
+class _Substep(ctypes.Structure):
+    """``csrc/grid_xpbd.cu::GridXpbdSubstep`` field by field."""
+
+    _fields_ = [
+        ("v", ctypes.c_void_p),
+        ("delta", ctypes.c_void_p * 2),
+        ("lam", ctypes.c_void_p * 2),
+        *[(name, ctypes.c_void_p) for name in (
+            "flag", "inv_mass", "inv_cnt", "inv_cnt_out", "offsets",
+            "tear_limits", "stream")],
+        *[(name, ctypes.c_int) for name in (
+            "n_off", "pattern", "feat", "wind_on",
+            "n_sweeps", "project", "epilogue", "ny", "nx")],
+        ("relaxation", ctypes.c_float),
+        ("fp", _FeatParams),
+        ("col", CollidersStruct),
+        ("wind", WindStruct),
+        ("p", _Params),
+    ]
+
+
 @functools.cache
 def _launchers():
     from .build import load_library
 
     lib = load_library("grid_xpbd")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    predict = lib.grid_xpbd_predict
-    predict.argtypes = [
-        p, p, p, i, p, p,      # v, delta, lam, n_off, flag, inv_mass
-        p, p, p,               # f_ext (or null), x, offsets
-        *LAUNCH_ARGTYPES,      # the feature planes and scalars
-        f, p,                  # relaxation, inv_cnt out (tearing; or null)
-        *WIND_ARGTYPES,        # the wind
-        i, i,                  # ny, nx
-        f, f, f, f, f,         # dt, gx, gy, gz, decay
-        p,                     # stream
+    size = lib.grid_xpbd_substep_size
+    size.restype = i
+    if size() != ctypes.sizeof(_Substep):
+        raise RuntimeError(
+            f"grid_xpbd: the C substep struct has {size()} bytes, its "
+            f"ctypes mirror {ctypes.sizeof(_Substep)}")
+    substep = lib.grid_xpbd_substep
+    substep.argtypes = [
+        ctypes.POINTER(_Substep), p, p,   # the struct, x, x_out
+        p,                                # f_ext (or null)
+        p, p, p, p,                       # alive in, out, scale in, out
+        i, ctypes.POINTER(i),             # first, launches out
     ]
-    predict.restype = ctypes.c_int
-    sweep = lib.grid_xpbd_sweep
-    sweep.argtypes = [
-        p, p, p,               # xp, delta_in, delta_out
-        p, p, p,               # lam_in, lam_out, flag
-        p, p, p, i,            # inv_mass, inv_cnt, offsets, n_off
-        *COLLIDER_ARGTYPES,    # the colliders
-        i, i, p, p,            # project, last, x_out, v
-        i, p, p,               # feat, the substep's alive and scale planes
-        i, i,                  # ny, nx
-        f, f, f, f,            # dt, mu, keep, shell
-        p,                     # stream
-    ]
-    sweep.restype = ctypes.c_int
+    substep.restype = i
     lib.grid_xpbd_features.argtypes = FINISH_ARGTYPES
-    lib.grid_xpbd_features.restype = ctypes.c_int
+    lib.grid_xpbd_features.restype = i
     strain = lib.grid_xpbd_strain
     strain.argtypes = [
         *SWEEP_ARGTYPES,       # the sweep
@@ -114,18 +154,18 @@ def _launchers():
         f, f, f, f,            # dt, mu, keep, shell
         p,                     # stream
     ]
-    strain.restype = ctypes.c_int
-    lib.grid_xpbd_error_string.argtypes = [ctypes.c_int]
+    strain.restype = i
+    lib.grid_xpbd_error_string.argtypes = [i]
     lib.grid_xpbd_error_string.restype = ctypes.c_char_p
-    return (predict, sweep, lib.grid_xpbd_features, strain,
+    return (substep, lib.grid_xpbd_features, strain,
             lib.grid_xpbd_error_string)
 
 
 def make_cuda_step(top: Topology, cfg: SimConfig):
     """Build ``fn(state, dt, n_substeps) -> state`` that runs each substep as
-    a predict launch and one launch per Jacobi sweep of the fused XPBD grid
-    kernels.  The result carries ``x_prev = x - dt * v``, as the plain
-    version's.
+    one ``grid_xpbd_substep`` call (a predict launch and one launch per
+    Jacobi sweep, on CTAs that own a 32 x 8 tile of the grid).  The result
+    carries ``x_prev = x - dt * v``, as the plain version's.
 
     ``inv_cnt = relaxation / max(count, 1)`` is packed once, here, the
     collider rows once per topology a call brings (as
@@ -149,22 +189,22 @@ def make_cuda_step(top: Topology, cfg: SimConfig):
                              EDGE_SHEAR in top.edge_classes_present,
                              EDGE_BEND in top.edge_classes_present)
     n_off = len(xoffsets)
+    pattern = sweep_pattern(xoffsets)
     masks = [_valid_mask(ny, nx, di, dj, device, torch.float32)
              for di, dj, _, _ in xoffsets]
     inv_cnt = (cfg.xpbd.relaxation / jacobi_count(xoffsets, masks)).contiguous()
     mu = cfg.collision.friction
     n_sweeps = jacobi_launches(cfg)
-    project = int(cfg.xpbd.n_iterations > 0)
     gx, gy, gz = cfg.gravity
     tables = {}
     sc_force = self_collision_planes_cuda(cfg, ny, nx, device)
-    predict, sweep, finish, strain_fn, error_string = _launchers()
+    substep, finish, strain_fn, error_string = _launchers()
     feat = (CudaFeatures(top, cfg, xoffsets, finish, error_string,
                          "grid_xpbd") if features_on(cfg) else None)
     strain = (CudaStrain(cfg, xoffsets, sc.inv_mass, strain_fn, error_string,
                          "grid_xpbd")
               if cfg.strain_limit.enabled else None)
-    wind = wind_args(cfg)
+    w = cfg.wind
     tearing = cfg.tear.enabled
 
     def fn(state: State, dt: float, n_substeps: int, top=None) -> State:
@@ -183,64 +223,63 @@ def make_cuda_step(top: Topology, cfg: SimConfig):
         x = torch.empty((3, ny, nx), dtype=torch.float32, device=device)
         x_out = torch.empty_like(x)
         v = torch.empty_like(x)
-        d_in = torch.empty_like(x)
-        d_out = torch.empty_like(x)
-        lam_in = torch.empty((n_off, ny, nx), dtype=torch.float32,
-                             device=device)
-        lam_out = torch.empty_like(lam_in)
+        delta = torch.empty((2, 3, ny, nx), dtype=torch.float32,
+                            device=device)
+        lam = torch.empty((2, n_off, ny, nx), dtype=torch.float32,
+                          device=device)
         flag = torch.empty((ny, nx), dtype=torch.uint8, device=device)
         x.copy_(to_planes(state.x, ny, nx))
         v.copy_(to_planes(state.v, ny, nx))
         edge_alive, rest_scale = state.edge_alive, state.rest_scale
         # under tearing the predict writes each substep's Jacobi weights
         cnt = torch.empty_like(inv_cnt) if tearing else inv_cnt
+        # the Jacobi loop's last delta, where the strain sweeps start
+        d_last = delta[n_sweeps % 2]
         with torch.cuda.device(device):
             stream = torch.cuda.current_stream(device).cuda_stream
+            args = _Substep(
+                v.data_ptr(),
+                (ctypes.c_void_p * 2)(delta[0].data_ptr(),
+                                      delta[1].data_ptr()),
+                (ctypes.c_void_p * 2)(lam[0].data_ptr(), lam[1].data_ptr()),
+                flag.data_ptr(), sc.inv_mass.data_ptr(), cnt.data_ptr(),
+                cnt.data_ptr() if tearing else None, table.data_ptr(),
+                feat.limits.data_ptr() if feat else None, stream,
+                n_off, pattern, int(feat is not None),
+                int(w.enabled), n_sweeps, int(cfg.xpbd.n_iterations > 0),
+                int(strain is None), ny, nx, cfg.xpbd.relaxation,
+                _FeatParams(*(feat.scalars if feat else (0.0,) * 5)),
+                CollidersStruct(*colliders),
+                WindStruct(*w.velocity, w.drag, w.lift),
+                _Params(dt, gx, gy, gz, 1.0 - cfg.global_damping * dt, mu,
+                        1.0 - mu, SPHERE_CONTACT_SHELL))
+            launched = ctypes.c_int()
+            ref, count = ctypes.byref(args), ctypes.byref(launched)
             if feat:
                 feat.begin(state)
             if strain:
                 strain.begin(x)
             for k in range(n_substeps):
                 f_ext = sc_force(x) if sc_force else None
-                check_launch(predict(
-                    v.data_ptr(), d_in.data_ptr(), lam_in.data_ptr(), n_off,
-                    flag.data_ptr(), sc.inv_mass.data_ptr(),
-                    None if f_ext is None else f_ext.data_ptr(),
-                    x.data_ptr(), table.data_ptr(),
-                    *(feat.launch_args(k == 0) if feat else NO_FEATURES),
-                    cfg.xpbd.relaxation, cnt.data_ptr() if tearing else None,
-                    *wind, ny, nx, dt, gx, gy, gz,
-                    1.0 - cfg.global_damping * dt,
-                    stream), "grid_xpbd predict", error_string)
-                _launches += 1
+                err = substep(
+                    ref, x.data_ptr(), x_out.data_ptr(), _ptr(f_ext),
+                    *((_ptr(feat.alive), _ptr(feat.alive_out),
+                       _ptr(feat.scale), _ptr(feat.scale_out)) if feat
+                      else (None,) * 4),
+                    int(k == 0), count)
+                _launches += launched.value
+                check_launch(err, "grid_xpbd substep", error_string)
                 if feat:
                     feat.swap()
-                alive = feat.alive.data_ptr() if tearing else None
-                scale = (feat.scale.data_ptr()
-                         if feat and feat.scale is not None else None)
-                for it in range(n_sweeps):
-                    check_launch(sweep(
-                        x.data_ptr(), d_in.data_ptr(), d_out.data_ptr(),
-                        lam_in.data_ptr(), lam_out.data_ptr(),
-                        flag.data_ptr(), sc.inv_mass.data_ptr(),
-                        cnt.data_ptr(), table.data_ptr(), n_off, *colliders,
-                        project, int(not strain and it == n_sweeps - 1),
-                        x_out.data_ptr(),
-                        v.data_ptr(), int(feat is not None), alive, scale,
-                        ny, nx, dt, mu, 1.0 - mu, SPHERE_CONTACT_SHELL,
-                        stream), "grid_xpbd sweep", error_string)
-                    _launches += 1
-                    d_in, d_out = d_out, d_in
-                    lam_in, lam_out = lam_out, lam_in
                 if strain:
                     # sweeps from xp + delta; the last projects the contact
                     # once more and runs the epilogue
                     _launches += strain.launch(
-                        x, d_in, table, feat.alive if feat else None,
+                        x, d_last, table, feat.alive if feat else None,
                         feat.scale if feat else None,
-                        (x.data_ptr(), d_in.data_ptr(), flag.data_ptr(),
-                         *colliders, x_out.data_ptr(), v.data_ptr(), ny, nx, dt, mu,
-                         1.0 - mu, SPHERE_CONTACT_SHELL, stream))
+                        (x.data_ptr(), d_last.data_ptr(), flag.data_ptr(),
+                         *colliders, x_out.data_ptr(), v.data_ptr(), ny, nx,
+                         dt, mu, 1.0 - mu, SPHERE_CONTACT_SHELL, stream))
                 x, x_out = x_out, x
             if feat:
                 if n_substeps > 0:

@@ -5,9 +5,12 @@ The plain PyTorch version is :func:`softbodyunity_torch.solver.step.make_plain_s
 :mod:`.dispatch` takes it for tensors on the CPU and this wrapper for
 tensors on a CUDA device, where it launches the kernels or raises.
 
-A substep is ``1 + max(n_iterations, 1)`` launches: one predict pass, then
-one launch per Jacobi sweep, the grid-wide barrier between sweeps (with no
-sweep, one launch runs the epilogue alone).  Each launch counts once.
+A substep is one ``ctypes`` call, ``lattice_xpbd_substep``, which launches
+``1 + 2 n_iterations`` kernels: one predict pass, then per Jacobi sweep a
+constraint pass (each edge and tet evaluated once) and a gather pass (the
+terms summed at each vertex), the grid-wide barriers between them (with no
+sweep, one gather runs the epilogue alone: 2 launches).  Each launch counts
+once.
 """
 
 from __future__ import annotations
@@ -21,16 +24,16 @@ from ..core.config import SimConfig, Solver
 from ..core.state import State
 from ..core.topology import Topology
 from ..solver.collide import SPHERE_CONTACT_SHELL
-from .grid_scene import COLLIDER_ARGTYPES, check_input, check_launch
-from .lattice import (DRAG_ARGTYPES, drag_args, from_planes,
-                      pack_lattice_scene, to_planes)
+from .grid_scene import (CollidersStruct, WindStruct, check_input,
+                         check_launch)
+from .lattice import from_planes, pack_lattice_scene, to_planes
 
 _launches = 0
 
 
 def launch_count() -> int:
-    """Kernel launches (predict and sweep) since the last
-    :func:`reset_launch_count`."""
+    """Kernel launches (predict, constraint and gather passes) since the
+    last :func:`reset_launch_count`."""
     return _launches
 
 
@@ -40,8 +43,31 @@ def reset_launch_count() -> None:
 
 
 def launches_per_substep(top: Topology, cfg: SimConfig) -> int:
-    """Predict plus one launch per sweep (at least one, for the epilogue)."""
-    return 1 + max(cfg.xpbd.n_iterations, 1)
+    """Predict plus a constraint and a gather pass per sweep (with no
+    sweep, one gather for the epilogue)."""
+    return 1 + max(2 * cfg.xpbd.n_iterations, 1)
+
+
+class _Params(ctypes.Structure):
+    _fields_ = [(name, ctypes.c_float) for name in (
+        "dt", "gx", "gy", "gz", "decay", "mu", "keep", "shell", "relax",
+        "alpha_v")]
+
+
+class _Substep(ctypes.Structure):
+    """``csrc/lattice_xpbd.cu::LatticeXpbdSubstep`` field by field."""
+
+    _fields_ = [
+        ("v", ctypes.c_void_p),
+        *[(name, ctypes.c_void_p) for name in (
+            "delta", "xe", "lam", "flag", "inv_mass", "bits", "edges", "tets", "cnt",
+            "escr", "tscr", "stream")],
+        *[(name, ctypes.c_int) for name in (
+            "n_edge", "n_tet", "n", "n_iterations", "drag_on")],
+        ("col", CollidersStruct),
+        ("wind", WindStruct),
+        ("p", _Params),
+    ]
 
 
 @functools.cache
@@ -49,54 +75,42 @@ def _launchers():
     from .build import load_library
 
     lib = load_library("lattice_xpbd")
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    predict = lib.lattice_xpbd_predict
-    predict.argtypes = [
-        p, p, p, i, p, p,      # v, delta, lam, n_lam, flag, inv_mass
-        *DRAG_ARGTYPES,        # the wind's drag
-        i,                     # n
-        f, f, f, f, f,         # dt, gx, gy, gz, decay
-        p,                     # stream
-    ]
-    predict.restype = ctypes.c_int
-    sweep = lib.lattice_xpbd_sweep
-    sweep.argtypes = [
-        p, p, p,               # xp, delta_in, delta_out
-        p, p, p,               # lam_in, lam_out, flag
-        p, p, p, i,            # inv_mass, bits, edges, n_edge
-        p, i, p,               # tets, n_tet, cnt
-        *COLLIDER_ARGTYPES,    # the colliders
-        i, i, p, p,            # project, last, x_out, v
-        i,                     # n
-        f, f, f, f, f, f,      # dt, mu, keep, shell, relax, alpha_v
-        p,                     # stream
-    ]
-    sweep.restype = ctypes.c_int
+    size = lib.lattice_xpbd_substep_size
+    size.restype = ctypes.c_int
+    if size() != ctypes.sizeof(_Substep):
+        raise RuntimeError(
+            f"lattice_xpbd: the C substep struct has {size()} bytes, its "
+            f"ctypes mirror {ctypes.sizeof(_Substep)}")
+    substep = lib.lattice_xpbd_substep
+    substep.argtypes = [ctypes.POINTER(_Substep), ctypes.c_void_p,
+                        ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
+    substep.restype = ctypes.c_int
     lib.lattice_xpbd_error_string.argtypes = [ctypes.c_int]
     lib.lattice_xpbd_error_string.restype = ctypes.c_char_p
-    return predict, sweep, lib.lattice_xpbd_error_string
+    return substep, lib.lattice_xpbd_error_string
 
 
 def make_cuda_step(top: Topology, cfg: SimConfig):
-    """Build ``fn(state, dt, n_substeps) -> state`` that runs each substep as
-    a predict launch and one launch per Jacobi sweep of the fused XPBD
-    lattice kernels.  The result carries ``x_prev = x - dt * v``, as the
-    plain version's.
+    """Build ``fn(state, dt, n_substeps) -> state`` that runs each substep
+    as one ``lattice_xpbd_substep`` call (a predict launch, then a
+    constraint and a gather launch per Jacobi sweep).  The result carries
+    ``x_prev = x - dt * v``, as the plain version's.
 
-    The ownership words and the constraint counts are packed once, here,
-    the collider rows once per topology a call brings (as
-    :func:`.lattice_euler.make_cuda_step` packs them); the edge table (delta, rest, compliance / dt^2) once
-    per substep size ``dt``, by the plain version's float32 divide."""
+    The ownership words and the constraint counts are packed once, here;
+    the scratch planes of each constraint's terms (csrc/lattice_xpbd.cu
+    "Scratch") once a call, on the call's stream, as the other buffers; the
+    collider rows once per topology a call brings (as
+    :func:`.lattice_euler.make_cuda_step` packs them); the edge table
+    (delta, rest, compliance / dt^2) once per substep size ``dt``, by the
+    plain version's float32 divide."""
     sc = pack_lattice_scene(top, cfg, Solver.XPBD, "lattice_xpbd")
     n, device = sc.n, sc.device
     n_lam = sc.n_edge + sc.n_tet
     mu = cfg.collision.friction
-    n_sweeps = max(cfg.xpbd.n_iterations, 1)
-    project = int(cfg.xpbd.n_iterations > 0)
     gx, gy, gz = cfg.gravity
+    w = cfg.wind
     tables = {}
-    drag = drag_args(cfg)
-    predict, sweep, error_string = _launchers()
+    substep, error_string = _launchers()
 
     def fn(state: State, dt: float, n_substeps: int, top=None) -> State:
         global _launches
@@ -112,34 +126,34 @@ def make_cuda_step(top: Topology, cfg: SimConfig):
         edges = tables[dt]
         x, v = to_planes(state.x), to_planes(state.v)
         x_out = torch.empty_like(x)
-        d_in, d_out = torch.empty_like(x), torch.empty_like(x)
-        lam_in = torch.empty((n_lam, n), dtype=torch.float32, device=device)
-        lam_out = torch.empty_like(lam_in)
+        delta = torch.empty_like(x)
+        xe = torch.empty_like(x)
+        lam = torch.empty((n_lam, n), dtype=torch.float32, device=device)
         flag = torch.empty((n,), dtype=torch.uint8, device=device)
+        # an edge group's float4 (n, dlam), a tet group's three (g_k, dlam)
+        escr = torch.empty((sc.n_edge, n, 4), dtype=torch.float32,
+                           device=device)
+        tscr = torch.empty((3 * sc.n_tet, n, 4), dtype=torch.float32,
+                           device=device)
         with torch.cuda.device(device):
             stream = torch.cuda.current_stream(device).cuda_stream
+            args = _Substep(
+                v.data_ptr(), delta.data_ptr(), xe.data_ptr(), lam.data_ptr(),
+                flag.data_ptr(), sc.inv_mass.data_ptr(),
+                sc.bits.data_ptr(), edges.data_ptr(), sc.tets.data_ptr(),
+                sc.cnt.data_ptr(), escr.data_ptr(), tscr.data_ptr(), stream,
+                sc.n_edge, sc.n_tet, n, cfg.xpbd.n_iterations,
+                int(w.enabled),
+                CollidersStruct(*contact), WindStruct(*w.velocity, w.drag, 0.0),
+                _Params(dt, gx, gy, gz, 1.0 - cfg.global_damping * dt, mu,
+                        1.0 - mu, SPHERE_CONTACT_SHELL, cfg.xpbd.relaxation,
+                        cfg.xpbd.compliance_volume / (dt * dt)))
+            launched = ctypes.c_int()
+            ref, count = ctypes.byref(args), ctypes.byref(launched)
             for _ in range(n_substeps):
-                check_launch(predict(
-                    v.data_ptr(), d_in.data_ptr(), lam_in.data_ptr(), n_lam,
-                    flag.data_ptr(), sc.inv_mass.data_ptr(), *drag, n, dt,
-                    gx, gy, gz, 1.0 - cfg.global_damping * dt, stream),
-                    "lattice_xpbd predict", error_string)
-                _launches += 1
-                for it in range(n_sweeps):
-                    check_launch(sweep(
-                        x.data_ptr(), d_in.data_ptr(), d_out.data_ptr(),
-                        lam_in.data_ptr(), lam_out.data_ptr(),
-                        flag.data_ptr(), sc.inv_mass.data_ptr(),
-                        sc.bits.data_ptr(), edges.data_ptr(), sc.n_edge,
-                        sc.tets.data_ptr(), sc.n_tet, sc.cnt.data_ptr(),
-                        *contact, project, int(it == n_sweeps - 1),
-                        x_out.data_ptr(), v.data_ptr(), n, dt, mu, 1.0 - mu,
-                        SPHERE_CONTACT_SHELL, cfg.xpbd.relaxation,
-                        cfg.xpbd.compliance_volume / (dt * dt), stream),
-                        "lattice_xpbd sweep", error_string)
-                    _launches += 1
-                    d_in, d_out = d_out, d_in
-                    lam_in, lam_out = lam_out, lam_in
+                err = substep(ref, x.data_ptr(), x_out.data_ptr(), count)
+                _launches += launched.value
+                check_launch(err, "lattice_xpbd substep", error_string)
                 x, x_out = x_out, x
         x3, v3 = from_planes(x), from_planes(v)
         return State(x=x3, v=v3, x_prev=x3 - dt * v3)

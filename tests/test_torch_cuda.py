@@ -268,7 +268,7 @@ def test_lattice_kernel_matches_plain_on_card(cuda, solver, kw, n_sub):
     got = _LATTICE[solver].make_cuda_step(top, cfg)(s0, cfg.dt, n_sub)
     torch.cuda.synchronize()
     per_sub = _LATTICE[solver].launches_per_substep(top, cfg)
-    assert per_sub == (1 + 4 if solver == Solver.XPBD
+    assert per_sub == (1 + 2 * 4 if solver == Solver.XPBD
                        else 1 + int(kw.get("volume_stiffness", 0.5) != 0.0))
     assert _LATTICE[solver].launch_count() == n_sub * per_sub
     assert sum(w.launch_count() for w in (*_WRAPPERS.values(),
@@ -1028,3 +1028,333 @@ def test_move_colliders_rollout_launch_counts(cuda, solver, kind):
         == 2 * frames * cfg.n_substeps * per_sub
     assert tsb.api._build_step.cache_info().misses == misses + 1
     assert torch.equal(s.x, ref.x) and torch.equal(s.v, ref.v)
+
+
+# --- the XPBD kernels on shapes that do not divide their tiles ----------------
+
+# each grid branch's scene, as the tests above build it (their config, pins,
+# plane, colliders) at another shape, and the tolerances those tests hold
+# it to: (x, v)
+_XPBD_GRID_TOL = {"plain": (1e-5, 1e-3), "features": (5e-5, 5e-2),
+                  "wind": (5e-5, 5e-2), "force": (1e-5, 2e-3),
+                  "colliders": (5e-5, 5e-2)}
+
+
+def _xpbd_grid_scene(nx, ny, full, n_iter, branch, shear=None, bend=None):
+    """A grid XPBD scene of nx x ny vertices, with all six offsets or the
+    structural two (or those ``shear`` and ``bend`` say), ``n_iter`` Jacobi
+    sweeps, and one branch: "plain"
+    (_scene16_solver's), "features" (_feature_scene's tear and plastic
+    planes), "wind" (_wind_scene's), "force" (the self-collision force
+    plane, its radius past the rest spacing so that every structural pair
+    pushes apart; _halo_scene's 60 % shrink buckles these cloths under
+    XPBD, where the earlier one-pass kernel parts from the plain version
+    as well) or "colliders" (_collider_scene's capsule and box).
+    The hanging cloths stay clear of their plane (130 rows reach 6.5 m
+    down)."""
+    if branch == "features":
+        host, cfg = _feature_scene(Solver.XPBD, "both")
+        kw = dict(pinned=("top",), plane_height=-10.0, orientation="xy")
+    elif branch == "wind":
+        host, cfg = _wind_scene(Solver.XPBD)
+        kw = dict(pinned=("tl", "tr"), plane_height=-10.0, orientation="xy")
+    elif branch == "colliders":
+        host, cfg = _collider_scene(Solver.XPBD)
+        kw = dict(pinned=("tl",), plane_height=-2.0,
+                  origin=(-0.28, 0.05, -0.28), orientation="xz")
+    else:
+        host, cfg = _scene16_solver(Solver.XPBD)
+        kw = dict(pinned=("tl", "tr"), plane_height=-10.0, orientation="xy")
+        if branch == "force":
+            cfg = cfg.replace(self_collision=SelfCollisionParams(
+                enabled=True, method="block", radius=0.06, cell_size=0.06))
+    cfg = cfg.replace(xpbd=dataclasses.replace(cfg.xpbd, n_iterations=n_iter))
+    grid = tsb.cloth_grid(nx, ny, spacing=0.05,
+                          shear=full if shear is None else shear,
+                          bend=full if bend is None else bend,
+                          springs=cfg.springs, xpbd=cfg.xpbd, **kw)
+    if branch == "colliders":
+        grid = dataclasses.replace(grid, **{
+            f: getattr(host, f) for f in (
+                "capsule_p0", "capsule_p1", "capsule_radii",
+                "capsule_velocities", "box_centers", "box_half_extents",
+                "box_rotations", "box_velocities")})
+    return grid, cfg
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("branch", list(_XPBD_GRID_TOL))
+@pytest.mark.parametrize("n_iter", [0, 1, 8])
+@pytest.mark.parametrize("full", [True, False], ids=["six", "structural"])
+@pytest.mark.parametrize("nx,ny", [(37, 53), (19, 130)])
+def test_xpbd_grid_tiles_match_plain_on_card(cuda, nx, ny, full, n_iter,
+                                             branch):
+    """The tiled sweep on grids that no tile shape divides (the ragged last
+    tile in both directions; 19 columns are narrower than a tile), with
+    every offset (a halo of 2) and the structural two (a halo of 1),
+    against the plain version over 32 substeps."""
+    host, cfg = _xpbd_grid_scene(nx, ny, full, n_iter, branch)
+    top, s0 = tsb.init(host, device=cuda)
+    if branch == "features":
+        s0 = tsb.api.ensure_plastic_state(
+            top, cfg, tsb.api.ensure_tear_state(top, cfg, s0))
+    want = stencil.make_stencil_step(top, cfg)(s0, cfg.dt, 32)
+    for w in (*_WRAPPERS.values(), *_LATTICE.values()):
+        w.reset_launch_count()
+    got = grid_xpbd.make_cuda_step(top, cfg)(s0, cfg.dt, 32)
+    torch.cuda.synchronize()
+    assert grid_xpbd.launch_count() == grid_xpbd.launches_per_frame(cfg, 32)
+    assert sum(w.launch_count() for w in (*_WRAPPERS.values(),
+                                          *_LATTICE.values())) \
+        == grid_xpbd.launches_per_frame(cfg, 32)
+    atol_x, atol_v = _XPBD_GRID_TOL[branch]
+    torch.testing.assert_close(got.x, want.x, atol=atol_x, rtol=0)
+    torch.testing.assert_close(got.v, want.v, atol=atol_v, rtol=0)
+    if branch == "features":
+        assert torch.equal(got.edge_alive, want.edge_alive)
+        torch.testing.assert_close(got.rest_scale, want.rest_scale,
+                                   atol=1e-5, rtol=0)
+    assert float((want.x - s0.x).abs().max()) > 1e-3
+    pinned = torch.from_numpy(host.inv_mass == 0.0).to(cuda)
+    assert torch.equal(got.x[pinned], s0.x[pinned])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("branch", ["plain", "features", "colliders"])
+@pytest.mark.parametrize("shear,bend", [(True, False), (False, True)],
+                         ids=["shear", "bend"])
+def test_xpbd_grid_patterns_match_plain_on_card(cuda, shear, bend, branch):
+    """The two offset patterns the test above does not take (structural
+    with shear, structural with bend: a frame of one and of two), each a
+    sweep of its own, against the plain version over 32 substeps."""
+    host, cfg = _xpbd_grid_scene(37, 53, None, 8, branch, shear, bend)
+    top, s0 = tsb.init(host, device=cuda)
+    want = stencil.make_stencil_step(top, cfg)(s0, cfg.dt, 32)
+    grid_xpbd.reset_launch_count()
+    got = grid_xpbd.make_cuda_step(top, cfg)(s0, cfg.dt, 32)
+    torch.cuda.synchronize()
+    assert grid_xpbd.launch_count() == grid_xpbd.launches_per_frame(cfg, 32)
+    atol_x, atol_v = _XPBD_GRID_TOL[branch]
+    torch.testing.assert_close(got.x, want.x, atol=atol_x, rtol=0)
+    torch.testing.assert_close(got.v, want.v, atol=atol_v, rtol=0)
+    if branch == "features":
+        assert torch.equal(got.edge_alive, want.edge_alive)
+    pinned = torch.from_numpy(host.inv_mass == 0.0).to(cuda)
+    assert torch.equal(got.x[pinned], s0.x[pinned])
+
+
+def _tet_box(shape, spacing, springs, xpbd, plane_height, origin):
+    """tet_cube's lattice on nx x ny x nz vertices: the same 5-tet cells,
+    parity-alternated, their edges as springs."""
+    from softbodyunity_torch.core import topology as T
+
+    nx, ny, nz = shape
+    cube = tsb.tet_cube(2, spacing=spacing, springs=springs, xpbd=xpbd,
+                        plane_height=plane_height, origin=origin)
+
+    def vid(i, j, k):
+        return (i * ny + j) * nz + k
+
+    pos = np.array([(i, j, k) for i in range(nx) for j in range(ny)
+                    for k in range(nz)], dtype=np.float64) * spacing
+    pos += np.asarray(origin, dtype=np.float64)
+    tets = []
+    for i in range(nx - 1):
+        for j in range(ny - 1):
+            for k in range(nz - 1):
+                pat = T._FIVE if (i + j + k) % 2 == 0 else T._FIVE_ALT
+                tets += [tuple(vid(i + a, j + b, k + c) for a, b, c in t)
+                         for t in pat]
+
+    def vol(t):
+        p = pos[np.asarray(t)]
+        return float(np.dot(np.cross(p[1] - p[0], p[2] - p[0]), p[3] - p[0])
+                     / 6.0)
+
+    tets = [t if vol(t) > 0 else (t[0], t[1], t[3], t[2]) for t in tets]
+    pairs = sorted({tuple(sorted((t[a], t[b]))) for t in tets
+                    for a in range(4) for b in range(a + 1, 4)})
+    edges, rest, cls, k, alpha = T._edge_arrays(
+        [(a, b, T.EDGE_STRUCTURAL) for a, b in pairs], pos, springs, xpbd)
+    incident, sign = T._build_incidence(len(pos), edges)
+    return dataclasses.replace(
+        cube, positions0=pos, edges=edges, rest_length=rest, edge_class=cls,
+        edge_stiffness=k, edge_compliance=alpha,
+        inv_mass=np.ones(len(pos)), incident=incident, incident_sign=sign,
+        tets=np.array(tets, dtype=np.int32),
+        rest_volume=np.array([vol(t) for t in tets]),
+        triangles=np.zeros((0, 3), np.int32), lattice_shape=shape)
+
+
+def _xpbd_lattice_scene(shape, n_iter, branch):
+    """_lattice_scene's XPBD cube (on the plane, a pinned corner) at
+    ``shape``, with ``n_iter`` sweeps, and one branch: "plain", "drag"
+    (test_lattice_drag_kernel_matches_plain_on_card's wind) or "colliders"
+    (_collider_scene's lattice capsule and box)."""
+    host, cfg = _lattice_scene(Solver.XPBD, pins=8)
+    if branch == "colliders":
+        chost, ccfg = _collider_scene(Solver.XPBD, "lattice")
+        cfg = ccfg
+        kw = dict(spacing=0.05, plane_height=-0.5, origin=(-0.1, -0.02, -0.1))
+    else:
+        kw = dict(spacing=0.08, plane_height=0.0, origin=(0.0, 0.01, 0.0))
+    if branch == "drag":
+        cfg = cfg.replace(wind=WindParams(velocity=(3.0, 0.0, 1.0), drag=0.5))
+    cfg = cfg.replace(xpbd=dataclasses.replace(cfg.xpbd, n_iterations=n_iter))
+    box = _tet_box(shape, springs=cfg.springs, xpbd=cfg.xpbd, **kw)
+    box.inv_mass[:8] = 0.0
+    if branch == "colliders":
+        box = dataclasses.replace(box, **{
+            f: getattr(chost, f) for f in (
+                "capsule_p0", "capsule_p1", "capsule_radii",
+                "capsule_velocities", "box_centers", "box_half_extents",
+                "box_rotations", "box_velocities")})
+    return box, cfg
+
+
+# the lattice tests' bounds: x 1e-5 (FMA contraction only), v 2e-3; with
+# capsules and boxes the collider tests' 5e-5 and 5e-2
+@pytest.mark.cuda
+@pytest.mark.parametrize("branch", ["plain", "drag", "colliders"])
+@pytest.mark.parametrize("n_iter", [0, 1, 8])
+@pytest.mark.parametrize("shape", [(7, 7, 7), (5, 6, 9)],
+                         ids=["7^3", "5x6x9"])
+def test_xpbd_lattice_passes_match_plain_on_card(cuda, shape, n_iter,
+                                                 branch):
+    """The constraint and gather passes, each constraint evaluated once,
+    against the plain version over 48 substeps, on a cube and on a box
+    whose three strides differ."""
+    host, cfg = _xpbd_lattice_scene(shape, n_iter, branch)
+    top, s0 = tsb.init(host, device=cuda)
+    want = make_plain_step(top, cfg)(s0, cfg.dt, 48)
+    atol_x, atol_v = (5e-5, 5e-2) if branch == "colliders" else (1e-5, 2e-3)
+    for w in (*_WRAPPERS.values(), *_LATTICE.values()):
+        w.reset_launch_count()
+    got = lattice_xpbd.make_cuda_step(top, cfg)(s0, cfg.dt, 48)
+    torch.cuda.synchronize()
+    per_sub = lattice_xpbd.launches_per_substep(top, cfg)
+    assert per_sub == (2 if n_iter == 0 else 1 + 2 * n_iter)
+    assert lattice_xpbd.launch_count() == 48 * per_sub
+    assert sum(w.launch_count() for w in (*_WRAPPERS.values(),
+                                          *_LATTICE.values())) \
+        == 48 * per_sub
+    torch.testing.assert_close(got.x, want.x, atol=atol_x, rtol=0)
+    torch.testing.assert_close(got.v, want.v, atol=atol_v, rtol=0)
+    pinned = torch.from_numpy(host.inv_mass == 0.0).to(cuda)
+    assert torch.equal(got.x[pinned], s0.x[pinned])
+    assert float((want.x - s0.x).abs().max()) > 1e-3
+
+
+# --- what compute-sanitizer would check, where it cannot run -----------------
+#
+# compute-sanitizer can refuse a card ("Error: Device not supported", in a
+# virtualised machine even for a one-line program), so these stand in for
+# its initcheck (a read of memory no launch wrote) and racecheck
+# (shared-memory hazards): each run is repeated on device memory that the
+# caching allocator hands back full of NaN, and each XPBD kernel many times
+# over from one state, all held bit-equal.
+
+def _poison_allocator(device):
+    """Fill the caching allocator's free blocks with NaN: blocks of the
+    small pool (up to 1 MB) and of the large pool, then release them to
+    the cache, so the tensors allocated next start as NaN."""
+    torch.cuda.synchronize(device)
+    torch.cuda.empty_cache()
+    held = [torch.full((n,), float("nan"), device=device)
+            for n in [256 * 1024] * 64 + [16 * 1024 * 1024] * 16]
+    del held
+    torch.cuda.synchronize(device)
+
+
+def _poison_runs():
+    """(name, build) pairs: each build() returns a function of no argument
+    that makes a step function and runs it from rest."""
+    def lattice(solver, module, n=7, shape=None):
+        def build():
+            if shape is None:
+                host, cfg = _lattice_scene(solver, n=n)
+            else:
+                host, cfg = _xpbd_lattice_scene(shape, 8, "colliders")
+            top, s0 = tsb.init(host, device="cuda")
+            return lambda: module.make_cuda_step(top, cfg)(s0, cfg.dt, 48)
+        return build
+
+    def grid(branch, full=True):
+        def build():
+            host, cfg = _xpbd_grid_scene(37, 53, full, 8, branch)
+            top, s0 = tsb.init(host, device="cuda")
+            return lambda: grid_xpbd.make_cuda_step(top, cfg)(s0, cfg.dt, 32)
+        return build
+
+    return [
+        ("lattice_euler 7^3", lattice(Solver.SEMI_IMPLICIT_EULER,
+                                      lattice_euler)),
+        ("lattice_xpbd 7^3", lattice(Solver.XPBD, lattice_xpbd)),
+        ("lattice_xpbd 5x6x9 colliders", lattice(Solver.XPBD, lattice_xpbd,
+                                                 shape=(5, 6, 9))),
+        ("grid_xpbd features", grid("features")),
+        ("grid_xpbd force", grid("force")),
+        ("grid_xpbd colliders structural", grid("colliders", full=False)),
+    ]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", [n for n, _ in _poison_runs()])
+def test_kernels_read_no_unwritten_memory_on_card(cuda, name):
+    """A run on NaN-filled fresh allocations (every buffer and scratch
+    plane the wrappers allocate) equals, bit for bit, a run on whatever the
+    allocator held before, and again a second plain run: no launch reads
+    an entry no launch wrote (the 7^3 lattice_euler compare once failed
+    by 0.35 on the card, PERF.md)."""
+    run = dict(_poison_runs())[name]()
+    first = run()
+    _poison_allocator(cuda)
+    poisoned = run()
+    again = run()
+    torch.cuda.synchronize()
+    for got in (poisoned, again):
+        assert torch.equal(got.x, first.x)
+        assert torch.equal(got.v, first.v)
+    assert bool(torch.isfinite(first.x).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("branch", list(_XPBD_GRID_TOL))
+@pytest.mark.parametrize("nx,ny", [(37, 53), (19, 130)])
+def test_xpbd_grid_sweep_repeats_bit_equal_on_card(cuda, nx, ny, branch):
+    """Each edge is evaluated from the same staged values and each vertex
+    sums its terms in a fixed order, so 24 runs of 32 substeps from one
+    state, on grids no tile divides, give one result to the bit; a
+    shared-memory race (a read before the tile's barrier, a term written
+    twice) would show as runs that differ."""
+    host, cfg = _xpbd_grid_scene(nx, ny, True, 8, branch)
+    top, s0 = tsb.init(host, device=cuda)
+    if branch == "features":
+        s0 = tsb.api.ensure_plastic_state(
+            top, cfg, tsb.api.ensure_tear_state(top, cfg, s0))
+    fn = grid_xpbd.make_cuda_step(top, cfg)
+    want = fn(s0, cfg.dt, 32)
+    for k in range(23):
+        got = fn(s0, cfg.dt, 32)
+        assert torch.equal(got.x, want.x), k
+        assert torch.equal(got.v, want.v), k
+    assert float((want.x - s0.x).abs().max()) > 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("branch", ["plain", "drag", "colliders"])
+@pytest.mark.parametrize("shape", [(7, 7, 7), (5, 6, 9)],
+                         ids=["7^3", "5x6x9"])
+def test_xpbd_lattice_passes_repeat_bit_equal_on_card(cuda, shape, branch):
+    """The constraint pass writes each lambda and scratch entry from one
+    thread and the gather sums in a fixed order, so 24 runs of 48 substeps
+    from one state give one result to the bit."""
+    host, cfg = _xpbd_lattice_scene(shape, 8, branch)
+    top, s0 = tsb.init(host, device=cuda)
+    fn = lattice_xpbd.make_cuda_step(top, cfg)
+    want = fn(s0, cfg.dt, 48)
+    for k in range(23):
+        got = fn(s0, cfg.dt, 48)
+        assert torch.equal(got.x, want.x), k
+        assert torch.equal(got.v, want.v), k
+    assert float((want.x - s0.x).abs().max()) > 1e-3
