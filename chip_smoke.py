@@ -8,13 +8,16 @@ The port's paths, one hand-written CUDA kernel each:
     Euler   cloth_bench_64k           grid_euler      1 launch per substep
     Verlet  cloth_bench_64k_verlet    grid_verlet     1 launch per substep
     XPBD    cloth_bench_64k_xpbd      grid_xpbd       1 + n_iterations
-    Euler   softbody_cube_64k         lattice_euler   2 (integrate, volume)
-    Verlet  softbody_cube_64k_verlet  lattice_verlet  2 (integrate, volume)
+    Euler   softbody_cube_64k         lattice_euler   3 (integrate, tet, gather)
+    Verlet  softbody_cube_64k_verlet  lattice_verlet  3, + 1 a call (the
+                                                      velocity estimate)
     XPBD    softbody_cube_64k_xpbd    lattice_xpbd    1 + 2 n_iterations
     Euler   cloth_selfcollide_64k     block_pairs     1, then grid_euler 1
 
-Both XPBD wrappers launch a substep from one ctypes call into C; a lattice
-XPBD sweep is a constraint pass (each edge and tet once) and a gather pass.
+Both XPBD wrappers and both lattice Euler and Verlet wrappers launch a
+substep from one ctypes call into C; a lattice XPBD sweep is a constraint
+pass (each edge and tet once) and a gather pass, a lattice Euler or Verlet
+volume projection a tet pass (each tet once) and a gather pass.
 
 The seventh path is self-collision on grid cloth: each substep the Morton
 sort and the partner search (PyTorch ops on the card), one block_pairs
@@ -555,12 +558,15 @@ def main() -> int:
             module=lattice_euler, preset="softbody_cube_64k",
             replaces="softbodyunity_tpu/kernels/pallas_lattice.py:363",
             device_names=("lattice_euler_integrate_kernel",
-                          "lattice_euler_volume_kernel")),
+                          "lattice_tet_kernel",
+                          "lattice_euler_gather_kernel")),
         "lattice_verlet": dict(
             module=lattice_verlet, preset="softbody_cube_64k_verlet",
             replaces="softbodyunity_tpu/kernels/pallas_lattice.py:901",
-            device_names=("lattice_verlet_integrate_kernel",
-                          "lattice_verlet_volume_kernel")),
+            device_names=("lattice_verlet_velocity_kernel",
+                          "lattice_verlet_integrate_kernel",
+                          "lattice_tet_kernel",
+                          "lattice_verlet_gather_kernel")),
         "lattice_xpbd": dict(
             module=lattice_xpbd, preset="softbody_cube_64k_xpbd",
             replaces="softbodyunity_tpu/kernels/pallas_lattice.py:699",
@@ -579,11 +585,12 @@ def main() -> int:
     # the six solver kernels, each the whole substep of its own path
     steps = {n: k for n, k in kernels.items() if n != "block_pairs"}
 
-    def launches_per_substep(name, top, cfg):
+    def launches_per_call(name, top, cfg, n_sub):
+        """Launches of one call of kernel ``name``'s step function."""
         if kernels[name]["lattice"]:
-            return kernels[name]["module"].launches_per_substep(top, cfg)
-        return (grid_xpbd.launches_per_substep(cfg) if name == "grid_xpbd"
-                else 1)
+            return kernels[name]["module"].launches_per_call(top, cfg, n_sub)
+        return n_sub * (grid_xpbd.launches_per_substep(cfg)
+                        if name == "grid_xpbd" else 1)
 
     # the grids past the TPU's whole-VMEM cap and the tear and plastic
     # planes: each path's preset (its solver replaced where named), the
@@ -1688,7 +1695,7 @@ def main() -> int:
             pinned = torch.from_numpy(host.inv_mass == 0.0).to(cuda)
             expected = frames_ * (
                 module.launches_per_frame(cfg, cfg.n_substeps) if not lattice
-                else cfg.n_substeps * module.launches_per_substep(top, cfg))
+                else module.launches_per_call(top, cfg, cfg.n_substeps))
             sweeps = frames_ * cfg.n_substeps * grid_strain.sweeps(cfg)
             reset_counts()
             t = time.perf_counter()
@@ -1899,7 +1906,7 @@ def main() -> int:
             pinned = torch.from_numpy(host.inv_mass == 0.0).to(cuda)
             expected = frames_ * (
                 module.launches_per_frame(cfg, cfg.n_substeps) if not lattice
-                else cfg.n_substeps * module.launches_per_substep(top, cfg))
+                else module.launches_per_call(top, cfg, cfg.n_substeps))
             frame_dt = cfg.dt * cfg.n_substeps
             lift = torch.tensor([0.0, 0.05, 0.0], device=cuda)
             w = top.capsule_velocities
@@ -2209,8 +2216,7 @@ def main() -> int:
         torch.cuda.reset_peak_memory_stats()
         top, state0 = sb.init(host, device="cuda")
         pinned = torch.from_numpy(host.inv_mass == 0.0).to(cuda)
-        expected = (frames * cfg.n_substeps
-                    * launches_per_substep(name, top, cfg))
+        expected = frames * launches_per_call(name, top, cfg, cfg.n_substeps)
         reset_counts()
         t = time.perf_counter()
         state = state0
@@ -2596,10 +2602,11 @@ def main() -> int:
             ms[which].append(runs[which]())
         return ms
 
-    def xpbd_launches(name, dev, n_sub):
-        """An XPBD path's launches a substep in a profiler window of
-        ``n_sub`` substeps, from the per-kernel counts ``dev``."""
-        if not name.endswith("xpbd"):
+    def pass_launches(name, dev, n_sub):
+        """An XPBD or lattice path's launches a substep in a profiler window
+        of ``n_sub`` substeps, from the per-kernel counts ``dev`` (a lattice
+        Verlet call's velocity-estimate launch included)."""
+        if not (name.endswith("xpbd") or name.startswith("lattice_")):
             return {}
         return {"launches_per_substep":
                 sum(c for _, c in dev.values()) / n_sub}
@@ -2806,8 +2813,9 @@ def main() -> int:
             emit("timing", kernel=name, profiler_frames=5,
                  start=label or "rest",
                  device_us_per_launch={n: us for n, (us, _) in dev.items()},
+                 launches={n: c for n, (_, c) in dev.items()},
                  device_us_per_substep=per_sub,
-                 **xpbd_launches(name, dev, 5 * cfg.n_substeps))
+                 **pass_launches(name, dev, 5 * cfg.n_substeps))
     # the self-collision substep: block_pairs, grid_euler, and the sort and
     # partner search (every other kernel of the trace)
     cfg = sc["cfg"]
@@ -2863,7 +2871,7 @@ def main() -> int:
              device_us_per_launch={n: us for n, (us, _) in dev.items()},
              launches={n: c for n, (_, c) in dev.items()},
              device_us_per_substep=busy,
-             **xpbd_launches(p["kernel"], dev, 3 * cfg.n_substeps))
+             **pass_launches(p["kernel"], dev, 3 * cfg.n_substeps))
     for label, p in branches.items():
         cfg = p["cfg"]
         names = kernels[p["kernel"]]["device_names"]
@@ -2876,7 +2884,7 @@ def main() -> int:
              device_us_per_launch={n: us for n, (us, _) in dev.items()},
              launches={n: c for n, (_, c) in dev.items()},
              device_us_per_substep=busy,
-             **xpbd_launches(p["kernel"], dev, 3 * cfg.n_substeps))
+             **pass_launches(p["kernel"], dev, 3 * cfg.n_substeps))
     for label, p in collider_paths.items():
         cfg = p["cfg"]
         dev, busy = device_us_per_launch(p["timing_fn"], p["timing_s0"], cfg,
@@ -2886,7 +2894,7 @@ def main() -> int:
              device_us_per_launch={n: us for n, (us, _) in dev.items()},
              launches={n: c for n, (_, c) in dev.items()},
              device_us_per_substep=busy,
-             **xpbd_launches(p["kernel"], dev, 3 * cfg.n_substeps))
+             **pass_launches(p["kernel"], dev, 3 * cfg.n_substeps))
     emit("timing", seconds=phase_seconds())
 
     line = [{

@@ -16,31 +16,43 @@
 // Design.  The TPU kernel folds the state into [3, S, 128] lane planes and
 // keeps it in VMEM for all substeps of a frame, reaching a neighbour with a
 // lane/sublane "flat roll".  Here the state is flat [3, N] planes in device
-// memory (1.5 MB at 64k vertices, resident in the 50 MB L2), one thread per
-// vertex, and the neighbour across a band is simply i + delta
-// (lattice_common.cuh).  The volume projection reads the neighbours'
-// integrated positions, and with no grid-wide barrier that takes a kernel
-// boundary, so a substep is two launches:
-//   integrate  springs, the velocity and position update, pinning; writes
-//              x*, v* (with no volume projection it also runs the contact
-//              and writes the substep's x, v: one launch per substep);
-//   volume     the tet corrections over x*, count-averaged and scaled by
-//              volume_stiffness, x += dx, v += dx / dt, then the contact.
-// Each launch reads one pair of buffers and writes the other (ping-pong).
-// The 9 edge and 10 tet ownership bits of a vertex are one packed word.
+// memory (1.5 MB at 64k vertices, resident in the 50 MB L2) and the
+// neighbour across a band is simply i + delta (lattice_common.cuh).  The
+// volume projection reads the neighbours' integrated positions, and with no
+// grid-wide barrier that takes a kernel boundary.  One C call
+// (lattice_euler_substep) launches a substep, three launches:
+//   integrate  one thread per vertex: springs, the velocity and position
+//              update, pinning; writes x*, v* (with no volume projection it
+//              also runs the contact and writes the substep's x, v: one
+//              launch a substep);
+//   tet        one thread per (tet group, base vertex), each tet evaluated
+//              once over x* (lattice_common.cuh::lattice_tet_kernel), its
+//              gradients and multiplier into float4 scratch planes;
+//   gather     one thread per vertex sums the terms of its tets in the
+//              plain version's order (lattice_common.cuh::tet_gather),
+//              count-averaged and scaled by volume_stiffness, x += dx,
+//              v += dx / dt, then the contact.
+// The call rotates the planes (LatticeEulerPlanes): the substep leaves its
+// x, v where it found them.  The 9 edge and 10 tet ownership bits of a
+// vertex are one packed word.
 //
 // What bounds it.  One substep must read x, v, inv_mass, the ownership word
 // and the tet count and write x, v: 60 B per vertex, 3.8 MB at 64k, ~1.2 us
 // at 3.35 TB/s, and ~53 MFLOP (~0.8 us at 67 TFLOP/s): bound by bytes.  The
-// kernels do far more: each thread recomputes the reactions of the edges
-// and tets it shares (about 2x the spring and 4x the tet arithmetic) and
-// gathers its neighbours from L1/L2, and two launches per substep each pay
-// the launch latency.  A two-pass form (per-tet scalars, then a gather)
-// and fewer launches are later work.
+// kernels do more: the integrate recomputes the reaction of each edge it
+// shares (about 2x the spring arithmetic) and gathers its neighbours from
+// L1/L2; the tet pass is bound by its instructions and the 30.7 MB of
+// scratch it writes, the gather by the scratch it reads, 6 float4 a tet
+// group and vertex from L2 and device memory (the scratch does not stay
+// in L2); and three launches a substep each pay the launch latency.  A
+// fourth plane a tet group, (g0, dlam), saves the gather two loads of its
+// own tet but measured 2.2x slower a gather (PERF.md).
 //
 // Rounding.  sqrtf and IEEE divides in the plain version's order; nvcc
 // contracts a * b + c into FMAs, so kernel and plain version agree to
-// rounding, not to the bit.  Pinned vertices stay bit-frozen.
+// rounding, not to the bit.  The tet and gather passes give the earlier
+// one-pass volume kernel's results to the bit (the same products in the
+// same order).  Pinned vertices stay bit-frozen.
 
 #include <cuda_runtime.h>
 
@@ -97,22 +109,23 @@ __global__ void __launch_bounds__(256) lattice_euler_integrate_kernel(
   store3(v_out, i, n, vn);
 }
 
-// xs, vs are the integrated planes; tets is [n_tet, 4] rows of
-// (d1, d2, d3, rest volume); cnt is each vertex's tet count, at least 1.
-__global__ void __launch_bounds__(256) lattice_euler_volume_kernel(
+// xs, vs are the integrated planes and tscr the tet pass's terms; tets is
+// [n_tet, 4] rows of (d1, d2, d3, rest volume); cnt is each vertex's tet
+// count, at least 1.
+__global__ void __launch_bounds__(256) lattice_euler_gather_kernel(
     const float* __restrict__ xs, const float* __restrict__ vs,
     float* __restrict__ x_out, float* __restrict__ v_out,
-    const float* __restrict__ inv_mass, const unsigned* __restrict__ bits,
-    const float* __restrict__ tets, int n_tet, const float* __restrict__ cnt,
-    Colliders col, int n, Params p) {
+    const float* __restrict__ inv_mass, const float* __restrict__ tets,
+    int n_tet, const float4* __restrict__ tscr,
+    const float* __restrict__ cnt, Colliders col, int n, Params p) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   Vec3 xn = load3(xs, i, n);
   Vec3 vn = load3(vs, i, n);
-  if (inv_mass[i] > 0.0f) {
-    const Vec3 s = banded_tet_sum(
-        {0.0f, 0.0f, 0.0f}, [&](int j) { return load3(xs, j, n); }, inv_mass,
-        bits, tets, n_tet, 0.0f, nullptr, nullptr, i, n);
+  const float wi = inv_mass[i];
+  if (wi > 0.0f) {
+    const Vec3 s =
+        tet_gather({0.0f, 0.0f, 0.0f}, tscr, tets, n_tet, wi, i, n);
     const float c = cnt[i];
     const Vec3 dx = {p.vol_stiff * s.x / c, p.vol_stiff * s.y / c,
                      p.vol_stiff * s.z / c};
@@ -128,45 +141,107 @@ unsigned blocks_of(int n) { return (n + 255) / 256; }
 
 }  // namespace
 
-// Launch the integrate pass of one substep on `stream`; returns the
-// cudaError_t of the launch (0 = cudaSuccess).  Allocates nothing and does
-// not synchronise.
-extern "C" int lattice_euler_integrate(
-    const float* x, const float* v, float* x_out, float* v_out,
-    const float* inv_mass, const unsigned* bits, const float* edges,
-    int n_edge, COLLIDER_PARAMS, int finish, int drag_on, float wvx, float wvy, float wvz,
-    float drag, int n, float dt, float damping, float gx, float gy, float gz,
-    float decay, float restitution, float restitution1, float keep,
-    void* stream) {
-  const Params p{dt,    damping,     gx,           gy,   gz,
-                 decay, restitution, restitution1, keep, 0.0f};
-  const Colliders col = COLLIDERS;
-  const Wind wind{wvx, wvy, wvz, drag, 0.0f};
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (drag_on)
-    lattice_euler_integrate_kernel<true><<<blocks_of(n), 256, 0, st>>>(
-        x, v, x_out, v_out, inv_mass, bits, edges, n_edge, col, finish, wind,
-        n, p);
-  else
-    lattice_euler_integrate_kernel<false><<<blocks_of(n), 256, 0, st>>>(
-        x, v, x_out, v_out, inv_mass, bits, edges, n_edge, col, finish, wind,
-        n, p);
-  return static_cast<int>(cudaGetLastError());
+// What one substep launches with, fixed over a call of the step function:
+// softbodyunity_torch/kernels/lattice_euler.py::_Substep mirrors it field by
+// field (lattice_euler_substep_size checks the two agree).
+struct LatticeEulerSubstep {
+  const float* inv_mass;    // [n]
+  const unsigned* bits;     // [n]
+  const float* edges;       // [n_edge, 3]
+  const float* tets;        // [n_tet, 4]; n_tet = 0 without volume
+  const float* cnt;         // [n]
+  float4* tscr;             // [n_tet * 3, n], the tet pass's terms
+  void* stream;
+  int n_edge, n_tet, n;
+  int drag_on;
+  Colliders col;
+  Wind wind;
+  Params p;
+};
+
+// The [3, n] planes of a call: a substep starts from (x, v) and leaves its
+// result there; (x_out, v_out) hold the integrated planes between the
+// passes.  lattice_euler.py::_Planes mirrors it.
+struct LatticeEulerPlanes {
+  float* x;
+  float* v;
+  float* x_out;
+  float* v_out;
+};
+
+extern "C" int lattice_euler_substep_size() {
+  return static_cast<int>(sizeof(LatticeEulerSubstep));
 }
 
-// Launch the volume pass of one substep on `stream`; returns the
-// cudaError_t of the launch.  Allocates nothing and does not synchronise.
-extern "C" int lattice_euler_volume(
-    const float* xs, const float* vs, float* x_out, float* v_out,
-    const float* inv_mass, const unsigned* bits, const float* tets, int n_tet,
-    const float* cnt, COLLIDER_PARAMS, int n, float dt, float vol_stiff, float restitution,
-    float restitution1, float keep, void* stream) {
-  const Params p{dt,          0.0f,         0.0f, 0.0f,     0.0f,
-                 1.0f,        restitution,  restitution1, keep, vol_stiff};
-  const Colliders col = COLLIDERS;
-  lattice_euler_volume_kernel<<<blocks_of(n), 256, 0,
-                                static_cast<cudaStream_t>(stream)>>>(
-      xs, vs, x_out, v_out, inv_mass, bits, tets, n_tet, cnt, col, n, p);
+// Launch one substep on s->stream: the integrate pass, then with the
+// volume constraint (n_tet > 0) the tet and gather passes; without it the
+// integrate runs the contact and the call swaps q's planes.  *launches
+// counts the kernels launched; returns the first launch's cudaError_t that
+// is not cudaSuccess, after which it launches nothing more.  Allocates
+// nothing and does not synchronise.
+extern "C" int lattice_euler_substep(const LatticeEulerSubstep* s,
+                                     LatticeEulerPlanes* q, int* launches) {
+  const cudaStream_t st = static_cast<cudaStream_t>(s->stream);
+  const int n = s->n;
+  const int finish = s->n_tet == 0;
+  *launches = 0;
+  auto done = [&]() {
+    ++*launches;
+    return static_cast<int>(cudaGetLastError());
+  };
+  if (s->drag_on)
+    lattice_euler_integrate_kernel<true><<<blocks_of(n), 256, 0, st>>>(
+        q->x, q->v, q->x_out, q->v_out, s->inv_mass, s->bits, s->edges,
+        s->n_edge, s->col, finish, s->wind, n, s->p);
+  else
+    lattice_euler_integrate_kernel<false><<<blocks_of(n), 256, 0, st>>>(
+        q->x, q->v, q->x_out, q->v_out, s->inv_mass, s->bits, s->edges,
+        s->n_edge, s->col, finish, s->wind, n, s->p);
+  if (int err = done()) return err;
+  if (finish) {
+    float* t = q->x;
+    q->x = q->x_out;
+    q->x_out = t;
+    t = q->v;
+    q->v = q->v_out;
+    q->v_out = t;
+    return 0;
+  }
+  lattice_tet_kernel<<<blocks_of(s->n_tet * n), 256, 0, st>>>(
+      q->x_out, s->inv_mass, s->bits, s->tets, s->n_tet, s->tscr, n);
+  if (int err = done()) return err;
+  lattice_euler_gather_kernel<<<blocks_of(n), 256, 0, st>>>(
+      q->x_out, q->v_out, q->x, q->v, s->inv_mass, s->tets, s->n_tet,
+      s->tscr, s->cnt, s->col, n, s->p);
+  return done();
+}
+
+// One thread a stride of the 2^32 float bit patterns: counts the x for
+// which lattice_common.cuh::div6(x) is not x / 6.0f to the bit (a NaN
+// matches a NaN).
+__global__ void __launch_bounds__(256) lattice_div6_check_kernel(
+    unsigned long long* __restrict__ mismatches) {
+  const unsigned long long stride =
+      static_cast<unsigned long long>(gridDim.x) * blockDim.x;
+  unsigned long long bad = 0;
+  for (unsigned long long u = blockIdx.x * blockDim.x + threadIdx.x;
+       u < (1ull << 32); u += stride) {
+    const float x = __uint_as_float(static_cast<unsigned>(u));
+    const float a = div6(x), b = x / 6.0f;
+    bad += !((isnan(a) && isnan(b)) ||
+             __float_as_uint(a) == __float_as_uint(b));
+  }
+  if (bad) atomicAdd(mismatches, bad);
+}
+
+// Launch the exhaustive check of div6 on `stream`, adding the count of
+// mismatches to *mismatches (device memory, zeroed by the caller); returns
+// the launch's cudaError_t.  For the card tests.
+extern "C" int lattice_euler_div6_mismatches(unsigned long long* mismatches,
+                                             void* stream) {
+  lattice_div6_check_kernel<<<132 * 16, 256, 0,
+                              static_cast<cudaStream_t>(stream)>>>(
+      mismatches);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -69,8 +69,9 @@
 // ~1.2 us at 3.35 TB/s; 8 sweeps over 370k distance and 297k volume
 // constraints are ~430 MFLOP, ~6.4 us at 67 TFLOP/s: bound by operations.
 // On the card the constraint pass is bound by its instructions (a tet's
-// ten IEEE divides) and the gather by the scratch it reads, ~290 floats a
-// vertex from L2 and device memory.
+// ten divides by 6 are lattice_common.cuh::div6, a product and two FMAs)
+// and the gather by the scratch it reads, ~290 floats a vertex from L2 and
+// device memory.
 //
 // Rounding.  sqrtf and IEEE divides in the plain version's order: the
 // products keep the order (w dlam) n and (w dlam) g_k of the earlier
@@ -97,11 +98,6 @@ struct Params {
   float relax;        // xpbd.relaxation
   float alpha_v;      // compliance_volume / dt^2
 };
-
-// float4 planes of one tet group in the scratch: (g1, dlam), (g2, dlam),
-// (g3, dlam), so that a corner's term is one 16-byte load; an edge group
-// has one, (n, dlam).
-constexpr int kTetPlanes = 3;
 
 // kDrag: the wind's drag enters the acceleration as g + drag (velocity -
 // v) w (pallas_lattice.py:521).
@@ -184,10 +180,7 @@ __global__ void __launch_bounds__(256) lattice_xpbd_constraint_kernel(
     tt.dlam = 0.0f;
     tt.g1 = tt.g2 = tt.g3 = {0.0f, 0.0f, 0.0f};
   }
-  float4* s = tscr + kTetPlanes * tg * n + i;
-  s[0] = make_float4(tt.g1.x, tt.g1.y, tt.g1.z, tt.dlam);
-  s[n] = make_float4(tt.g2.x, tt.g2.y, tt.g2.z, tt.dlam);
-  s[2 * n] = make_float4(tt.g3.x, tt.g3.y, tt.g3.z, tt.dlam);
+  store_tet_term(tscr, tg, i, n, tt);
 }
 
 // One gather pass (project = 1) and, on the last sweep (last = 1), the
@@ -227,32 +220,7 @@ __global__ void __launch_bounds__(256) lattice_xpbd_gather_kernel(
         add_scaled(dx, wi * e.w, {e.x, e.y, e.z});
       }
     }
-    for (int t = 0; t < n_tet; ++t) {
-      // (dlam, g_k) of the tet based at b; k = 0 gives g0.  k is a
-      // constant of each unrolled call, so only g_k is loaded
-      auto corner = [&](int b, int k, Vec3& gk) {
-        const float4* s = tscr + kTetPlanes * t * n + b;
-        Vec3 g1{}, g2{}, g3{};
-        float4 q;
-        if (k != 2 && k != 3) q = s[0], g1 = {q.x, q.y, q.z};
-        if (k != 1 && k != 3) q = s[n], g2 = {q.x, q.y, q.z};
-        if (k != 1 && k != 2) q = s[2 * n], g3 = {q.x, q.y, q.z};
-        gk = k == 0 ? Vec3{-(g1.x + g2.x + g3.x), -(g1.y + g2.y + g3.y),
-                           -(g1.z + g2.z + g3.z)}
-                    : (k == 1 ? g1 : (k == 2 ? g2 : g3));
-        return q.w;
-      };
-      Vec3 gk;
-      float dlam = corner(i, 0, gk);
-      add_scaled(dx, wi * dlam, gk);
-#pragma unroll
-      for (int k = 1; k <= 3; ++k) {
-        const int b = i - static_cast<int>(tets[4 * t + k - 1]);
-        if (!in_range(b, n)) continue;
-        dlam = corner(b, k, gk);
-        add_scaled(dx, wi * dlam, gk);
-      }
-    }
+    dx = tet_gather(dx, tscr, tets, n_tet, wi, i, n);
     const float c = cnt[i];
     dl = {dl.x + p.relax * dx.x / c, dl.y + p.relax * dx.y / c,
           dl.z + p.relax * dx.z / c};

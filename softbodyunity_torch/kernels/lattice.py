@@ -15,7 +15,6 @@ once per launch in place of 19 float planes.
 
 from __future__ import annotations
 
-import ctypes
 import dataclasses
 
 import torch
@@ -177,19 +176,6 @@ def pack_lattice_scene(top: Topology, cfg: SimConfig, solver: Solver,
         edges=torch.tensor(edges, **f32).reshape(-1, 3),
         tets=torch.tensor(tets, **f32).reshape(-1, 4),
         cnt=cnt.contiguous(), colliders=ColliderRows(top, cfg))
-
-
-# ctypes argument types of the wind's drag in each lattice library's
-# integrate or predict launch: drag_on, wind velocity xyz, drag
-DRAG_ARGTYPES = [ctypes.c_int, *[ctypes.c_float] * 4]
-
-
-def drag_args(cfg: SimConfig) -> tuple:
-    """The drag arguments of an integrate or predict launch
-    (:data:`DRAG_ARGTYPES`); drag_on is 0 without wind, which runs the
-    launch's instantiation without drag."""
-    w = cfg.wind
-    return (int(w.enabled), *w.velocity, w.drag)
 
 
 def to_planes(a: torch.Tensor) -> torch.Tensor:

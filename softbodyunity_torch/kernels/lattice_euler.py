@@ -5,9 +5,11 @@ The plain PyTorch version is :func:`softbodyunity_torch.solver.step.make_plain_s
 :mod:`.dispatch` takes it for tensors on the CPU and this wrapper for
 tensors on a CUDA device, where it launches the kernels or raises.
 
-A substep is two launches, integrate then volume, or one (integrate, with
-the contact) when the scene has no volume constraint.  Each launch counts
-once.
+A substep is one ``ctypes`` call, ``lattice_euler_substep``, which
+launches three kernels: integrate, then a tet pass (each tet evaluated
+once) and a gather pass (the terms summed at each vertex); with no volume
+constraint the integrate alone, with the contact (1 launch).  Each launch
+counts once.
 """
 
 from __future__ import annotations
@@ -20,15 +22,15 @@ import torch
 from ..core.config import SimConfig, Solver
 from ..core.state import State
 from ..core.topology import Topology
-from .grid_scene import COLLIDER_ARGTYPES, check_input, check_launch
-from .lattice import (DRAG_ARGTYPES, drag_args, from_planes,
-                      pack_lattice_scene, to_planes, use_volume)
+from .grid_scene import (CollidersStruct, WindStruct, check_input,
+                         check_launch)
+from .lattice import from_planes, pack_lattice_scene, to_planes, use_volume
 
 _launches = 0
 
 
 def launch_count() -> int:
-    """Kernel launches (integrate and volume) since the last
+    """Kernel launches (integrate, tet and gather passes) since the last
     :func:`reset_launch_count`."""
     return _launches
 
@@ -39,8 +41,42 @@ def reset_launch_count() -> None:
 
 
 def launches_per_substep(top: Topology, cfg: SimConfig) -> int:
-    """Integrate plus, with the volume constraint on, the volume pass."""
-    return 1 + int(use_volume(top, cfg))
+    """Integrate plus, with the volume constraint on, the tet and gather
+    passes."""
+    return 1 + 2 * int(use_volume(top, cfg))
+
+
+def launches_per_call(top: Topology, cfg: SimConfig, n_substeps: int) -> int:
+    """Launches of one call ``fn(state, dt, n_substeps)``."""
+    return n_substeps * launches_per_substep(top, cfg)
+
+
+class _Params(ctypes.Structure):
+    _fields_ = [(name, ctypes.c_float) for name in (
+        "dt", "damping", "gx", "gy", "gz", "decay", "restitution",
+        "restitution1", "keep", "vol_stiff")]
+
+
+class _Substep(ctypes.Structure):
+    """``csrc/lattice_euler.cu::LatticeEulerSubstep`` field by field."""
+
+    _fields_ = [
+        *[(name, ctypes.c_void_p) for name in (
+            "inv_mass", "bits", "edges", "tets", "cnt", "tscr", "stream")],
+        *[(name, ctypes.c_int) for name in ("n_edge", "n_tet", "n",
+                                            "drag_on")],
+        ("col", CollidersStruct),
+        ("wind", WindStruct),
+        ("p", _Params),
+    ]
+
+
+class _Planes(ctypes.Structure):
+    """``csrc/lattice_euler.cu::LatticeEulerPlanes``: the call's planes,
+    which each substep rotates."""
+
+    _fields_ = [(name, ctypes.c_void_p)
+                for name in ("x", "v", "x_out", "v_out")]
 
 
 @functools.cache
@@ -48,51 +84,39 @@ def _launchers():
     from .build import load_library
 
     lib = load_library("lattice_euler")
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    integrate = lib.lattice_euler_integrate
-    integrate.argtypes = [
-        p, p, p, p,            # x, v, x_out, v_out
-        p, p, p, i,            # inv_mass, bits, edges, n_edge
-        *COLLIDER_ARGTYPES,    # the colliders
-        i,                     # finish
-        *DRAG_ARGTYPES,        # the wind's drag
-        i,                     # n
-        f, f, f, f, f,         # dt, damping, gx, gy, gz
-        f, f, f, f,            # decay, restitution, restitution1, keep
-        p,                     # stream
-    ]
-    integrate.restype = ctypes.c_int
-    volume = lib.lattice_euler_volume
-    volume.argtypes = [
-        p, p, p, p,            # xs, vs, x_out, v_out
-        p, p, p, i, p,         # inv_mass, bits, tets, n_tet, cnt
-        *COLLIDER_ARGTYPES,    # the colliders
-        i,                     # n
-        f, f, f, f, f,         # dt, vol_stiff, restitution, restitution1, keep
-        p,                     # stream
-    ]
-    volume.restype = ctypes.c_int
+    size = lib.lattice_euler_substep_size
+    size.restype = ctypes.c_int
+    if size() != ctypes.sizeof(_Substep):
+        raise RuntimeError(
+            f"lattice_euler: the C substep struct has {size()} bytes, its "
+            f"ctypes mirror {ctypes.sizeof(_Substep)}")
+    substep = lib.lattice_euler_substep
+    substep.argtypes = [ctypes.POINTER(_Substep), ctypes.POINTER(_Planes),
+                        ctypes.POINTER(ctypes.c_int)]
+    substep.restype = ctypes.c_int
     lib.lattice_euler_error_string.argtypes = [ctypes.c_int]
     lib.lattice_euler_error_string.restype = ctypes.c_char_p
-    return integrate, volume, lib.lattice_euler_error_string
+    return substep, lib.lattice_euler_error_string
 
 
 def make_cuda_step(top: Topology, cfg: SimConfig):
-    """Build ``fn(state, dt, n_substeps) -> state`` that runs each substep as
-    the integrate and volume launches of the fused Euler lattice kernels.
-    The result carries ``x_prev = x - dt * v``, as the plain version's.
+    """Build ``fn(state, dt, n_substeps) -> state`` that runs each substep
+    as one ``lattice_euler_substep`` call (integrate, tet and gather
+    launches).  The result carries ``x_prev = x - dt * v``, as the plain
+    version's.
 
     The ownership words, the group tables and the tet counts are packed
-    once, here, on the device, the collider rows once per topology a call
-    brings (``fn(state, dt, n, top=)``, :class:`.grid_scene.ColliderRows`)."""
+    once, here, on the device; the scratch planes of the tet terms
+    (csrc/lattice_common.cuh ``kTetPlanes``) once a call, on the call's
+    stream, as the other buffers; the collider rows once per topology a
+    call brings (``fn(state, dt, n, top=)``, :class:`.grid_scene.ColliderRows`)."""
     sc = pack_lattice_scene(top, cfg, Solver.SEMI_IMPLICIT_EULER,
                             "lattice_euler")
     n, device = sc.n, sc.device
     col = cfg.collision
     gx, gy, gz = cfg.gravity
-    two_pass = sc.n_tet > 0
-    drag = drag_args(cfg)
-    integrate, volume, error_string = _launchers()
+    w = cfg.wind
+    substep, error_string = _launchers()
 
     def fn(state: State, dt: float, n_substeps: int, top=None) -> State:
         global _launches
@@ -101,33 +125,33 @@ def make_cuda_step(top: Topology, cfg: SimConfig):
         check_input("state.x", state.x, (n, 3), device)
         check_input("state.v", state.v, (n, 3), device)
         dt = float(dt)
-        bounce = (col.restitution, 1.0 + col.restitution, 1.0 - col.friction)
         xa, va = to_planes(state.x), to_planes(state.v)
         xb, vb = torch.empty_like(xa), torch.empty_like(va)
+        tscr = torch.empty((3 * sc.n_tet, n, 4), dtype=torch.float32,
+                           device=device)
+        planes = {t.data_ptr(): t for t in (xa, va, xb, vb)}
         with torch.cuda.device(device):
             stream = torch.cuda.current_stream(device).cuda_stream
+            args = _Substep(
+                sc.inv_mass.data_ptr(), sc.bits.data_ptr(),
+                sc.edges.data_ptr(), sc.tets.data_ptr(), sc.cnt.data_ptr(),
+                tscr.data_ptr(), stream, sc.n_edge, sc.n_tet, n,
+                int(w.enabled), CollidersStruct(*contact),
+                WindStruct(*w.velocity, w.drag, 0.0),
+                _Params(dt, cfg.springs.damping, gx, gy, gz,
+                        1.0 - cfg.global_damping * dt, col.restitution,
+                        1.0 + col.restitution, 1.0 - col.friction,
+                        cfg.volume_stiffness))
+            q = _Planes(xa.data_ptr(), va.data_ptr(), xb.data_ptr(),
+                        vb.data_ptr())
+            launched = ctypes.c_int()
+            ref, qref, count = (ctypes.byref(args), ctypes.byref(q),
+                                ctypes.byref(launched))
             for _ in range(n_substeps):
-                check_launch(integrate(
-                    xa.data_ptr(), va.data_ptr(), xb.data_ptr(), vb.data_ptr(),
-                    sc.inv_mass.data_ptr(), sc.bits.data_ptr(),
-                    sc.edges.data_ptr(), sc.n_edge, *contact,
-                    int(not two_pass), *drag, n, dt, cfg.springs.damping,
-                    gx, gy, gz,
-                    1.0 - cfg.global_damping * dt, *bounce, stream),
-                    "lattice_euler integrate", error_string)
-                _launches += 1
-                if two_pass:
-                    check_launch(volume(
-                        xb.data_ptr(), vb.data_ptr(), xa.data_ptr(),
-                        va.data_ptr(), sc.inv_mass.data_ptr(),
-                        sc.bits.data_ptr(), sc.tets.data_ptr(), sc.n_tet,
-                        sc.cnt.data_ptr(), *contact, n, dt,
-                        cfg.volume_stiffness, *bounce, stream),
-                        "lattice_euler volume", error_string)
-                    _launches += 1
-                else:
-                    xa, xb, va, vb = xb, xa, vb, va
-        x, v = from_planes(xa), from_planes(va)
+                err = substep(ref, qref, count)
+                _launches += launched.value
+                check_launch(err, "lattice_euler substep", error_string)
+        x, v = from_planes(planes[q.x]), from_planes(planes[q.v])
         return State(x=x, v=v, x_prev=x - dt * v)
 
     return fn

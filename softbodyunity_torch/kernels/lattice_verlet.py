@@ -5,9 +5,14 @@ The plain PyTorch version is :func:`softbodyunity_torch.solver.step.make_plain_s
 :mod:`.dispatch` takes it for tensors on the CPU and this wrapper for
 tensors on a CUDA device, where it launches the kernels or raises.
 
-A substep is two launches, integrate then volume, or one (integrate, with
-the contact) when the scene has no volume constraint.  Each launch counts
-once.
+A substep is one ``ctypes`` call, ``lattice_verlet_substep``, which
+launches three kernels: integrate (the springs' damper reading each
+neighbour's velocity estimate from a plane the last substep wrote), then a
+tet pass (each tet evaluated once) and a gather pass (the terms summed at
+each vertex; it writes the next velocity-estimate plane); with no volume
+constraint the integrate alone, with the contact (1 launch).  The first
+substep of a call launches the velocity estimate of the state's (x,
+x_prev) before it.  Each launch counts once.
 """
 
 from __future__ import annotations
@@ -21,15 +26,16 @@ from ..core.config import SimConfig, Solver
 from ..core.state import State
 from ..core.topology import Topology
 from ..solver.collide import SPHERE_CONTACT_SHELL
-from .grid_scene import COLLIDER_ARGTYPES, check_input, check_launch
-from .lattice import (DRAG_ARGTYPES, drag_args, from_planes,
-                      pack_lattice_scene, to_planes, use_volume)
+from .grid_scene import (CollidersStruct, WindStruct, check_input,
+                         check_launch)
+from .lattice import from_planes, pack_lattice_scene, to_planes, use_volume
 
 _launches = 0
 
 
 def launch_count() -> int:
-    """Kernel launches (integrate and volume) since the last
+    """Kernel launches (velocity estimate, integrate, tet and gather passes)
+    since the last
     :func:`reset_launch_count`."""
     return _launches
 
@@ -40,8 +46,43 @@ def reset_launch_count() -> None:
 
 
 def launches_per_substep(top: Topology, cfg: SimConfig) -> int:
-    """Integrate plus, with the volume constraint on, the volume pass."""
-    return 1 + int(use_volume(top, cfg))
+    """Integrate plus, with the volume constraint on, the tet and gather
+    passes."""
+    return 1 + 2 * int(use_volume(top, cfg))
+
+
+def launches_per_call(top: Topology, cfg: SimConfig, n_substeps: int) -> int:
+    """Launches of one call ``fn(state, dt, n_substeps)``: its substeps and,
+    before them, the velocity estimate of the state's (x, x_prev)."""
+    return n_substeps * launches_per_substep(top, cfg) + int(n_substeps > 0)
+
+
+class _Params(ctypes.Structure):
+    _fields_ = [(name, ctypes.c_float) for name in (
+        "dt", "damping", "gx", "gy", "gz", "decay", "mu", "keep", "shell",
+        "vol_stiff")]
+
+
+class _Substep(ctypes.Structure):
+    """``csrc/lattice_verlet.cu::LatticeVerletSubstep`` field by field."""
+
+    _fields_ = [
+        *[(name, ctypes.c_void_p) for name in (
+            "inv_mass", "bits", "edges", "tets", "cnt", "tscr", "stream")],
+        *[(name, ctypes.c_int) for name in ("n_edge", "n_tet", "n",
+                                            "drag_on")],
+        ("col", CollidersStruct),
+        ("wind", WindStruct),
+        ("p", _Params),
+    ]
+
+
+class _Planes(ctypes.Structure):
+    """``csrc/lattice_verlet.cu::LatticeVerletPlanes``: the call's planes,
+    which each substep rotates."""
+
+    _fields_ = [(name, ctypes.c_void_p)
+                for name in ("x", "xp", "xs", "ve", "ve_out")]
 
 
 @functools.cache
@@ -49,52 +90,38 @@ def _launchers():
     from .build import load_library
 
     lib = load_library("lattice_verlet")
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    integrate = lib.lattice_verlet_integrate
-    integrate.argtypes = [
-        p, p, p, p, p, p, i,   # x, xp, xs, inv_mass, bits, edges, n_edge
-        *COLLIDER_ARGTYPES,    # the colliders
-        i,                     # finish
-        *DRAG_ARGTYPES,        # the wind's drag
-        i,                     # n
-        f, f, f, f, f,         # dt, damping, gx, gy, gz
-        f, f, f, f,            # decay, mu, keep, shell
-        p,                     # stream
-    ]
-    integrate.restype = ctypes.c_int
-    volume = lib.lattice_verlet_volume
-    volume.argtypes = [
-        p, p, p, p, p,         # xs, x, out, inv_mass, bits
-        p, i, p,               # tets, n_tet, cnt
-        *COLLIDER_ARGTYPES,    # the colliders
-        i,                     # n
-        f, f, f, f, f,         # dt, mu, keep, shell, vol_stiff
-        p,                     # stream
-    ]
-    volume.restype = ctypes.c_int
+    size = lib.lattice_verlet_substep_size
+    size.restype = ctypes.c_int
+    if size() != ctypes.sizeof(_Substep):
+        raise RuntimeError(
+            f"lattice_verlet: the C substep struct has {size()} bytes, its "
+            f"ctypes mirror {ctypes.sizeof(_Substep)}")
+    substep = lib.lattice_verlet_substep
+    substep.argtypes = [ctypes.POINTER(_Substep), ctypes.POINTER(_Planes),
+                        ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    substep.restype = ctypes.c_int
     lib.lattice_verlet_error_string.argtypes = [ctypes.c_int]
     lib.lattice_verlet_error_string.restype = ctypes.c_char_p
-    return integrate, volume, lib.lattice_verlet_error_string
+    return substep, lib.lattice_verlet_error_string
 
 
 def make_cuda_step(top: Topology, cfg: SimConfig):
-    """Build ``fn(state, dt, n_substeps) -> state`` that runs each substep as
-    the integrate and volume launches of the fused Verlet lattice kernels,
-    from ``state.x`` and its history ``state.x_prev``.
+    """Build ``fn(state, dt, n_substeps) -> state`` that runs each substep
+    as one ``lattice_verlet_substep`` call (integrate, tet and gather
+    launches), from ``state.x`` and its history ``state.x_prev``.
 
-    Three buffers rotate: integrate reads (x, xp) and writes the scratch
-    buffer; volume reads the scratch buffer and x and writes over xp, which
-    then holds the new x.  The ownership words, the group tables and the
-    tet counts are packed once, here, on the device, the collider rows once
-    per topology a call brings, as :func:`.lattice_euler.make_cuda_step`
-    packs them."""
+    Three position planes and two velocity-estimate planes rotate in C
+    (csrc/lattice_verlet.cu ``LatticeVerletPlanes``).  The ownership words,
+    the group tables and the tet counts are packed once, here, on the
+    device; the scratch planes once a call, on the call's stream; the
+    collider rows once per topology a call brings, as
+    :func:`.lattice_euler.make_cuda_step` packs them."""
     sc = pack_lattice_scene(top, cfg, Solver.VERLET, "lattice_verlet")
     n, device = sc.n, sc.device
     mu = cfg.collision.friction
     gx, gy, gz = cfg.gravity
-    two_pass = sc.n_tet > 0
-    drag = drag_args(cfg)
-    integrate, volume, error_string = _launchers()
+    w = cfg.wind
+    substep, error_string = _launchers()
 
     def fn(state: State, dt: float, n_substeps: int, top=None) -> State:
         global _launches
@@ -104,32 +131,31 @@ def make_cuda_step(top: Topology, cfg: SimConfig):
         check_input("state.x_prev", state.x_prev, (n, 3), device)
         dt = float(dt)
         x, xp = to_planes(state.x), to_planes(state.x_prev)
-        xs = torch.empty_like(x)
+        xs, ve, ve_out = (torch.empty_like(x) for _ in range(3))
+        tscr = torch.empty((3 * sc.n_tet, n, 4), dtype=torch.float32,
+                           device=device)
+        planes = {t.data_ptr(): t for t in (x, xp, xs)}
         with torch.cuda.device(device):
             stream = torch.cuda.current_stream(device).cuda_stream
-            for _ in range(n_substeps):
-                check_launch(integrate(
-                    x.data_ptr(), xp.data_ptr(), xs.data_ptr(),
-                    sc.inv_mass.data_ptr(), sc.bits.data_ptr(),
-                    sc.edges.data_ptr(), sc.n_edge, *contact,
-                    int(not two_pass), *drag, n, dt, cfg.springs.damping,
-                    gx, gy, gz, 1.0 - cfg.global_damping * dt, mu, 1.0 - mu,
-                    SPHERE_CONTACT_SHELL, stream),
-                    "lattice_verlet integrate", error_string)
-                _launches += 1
-                if two_pass:
-                    check_launch(volume(
-                        xs.data_ptr(), x.data_ptr(), xp.data_ptr(),
-                        sc.inv_mass.data_ptr(), sc.bits.data_ptr(),
-                        sc.tets.data_ptr(), sc.n_tet, sc.cnt.data_ptr(),
-                        *contact, n, dt, mu, 1.0 - mu, SPHERE_CONTACT_SHELL,
-                        cfg.volume_stiffness, stream),
-                        "lattice_verlet volume", error_string)
-                    _launches += 1
-                    x, xp = xp, x
-                else:
-                    x, xp, xs = xs, x, xp
-        x3, xp3 = from_planes(x), from_planes(xp)
+            args = _Substep(
+                sc.inv_mass.data_ptr(), sc.bits.data_ptr(),
+                sc.edges.data_ptr(), sc.tets.data_ptr(), sc.cnt.data_ptr(),
+                tscr.data_ptr(), stream, sc.n_edge, sc.n_tet, n,
+                int(w.enabled), CollidersStruct(*contact),
+                WindStruct(*w.velocity, w.drag, 0.0),
+                _Params(dt, cfg.springs.damping, gx, gy, gz,
+                        1.0 - cfg.global_damping * dt, mu, 1.0 - mu,
+                        SPHERE_CONTACT_SHELL, cfg.volume_stiffness))
+            q = _Planes(x.data_ptr(), xp.data_ptr(), xs.data_ptr(),
+                        ve.data_ptr(), ve_out.data_ptr())
+            launched = ctypes.c_int()
+            ref, qref, count = (ctypes.byref(args), ctypes.byref(q),
+                                ctypes.byref(launched))
+            for k in range(n_substeps):
+                err = substep(ref, qref, int(k == 0), count)
+                _launches += launched.value
+                check_launch(err, "lattice_verlet substep", error_string)
+        x3, xp3 = from_planes(planes[q.x]), from_planes(planes[q.xp])
         return State(x=x3, v=(x3 - xp3) / dt, x_prev=xp3)
 
     return fn

@@ -48,6 +48,11 @@ def launches_per_substep(top: Topology, cfg: SimConfig) -> int:
     return 1 + max(2 * cfg.xpbd.n_iterations, 1)
 
 
+def launches_per_call(top: Topology, cfg: SimConfig, n_substeps: int) -> int:
+    """Launches of one call ``fn(state, dt, n_substeps)``."""
+    return n_substeps * launches_per_substep(top, cfg)
+
+
 class _Params(ctypes.Structure):
     _fields_ = [(name, ctypes.c_float) for name in (
         "dt", "gx", "gy", "gz", "decay", "mu", "keep", "shell", "relax",

@@ -258,26 +258,47 @@ _LATTICE = {Solver.SEMI_IMPLICIT_EULER: lattice_euler,
     (Solver.XPBD, dict(n=6), 64),
     (Solver.XPBD, dict(n=7, pins=8), 64),
     (Solver.XPBD, dict(sphere=True), 64),
+    # the Euler and Verlet tet and gather passes on a cube and on a box
+    # whose three strides differ, each branch: with capsules and boxes the
+    # collider tests' bounds, x 5e-5 and v 5e-2
+    *[pytest.param(solver, dict(shape=shape, branch=branch), 48,
+                   id=f"{solver.value}-{label}-{branch}")
+      for solver in (Solver.SEMI_IMPLICIT_EULER, Solver.VERLET)
+      for shape, label in (((7, 7, 7), "7^3"), ((5, 6, 9), "5x6x9"))
+      for branch in ("plain", "no volume", "drag", "colliders")],
 ])
 def test_lattice_kernel_matches_plain_on_card(cuda, solver, kw, n_sub):
-    host, cfg = _lattice_scene(solver, **kw)
+    if "shape" in kw:
+        host, cfg = _lattice_box_scene(kw["shape"], 4, kw["branch"], solver)
+    else:
+        host, cfg = _lattice_scene(solver, **kw)
+    atol_x, atol_v = ((5e-5, 5e-2) if kw.get("branch") == "colliders"
+                      else (1e-5, 2e-3))
     top, s0 = tsb.init(host, device=cuda)
     want = make_plain_step(top, cfg)(s0, cfg.dt, n_sub)
     for w in (*_WRAPPERS.values(), *_LATTICE.values()):
         w.reset_launch_count()
     got = _LATTICE[solver].make_cuda_step(top, cfg)(s0, cfg.dt, n_sub)
     torch.cuda.synchronize()
-    per_sub = _LATTICE[solver].launches_per_substep(top, cfg)
-    assert per_sub == (1 + 2 * 4 if solver == Solver.XPBD
-                       else 1 + int(kw.get("volume_stiffness", 0.5) != 0.0))
-    assert _LATTICE[solver].launch_count() == n_sub * per_sub
+    module = _LATTICE[solver]
+    volume = cfg.volume_stiffness != 0.0
+    assert module.launches_per_substep(top, cfg) == (
+        1 + 2 * 4 if solver == Solver.XPBD else 1 + 2 * int(volume))
+    # Verlet: one velocity-estimate launch a call besides the substeps
+    launches = module.launches_per_call(top, cfg, n_sub)
+    assert launches == (n_sub * module.launches_per_substep(top, cfg)
+                        + int(solver == Solver.VERLET))
+    assert module.launch_count() == launches
     assert sum(w.launch_count() for w in (*_WRAPPERS.values(),
-                                          *_LATTICE.values())) == n_sub * per_sub
-    torch.testing.assert_close(got.x, want.x, atol=1e-5, rtol=0)
-    torch.testing.assert_close(got.v, want.v, atol=2e-3, rtol=0)
-    torch.testing.assert_close(got.x_prev, want.x_prev, atol=1e-5, rtol=0)
+                                          *_LATTICE.values())) == launches
+    torch.testing.assert_close(got.x, want.x, atol=atol_x, rtol=0)
+    torch.testing.assert_close(got.v, want.v, atol=atol_v, rtol=0)
+    torch.testing.assert_close(got.x_prev, want.x_prev, atol=atol_x, rtol=0)
     pinned = torch.from_numpy(host.inv_mass == 0.0).to(cuda)
     assert torch.equal(got.x[pinned], s0.x[pinned])
+    if "shape" in kw:
+        assert bool(pinned.any())
+        assert float((want.x - s0.x).abs().max()) > 1e-3
 
 
 @pytest.mark.cuda
@@ -839,7 +860,7 @@ def test_lattice_drag_kernel_matches_plain_on_card(cuda, solver):
     got = _LATTICE[solver].make_cuda_step(top, cfg)(s0, cfg.dt, 48)
     torch.cuda.synchronize()
     assert (_LATTICE[solver].launch_count()
-            == 48 * _LATTICE[solver].launches_per_substep(top, cfg))
+            == _LATTICE[solver].launches_per_call(top, cfg, 48))
     torch.testing.assert_close(got.x, want.x, atol=1e-5, rtol=0)
     torch.testing.assert_close(got.v, want.v, atol=2e-3, rtol=0)
     assert float(got.x[:, 0].mean()) > float(s0.x[:, 0].mean()) + 1e-3
@@ -920,9 +941,9 @@ def test_collider_kernel_matches_plain_on_card(cuda, solver, kind):
     module.reset_launch_count()
     got = module.make_cuda_step(top, cfg)(s0, cfg.dt, 48)
     torch.cuda.synchronize()
-    per_sub = (module.launches_per_substep(top, cfg) if kind == "lattice"
-               else module.launches_per_substep(cfg))
-    assert module.launch_count() == 48 * per_sub
+    launches = (module.launches_per_call(top, cfg, 48) if kind == "lattice"
+                else 48 * module.launches_per_substep(cfg))
+    assert module.launch_count() == launches
     torch.testing.assert_close(got.x, want.x, atol=5e-5, rtol=0)
     torch.testing.assert_close(got.v, want.v, atol=5e-2, rtol=0)
     assert float((want.x - s0.x).abs().max()) > 1e-2
@@ -1019,13 +1040,14 @@ def test_move_colliders_rollout_launch_counts(cuda, solver, kind):
         fresh = module.make_cuda_step(moved, cfg)
         ref = fresh(ref, cfg.dt, cfg.n_substeps)
     torch.cuda.synchronize()
-    per_sub = (module.launches_per_substep(top, cfg) if kind == "lattice"
-               else module.launches_per_substep(cfg))
+    per_call = (module.launches_per_call(top, cfg, cfg.n_substeps)
+                if kind == "lattice"
+                else cfg.n_substeps * module.launches_per_substep(cfg))
     # the fresh step functions launched as many again
-    assert module.launch_count() == 2 * frames * cfg.n_substeps * per_sub
+    assert module.launch_count() == 2 * frames * per_call
     assert sum(w.launch_count() for w in (*_WRAPPERS.values(),
                                           *_LATTICE.values(), blocks)) \
-        == 2 * frames * cfg.n_substeps * per_sub
+        == 2 * frames * per_call
     assert tsb.api._build_step.cache_info().misses == misses + 1
     assert torch.equal(s.x, ref.x) and torch.equal(s.v, ref.v)
 
@@ -1186,20 +1208,23 @@ def _tet_box(shape, spacing, springs, xpbd, plane_height, origin):
         triangles=np.zeros((0, 3), np.int32), lattice_shape=shape)
 
 
-def _xpbd_lattice_scene(shape, n_iter, branch):
-    """_lattice_scene's XPBD cube (on the plane, a pinned corner) at
-    ``shape``, with ``n_iter`` sweeps, and one branch: "plain", "drag"
+def _lattice_box_scene(shape, n_iter, branch, solver=Solver.XPBD):
+    """_lattice_scene's cube (on the plane, a pinned corner) under
+    ``solver`` at ``shape``, with ``n_iter`` XPBD sweeps, and one branch:
+    "plain", "no volume" (Euler and Verlet: volume_stiffness 0), "drag"
     (test_lattice_drag_kernel_matches_plain_on_card's wind) or "colliders"
     (_collider_scene's lattice capsule and box)."""
-    host, cfg = _lattice_scene(Solver.XPBD, pins=8)
+    host, cfg = _lattice_scene(solver, pins=8)
     if branch == "colliders":
-        chost, ccfg = _collider_scene(Solver.XPBD, "lattice")
+        chost, ccfg = _collider_scene(solver, "lattice")
         cfg = ccfg
         kw = dict(spacing=0.05, plane_height=-0.5, origin=(-0.1, -0.02, -0.1))
     else:
         kw = dict(spacing=0.08, plane_height=0.0, origin=(0.0, 0.01, 0.0))
     if branch == "drag":
         cfg = cfg.replace(wind=WindParams(velocity=(3.0, 0.0, 1.0), drag=0.5))
+    if branch == "no volume":
+        cfg = cfg.replace(volume_stiffness=0.0)
     cfg = cfg.replace(xpbd=dataclasses.replace(cfg.xpbd, n_iterations=n_iter))
     box = _tet_box(shape, springs=cfg.springs, xpbd=cfg.xpbd, **kw)
     box.inv_mass[:8] = 0.0
@@ -1224,7 +1249,7 @@ def test_xpbd_lattice_passes_match_plain_on_card(cuda, shape, n_iter,
     """The constraint and gather passes, each constraint evaluated once,
     against the plain version over 48 substeps, on a cube and on a box
     whose three strides differ."""
-    host, cfg = _xpbd_lattice_scene(shape, n_iter, branch)
+    host, cfg = _lattice_box_scene(shape, n_iter, branch)
     top, s0 = tsb.init(host, device=cuda)
     want = make_plain_step(top, cfg)(s0, cfg.dt, 48)
     atol_x, atol_v = (5e-5, 5e-2) if branch == "colliders" else (1e-5, 2e-3)
@@ -1243,6 +1268,26 @@ def test_xpbd_lattice_passes_match_plain_on_card(cuda, shape, n_iter,
     pinned = torch.from_numpy(host.inv_mass == 0.0).to(cuda)
     assert torch.equal(got.x[pinned], s0.x[pinned])
     assert float((want.x - s0.x).abs().max()) > 1e-3
+
+
+@pytest.mark.cuda
+def test_div6_is_the_ieee_quotient_on_card(cuda):
+    """csrc/lattice_common.cuh::div6, the tets' divides by 6 in every
+    lattice kernel (a product with the reciprocal and an FMA correction),
+    equals x / 6.0f to the bit on all 2^32 floats, a NaN matching a NaN:
+    so the kernels keep the IEEE divide's results."""
+    import ctypes
+
+    from softbodyunity_torch.kernels.build import load_library
+
+    check = load_library("lattice_euler").lattice_euler_div6_mismatches
+    check.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+    check.restype = ctypes.c_int
+    mismatches = torch.zeros(1, dtype=torch.int64, device=cuda)
+    assert check(mismatches.data_ptr(),
+                 torch.cuda.current_stream(cuda).cuda_stream) == 0
+    torch.cuda.synchronize()
+    assert int(mismatches.item()) == 0
 
 
 # --- what compute-sanitizer would check, where it cannot run -----------------
@@ -1269,12 +1314,12 @@ def _poison_allocator(device):
 def _poison_runs():
     """(name, build) pairs: each build() returns a function of no argument
     that makes a step function and runs it from rest."""
-    def lattice(solver, module, n=7, shape=None):
+    def lattice(solver, module, n=7, shape=None, branch="colliders"):
         def build():
             if shape is None:
                 host, cfg = _lattice_scene(solver, n=n)
             else:
-                host, cfg = _xpbd_lattice_scene(shape, 8, "colliders")
+                host, cfg = _lattice_box_scene(shape, 8, branch, solver)
             top, s0 = tsb.init(host, device="cuda")
             return lambda: module.make_cuda_step(top, cfg)(s0, cfg.dt, 48)
         return build
@@ -1289,6 +1334,10 @@ def _poison_runs():
     return [
         ("lattice_euler 7^3", lattice(Solver.SEMI_IMPLICIT_EULER,
                                       lattice_euler)),
+        ("lattice_euler 5x6x9", lattice(Solver.SEMI_IMPLICIT_EULER,
+                                        lattice_euler, shape=(5, 6, 9),
+                                        branch="plain")),
+        ("lattice_verlet 7^3", lattice(Solver.VERLET, lattice_verlet)),
         ("lattice_xpbd 7^3", lattice(Solver.XPBD, lattice_xpbd)),
         ("lattice_xpbd 5x6x9 colliders", lattice(Solver.XPBD, lattice_xpbd,
                                                  shape=(5, 6, 9))),
@@ -1345,13 +1394,17 @@ def test_xpbd_grid_sweep_repeats_bit_equal_on_card(cuda, nx, ny, branch):
 @pytest.mark.parametrize("branch", ["plain", "drag", "colliders"])
 @pytest.mark.parametrize("shape", [(7, 7, 7), (5, 6, 9)],
                          ids=["7^3", "5x6x9"])
-def test_xpbd_lattice_passes_repeat_bit_equal_on_card(cuda, shape, branch):
-    """The constraint pass writes each lambda and scratch entry from one
-    thread and the gather sums in a fixed order, so 24 runs of 48 substeps
-    from one state give one result to the bit."""
-    host, cfg = _xpbd_lattice_scene(shape, 8, branch)
+@pytest.mark.parametrize("solver", list(_LATTICE),
+                         ids=[s.value for s in _LATTICE])
+def test_xpbd_lattice_passes_repeat_bit_equal_on_card(cuda, solver, shape,
+                                                      branch):
+    """Under each lattice solver: the XPBD constraint pass and the Euler and
+    Verlet tet pass write each lambda and scratch entry from one thread and
+    the gathers sum in a fixed order, so 24 runs of 48 substeps from one
+    state give one result to the bit."""
+    host, cfg = _lattice_box_scene(shape, 8, branch, solver)
     top, s0 = tsb.init(host, device=cuda)
-    fn = lattice_xpbd.make_cuda_step(top, cfg)
+    fn = _LATTICE[solver].make_cuda_step(top, cfg)
     want = fn(s0, cfg.dt, 48)
     for k in range(23):
         got = fn(s0, cfg.dt, 48)

@@ -1,8 +1,9 @@
 """What the XPBD kernel wrappers compute on the host, on the CPU: the grid
 sweep's tile geometry (the owner rectangles and strips of csrc/grid_xpbd.cu
 at its compiled tile, and kernels/grid_xpbd.py::sweep_pattern), the lattice
-sweep's launch counts (kernels/lattice_xpbd.py), and the ctypes mirrors of
-the C substep structs, field by field against the sources.  The kernels
+launch counts (kernels/lattice_xpbd.py, lattice_euler.py, lattice_verlet.py),
+and the ctypes mirrors of the C substep structs, field by field against the
+sources.  The kernels
 themselves run only on the card (tests/test_torch_cuda.py)."""
 
 import re
@@ -14,11 +15,14 @@ import pytest
 import softbodyunity_torch as tsb
 from softbodyunity_torch.core.config import Solver, XPBDParams
 from softbodyunity_torch.kernels import (grid_scene, grid_xpbd, lattice,
+                                         lattice_euler, lattice_verlet,
                                          lattice_xpbd)
 from softbodyunity_torch.kernels.stencil import _xpbd_offsets
 
 CSRC = Path(grid_xpbd.__file__).resolve().parent / "csrc"
 SIX = [(0, 1), (1, 0), (1, 1), (1, -1), (0, 2), (2, 0)]
+_EULER_VERLET = {Solver.SEMI_IMPLICIT_EULER: lattice_euler,
+                 Solver.VERLET: lattice_verlet}
 
 
 def _tile():
@@ -212,6 +216,8 @@ def test_ctypes_structs_mirror_the_c_structs():
     common = (CSRC / "grid_common.cuh").read_text()
     grid = (CSRC / "grid_xpbd.cu").read_text()
     lat = (CSRC / "lattice_xpbd.cu").read_text()
+    euler = (CSRC / "lattice_euler.cu").read_text()
+    verlet = (CSRC / "lattice_verlet.cu").read_text()
     pairs = [
         (common, "Colliders", grid_scene.CollidersStruct),
         (common, "Wind", grid_scene.WindStruct),
@@ -220,6 +226,46 @@ def test_ctypes_structs_mirror_the_c_structs():
         (grid, "GridXpbdSubstep", grid_xpbd._Substep),
         (lat, "Params", lattice_xpbd._Params),
         (lat, "LatticeXpbdSubstep", lattice_xpbd._Substep),
+        (euler, "Params", lattice_euler._Params),
+        (euler, "LatticeEulerSubstep", lattice_euler._Substep),
+        (euler, "LatticeEulerPlanes", lattice_euler._Planes),
+        (verlet, "Params", lattice_verlet._Params),
+        (verlet, "LatticeVerletSubstep", lattice_verlet._Substep),
+        (verlet, "LatticeVerletPlanes", lattice_verlet._Planes),
     ]
     for source, name, cls in pairs:
         assert _c_fields(source, name) == _py_fields(cls), name
+
+
+def _cube(volume_stiffness, solver):
+    cfg = tsb.SimConfig(solver=solver, volume_stiffness=volume_stiffness)
+    host = tsb.tet_cube(6, spacing=0.08, springs=cfg.springs, xpbd=cfg.xpbd)
+    top, _ = tsb.init(host, device="cpu")
+    return top, cfg
+
+
+@pytest.mark.parametrize("volume_stiffness,want", [(0.5, 3), (0.0, 1)])
+@pytest.mark.parametrize("solver", [Solver.SEMI_IMPLICIT_EULER,
+                                    Solver.VERLET])
+def test_lattice_euler_verlet_launches_per_substep(solver, volume_stiffness,
+                                                   want):
+    """Integrate, tet and gather passes; the integrate alone without the
+    volume constraint.  A Verlet call adds one velocity-estimate launch."""
+    module = _EULER_VERLET[solver]
+    top, cfg = _cube(volume_stiffness, solver)
+    assert module.launches_per_substep(top, cfg) == want
+    first = int(solver == Solver.VERLET)
+    assert module.launches_per_call(top, cfg, 16) == 16 * want + first
+    assert module.launches_per_call(top, cfg, 1) == want + first
+    assert module.launches_per_call(top, cfg, 0) == 0
+
+
+@pytest.mark.parametrize("solver", [Solver.SEMI_IMPLICIT_EULER,
+                                    Solver.VERLET])
+def test_lattice_euler_verlet_step_needs_a_cuda_device(solver):
+    top, cfg = _cube(0.5, solver)
+    with pytest.raises(ValueError, match="CUDA device"):
+        _EULER_VERLET[solver].make_cuda_step(top, cfg)
+    assert (lattice.lattice_applicable(top, cfg)
+            if solver == Solver.SEMI_IMPLICIT_EULER
+            else lattice.lattice_verlet_applicable(top, cfg))
