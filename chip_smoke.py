@@ -5,7 +5,9 @@ Run from a checkout, with one card:  python3 chip_smoke.py
 
 The port's paths, one hand-written CUDA kernel each:
 
-    Euler   cloth_bench_64k           grid_euler      1 launch per substep
+    Euler   cloth_bench_64k           grid_euler      1 launch per substep (a
+                                                      32 x 8 tile a CTA, each
+                                                      edge once)
     Verlet  cloth_bench_64k_verlet    grid_verlet     1 launch per substep
     XPBD    cloth_bench_64k_xpbd      grid_xpbd       1 + n_iterations
     Euler   softbody_cube_64k         lattice_euler   3 (integrate, tet, gather)
@@ -14,10 +16,11 @@ The port's paths, one hand-written CUDA kernel each:
     XPBD    softbody_cube_64k_xpbd    lattice_xpbd    1 + 2 n_iterations
     Euler   cloth_selfcollide_64k     block_pairs     1, then grid_euler 1
 
-Both XPBD wrappers and both lattice Euler and Verlet wrappers launch a
-substep from one ctypes call into C; a lattice XPBD sweep is a constraint
-pass (each edge and tet once) and a gather pass, a lattice Euler or Verlet
-volume projection a tet pass (each tet once) and a gather pass.
+The grid Euler wrapper launches a frame from one ctypes call into C (with
+self-collision, a substep); both XPBD wrappers and both lattice Euler and
+Verlet wrappers launch a substep from one; a lattice XPBD sweep is a
+constraint pass (each edge and tet once) and a gather pass, a lattice Euler
+or Verlet volume projection a tet pass (each tet once) and a gather pass.
 
 The seventh path is self-collision on grid cloth: each substep the Morton
 sort and the partner search (PyTorch ops on the card), one block_pairs
@@ -37,12 +40,13 @@ instantiations, with one frame-end update launch a frame):
 
 Then the wind and strain-limit branches: wind (drag and lift) in the three
 grid kernels, the strain limit's sweeps (grid_strain_sweep_kernel, one
-launch per sweep, the last running the solver's epilogue), and the wind's
-drag in the three lattice kernels:
+cooperative launch a substep for all its sweeps, a grid barrier between
+them, the last running the solver's epilogue), and the wind's drag in the
+three lattice kernels:
 
     Euler   cloth_wind_64k (Verlet, XPBD: solver replaced)   grid_*    as above
-    Euler   cloth_strain_64k (Verlet, XPBD: solver replaced) grid_*    + iterations
-            (sweeps; XPBD: 1 + n_iterations + iterations)
+    Euler   cloth_strain_64k (Verlet, XPBD: solver replaced) grid_*    + 1
+            (the sweeps; XPBD: 1 + n_iterations + 1)
     Euler   softbody_cube_64k, _verlet, _xpbd with drag      lattice_* as above
             (wind velocity (3, 0, 1), drag 0.3)
 
@@ -70,7 +74,9 @@ Phases, each printed as one JSON line; any failure raises and exits nonzero:
               then the host build time of each preset (tet_cube(40) is
               seconds of Python loops);
 2. build      nvcc builds the seven kernels from kernels/csrc at first use,
-              one nvcc per source, all started together;
+              one nvcc per source, all started together at the script's
+              start, beside the host's preset builds of phase 1; the phase
+              waits for them;
 3. compare    each kernel against its plain PyTorch version, both float32 on
               the card: 16x8 cloths (the scenes of tests/test_pallas.py),
               6^3 and 7^3 tet cubes (tests/test_pallas_lattice.py), and one
@@ -171,6 +177,7 @@ package beside it, it exits nonzero and prints no result.
 
 from __future__ import annotations
 
+import concurrent.futures
 import dataclasses
 import json
 import os
@@ -350,6 +357,57 @@ def require(cond: bool, what: str) -> None:
 
 def emit(phase: str, **fields) -> None:
     print(json.dumps({"phase": phase, **fields}), flush=True)
+
+
+# the numbered phase main() is in, which a failure names
+_phase = {"name": "start"}
+
+
+def begin(phase: str) -> None:
+    _phase["name"] = phase
+
+
+def events_ms(body, n):
+    """ms per unit of ``body()``, which does ``n`` units, from CUDA
+    events."""
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    body()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def profile_device(body, names):
+    """Run ``body()`` under torch.profiler: {name: (device µs a launch,
+    launches)} of each of ``names`` that the trace shows running (a name
+    matches every kernel whose symbol holds it), and the device µs of every
+    kernel, memcpy and memset in the trace."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        body()
+        torch.cuda.synchronize()
+    total_of, busy = {}, 0.0
+    for ev in prof.key_averages():
+        total = getattr(ev, "device_time_total", None)
+        if total is None:
+            total = getattr(ev, "cuda_time_total", 0.0)
+        # the device's own events; a host event's device time counts the
+        # kernels it launched a second time
+        if ev.device_type == DeviceType.CPU:
+            continue
+        busy += total
+        for kname in names:
+            if kname in ev.key and total > 0 and ev.count > 0:
+                t, c = total_of.get(kname, (0.0, 0))
+                total_of[kname] = (t + total, c + ev.count)
+    return {k: (t / c, c) for k, (t, c) in total_of.items()}, busy
 
 
 def collider_counts(top, cfg):
@@ -751,18 +809,20 @@ def main() -> int:
         c["block_pairs_dual"] = blocks.launch_count("block_pairs_dual")
         return c
 
-    def events_ms(body, n):
-        """ms per unit of ``body()``, which does ``n`` units, from CUDA
-        events."""
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        body()
-        end.record()
-        end.synchronize()
-        return start.elapsed_time(end) / n
+    # nvcc builds the kernels in the background (one process a source) while
+    # the host builds the presets below; phase 2 waits for it
+    fresh = {n: not build.library_path(n).exists() for n in kernels}
+    nvcc_pool = concurrent.futures.ThreadPoolExecutor(1)
+
+    def build_all():
+        t = time.perf_counter()
+        build.load_libraries(list(kernels))
+        return time.perf_counter() - t
+
+    building = nvcc_pool.submit(build_all)
 
     # 1. device -------------------------------------------------------------
+    begin("device")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
@@ -832,10 +892,11 @@ def main() -> int:
     phase_seconds()
 
     # 2. build --------------------------------------------------------------
-    fresh = {n: not build.library_path(n).exists() for n in kernels}
+    begin("build")
     t = time.perf_counter()
-    build.load_libraries(list(kernels))
-    build_s = time.perf_counter() - t
+    build_s = building.result()   # raises the build's error, if any
+    nvcc_pool.shutdown()
+    wait_s = time.perf_counter() - t
     for name in kernels:
         lib = build.library_path(name)
         log = lib.with_suffix(".log")
@@ -843,7 +904,8 @@ def main() -> int:
                   if "ptxas" in ln] if log.exists() else [])
         emit("build", kernel=name, fresh_build=fresh[name],
              library=os.path.relpath(lib, ROOT), ptxas=ptxas)
-    emit("build", kernels=list(kernels), seconds=build_s)
+    emit("build", kernels=list(kernels), nvcc_seconds=build_s,
+         waited_seconds=wait_s)
     phase_seconds()
 
     # --- the self-collision path: block_pairs, then grid_euler ----------------
@@ -2067,6 +2129,7 @@ def main() -> int:
             del top32, s32, top64, s64, plain64, frame64
 
     # 3. kernel vs plain version on the card ----------------------------------
+    begin("compare")
     def scene16(solver=sb.Solver.SEMI_IMPLICIT_EULER, shear=True, bend=True,
                 sphere=None, verlet_sphere=False):
         """tests/test_pallas.py's 16x8 scenes."""
@@ -2205,6 +2268,7 @@ def main() -> int:
     emit("compare", seconds=phase_seconds())
 
     # 4. the main paths -----------------------------------------------------
+    begin("main_path")
     frames = 300
     for name, k in steps.items():
         host, cfg = k["host"], k["cfg"]
@@ -2269,6 +2333,7 @@ def main() -> int:
     emit("main_path", seconds=phase_seconds())
 
     # 5. hanging cloth on a sphere ------------------------------------------
+    begin("sphere")
     host, cfg = sb.presets.build("cloth_hanging_sphere")
     top, s0 = sb.init(host, device="cuda")
     s = s0
@@ -2287,6 +2352,7 @@ def main() -> int:
     require(dmin >= 0.35 - 1e-5, f"sphere: vertex inside, dist {dmin}")
 
     # 6. golden replay ------------------------------------------------------
+    begin("golden")
     # tests/test_golden.py's tolerances; the sphere scene's first recorded
     # frame is also held to 2e-3 (CPU plain path 8.4e-4, JAX f32 1.3e-3)
     for name, tol, first_tol in (("cloth_32_euler", 1e-4, 1e-4),
@@ -2314,6 +2380,7 @@ def main() -> int:
     emit("golden", seconds=phase_seconds())
 
     # 7. fidelity bound -----------------------------------------------------
+    begin("fidelity")
     # BASELINE.json:5's 1e-3.  The grid presets run 500 frames (Euler,
     # Verlet) and 100 (XPBD), the first checkpoints of the 1000 and 200 that
     # earlier versions of this script ran, so that the six paths fit the
@@ -2579,8 +2646,7 @@ def main() -> int:
     emit("fidelity", seconds=phase_seconds())
 
     # 8. timing -------------------------------------------------------------
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    begin("timing")
 
     def substep_ms(fn, s0, cfg, n_frames, n_sub):
         """ms per substep of ``n_frames`` calls ``fn(s, dt, n_sub)`` from
@@ -2602,37 +2668,32 @@ def main() -> int:
             ms[which].append(runs[which]())
         return ms
 
-    def pass_launches(name, dev, n_sub):
-        """An XPBD or lattice path's launches a substep in a profiler window
-        of ``n_sub`` substeps, from the per-kernel counts ``dev`` (a lattice
-        Verlet call's velocity-estimate launch included)."""
-        if not (name.endswith("xpbd") or name.startswith("lattice_")):
-            return {}
-        return {"launches_per_substep":
-                sum(c for _, c in dev.values()) / n_sub}
+    def pass_launches(dev, kernel, top, cfg, n_frames, what):
+        """A path's launches a substep in a profiler window of ``n_frames``
+        calls, from the per-kernel counts ``dev`` (a lattice Verlet call's
+        velocity-estimate launch and a frame's feature update included);
+        they must be the launches that ``kernel``'s wrapper makes, so a
+        kernel the trace does not name fails the run."""
+        module = kernels[kernel]["module"]
+        per_call = (module.launches_per_call(top, cfg, cfg.n_substeps)
+                    if kernels[kernel]["lattice"]
+                    else module.launches_per_frame(cfg, cfg.n_substeps))
+        n = sum(c for _, c in dev.values())
+        require(n == n_frames * per_call,
+                f"timing {what}: the trace names {n} launches of "
+                f"{kernel}'s kernels, its wrapper makes {n_frames * per_call}")
+        return {"launches_per_substep": n / (n_frames * cfg.n_substeps)}
 
     def device_us_per_launch(fn, s0, cfg, n_frames, names):
         """Device time per launch of each named kernel over n_frames, from
-        torch.profiler (None where the trace shows no device time), and the
-        device time of every kernel, memcpy and memset in the trace, in µs
-        per substep."""
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.profiler (absent where the trace shows no device time), and
+        the device time of every kernel, memcpy and memset in the trace, in
+        µs per substep."""
+        def body():
             s = s0
             for _ in range(n_frames):
                 s = fn(s, cfg.dt, cfg.n_substeps)
-            torch.cuda.synchronize()
-        out, busy = {}, 0.0
-        for ev in prof.key_averages():
-            total = getattr(ev, "device_time_total", None)
-            if total is None:
-                total = getattr(ev, "cuda_time_total", 0.0)
-            # the device's own events; a host event's device time counts
-            # the kernels it launched a second time
-            if ev.device_type != DeviceType.CPU:
-                busy += total
-            for kname in names:
-                if kname in ev.key and total > 0 and ev.count > 0:
-                    out[kname] = (total / ev.count, ev.count)
+        out, busy = profile_device(body, names)
         return out, busy / (n_frames * cfg.n_substeps)
 
     # every CUDA-event timing first: a torch.profiler session slows the
@@ -2644,8 +2705,9 @@ def main() -> int:
         # plane, so the timed work is the one bound_per_substep counts
         kern_fn = k["module"].make_cuda_step(top, cfg)
         plain_fn = k["plain"](top, cfg)
-        frames_k, frames_p = (20, 2) if k["lattice"] else (100, 5)
+        frames_k, frames_p = (20, 1) if k["lattice"] else (100, 5)
         k["timing_fn"], k["timing_s0"] = kern_fn, s0
+        k["timing_top"] = top
         ms = in_turns({
             "kernel": lambda: substep_ms(kern_fn, s0, cfg, frames_k,
                                          cfg.n_substeps),
@@ -2704,6 +2766,7 @@ def main() -> int:
         kern_fn = kernels[p["kernel"]]["module"].make_cuda_step(top, cfg)
         plain_fn = make_stencil_step(top, cfg)
         p["timing_fn"], p["timing_s0"] = kern_fn, s0
+        p["timing_top"] = top
         ms = in_turns({
             "kernel": lambda: substep_ms(kern_fn, s0, cfg, 10,
                                          cfg.n_substeps),
@@ -2726,8 +2789,9 @@ def main() -> int:
         top, s0 = sb.init(host, device="cuda")
         kern_fn = k["module"].make_cuda_step(top, cfg)
         plain_fn = k["plain"](top, cfg)
-        frames_k, frames_p = (20, 2) if k["lattice"] else (100, 3)
+        frames_k, frames_p = (20, 1) if k["lattice"] else (100, 3)
         p["timing_fn"], p["timing_s0"] = kern_fn, s0
+        p["timing_top"] = top
         ms = in_turns({
             "kernel": lambda: substep_ms(kern_fn, s0, cfg, frames_k,
                                          cfg.n_substeps),
@@ -2781,6 +2845,7 @@ def main() -> int:
         plain_fn = k["plain"](top, cfg)
         frames_k = 20 if k["lattice"] else 100
         p["timing_fn"], p["timing_s0"] = kern_fn, s0
+        p["timing_top"] = top
         # the plain version over 4 substeps: ms per substep alike, and the
         # float32 plain XPBD cube takes 0.15 s a substep
         ms = in_turns({
@@ -2815,7 +2880,8 @@ def main() -> int:
                  device_us_per_launch={n: us for n, (us, _) in dev.items()},
                  launches={n: c for n, (_, c) in dev.items()},
                  device_us_per_substep=per_sub,
-                 **pass_launches(name, dev, 5 * cfg.n_substeps))
+                 **pass_launches(dev, name, k["timing_top"], cfg, 5,
+                                 f"{name} {label or 'rest'}"))
     # the self-collision substep: block_pairs, grid_euler, and the sort and
     # partner search (every other kernel of the trace)
     cfg = sc["cfg"]
@@ -2841,27 +2907,21 @@ def main() -> int:
             fn = blocks.make_block_pairs_dual(p_sc, ni, x24.shape[0], cuda)
             fn(xi, x24)
             torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                for _ in range(10):
-                    fn(xi, x24)
-                torch.cuda.synchronize()
-            kernel_us, busy = None, 0.0
-            for ev in prof.key_averages():
-                total = getattr(ev, "device_time_total", None)
-                if total is None:
-                    total = getattr(ev, "cuda_time_total", 0.0)
-                if ev.device_type != DeviceType.CPU:
-                    busy += total
-                if "block_pairs_kernel" in ev.key and ev.count > 0:
-                    kernel_us = total / ev.count
-            per_rank.append({"kernel_us": kernel_us,
-                             "all_device_us": busy / 10})
+            dev, busy = profile_device(
+                lambda: [fn(xi, x24) for _ in range(10)],
+                ("block_pairs_kernel",))
+            per_rank.append({
+                "kernel_us": dev.get("block_pairs_kernel", (None,))[0],
+                "all_device_us": busy / 10})
         emit("timing", kernel="block_pairs_dual", profiler_calls=10,
              start="24 substeps", ranks=n_ranks, card=smi,
              device_us_per_call=per_rank)
     for label, p in large.items():
         cfg = p["cfg"]
         names = kernels[p["kernel"]]["device_names"]
+        if p["kernel"] == "grid_euler":
+            # plain substeps on more tiles than the card holds CTAs at once
+            names = names + ("grid_euler_wide_kernel",)
         if cfg.tear.enabled or cfg.plasticity.enabled:
             names = names + ("grid_feature_finish_kernel",)
         dev, busy = device_us_per_launch(p["timing_fn"], p["timing_s0"], cfg,
@@ -2871,7 +2931,8 @@ def main() -> int:
              device_us_per_launch={n: us for n, (us, _) in dev.items()},
              launches={n: c for n, (_, c) in dev.items()},
              device_us_per_substep=busy,
-             **pass_launches(p["kernel"], dev, 3 * cfg.n_substeps))
+             **pass_launches(dev, p["kernel"], p["timing_top"], cfg, 3,
+                             label))
     for label, p in branches.items():
         cfg = p["cfg"]
         names = kernels[p["kernel"]]["device_names"]
@@ -2884,7 +2945,8 @@ def main() -> int:
              device_us_per_launch={n: us for n, (us, _) in dev.items()},
              launches={n: c for n, (_, c) in dev.items()},
              device_us_per_substep=busy,
-             **pass_launches(p["kernel"], dev, 3 * cfg.n_substeps))
+             **pass_launches(dev, p["kernel"], p["timing_top"], cfg, 3,
+                             label))
     for label, p in collider_paths.items():
         cfg = p["cfg"]
         dev, busy = device_us_per_launch(p["timing_fn"], p["timing_s0"], cfg,
@@ -2894,7 +2956,8 @@ def main() -> int:
              device_us_per_launch={n: us for n, (us, _) in dev.items()},
              launches={n: c for n, (_, c) in dev.items()},
              device_us_per_substep=busy,
-             **pass_launches(p["kernel"], dev, 3 * cfg.n_substeps))
+             **pass_launches(dev, p["kernel"], p["timing_top"], cfg, 3,
+                             label))
     emit("timing", seconds=phase_seconds())
 
     line = [{
@@ -2954,4 +3017,13 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        code = main()
+    except Exception as e:
+        # name the phase, then fail with the traceback: nothing is swallowed
+        print(json.dumps({"phase": "failed", "in": _phase["name"],
+                          "error": repr(e)}), flush=True)
+        print(f"chip_smoke: failed in phase {_phase['name']}",
+              file=sys.stderr, flush=True)
+        raise
+    sys.exit(code)

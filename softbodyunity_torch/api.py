@@ -23,6 +23,7 @@ import torch
 from .core.config import SimConfig
 from .core.state import State, make_state
 from .core.topology import HostTopology, SceneKey, Topology
+from .solver.normals import incident_faces
 from .solver.normals import vertex_normals as _vertex_normals
 
 
@@ -262,6 +263,17 @@ def rollout(
     return state, xs
 
 
+@functools.lru_cache(maxsize=16)
+def _normal_table(key: SceneKey) -> torch.Tensor:
+    """The incident-face table of the scene's triangles, built once per
+    scene (a topology from :func:`move_colliders` shares it) and kept, as
+    :func:`_build_step` keeps its step functions, for the 16 scenes last
+    used."""
+    return incident_faces(key.top.triangles, key.top.n_vertices)
+
+
 def normals(top: Topology, state: State) -> torch.Tensor:
-    """Vertex normals for rendering (Unity RecalculateNormals analogue)."""
-    return _vertex_normals(top.triangles, state.x)
+    """Vertex normals for rendering (Unity RecalculateNormals analogue),
+    summed in a fixed order: the same bits on every run."""
+    return _vertex_normals(top.triangles, state.x,
+                           _normal_table(SceneKey(top)))

@@ -13,7 +13,11 @@
 
 #pragma once
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+#include <type_traits>
+#include <utility>
 
 namespace {
 
@@ -38,12 +42,14 @@ __device__ __forceinline__ float dot3(Vec3 a, Vec3 b) {
 }
 
 // Hooke + axial damper force on endpoint a of the edge a -> b, toward b
-// (stencil.py::stencil_spring_forces: multiply by 1 / max(len, 1e-12)).
-// Both the owner's force and the recomputed reaction come from here, so the
-// two copies of an edge force are identical.
-__device__ __forceinline__ Vec3 edge_force(Vec3 xa, Vec3 va, Vec3 xb,
-                                           Vec3 vb, float k, float rest,
-                                           float damping) {
+// (stencil.py::stencil_spring_forces: multiply by 1 / max(len, 1e-12)), as
+// its magnitude fmag and unit direction n: (fmag, n.x, n.y, n.z).  The force
+// is fmag * n; a kernel that evaluates each edge once keeps the pair and
+// forms the products where it sums them, as a kernel that recomputes each
+// edge at both ends forms them (edge_force), so the two agree to the bit.
+__device__ __forceinline__ float4 edge_terms(Vec3 xa, Vec3 va, Vec3 xb,
+                                             Vec3 vb, float k, float rest,
+                                             float damping) {
   const float dx = xb.x - xa.x, dy = xb.y - xa.y, dz = xb.z - xa.z;
   const float len = sqrtf(dx * dx + dy * dy + dz * dz);
   const float inv_len = 1.0f / fmaxf(len, 1e-12f);
@@ -51,7 +57,17 @@ __device__ __forceinline__ Vec3 edge_force(Vec3 xa, Vec3 va, Vec3 xb,
   const float rel_v =
       (vb.x - va.x) * nx + (vb.y - va.y) * ny + (vb.z - va.z) * nz;
   const float fmag = k * (len - rest) + damping * rel_v;
-  return {fmag * nx, fmag * ny, fmag * nz};
+  return make_float4(fmag, nx, ny, nz);
+}
+
+// The same force as a vector.  Both the owner's force and the recomputed
+// reaction come from here, so the two copies of an edge force are
+// identical.
+__device__ __forceinline__ Vec3 edge_force(Vec3 xa, Vec3 va, Vec3 xb,
+                                           Vec3 vb, float k, float rest,
+                                           float damping) {
+  const float4 t = edge_terms(xa, va, xb, vb, k, rest, damping);
+  return {t.x * t.y, t.x * t.z, t.x * t.w};
 }
 
 // --- the colliders ----------------------------------------------------------
@@ -679,62 +695,187 @@ __device__ __forceinline__ Vec3 cross3(Vec3 a, Vec3 b) {
           a.x * b.y - a.y * b.x};
 }
 
+// Positions of grid vertex (a, b) read from device memory: the accessor
+// the one-pass kernels hand to the normal below.  A tiled kernel hands one
+// that reads its staged frame.
+struct PlaneAt {
+  const float* __restrict__ x;
+  int nx, ps;
+  __device__ __forceinline__ Vec3 operator()(int a, int b) const {
+    return load3(x, a * nx + b, ps);
+  }
+};
+
 // The face normals (unnormalised) of grid cell (a, b): f1 of the triangle
 // (p(a,b), p(a+1,b), p(a,b+1)), f2 of (p(a,b+1), p(a+1,b), p(a+1,b+1)).  A
 // cell outside [0, ny - 1) x [0, nx - 1) has none: zero, as the plain
-// version's masked face planes are.
-__device__ __forceinline__ Vec3 face1(const float* __restrict__ x, int a,
-                                      int b, int ny, int nx, int ps) {
+// version's masked face planes are.  at(a, b) is the position of vertex
+// (a, b).
+template <class At>
+__device__ __forceinline__ Vec3 face1(const At& at, int a, int b, int ny,
+                                      int nx) {
   if (a < 0 || b < 0 || a + 1 >= ny || b + 1 >= nx) return {0.0f, 0.0f, 0.0f};
-  const Vec3 p = load3(x, a * nx + b, ps);
-  return cross3(sub3(load3(x, (a + 1) * nx + b, ps), p),
-                sub3(load3(x, a * nx + b + 1, ps), p));
+  const Vec3 p = at(a, b);
+  return cross3(sub3(at(a + 1, b), p), sub3(at(a, b + 1), p));
 }
 
-__device__ __forceinline__ Vec3 face2(const float* __restrict__ x, int a,
-                                      int b, int ny, int nx, int ps) {
+template <class At>
+__device__ __forceinline__ Vec3 face2(const At& at, int a, int b, int ny,
+                                      int nx) {
   if (a < 0 || b < 0 || a + 1 >= ny || b + 1 >= nx) return {0.0f, 0.0f, 0.0f};
-  const Vec3 pi = load3(x, (a + 1) * nx + b, ps);
-  const Vec3 pj = load3(x, a * nx + b + 1, ps);
-  return cross3(sub3(pi, pj), sub3(load3(x, (a + 1) * nx + b + 1, ps), pj));
+  const Vec3 pi = at(a + 1, b);
+  const Vec3 pj = at(a, b + 1);
+  return cross3(sub3(pi, pj), sub3(at(a + 1, b + 1), pj));
 }
 
 // The unit normal of vertex (i, j): the six faces around it summed in the
 // plain version's order, f1 + f1(-1,0) + f1(0,-1) + f2(0,-1) + f2(-1,0) +
 // f2(-1,-1), divided by max(|sum|, 1e-12).
-__device__ __forceinline__ Vec3 vertex_normal(const float* __restrict__ x,
-                                              int i, int j, int ny, int nx,
-                                              int ps) {
-  Vec3 a = face1(x, i, j, ny, nx, ps);
-  Vec3 f = face1(x, i - 1, j, ny, nx, ps);
+template <class At>
+__device__ __forceinline__ Vec3 vertex_normal(const At& at, int i, int j,
+                                              int ny, int nx) {
+  Vec3 a = face1(at, i, j, ny, nx);
+  Vec3 f = face1(at, i - 1, j, ny, nx);
   a = {a.x + f.x, a.y + f.y, a.z + f.z};
-  f = face1(x, i, j - 1, ny, nx, ps);
+  f = face1(at, i, j - 1, ny, nx);
   a = {a.x + f.x, a.y + f.y, a.z + f.z};
-  f = face2(x, i, j - 1, ny, nx, ps);
+  f = face2(at, i, j - 1, ny, nx);
   a = {a.x + f.x, a.y + f.y, a.z + f.z};
-  f = face2(x, i - 1, j, ny, nx, ps);
+  f = face2(at, i - 1, j, ny, nx);
   a = {a.x + f.x, a.y + f.y, a.z + f.z};
-  f = face2(x, i - 1, j - 1, ny, nx, ps);
+  f = face2(at, i - 1, j - 1, ny, nx);
   a = {a.x + f.x, a.y + f.y, a.z + f.z};
   const float m = fmaxf(sqrtf(dot3(a, a)), 1e-12f);
   return {a.x / m, a.y / m, a.z / m};
 }
 
-// The wind force on vertex (i, j) of positions x, moving at v.
-__device__ __forceinline__ Vec3 wind_force(const float* __restrict__ x, int i,
-                                           int j, int ny, int nx, int ps,
-                                           Vec3 v, const Wind& w) {
+// The wind force on vertex (i, j), at(a, b) the positions, moving at v.
+template <class At>
+__device__ __forceinline__ Vec3 wind_force_at(const At& at, int i, int j,
+                                              int ny, int nx, Vec3 v,
+                                              const Wind& w) {
   const Vec3 r = {w.vx - v.x, w.vy - v.y, w.vz - v.z};
   Vec3 f = {w.drag * r.x, w.drag * r.y, w.drag * r.z};
   if (w.lift != 0.0f) {
-    const Vec3 n = vertex_normal(x, i, j, ny, nx, ps);
+    const Vec3 n = vertex_normal(at, i, j, ny, nx);
     const float s = w.lift * dot3(r, n);
     f = {f.x + s * n.x, f.y + s * n.y, f.z + s * n.z};
   }
   return f;
 }
 
-// --- the strain limit: one Jacobi sweep per launch --------------------------
+// The wind force on vertex (i, j) of the positions x in device memory.
+__device__ __forceinline__ Vec3 wind_force(const float* __restrict__ x, int i,
+                                           int j, int ny, int nx, int ps,
+                                           Vec3 v, const Wind& w) {
+  return wind_force_at(PlaneAt{x, nx, ps}, i, j, ny, nx, v, w);
+}
+
+// --- tiles: a CTA owns a tile of the grid, each edge evaluated once ------
+//
+// The grid's offset patterns, in the order of the offsets tables
+// (kernels/stencil.py::_offsets and ::_xpbd_offsets list them alike):
+// structural (0, 1), (1, 0), then shear (1, 1), (1, -1), then bend (0, 2),
+// (2, 0).  A tiled kernel is compiled for each pattern, so that every index
+// is a constant: evaluating each edge once pays only then (grid_xpbd.cu).
+enum Pattern { kStructural, kShear, kBend, kShearBend };
+
+// Offset o of pattern P as (di, dj): the structural two, then the shear
+// two unless P is kBend, then the bend two.
+template <int P>
+struct Offsets {
+  static constexpr int n = P == kShearBend ? 6 : (P == kStructural ? 2 : 4);
+  // o's place in the six offsets of kShearBend
+  __host__ __device__ static constexpr int six(int o) {
+    return P == kBend && o >= 2 ? o + 2 : o;
+  }
+  __host__ __device__ static constexpr int di(int o) {
+    switch (six(o)) {
+      case 0: case 4: return 0;
+      case 5: return 2;
+      default: return 1;
+    }
+  }
+  __host__ __device__ static constexpr int dj(int o) {
+    switch (six(o)) {
+      case 0: case 2: return 1;
+      case 3: return -1;
+      case 4: return 2;
+      default: return 0;
+    }
+  }
+};
+
+__host__ __device__ constexpr int abs_c(int a) { return a < 0 ? -a : a; }
+__host__ __device__ constexpr int min0(int a) { return a < 0 ? a : 0; }
+
+// The tile, columns x rows, one thread a vertex.
+constexpr int kTileX = 32, kTileY = 8;
+
+// A CTA's tile, TX x TY vertices, and its frame of H vertices around (H =
+// the largest |di|, |dj|).  Offset o's rectangle holds the edges owned by a
+// vertex q with q or q + o in the tile: NR(o) x NC(o) owners from row
+// min(0, -di), column min(0, -dj) of the tile, its entries from B(o) on.
+// Thread (x, y) evaluates entry (y, x) of every rectangle; the rest of each
+// rectangle, the strips past row TY and column TX (S(o) entries, from SB(o)
+// on in one list), goes one entry a thread.
+template <int P, int TX_ = kTileX, int TY_ = kTileY>
+struct Tile {
+  using O = Offsets<P>;
+  static constexpr int TX = TX_, TY = TY_;
+  static constexpr int H = P == kBend || P == kShearBend ? 2 : 1;
+  static constexpr int FW = TX + 2 * H, FH = TY + 2 * H;
+  __host__ __device__ static constexpr int NR(int o) {
+    return TY + abs_c(O::di(o));
+  }
+  __host__ __device__ static constexpr int NC(int o) {
+    return TX + abs_c(O::dj(o));
+  }
+  __host__ __device__ static constexpr int B(int o) {
+    int b = 0;
+    for (int k = 0; k < o; ++k) b += NR(k) * NC(k);
+    return b;
+  }
+  __host__ __device__ static constexpr int S(int o) {
+    return abs_c(O::di(o)) * NC(o) + TY * abs_c(O::dj(o));
+  }
+  __host__ __device__ static constexpr int SB(int o) {
+    int b = 0;
+    for (int k = 0; k < o; ++k) b += S(k);
+    return b;
+  }
+  // strip entry e of offset o (0 <= e < S(o)) as its rectangle row and
+  // column: rows past TY (all NC columns), then columns past TX
+  __host__ __device__ static constexpr int strip_rows(int o) {
+    return abs_c(O::di(o)) * NC(o);
+  }
+  __host__ __device__ static constexpr int strip_cols(int o) {
+    return abs_c(O::dj(o)) > 0 ? abs_c(O::dj(o)) : 1;
+  }
+  __host__ __device__ static constexpr int strip_row(int o, int e) {
+    return e < strip_rows(o) ? TY + e / NC(o)
+                             : (e - strip_rows(o)) / strip_cols(o);
+  }
+  __host__ __device__ static constexpr int strip_col(int o, int e) {
+    return e < strip_rows(o) ? e % NC(o)
+                             : TX + (e - strip_rows(o)) % strip_cols(o);
+  }
+};
+
+// f(std::integral_constant<int, A + o>) for o = 0 .. n - 1, unrolled.
+template <int A, class F, int... O>
+__device__ __forceinline__ void each_offset_from(
+    F&& f, std::integer_sequence<int, O...>) {
+  (f(std::integral_constant<int, A + O>{}), ...);
+}
+
+// f(std::integral_constant<int, o>) for o = 0 .. n - 1, unrolled.
+template <class F, class Seq>
+__device__ __forceinline__ void each_offset(F&& f, Seq seq) {
+  each_offset_from<0>(static_cast<F&&>(f), seq);
+}
+
+// --- the strain limit: a substep's sweeps in one cooperative launch --------
 //
 // StrainLimitParams (stencil.py::strain_limit_planes, TPU
 // pallas_substep.py::_strain_limit_planes): each sweep projects every live
@@ -742,16 +883,30 @@ __device__ __forceinline__ Vec3 wind_force(const float* __restrict__ x, int i,
 // 1 + max_stretch] back onto the nearer bound, the endpoints weighted by
 // inverse mass, and moves each vertex by the sum of its edges' corrections
 // over its count of live edges, owned and owning.  A sweep reads every
-// neighbour's result of the sweep before, and nothing but a kernel boundary
-// gives that grid-wide barrier, so a sweep is one launch, one thread per
-// vertex, reading one position buffer and writing another (ping-pong).  A
-// thread evaluates its n_off owned edges and the n_off edges owned by
-// p - o, whose reaction it takes, through strain_corr with the owner's
-// argument order, so both ends of an edge compute the same correction; no
-// atomics.  The count comes from the same liveness tests.  The last sweep
-// runs the solver's epilogue for its own vertex (the Epilogue functor of
-// each solver's .cu file), so strain limiting adds no launch beyond its
-// sweeps.
+// neighbour's result of the sweep before.  The TPU runs the sweeps inside
+// its one substep kernel; here one cooperative launch runs them all
+// (grid_strain_sweep_kernel): its CTAs are all resident (the grid is sized
+// from the occupancy the card reports, at most one CTA a tile), each loops
+// over tiles of the pattern's Tile, and cooperative_groups' grid barrier
+// separates the sweeps, which ping-pong through two scratch position planes
+// in device memory.  Per tile and sweep the CTA stages the positions and
+// inverse masses of the tile and its frame in shared memory, evaluates each
+// edge with an endpoint in the tile once (strain_corr with the owner's
+// argument order: the correction factor and the unit direction), then each
+// vertex sums, per offset in table order, + w corr n of the edge it owns
+// and - w corr n of the edge owned by p - o: the products and the order of
+// the one-pass kernel that evaluated each edge at both ends, so the result
+// is that kernel's to the bit.  The count of live edges, and 1 / max(count,
+// 1), come once a substep, in the first sweep (liveness is fixed within a
+// substep).  The last sweep runs the solver's epilogue for its own vertex
+// (the Epilogue functor of each solver's .cu file).
+
+}  // namespace
+
+// The strain sweeps' scalars and launch struct have external linkage (the
+// anonymous namespace closed around them): each library's extern "C" strain
+// entry takes the struct by pointer, and a parameter of a type with
+// internal linkage would keep that entry out of the library's symbols.
 
 // Scalars of the strain limit, rounded once to float.
 struct StrainParams {
@@ -759,6 +914,27 @@ struct StrainParams {
   float compress1;   // 1 - max_compress
   int compress_on;   // max_compress >= 0 (else the lower bound is 0)
 };
+
+// What a substep's sweeps launch with, fixed over a call of the step
+// function: softbodyunity_torch/kernels/grid_strain.py::SweepsStruct
+// mirrors it field by field (each library's grid_<solver>_strain_size
+// checks the two agree).
+struct StrainSweeps {
+  const float* inv_mass;   // [ny, nx]
+  const float* table;      // [n_off, 4] rows of (di, dj, _, rest)
+  const float* limits;     // [n_off, 2] rows of (hi, lo)
+  float* scratch[2];       // [3, ny, nx] the positions of the sweeps before
+                           // the last, ping-pong
+  float* inv_cnt;          // [ny, nx] 1 / max(live edges, 1), written by the
+                           // first sweep, read by the others
+  int pattern;             // the offsets' Pattern
+  int n_sweeps;            // max(iterations, 1)
+  int project;             // iterations > 0; else the epilogue alone
+  int ny, nx;
+  StrainParams sp;
+};
+
+namespace {
 
 // The correction factor C / max(wa + wb, 1e-12) of the edge a -> b, with
 // C = len - clip(len, lo, hi), and its unit direction n (the divide-form
@@ -793,99 +969,224 @@ __device__ __forceinline__ void strain_band(const float* __restrict__ limits,
   }
 }
 
-// One strain-limit sweep (project = 1) of vertex (i, j), and on the last
-// sweep (last = 1) the solver's epilogue.  A sweep's positions are base, or
-// base + add where add is not null (XPBD's first sweep: xp + delta);
-// table is [n_off, 4] rows of (di, dj, _, rest); alive and scale are the
-// substep's tear and plastic planes, [n_off, ny, nx] (null: the feature is
-// off).  A sweep that is not the last writes the new positions to xs_out;
-// the last hands them to epi(idx, x_new), which writes the substep's
-// result.  With iterations = 0 the wrapper launches one sweep with
-// project = 0: the epilogue alone, on unchanged positions.
-template <class Epilogue>
-__global__ void __launch_bounds__(256) grid_strain_sweep_kernel(
-    const float* __restrict__ base, const float* __restrict__ add,
-    float* __restrict__ xs_out, const float* __restrict__ inv_mass,
-    const float* __restrict__ table, const float* __restrict__ limits,
-    int n_off, const float* __restrict__ alive,
-    const float* __restrict__ scale, StrainParams sp, int project, int last,
-    int ny, int nx, Epilogue epi) {
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  const int i = blockIdx.y * blockDim.y + threadIdx.y;
-  if (i >= ny || j >= nx) return;
-  const int ps = ny * nx;
-  const int idx = i * nx + j;
-  auto pos = [&](int q) {
-    const Vec3 a = load3(base, q, ps);
-    if (!add) return a;
-    const Vec3 b = load3(add, q, ps);
-    return Vec3{a.x + b.x, a.y + b.y, a.z + b.z};
+// A substep's s.n_sweeps strain-limit sweeps (s.project = 1) and, in the
+// last, the solver's epilogue, on CTAs of kTileX x kTileY threads that loop
+// over the grid's tiles.  The first sweep's positions are base, or base +
+// add where add is not null (XPBD: xp + delta); a sweep that is not the last
+// writes its positions to s.scratch[sweep % 2], and the last hands them to
+// epi(idx, x_new), which writes the substep's result.  alive and scale are
+// the substep's tear and plastic planes, [n_off, ny, nx] (null: the feature
+// is off).  With s.project = 0 (iterations = 0) one sweep runs the epilogue
+// alone, on unchanged positions.  Positions that other CTAs wrote in this
+// launch are read past L1 (__ldcg), after the grid barrier.
+template <int P, class Epilogue>
+__global__ void __launch_bounds__(kTileX * kTileY) grid_strain_sweep_kernel(
+    const float* base, const float* add, const float* __restrict__ alive,
+    const float* __restrict__ scale, StrainSweeps s, Epilogue epi) {
+  using O = Offsets<P>;
+  using T = Tile<P>;
+  constexpr int TX = T::TX, TY = T::TY;
+  constexpr int kN = O::n;
+  using Seq = std::make_integer_sequence<int, kN>;
+  __shared__ float4 frame[T::FH * T::FW];   // x, w
+  __shared__ float4 terms[T::B(kN)];        // corr, n
+  const int x = threadIdx.x, y = threadIdx.y;
+  const int ny = s.ny, nx = s.nx, ps = ny * nx;
+  const int tiles_x = (nx + TX - 1) / TX;
+  const int n_tiles = tiles_x * ((ny + TY - 1) / TY);
+  auto in_grid = [&](int a, int b) {
+    return a >= 0 && a < ny && b >= 0 && b < nx;
   };
-  const Vec3 xi = pos(idx);
-  Vec3 xn = xi;
-  if (project) {
-    const float wi = inv_mass[idx];
-    float dx = 0.0f, dy = 0.0f, dz = 0.0f, cnt = 0.0f;
-    for (int o = 0; o < n_off; ++o) {
-      const int di = static_cast<int>(table[4 * o]);
-      const int dj = static_cast<int>(table[4 * o + 1]);
-      const float rest = table[4 * o + 3];
-      float lo, hi;
-      Vec3 n;
-      // the edge this vertex owns, to (i + di, j + dj): + w_i corr n
-      int ii = i + di, jj = j + dj;
-      if (ii >= 0 && ii < ny && jj >= 0 && jj < nx &&
-          (!alive || alive[o * ps + idx] != 0.0f)) {
-        const int nb = ii * nx + jj;
-        strain_band(limits, scale, rest, o, o * ps + idx, sp, lo, hi);
-        const float s =
-            wi * strain_corr(xi, pos(nb), wi, inv_mass[nb], lo, hi, n);
-        dx += s * n.x;
-        dy += s * n.y;
-        dz += s * n.z;
-        cnt += 1.0f;
+  for (int sweep = 0; sweep < s.n_sweeps; ++sweep) {
+    const bool last = sweep == s.n_sweeps - 1;
+    const float* in = sweep == 0 ? base : s.scratch[(sweep - 1) % 2];
+    const float* in_add = sweep == 0 ? add : nullptr;
+    float* out = s.scratch[sweep % 2];
+    for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
+      const int i0 = t / tiles_x * TY, j0 = t % tiles_x * TX;
+      const int i = i0 + y, j = j0 + x;
+      const int idx = i * nx + j;
+      __syncthreads();   // the CTA's previous tile is summed
+      // stage the frame's positions and masses
+#pragma unroll
+      for (int k = 0; k < (T::FH * T::FW + TX * TY - 1) / (TX * TY); ++k) {
+        const int cell = y * TX + x + k * TX * TY;
+        if (cell >= T::FH * T::FW) break;
+        const int ci = cell / T::FW - T::H, cj = cell % T::FW - T::H;
+        const int gi = i0 + ci, gj = j0 + cj;
+        if (!in_grid(gi, gj)) continue;
+        const int q = gi * nx + gj;
+        Vec3 e = {__ldcg(in + q), __ldcg(in + ps + q),
+                  __ldcg(in + 2 * ps + q)};
+        if (in_add)
+          e = {e.x + __ldcg(in_add + q), e.y + __ldcg(in_add + ps + q),
+               e.z + __ldcg(in_add + 2 * ps + q)};
+        frame[cell] = make_float4(e.x, e.y, e.z, s.inv_mass[q]);
       }
-      // the edge owned by (i - di, j - dj), recomputed: - w_i corr n here
-      ii = i - di;
-      jj = j - dj;
-      if (ii >= 0 && ii < ny && jj >= 0 && jj < nx) {
-        const int nb = ii * nx + jj;
-        if (alive && alive[o * ps + nb] == 0.0f) continue;
-        strain_band(limits, scale, rest, o, o * ps + nb, sp, lo, hi);
-        const float s =
-            wi * strain_corr(pos(nb), xi, inv_mass[nb], wi, lo, hi, n);
-        dx -= s * n.x;
-        dy -= s * n.y;
-        dz -= s * n.z;
-        cnt += 1.0f;
+      __syncthreads();
+      if (s.project) {
+        // rectangle entry (r, cc) of offset o: (corr, n), or zeros where
+        // the owner has no live edge there
+        auto evaluate = [&](auto oc, int r, int cc) {
+          constexpr int o = decltype(oc)::value;
+          const int qi = i0 + min0(-O::di(o)) + r;
+          const int qj = j0 + min0(-O::dj(o)) + cc;
+          const int bi = qi + O::di(o), bj = qj + O::dj(o);
+          float4 term = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+          if (in_grid(qi, qj) && in_grid(bi, bj)) {
+            const int q = o * ps + qi * nx + qj;
+            if (!alive || alive[q] != 0.0f) {
+              float lo, hi;
+              strain_band(s.limits, scale, s.table[4 * o + 3], o, q, s.sp,
+                          lo, hi);
+              const float4 pa =
+                  frame[(qi - i0 + T::H) * T::FW + (qj - j0 + T::H)];
+              const float4 pb =
+                  frame[(bi - i0 + T::H) * T::FW + (bj - j0 + T::H)];
+              Vec3 n;
+              const float corr = strain_corr({pa.x, pa.y, pa.z},
+                                             {pb.x, pb.y, pb.z}, pa.w, pb.w,
+                                             lo, hi, n);
+              term = make_float4(corr, n.x, n.y, n.z);
+            }
+          }
+          terms[T::B(o) + r * T::NC(o) + cc] = term;
+        };
+        each_offset([&](auto oc) { evaluate(oc, y, x); }, Seq{});
+#pragma unroll
+        for (int e0 = y * TX + x; e0 < T::SB(kN); e0 += TX * TY) {
+          each_offset([&](auto oc) {
+            constexpr int o = decltype(oc)::value;
+            const int e = e0 - T::SB(o);
+            if (e >= 0 && e < T::S(o))
+              evaluate(oc, T::strip_row(o, e), T::strip_col(o, e));
+          }, Seq{});
+        }
+        __syncthreads();
+      }
+      if (!in_grid(i, j)) continue;
+      const float4 own = frame[(y + T::H) * T::FW + (x + T::H)];
+      const Vec3 xi = {own.x, own.y, own.z};
+      Vec3 xn = xi;
+      if (s.project) {
+        float c;
+        if (sweep == 0) {
+          float cnt = 0.0f;   // live edges at this vertex, owned and owning
+          each_offset([&](auto oc) {
+            constexpr int o = decltype(oc)::value;
+            constexpr int di = O::di(o), dj = O::dj(o);
+            if (in_grid(i + di, j + dj) &&
+                (!alive || alive[o * ps + idx] != 0.0f))
+              cnt += 1.0f;
+            if (in_grid(i - di, j - dj) &&
+                (!alive || alive[o * ps + idx - di * nx - dj] != 0.0f))
+              cnt += 1.0f;
+          }, Seq{});
+          c = 1.0f / fmaxf(cnt, 1.0f);
+          if (!last) s.inv_cnt[idx] = c;
+        } else {
+          c = s.inv_cnt[idx];
+        }
+        const float wi = own.w;
+        float dx = 0.0f, dy = 0.0f, dz = 0.0f;
+        each_offset([&](auto oc) {
+          constexpr int o = decltype(oc)::value;
+          constexpr int di = O::di(o), dj = O::dj(o);
+          constexpr int r0 = min0(-di), c0 = min0(-dj);
+          // the edge this vertex owns: + w corr n (zeros where it has none)
+          const float4 a = terms[T::B(o) + (y - r0) * T::NC(o) + (x - c0)];
+          float sw = wi * a.x;
+          dx += sw * a.y;
+          dy += sw * a.z;
+          dz += sw * a.w;
+          // the edge owned by (i - di, j - dj): - w corr n here
+          const float4 b =
+              terms[T::B(o) + (y - di - r0) * T::NC(o) + (x - dj - c0)];
+          sw = wi * b.x;
+          dx -= sw * b.y;
+          dy -= sw * b.z;
+          dz -= sw * b.w;
+        }, Seq{});
+        xn = {xi.x + dx * c, xi.y + dy * c, xi.z + dz * c};
+      }
+      if (last) {
+        epi(idx, xn);
+      } else {
+        store3(out, idx, ps, xn);
       }
     }
-    const float c = 1.0f / fmaxf(cnt, 1.0f);
-    xn = {xi.x + dx * c, xi.y + dy * c, xi.z + dz * c};
+    if (!last) cooperative_groups::this_grid().sync();
   }
-  if (!last) {
-    store3(xs_out, idx, ps, xn);
-    return;
-  }
-  epi(idx, xn);
 }
 
-// Launch one strain sweep with epilogue `epi` on `stream`; returns the
-// cudaError_t of the launch.
+// The occupancy of a cooperative kernel, asked once a kernel and process:
+// CTAs an SM and the card's SMs (err: the query's cudaError_t).
+struct Occupancy {
+  int per_sm, sms, err;
+};
+
+template <class K>
+Occupancy occupancy(K kernel, int threads) {
+  Occupancy r{0, 0, 0};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&r.sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&r.per_sm, kernel,
+                                                      threads, 0);
+  r.err = static_cast<int>(e);
+  return r;
+}
+
+template <int P, class Epilogue>
+int launch_strain_pattern(const StrainSweeps& s, const float* base,
+                          const float* add, const float* alive,
+                          const float* scale, const Epilogue& epi,
+                          cudaStream_t st) {
+  using T = Tile<P>;
+  auto kernel = grid_strain_sweep_kernel<P, Epilogue>;
+  static const Occupancy occ = occupancy(kernel, T::TX * T::TY);
+  if (occ.err) return occ.err;
+  if (occ.per_sm < 1)
+    return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
+  const int n_tiles =
+      ((s.nx + T::TX - 1) / T::TX) * ((s.ny + T::TY - 1) / T::TY);
+  const int ctas = n_tiles < occ.per_sm * occ.sms ? n_tiles
+                                                  : occ.per_sm * occ.sms;
+  void* args[] = {const_cast<float**>(&base), const_cast<float**>(&add),
+                  const_cast<float**>(&alive), const_cast<float**>(&scale),
+                  const_cast<StrainSweeps*>(&s), const_cast<Epilogue*>(&epi)};
+  return static_cast<int>(cudaLaunchCooperativeKernel(
+      reinterpret_cast<const void*>(kernel), dim3(ctas), dim3(T::TX, T::TY),
+      args, 0, st));
+}
+
+// Launch a substep's strain sweeps with epilogue `epi` on `stream`: one
+// cooperative launch, compiled for the offsets' pattern.  Returns its
+// cudaError_t (a grid the card cannot hold resident is refused, never run
+// another way).  Allocates nothing and does not synchronise.
 template <class Epilogue>
-int launch_strain_sweep(const float* base, const float* add, float* xs_out,
-                        const float* inv_mass, const float* table,
-                        const float* limits, int n_off, const float* alive,
-                        const float* scale, StrainParams sp, int project,
-                        int last, int ny, int nx, Epilogue epi,
-                        void* stream) {
-  const dim3 block(32, 8);
-  const dim3 grid((nx + block.x - 1) / block.x, (ny + block.y - 1) / block.y);
-  grid_strain_sweep_kernel<Epilogue>
-      <<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-          base, add, xs_out, inv_mass, table, limits, n_off, alive, scale,
-          sp, project, last, ny, nx, epi);
-  return static_cast<int>(cudaGetLastError());
+int launch_strain_sweeps(const StrainSweeps& s, const float* base,
+                         const float* add, const float* alive,
+                         const float* scale, const Epilogue& epi,
+                         void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (s.pattern) {
+    case kStructural:
+      return launch_strain_pattern<kStructural>(s, base, add, alive, scale,
+                                                epi, st);
+    case kShear:
+      return launch_strain_pattern<kShear>(s, base, add, alive, scale, epi,
+                                           st);
+    case kBend:
+      return launch_strain_pattern<kBend>(s, base, add, alive, scale, epi,
+                                          st);
+    case kShearBend:
+      return launch_strain_pattern<kShearBend>(s, base, add, alive, scale,
+                                               epi, st);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // Launch the frame-end update on `stream`; returns the cudaError_t of the

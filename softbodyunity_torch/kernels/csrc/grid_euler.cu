@@ -17,11 +17,12 @@
 // plastic rest-scale planes (the kFeat instantiation), the wind's drag and
 // lift along the grid's vertex normals (the kWind instantiation), and the
 // strain limit's Jacobi sweeps (grid_common.cuh::grid_strain_sweep_kernel,
-// one launch per sweep, its last running this solver's epilogue).  An
-// optional external force plane (the self-collision repulsion,
-// block_pairs.cu) is added to the spring forces, where the JAX package's
-// general path adds self_collision_force (solver/step.py::total_forces);
-// the TPU routes such scenes off these kernels.
+// one cooperative launch a substep, its last sweep running this solver's
+// epilogue).  An optional external force plane (the self-collision
+// repulsion, block_pairs.cu) is added to the spring forces, where the JAX
+// package's general path adds self_collision_force
+// (solver/step.py::total_forces); the TPU routes such scenes off these
+// kernels.
 //
 // Design.  The TPU's whole-VMEM kernel keeps the state in VMEM and runs
 // every substep of a frame in one launch, which caps it at 128k vertices;
@@ -29,47 +30,58 @@
 // tiles with DMA'd 8-row halos.  An SM's 227 KB of shared memory cannot
 // hold even the 64k-vertex state (x and v are 1.5 MB), but the 50 MB L2
 // holds it from one launch to the next at 64k, and device memory at any
-// size.  So here a substep is one launch with one thread per vertex,
-// reading the (x, v) planes of one buffer and writing the other: ping-pong,
-// because an in-place update would race with the neighbours' reads.  The
-// host loops over substeps.  That is the row-tiled kernel's form without
-// its tiles: the bounds checks below replace its halos and global-row
-// masks, and no vertex cap applies.  What the row-tiled kernel computes
-// beyond the whole-VMEM one is the launch-start form of the feature
-// planes: a substep that is one launch with no grid-wide barrier cannot
-// tear an edge from its neighbours' new positions, so each launch but a
-// frame's first updates the planes from its INPUT positions (the previous
-// substep's output) before it uses them, and the wrapper launches one
-// frame-end update (grid_common.cuh::grid_feature_finish_kernel) after the
-// last substep.  kFeat is that form here.  The strain limit needs a
-// grid-wide barrier between its sweeps, so under it a substep is 1 +
-// iterations launches: this kernel integrates with the contact left out,
-// each sweep launch moves the positions, and the last sweep adds the change
-// to the velocity and runs the contact (EulerStrainEpilogue below).
+// size.  So here a substep is one launch, reading the (x, v) planes of one
+// buffer and writing the other: ping-pong, because an in-place update would
+// race with the neighbours' reads.  One C call (grid_euler_substeps) runs a
+// frame's substeps: their launches, the buffer swaps and the frame-end
+// feature update, from a struct built once a call (GridEulerFrame); only
+// self-collision, whose force plane comes from PyTorch ops each substep,
+// makes one call a substep.  What the row-tiled kernel computes beyond the
+// whole-VMEM one is the launch-start form of the feature planes: a substep
+// that is one launch with no grid-wide barrier cannot tear an edge from
+// its neighbours' new positions, so each launch but a frame's first
+// updates the planes from its INPUT positions (the previous substep's
+// output) before it uses them, and one frame-end update
+// (grid_common.cuh::grid_feature_finish_kernel) follows the last substep.
+// kFeat is that form here.  The strain limit needs a grid-wide barrier
+// between its sweeps, so under it a substep is 2 launches: this kernel
+// integrates with the contact left out, and one cooperative launch runs
+// the sweeps, the last adding the change to the velocity and running the
+// contact (EulerStrainEpilogue below).
 //
-// Spring forces are a gather.  For each offset o a vertex adds the force of
-// the edge it owns (to p + o) and subtracts the force of the edge owned by
-// p - o, recomputed rather than scattered: no atomics, a deterministic sum,
-// and both copies of an edge force come from one function
-// (grid_common.cuh::edge_force, shared with grid_verlet.cu), so they are
-// identical.  Under kFeat both threads of an edge also recompute its
-// feature update from the same inputs (grid_common.cuh::edge_features), so
-// they agree on whether it tore; each writes only the planes of the edges
-// it owns.
+// The tile.  A CTA owns a 32 x 8 tile of the grid (grid_common.cuh::Tile,
+// shared with grid_xpbd.cu and the strain sweeps), one thread a vertex, and
+// is compiled for the offsets' pattern (structural, with shear, with bend,
+// with both), so that every index is a constant.  It stages x and v of the
+// tile and a frame of H rows and columns around it (H = 2 with bend
+// springs) in shared memory, evaluates each spring with an endpoint in the
+// tile once (grid_common.cuh::edge_terms: the force's magnitude and unit
+// direction into shared memory; each thread its own entry of every
+// offset's rectangle, the frame-owned rest one entry a thread), then each
+// vertex sums, per offset in table order, + fmag n of the edge it owns and
+// - fmag n of the edge owned by p - o: the products and the order of the
+// one-pass kernel this replaced, which evaluated each edge at both ends,
+// so x and v are that kernel's to the bit.  Under kFeat the edge's feature
+// update (grid_common.cuh::edge_features) runs once with it, and the tile
+// writes the plane entries of the edges its vertices own.  f_ext and the
+// wind stay per vertex; the wind's normal reads the 1-ring from the frame.
+// A grid of more tiles than the card holds CTAs at once (262k and 1m
+// vertices) is latency-bound with five CTAs an SM, so a plain substep there
+// takes the offsets' terms in two halves, eight CTAs an SM
+// (grid_euler_wide_kernel): the launch chooses from the grid and the
+// card's occupancy.
 //
-// What bounds it.  Per vertex and substep a thread reads its own x and v
-// (24 bytes), the same for 12 neighbours (nearly all hits in L1/L2), and
-// writes 24 bytes: about 3 MB of device-memory traffic per substep at 64k
-// vertices, around a microsecond at the card's 3.35 TB/s, and ~300 flops per
-// vertex; the feature planes add 4 bytes in and out per offset and plane,
-// the wind ~100 flops and no bytes (its normal reads the 1-ring the springs
-// load), and each strain sweep reads and writes 12 bytes of positions.
-// A launch costs several microseconds of host and device time, so at 64k
-// vertices the kernel is bound by launch overhead and latency, not by
-// bandwidth or arithmetic; at 262k and 1m vertices (12.6 MB of x, 50 MB
-// for ping-pong x and v) it nears the bytes it must move.  Capturing a
-// frame's launches in a CUDA graph, or a persistent kernel with a
-// grid-wide barrier per substep, is the next step.
+// What bounds it.  Per vertex and substep it reads x, v and inv_mass once
+// and writes x and v: 52 bytes, 3.4 MB at 64k vertices, ~1.0 us at the
+// card's 3.35 TB/s, and ~35 flops an edge (~14 MFLOP at 64k, 0.2 us at the
+// 67 TFLOP/s float32 peak): bound by bytes.  The feature planes add 4
+// bytes in and out per offset and plane, the wind ~76 flops a vertex and no
+// bytes.  At 64k vertices a launch holds two CTAs an SM and is bound by its
+// latency (staging, one sqrtf and IEEE divide an edge, two barriers); the
+// one-pass kernel evaluated each edge at both ends and tested every
+// neighbour's bounds through a run-time offset loop (PERF.md).  At 262k and
+// 1m vertices (12.6 MB of x, 50 MB for ping-pong x and v) it is bound by
+// the latency of its loads, at a third of the card's bandwidth.
 //
 // Rounding.  sqrtf and IEEE divides, in the plain version's order.  nvcc
 // contracts a * b + c into FMAs where torch rounds twice, so kernel and plain
@@ -95,98 +107,23 @@ struct Params {
   float keep;           // 1 - friction
 };
 
-// One thread per vertex (i, j) of the [ny, nx] grid.  x, v, x_out and v_out
-// are [3, ny, nx] component planes; offsets is [n_off, 4] rows of
-// (di, dj, k, rest); col holds the collider rows (grid_common.cuh).
-// kExt: f_ext, [3, ny, nx], is added to the spring forces; the
-// instantiation without it is the kernel as it was before the plane
-// existed.  kFeat: the tear and plastic planes, [n_off, ny, nx], are read from *_in (null: the feature is
-// off), updated at the launch's start unless `first`, used by the springs
-// and written to *_out; tear_limits[o] is rest * (1 + strain_limit).  kWind:
-// the wind force, at x and v, is added after f_ext.
-template <bool kExt, bool kFeat, bool kWind>
-__global__ void __launch_bounds__(256) grid_euler_substep_kernel(
-    const float* __restrict__ x, const float* __restrict__ v,
-    float* __restrict__ x_out, float* __restrict__ v_out,
-    const float* __restrict__ inv_mass, const float* __restrict__ offsets,
-    int n_off, Colliders col, const float* __restrict__ f_ext, const float* __restrict__ alive_in,
-    float* __restrict__ alive_out, const float* __restrict__ scale_in,
-    float* __restrict__ scale_out, const float* __restrict__ tear_limits,
-    int first, FeatParams fp, Wind wind, int ny, int nx, Params p) {
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  const int i = blockIdx.y * blockDim.y + threadIdx.y;
-  if (i >= ny || j >= nx) return;
-  const int ps = ny * nx;
-  const int idx = i * nx + j;
-  const Vec3 xi = load3(x, idx, ps);
-  const Vec3 vi = load3(v, idx, ps);
-
-  float fx = 0.0f, fy = 0.0f, fz = 0.0f;
-  for (int o = 0; o < n_off; ++o) {
-    const int di = static_cast<int>(offsets[4 * o]);
-    const int dj = static_cast<int>(offsets[4 * o + 1]);
-    const float k = offsets[4 * o + 2];
-    const float rest = offsets[4 * o + 3];
-    // the edge this vertex owns, to (i + di, j + dj)
-    int ii = i + di, jj = j + dj;
-    if (ii >= 0 && ii < ny && jj >= 0 && jj < nx) {
-      const int nb = ii * nx + jj;
-      const Vec3 xn = load3(x, nb, ps);
-      float a = 1.0f, s = 1.0f;
-      if (kFeat) {
-        edge_features(alive_in, scale_in, o * ps + idx, xi, xn, rest,
-                      tear_limits[o], fp, first, a, s);
-        if (alive_out) alive_out[o * ps + idx] = a;
-        if (scale_out) scale_out[o * ps + idx] = s;
-      }
-      if (a != 0.0f) {
-        const Vec3 e = edge_force(xi, vi, xn, load3(v, nb, ps), k,
-                                  kFeat ? scaled_rest(rest, s, scale_in)
-                                        : rest,
-                                  p.damping);
-        fx += e.x;
-        fy += e.y;
-        fz += e.z;
-      }
-    } else if (kFeat) {   // no edge here: the entry is carried, unread
-      if (alive_out) alive_out[o * ps + idx] = alive_in[o * ps + idx];
-      if (scale_out) scale_out[o * ps + idx] = scale_in[o * ps + idx];
-    }
-    // the reaction of the edge owned by (i - di, j - dj)
-    ii = i - di;
-    jj = j - dj;
-    if (ii >= 0 && ii < ny && jj >= 0 && jj < nx) {
-      const int nb = ii * nx + jj;
-      const Vec3 xn = load3(x, nb, ps);
-      float a = 1.0f, s = 1.0f;
-      if (kFeat)
-        edge_features(alive_in, scale_in, o * ps + nb, xn, xi, rest,
-                      tear_limits[o], fp, first, a, s);
-      if (a != 0.0f) {
-        const Vec3 e = edge_force(xn, load3(v, nb, ps), xi, vi, k,
-                                  kFeat ? scaled_rest(rest, s, scale_in)
-                                        : rest,
-                                  p.damping);
-        fx -= e.x;
-        fy -= e.y;
-        fz -= e.z;
-      }
-    }
+// Positions of grid vertex (a, b) from a tile's staged frame.
+template <class T>
+struct FrameAt {
+  const float4* f;
+  int i0, j0;
+  __device__ __forceinline__ Vec3 operator()(int a, int b) const {
+    const float4 p = f[(a - i0 + T::H) * T::FW + (b - j0 + T::H)];
+    return {p.x, p.y, p.z};
   }
+};
 
-  if (kExt) {   // springs + f_ext, as total_forces sums them
-    fx += f_ext[idx];
-    fy += f_ext[ps + idx];
-    fz += f_ext[2 * ps + idx];
-  }
-  if (kWind) {  // + wind, as total_forces sums them
-    const Vec3 fw = wind_force(x, i, j, ny, nx, ps, vi, wind);
-    fx += fw.x;
-    fy += fw.y;
-    fz += fw.z;
-  }
-
-  const float im = inv_mass[idx];
+// The velocity and position update of vertex idx under force f, then its
+// contact, written to x_out and v_out (stencil.py::euler_substep_grid).
+__device__ __forceinline__ void euler_update(
+    Vec3 xi, Vec3 vi, float fx, float fy, float fz, float im, int idx,
+    int ps, const Colliders& col, const Params& p, float* __restrict__ x_out,
+    float* __restrict__ v_out) {
   const bool movable = im > 0.0f;
   float vx = (vi.x + p.dt * (p.gx + fx * im)) * p.decay;
   float vy = (vi.y + p.dt * (p.gy + fy * im)) * p.decay;
@@ -208,11 +145,257 @@ __global__ void __launch_bounds__(256) grid_euler_substep_kernel(
   v_out[2 * ps + idx] = vz;
 }
 
-// The last strain sweep's epilogue (stencil.py::euler_substep_grid): the
-// change dxl = x_new - x0 from the integrated positions x0 goes into x and,
-// over dt, into the integrated velocity v (in place: each thread touches
-// its own vertex only), then the velocity-level contact of a movable
-// vertex; x is written to x_out.
+// Stage x and v of the tile at (i0, j0) and its frame into sx and sv.
+template <class T>
+__device__ __forceinline__ void stage_frame(
+    const float* __restrict__ x, const float* __restrict__ v, float4* sx,
+    float4* sv, int i0, int j0, int ny, int nx) {
+  constexpr int NT = T::TX * T::TY;
+  const int ps = ny * nx;
+#pragma unroll
+  for (int k = 0; k < (T::FH * T::FW + NT - 1) / NT; ++k) {
+    const int c = threadIdx.y * T::TX + threadIdx.x + k * NT;
+    if (c >= T::FH * T::FW) break;
+    const int gi = i0 - T::H + c / T::FW, gj = j0 - T::H + c % T::FW;
+    if (gi < 0 || gi >= ny || gj < 0 || gj >= nx) continue;
+    const int q = gi * nx + gj;
+    sx[c] = make_float4(x[q], x[ps + q], x[2 * ps + q], 0.0f);
+    sv[c] = make_float4(v[q], v[ps + q], v[2 * ps + q], 0.0f);
+  }
+}
+
+// One substep on a CTA that owns a kTileX x kTileY tile of the [ny, nx]
+// grid, one thread a vertex, compiled for the offsets' pattern P.  x, v,
+// x_out and v_out are [3, ny, nx] component planes; offsets is [n_off, 4]
+// rows of (di, dj, k, rest), di and dj those of P; col holds the collider
+// rows (grid_common.cuh).  kExt: f_ext, [3, ny, nx], is added to the spring
+// forces; the instantiation without it is the kernel as it was before the
+// plane existed.  kFeat: the tear and plastic planes, [n_off, ny, nx], are
+// read from *_in (null: the feature is off), updated at the launch's start
+// unless `first`, used by the springs and written to *_out; tear_limits[o]
+// is rest * (1 + strain_limit).  kWind: the wind force, at x and v, is
+// added after f_ext.
+template <int P, bool kExt, bool kFeat, bool kWind>
+__global__ void __launch_bounds__(kTileX * kTileY) grid_euler_substep_kernel(
+    const float* __restrict__ x, const float* __restrict__ v,
+    float* __restrict__ x_out, float* __restrict__ v_out,
+    const float* __restrict__ inv_mass, const float* __restrict__ offsets,
+    Colliders col, const float* __restrict__ f_ext,
+    const float* __restrict__ alive_in, float* __restrict__ alive_out,
+    const float* __restrict__ scale_in, float* __restrict__ scale_out,
+    const float* __restrict__ tear_limits, int first, FeatParams fp,
+    Wind wind, int ny, int nx, Params p) {
+  using O = Offsets<P>;
+  using T = Tile<P>;
+  constexpr int TX = T::TX, TY = T::TY, NT = TX * TY;
+  constexpr int kN = O::n;
+  using Seq = std::make_integer_sequence<int, kN>;
+  __shared__ float4 sx[T::FH * T::FW];   // x of the tile and its frame
+  __shared__ float4 sv[T::FH * T::FW];   // v
+  __shared__ float4 terms[T::B(kN)];     // (fmag, n) of each edge
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  const int i0 = blockIdx.y * TY, j0 = blockIdx.x * TX;
+  const int ps = ny * nx;
+  auto in_grid = [&](int a, int b) {
+    return a >= 0 && a < ny && b >= 0 && b < nx;
+  };
+  auto cell = [&](int a, int b) {
+    return (a - i0 + T::H) * T::FW + (b - j0 + T::H);
+  };
+  stage_frame<T>(x, v, sx, sv, i0, j0, ny, nx);
+  __syncthreads();
+  // rectangle entry (r, cc) of offset o: (fmag, n) of the edge its owner q
+  // has there, or zeros (no edge, or a torn one); under kFeat the edge's
+  // feature update, written for the edges the tile's vertices own
+  auto evaluate = [&](auto oc, int r, int cc) {
+    constexpr int o = decltype(oc)::value;
+    const int qi = i0 + min0(-O::di(o)) + r;
+    const int qj = j0 + min0(-O::dj(o)) + cc;
+    const int bi = qi + O::di(o), bj = qj + O::dj(o);
+    float4 term = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    if (in_grid(qi, qj)) {
+      const int q = o * ps + qi * nx + qj;
+      const bool own =
+          kFeat && qi >= i0 && qi < i0 + TY && qj >= j0 && qj < j0 + TX;
+      if (in_grid(bi, bj)) {
+        const float4 pa = sx[cell(qi, qj)], pb = sx[cell(bi, bj)];
+        const Vec3 xa = {pa.x, pa.y, pa.z}, xb = {pb.x, pb.y, pb.z};
+        const float rest = offsets[4 * o + 3];
+        float a = 1.0f, s = 1.0f;
+        if (kFeat) {
+          edge_features(alive_in, scale_in, q, xa, xb, rest, tear_limits[o],
+                        fp, first, a, s);
+          if (own && alive_out) alive_out[q] = a;
+          if (own && scale_out) scale_out[q] = s;
+        }
+        if (a != 0.0f) {
+          const float4 va = sv[cell(qi, qj)], vb = sv[cell(bi, bj)];
+          term = edge_terms(xa, {va.x, va.y, va.z}, xb, {vb.x, vb.y, vb.z},
+                            offsets[4 * o + 2],
+                            kFeat ? scaled_rest(rest, s, scale_in) : rest,
+                            p.damping);
+        }
+      } else if (own) {   // no edge here: the entry is carried, unread
+        if (alive_out) alive_out[q] = alive_in[q];
+        if (scale_out) scale_out[q] = scale_in[q];
+      }
+    }
+    terms[T::B(o) + r * T::NC(o) + cc] = term;
+  };
+  each_offset([&](auto oc) { evaluate(oc, ty, tx); }, Seq{});
+  // the strips, rows past TY (all NC columns) then columns past TX
+#pragma unroll
+  for (int e0 = ty * TX + tx; e0 < T::SB(kN); e0 += NT) {
+    each_offset([&](auto oc) {
+      constexpr int o = decltype(oc)::value;
+      const int e = e0 - T::SB(o);
+      if (e >= 0 && e < T::S(o))
+        evaluate(oc, T::strip_row(o, e), T::strip_col(o, e));
+    }, Seq{});
+  }
+  __syncthreads();
+
+  const int i = i0 + ty, j = j0 + tx;
+  if (!in_grid(i, j)) return;
+  const int idx = i * nx + j;
+  const float4 xs = sx[cell(i, j)], vs = sv[cell(i, j)];
+  const Vec3 xi = {xs.x, xs.y, xs.z}, vi = {vs.x, vs.y, vs.z};
+  float fx = 0.0f, fy = 0.0f, fz = 0.0f;
+  each_offset([&](auto oc) {
+    constexpr int o = decltype(oc)::value;
+    constexpr int di = O::di(o), dj = O::dj(o);
+    constexpr int r0 = min0(-di), c0 = min0(-dj);
+    // the edge this vertex owns, to (i + di, j + dj)
+    const float4 a = terms[T::B(o) + (ty - r0) * T::NC(o) + (tx - c0)];
+    fx += a.x * a.y;
+    fy += a.x * a.z;
+    fz += a.x * a.w;
+    // the reaction of the edge owned by (i - di, j - dj)
+    const float4 b =
+        terms[T::B(o) + (ty - di - r0) * T::NC(o) + (tx - dj - c0)];
+    fx -= b.x * b.y;
+    fy -= b.x * b.z;
+    fz -= b.x * b.w;
+  }, Seq{});
+
+  if (kExt) {   // springs + f_ext, as total_forces sums them
+    fx += f_ext[idx];
+    fy += f_ext[ps + idx];
+    fz += f_ext[2 * ps + idx];
+  }
+  if (kWind) {  // + wind, as total_forces sums them
+    const Vec3 fw =
+        wind_force_at(FrameAt<T>{sx, i0, j0}, i, j, ny, nx, vi, wind);
+    fx += fw.x;
+    fy += fw.y;
+    fz += fw.z;
+  }
+  euler_update(xi, vi, fx, fy, fz, inv_mass[idx], idx, ps, col, p, x_out,
+               v_out);
+}
+
+// The plain substep (no force plane, feature planes or wind) of
+// grid_euler_substep_kernel for a grid of more tiles than the card holds
+// CTAs of that kernel at once, where five CTAs an SM leave its latency
+// exposed (the 262k and 1m curtains): the offsets in two groups, [0, n / 2)
+// and [n / 2, n), through one buffer of terms as large as the larger
+// group's, each group evaluated, then summed at each vertex, the first
+// before the second, so that each vertex still sums per offset in table
+// order, to the bit.  Half the terms and 32 registers fit eight CTAs an
+// SM; its two more barriers cost a grid the card holds at once, and the
+// feature update spills at 32 registers (PERF.md).
+template <int P>
+__global__ void __launch_bounds__(kTileX * kTileY, 8) grid_euler_wide_kernel(
+    const float* __restrict__ x, const float* __restrict__ v,
+    float* __restrict__ x_out, float* __restrict__ v_out,
+    const float* __restrict__ inv_mass, const float* __restrict__ offsets,
+    Colliders col, int ny, int nx, Params p) {
+  using O = Offsets<P>;
+  using T = Tile<P>;
+  constexpr int TX = T::TX, TY = T::TY, NT = TX * TY;
+  constexpr int kN = O::n, kA = kN / 2;
+  constexpr int kTerms = T::B(kA) > T::B(kN) - T::B(kA) ? T::B(kA)
+                                                         : T::B(kN) - T::B(kA);
+  __shared__ float4 sx[T::FH * T::FW];
+  __shared__ float4 sv[T::FH * T::FW];
+  __shared__ float4 terms[kTerms];       // (fmag, n) of a group's edges
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  const int i0 = blockIdx.y * TY, j0 = blockIdx.x * TX;
+  const int i = i0 + ty, j = j0 + tx;
+  const int ps = ny * nx;
+  auto in_grid = [&](int a, int b) {
+    return a >= 0 && a < ny && b >= 0 && b < nx;
+  };
+  auto cell = [&](int a, int b) {
+    return (a - i0 + T::H) * T::FW + (b - j0 + T::H);
+  };
+  const bool mine = in_grid(i, j);
+  stage_frame<T>(x, v, sx, sv, i0, j0, ny, nx);
+  __syncthreads();
+  float fx = 0.0f, fy = 0.0f, fz = 0.0f;
+  // offsets [A, B): each edge with an endpoint in the tile evaluated once
+  // into the terms, then summed at each vertex
+  auto group = [&](auto a, auto b) {
+    constexpr int A = decltype(a)::value, B = decltype(b)::value;
+    using Seq = std::make_integer_sequence<int, B - A>;
+    auto evaluate = [&](auto oc, int r, int cc) {
+      constexpr int o = decltype(oc)::value;
+      const int qi = i0 + min0(-O::di(o)) + r;
+      const int qj = j0 + min0(-O::dj(o)) + cc;
+      const int bi = qi + O::di(o), bj = qj + O::dj(o);
+      float4 term = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      if (in_grid(qi, qj) && in_grid(bi, bj)) {
+        const float4 pa = sx[cell(qi, qj)], pb = sx[cell(bi, bj)];
+        const float4 va = sv[cell(qi, qj)], vb = sv[cell(bi, bj)];
+        term = edge_terms({pa.x, pa.y, pa.z}, {va.x, va.y, va.z},
+                          {pb.x, pb.y, pb.z}, {vb.x, vb.y, vb.z},
+                          offsets[4 * o + 2], offsets[4 * o + 3], p.damping);
+      }
+      terms[T::B(o) - T::B(A) + r * T::NC(o) + cc] = term;
+    };
+    each_offset_from<A>([&](auto oc) { evaluate(oc, ty, tx); }, Seq{});
+#pragma unroll
+    for (int e0 = ty * TX + tx; e0 < T::SB(B) - T::SB(A); e0 += NT) {
+      each_offset_from<A>([&](auto oc) {
+        constexpr int o = decltype(oc)::value;
+        const int e = e0 - (T::SB(o) - T::SB(A));
+        if (e >= 0 && e < T::S(o))
+          evaluate(oc, T::strip_row(o, e), T::strip_col(o, e));
+      }, Seq{});
+    }
+    __syncthreads();
+    if (!mine) return;
+    each_offset_from<A>([&](auto oc) {
+      constexpr int o = decltype(oc)::value;
+      constexpr int di = O::di(o), dj = O::dj(o);
+      constexpr int r0 = min0(-di), c0 = min0(-dj);
+      constexpr int base = T::B(o) - T::B(A);
+      const float4 t = terms[base + (ty - r0) * T::NC(o) + (tx - c0)];
+      fx += t.x * t.y;
+      fy += t.x * t.z;
+      fz += t.x * t.w;
+      const float4 u =
+          terms[base + (ty - di - r0) * T::NC(o) + (tx - dj - c0)];
+      fx -= u.x * u.y;
+      fy -= u.x * u.z;
+      fz -= u.x * u.w;
+    }, Seq{});
+  };
+  group(std::integral_constant<int, 0>{}, std::integral_constant<int, kA>{});
+  __syncthreads();   // the first group's terms are summed
+  group(std::integral_constant<int, kA>{}, std::integral_constant<int, kN>{});
+  if (!mine) return;
+  const int idx = i * nx + j;
+  const float4 xs = sx[cell(i, j)], vs = sv[cell(i, j)];
+  euler_update({xs.x, xs.y, xs.z}, {vs.x, vs.y, vs.z}, fx, fy, fz,
+               inv_mass[idx], idx, ps, col, p, x_out, v_out);
+}
+
+// The strain sweeps' epilogue (stencil.py::euler_substep_grid): the change
+// dxl = x_new - x0 from the integrated positions x0 goes into x and, over
+// dt, into the integrated velocity v (in place: each thread touches its own
+// vertex only), then the velocity-level contact of a movable vertex; x is
+// written to x_out.
 struct EulerStrainEpilogue {
   const float* x0;
   float* x_out;
@@ -237,76 +420,184 @@ struct EulerStrainEpilogue {
   }
 };
 
+// The no-contact collider set, for the integrate launch under the strain
+// limit (the last sweep runs the contact).
+constexpr Colliders kNoContact = {nullptr, 0, 0, nullptr, 0, 0,
+                                  nullptr, 0, nullptr, 0, 0};
+
 }  // namespace
 
-// Launch one substep on `stream`; returns the cudaError_t of the launch
-// (0 = cudaSuccess).  f_ext may be null (no external force plane).  With
-// feat = 0 the feature pointers are ignored; with feat = 1 a null pair
-// (alive_* or scale_*) turns that feature off.  Allocates nothing and does
-// not synchronise.
-extern "C" int grid_euler_substep(
-    const float* x, const float* v, float* x_out, float* v_out,
-    const float* inv_mass, const float* offsets, int n_off, COLLIDER_PARAMS,
-    const float* f_ext, int feat, const float* alive_in, float* alive_out,
-    const float* scale_in, float* scale_out, const float* tear_limits,
-    int first, float strain1, float yield_strain, float creep,
-    float min_scale, float max_scale, int wind_on, float wvx, float wvy,
-    float wvz, float drag, float lift, int ny, int nx, float dt,
-    float damping, float gx, float gy, float gz, float decay,
-    float restitution, float restitution1, float keep, void* stream) {
-  const Params p{dt, damping, gx, gy, gz, decay, restitution, restitution1,
-                 keep};
-  const FeatParams fp{strain1, yield_strain, creep, min_scale, max_scale};
-  const Wind wind{wvx, wvy, wvz, drag, lift};
-  const dim3 block(32, 8);
-  const dim3 grid((nx + block.x - 1) / block.x, (ny + block.y - 1) / block.y);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const Colliders col = COLLIDERS;
-#define GRID_EULER_LAUNCH(EXT, FEAT, WIND)                                  \
-  grid_euler_substep_kernel<EXT, FEAT, WIND><<<grid, block, 0, st>>>(       \
-      x, v, x_out, v_out, inv_mass, offsets, n_off, col, f_ext, alive_in,   \
-      alive_out, scale_in, scale_out, tear_limits, first, fp, wind, ny, nx, \
-      p)
+// What a frame launches with, fixed over a call of the step function:
+// softbodyunity_torch/kernels/grid_euler.py::_Frame mirrors it field by
+// field (grid_euler_frame_size checks the two agree).
+struct GridEulerFrame {
+  float* x[2];                // [3, ny, nx] ping-pong; under the strain
+                              // limit x[0] is every substep's start and
+                              // x[1] its integrated positions
+  float* v[2];                // [3, ny, nx] ping-pong
+  float* alive[2];            // [n_off, ny, nx] ping-pong tear planes, or
+                              // null (tearing off)
+  float* scale[2];            // the same for the plastic rest scales
+  const float* inv_mass;      // [ny, nx]
+  const float* offsets;       // [n_off, 4]
+  const float* tear_limits;   // [n_off] (feat)
+  void* stream;
+  int n_off;
+  int pattern;                // the offsets' Pattern
+  int feat, wind_on, strain;
+  int ny, nx;
+  FeatParams fp;
+  Colliders col;
+  Wind wind;
+  Params p;
+  StrainSweeps sweeps;        // (strain)
+};
+
+extern "C" int grid_euler_frame_size() {
+  return static_cast<int>(sizeof(GridEulerFrame));
+}
+
+extern "C" int grid_euler_strain_size() {
+  return static_cast<int>(sizeof(StrainSweeps));
+}
+
+namespace {
+
+// One substep launch on pattern P, from buffer a of the ping-pong planes
+// into buffer b; returns the launch's cudaError_t.  A plain substep (no
+// force plane, feature planes or wind) on a grid of more tiles than the
+// card holds CTAs of grid_euler_substep_kernel at once takes
+// grid_euler_wide_kernel.
+template <int P>
+int launch_substep(const GridEulerFrame* s, cudaStream_t st, const float* x,
+                   const float* v, float* x_out, float* v_out, int a,
+                   const float* f_ext, int first) {
+  const dim3 block(kTileX, kTileY);
+  const dim3 grid((s->nx + kTileX - 1) / kTileX,
+                  (s->ny + kTileY - 1) / kTileY);
+  const Colliders col = s->strain ? kNoContact : s->col;
+  const float* alive_in = s->alive[a];
+  float* alive_out = s->alive[1 - a];
+  const float* scale_in = s->scale[a];
+  float* scale_out = s->scale[1 - a];
+#define GRID_EULER_LAUNCH(EXT, FEAT, WIND)                                   \
+  grid_euler_substep_kernel<P, EXT, FEAT, WIND><<<grid, block, 0, st>>>(     \
+      x, v, x_out, v_out, s->inv_mass, s->offsets, col, f_ext, alive_in,     \
+      alive_out, scale_in, scale_out, s->tear_limits, first, s->fp, s->wind, \
+      s->ny, s->nx, s->p)
 #define GRID_EULER_WIND(EXT, FEAT)          \
   do {                                      \
-    if (wind_on)                            \
+    if (s->wind_on)                         \
       GRID_EULER_LAUNCH(EXT, FEAT, true);   \
     else                                    \
       GRID_EULER_LAUNCH(EXT, FEAT, false);  \
   } while (0)
-  if (f_ext && feat)
+  if (f_ext && s->feat) {
     GRID_EULER_WIND(true, true);
-  else if (f_ext)
+  } else if (f_ext) {
     GRID_EULER_WIND(true, false);
-  else if (feat)
+  } else if (s->feat) {
     GRID_EULER_WIND(false, true);
-  else
-    GRID_EULER_WIND(false, false);
+  } else if (s->wind_on) {
+    GRID_EULER_LAUNCH(false, false, true);
+  } else {
+    static const Occupancy one = occupancy(
+        grid_euler_substep_kernel<P, false, false, false>, kTileX * kTileY);
+    if (one.err) return one.err;
+    if (static_cast<long>(grid.x) * grid.y >
+        static_cast<long>(one.per_sm) * one.sms)
+      grid_euler_wide_kernel<P><<<grid, block, 0, st>>>(
+          x, v, x_out, v_out, s->inv_mass, s->offsets, col, s->ny, s->nx,
+          s->p);
+    else
+      GRID_EULER_LAUNCH(false, false, false);
+  }
 #undef GRID_EULER_WIND
 #undef GRID_EULER_LAUNCH
   return static_cast<int>(cudaGetLastError());
 }
 
-// Launch one strain-limit sweep (grid_common.cuh::grid_strain_sweep_kernel)
-// on `stream`, and with last = 1 the Euler epilogue: x0 and v are the
-// integrate launch's outputs, x_out receives the substep's positions (v is
-// updated in place).  Returns the cudaError_t of the launch.  Allocates
-// nothing and does not synchronise.
-extern "C" int grid_euler_strain(
-    const float* base, const float* add, float* xs_out,
-    const float* inv_mass, const float* offsets, const float* limits,
-    int n_off, const float* alive, const float* scale, float stretch1,
-    float compress1, int compress_on, int project, int last, const float* x0,
-    float* x_out, float* v, COLLIDER_PARAMS, int ny, int nx, float dt,
-    float restitution, float restitution1, float keep, void* stream) {
-  const Params p{dt,  0.0f,        0.0f,         0.0f, 0.0f,
-                 1.0f, restitution, restitution1, keep};
-  const EulerStrainEpilogue epi{x0, x_out, v, inv_mass, COLLIDERS, ny * nx,
-                                p};
-  return launch_strain_sweep(base, add, xs_out, inv_mass, offsets, limits,
-                             n_off, alive, scale,
-                             StrainParams{stretch1, compress1, compress_on},
-                             project, last, ny, nx, epi, stream);
+}  // namespace
+
+// Run substeps k0 .. k0 + n - 1 of a frame on s->stream.  Substep k reads
+// buffer k % 2 of v and of the feature planes and writes the other; x
+// likewise without the strain limit, and under it reads x[0], integrates
+// into x[1] with the contact left out, and the strain launch (its sweeps
+// from x[1]) writes the substep's end into x[0] and its velocity in place.
+// The feature update at a launch's start is skipped for substep 0, the
+// frame's first.  With `finish` and features, the frame-end update
+// follows, from buffer (k0 + n) % 2 of the planes into the other.  f_ext
+// (the self-collision force plane, or null) enters every substep run: the
+// caller that has one runs one substep a call.  *launches counts the
+// kernels launched; returns the first launch's cudaError_t that is not
+// cudaSuccess, after which it launches nothing more.  Allocates nothing
+// and does not synchronise.
+extern "C" int grid_euler_substeps(const GridEulerFrame* s, int k0, int n,
+                                   int finish, const float* f_ext,
+                                   int* launches) {
+  const cudaStream_t st = static_cast<cudaStream_t>(s->stream);
+  const int ps = s->ny * s->nx;
+  *launches = 0;
+  for (int k = k0; k < k0 + n; ++k) {
+    const int a = k % 2, b = 1 - a;
+    const float* x = s->strain ? s->x[0] : s->x[a];
+    float* x_out = s->strain ? s->x[1] : s->x[b];
+    int err;
+    switch (s->pattern) {
+      case kStructural:
+        err = launch_substep<kStructural>(s, st, x, s->v[a], x_out, s->v[b],
+                                          a, f_ext, k == 0);
+        break;
+      case kShear:
+        err = launch_substep<kShear>(s, st, x, s->v[a], x_out, s->v[b], a,
+                                     f_ext, k == 0);
+        break;
+      case kBend:
+        err = launch_substep<kBend>(s, st, x, s->v[a], x_out, s->v[b], a,
+                                    f_ext, k == 0);
+        break;
+      case kShearBend:
+        err = launch_substep<kShearBend>(s, st, x, s->v[a], x_out, s->v[b],
+                                         a, f_ext, k == 0);
+        break;
+      default:
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
+    ++*launches;
+    if (err) return err;
+    if (s->strain) {
+      const EulerStrainEpilogue epi{x_out, s->x[0], s->v[b], s->inv_mass,
+                                    s->col, ps,       s->p};
+      err = launch_strain_sweeps(s->sweeps, x_out, nullptr, s->alive[b],
+                                 s->scale[b], epi, s->stream);
+      ++*launches;
+      if (err) return err;
+    }
+  }
+  if (finish && s->feat && n > 0) {
+    const int a = (k0 + n) % 2;
+    const float* x = s->strain ? s->x[0] : s->x[a];
+    ++*launches;
+    return launch_feature_finish(x, s->alive[a], s->alive[1 - a],
+                                 s->scale[a], s->scale[1 - a], s->offsets,
+                                 s->tear_limits, s->n_off, s->ny, s->nx,
+                                 s->fp, s->stream);
+  }
+  return 0;
+}
+
+// Launch one substep's strain-limit sweeps alone (one cooperative launch)
+// on `stream`, with the Euler epilogue and the contact off: x0 is where the
+// sweeps start, x_out receives x0 + dxl, v takes dxl / dt in place (dt =
+// 1, restitution 0, keep 1 run no contact).  Returns the cudaError_t of the
+// launch.  Allocates nothing and does not synchronise.
+extern "C" int grid_euler_strain(const StrainSweeps* s, const float* alive,
+                                 const float* scale, const float* x0,
+                                 float* x_out, float* v, void* stream) {
+  const Params p{1.0f, 0.0f, 0.0f, 0.0f, 0.0f, 1.0f, 0.0f, 1.0f, 1.0f};
+  const EulerStrainEpilogue epi{x0,         x_out, v, s->inv_mass,
+                                kNoContact, s->ny * s->nx, p};
+  return launch_strain_sweeps(*s, x0, nullptr, alive, scale, epi, stream);
 }
 
 // Launch the frame-end feature update over the final positions x

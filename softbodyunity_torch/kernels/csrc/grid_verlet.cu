@@ -16,9 +16,10 @@
 // their friction (grid_common.cuh::position_contact), and the tear-liveness and plastic rest-scale planes (the kFeat
 // instantiation, in the row-tiled kernel's launch-start form: see
 // grid_euler.cu), the wind's drag and lift at the velocity estimate (the
-// kWind instantiation), and the strain limit's sweeps
-// (grid_common.cuh::grid_strain_sweep_kernel, position only, the last
-// running the contact chain: VerletStrainEpilogue below), with an optional
+// kWind instantiation), and the strain limit's sweeps, one cooperative
+// launch a substep (grid_common.cuh::grid_strain_sweep_kernel, position
+// only, the last sweep running the contact chain: VerletStrainEpilogue
+// below), with an optional
 // external force plane (the self-collision repulsion at x, block_pairs.cu)
 // added to the spring forces as solver/step.py::verlet_integrate adds it.
 //
@@ -238,25 +239,24 @@ extern "C" int grid_verlet_substep(
   return static_cast<int>(cudaGetLastError());
 }
 
-// Launch one strain-limit sweep (grid_common.cuh::grid_strain_sweep_kernel)
-// on `stream`, and with last = 1 the Verlet epilogue: x0 is the integrate
-// launch's output, x_start the substep's start, out receives the substep's
-// positions.  Returns the cudaError_t of the launch.  Allocates nothing and
-// does not synchronise.
+extern "C" int grid_verlet_strain_size() {
+  return static_cast<int>(sizeof(StrainSweeps));
+}
+
+// Launch one substep's strain-limit sweeps (grid_common.cuh::
+// grid_strain_sweep_kernel, one cooperative launch) on `stream`, the last
+// running the Verlet epilogue: x0 is the integrate launch's output, where
+// the sweeps start, x_start the substep's start, out receives the
+// substep's positions.  Returns the cudaError_t of the launch.  Allocates
+// nothing and does not synchronise.
 extern "C" int grid_verlet_strain(
-    const float* base, const float* add, float* xs_out,
-    const float* inv_mass, const float* offsets, const float* limits,
-    int n_off, const float* alive, const float* scale, float stretch1,
-    float compress1, int compress_on, int project, int last, const float* x0,
-    const float* x_start, float* out, COLLIDER_PARAMS, int ny, int nx,
+    const StrainSweeps* s, const float* alive, const float* scale,
+    const float* x0, const float* x_start, float* out, COLLIDER_PARAMS,
     float dt, float mu, float keep, float shell, void* stream) {
   const Params p{dt, 0.0f, 0.0f, 0.0f, 0.0f, 1.0f, mu, keep, shell};
-  const VerletStrainEpilogue epi{x0,        x_start, out, inv_mass,
-                                 COLLIDERS, ny * nx, p};
-  return launch_strain_sweep(base, add, xs_out, inv_mass, offsets, limits,
-                             n_off, alive, scale,
-                             StrainParams{stretch1, compress1, compress_on},
-                             project, last, ny, nx, epi, stream);
+  const VerletStrainEpilogue epi{x0,        x_start,       out, s->inv_mass,
+                                 COLLIDERS, s->ny * s->nx, p};
+  return launch_strain_sweeps(*s, x0, nullptr, alive, scale, epi, stream);
 }
 
 // Launch the frame-end feature update over the final positions x

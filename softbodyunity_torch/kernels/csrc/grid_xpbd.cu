@@ -17,9 +17,9 @@
 // after it, the velocity recovered from the position change, and the
 // tear-liveness and plastic rest-scale planes (the kFeat instantiations),
 // the wind's drag and lift in the predict (the kWind instantiation), and
-// the strain limit's sweeps after the Jacobi loop (grid_common.cuh::grid_strain_sweep_kernel; its last
-// sweep runs one more contact projection and the epilogue:
-// XpbdStrainEpilogue below).
+// the strain limit's sweeps after the Jacobi loop, all in one cooperative
+// launch (grid_common.cuh::grid_strain_sweep_kernel; its last sweep runs
+// one more contact projection and the epilogue: XpbdStrainEpilogue below).
 //
 // Design.  A Jacobi sweep reads every neighbour's evaluation point, so each
 // sweep needs a grid-wide barrier; here that barrier is a kernel boundary.
@@ -45,10 +45,12 @@
 //             (the fastest of 32 x 8, 16 x 16 and 64 x 4 at 64k and at
 //             262k, PERF.md), one thread per tile
 //             vertex, and is compiled for the offsets' pattern (structural,
-//             with shear, with bend, with both), so that its indices are
-//             constants.  It stages xe = xp + delta and the inverse mass of
-//             the tile and a frame of H rows and columns around it (H = the
-//             largest |di|, |dj|: 2 with bend springs) in shared memory;
+//             with shear, with bend, with both: grid_common.cuh's Pattern
+//             and Tile, shared with grid_euler.cu and the strain sweeps),
+//             so that its indices are constants.  It stages xe = xp +
+//             delta and the inverse mass of the tile and a frame of H rows
+//             and columns around it (H = the largest |di|, |dj|: 2 with
+//             bend springs) in shared memory;
 //             evaluates each edge with an endpoint in the tile once
 //             (grid_common.cuh::xpbd_dlam: dlam and the unit direction n
 //             into shared memory), each thread its own vertex's entry of
@@ -73,10 +75,10 @@
 //             the OR'd flag, sphere and capsule/box friction
 //             (grid_common.cuh::friction_delta), pins masked, x = xp + delta
 //             written to the other x buffer, v = delta / dt in place.
-//   strain    under the strain limit, iterations more launches after the
-//             Jacobi sweeps (which then all store delta), each its own
-//             ctypes call: the strain sweeps
-//             on xp + delta, and the last of them adds its change to delta,
+//   strain    under the strain limit, one more launch after the Jacobi
+//             sweeps (which then all store delta), from its own ctypes
+//             call: the strain sweeps on xp + delta, separated by a grid
+//             barrier, the last of which adds its change to delta,
 //             projects the contact once more (its plane clamp ORed into the
 //             flag) and runs the epilogue instead of the last Jacobi sweep.
 // Delta form: the loop carries the substep's position change and never a
@@ -105,9 +107,6 @@
 // vertices keep x bit for bit (their delta is masked to 0 and xp + 0 == xp).
 
 #include <cuda_runtime.h>
-
-#include <type_traits>
-#include <utility>
 
 #include "grid_common.cuh"
 
@@ -221,85 +220,6 @@ __device__ __forceinline__ void finish(Vec3 dl, Vec3 xpi, int idx, int ps,
                       p.shell);
   store3(x_out, idx, ps, {xpi.x + dl.x, xpi.y + dl.y, xpi.z + dl.z});
   store3(v, idx, ps, {dl.x / p.dt, dl.y / p.dt, dl.z / p.dt});
-}
-
-// The grid's offset patterns, in the order of the offsets table
-// (kernels/stencil.py::_xpbd_offsets): structural (0, 1), (1, 0), then
-// shear (1, 1), (1, -1), then bend (0, 2), (2, 0).  A sweep is compiled for
-// each pattern, so that every index below is a constant.
-enum Pattern { kStructural, kShear, kBend, kShearBend };
-
-// Offset o of pattern P as (di, dj): the structural two, then the shear
-// two unless P is kBend, then the bend two.
-template <int P>
-struct Offsets {
-  static constexpr int n = P == kShearBend ? 6 : (P == kStructural ? 2 : 4);
-  // o's place in the six offsets of kShearBend
-  __host__ __device__ static constexpr int six(int o) {
-    return P == kBend && o >= 2 ? o + 2 : o;
-  }
-  __host__ __device__ static constexpr int di(int o) {
-    switch (six(o)) {
-      case 0: case 4: return 0;
-      case 5: return 2;
-      default: return 1;
-    }
-  }
-  __host__ __device__ static constexpr int dj(int o) {
-    switch (six(o)) {
-      case 0: case 2: return 1;
-      case 3: return -1;
-      case 4: return 2;
-      default: return 0;
-    }
-  }
-};
-
-__host__ __device__ constexpr int abs_c(int a) { return a < 0 ? -a : a; }
-__host__ __device__ constexpr int min0(int a) { return a < 0 ? a : 0; }
-
-// The sweep's tile, columns x rows, one thread a vertex.
-constexpr int kTileX = 32, kTileY = 8;
-
-// A CTA's tile, TX x TY vertices, one thread each, and its frame of H
-// vertices around (H = the largest |di|, |dj|).  Offset o's rectangle holds
-// the edges owned by a vertex q with q or q + o in the tile: NR(o) x NC(o)
-// owners from row min(0, -di), column min(0, -dj) of the tile, its entries
-// from B(o) on.  Thread (x, y) evaluates entry (y, x) of every rectangle;
-// the rest of each rectangle, the strips past row TY and column TX
-// (S(o) entries, from SB(o) on in one list), goes one entry a thread.
-template <int P>
-struct Tile {
-  using O = Offsets<P>;
-  static constexpr int TX = kTileX, TY = kTileY;
-  static constexpr int H = P == kBend || P == kShearBend ? 2 : 1;
-  static constexpr int FW = TX + 2 * H, FH = TY + 2 * H;
-  __host__ __device__ static constexpr int NR(int o) {
-    return TY + abs_c(O::di(o));
-  }
-  __host__ __device__ static constexpr int NC(int o) {
-    return TX + abs_c(O::dj(o));
-  }
-  __host__ __device__ static constexpr int B(int o) {
-    int b = 0;
-    for (int k = 0; k < o; ++k) b += NR(k) * NC(k);
-    return b;
-  }
-  __host__ __device__ static constexpr int S(int o) {
-    return abs_c(O::di(o)) * NC(o) + TY * abs_c(O::dj(o));
-  }
-  __host__ __device__ static constexpr int SB(int o) {
-    int b = 0;
-    for (int k = 0; k < o; ++k) b += S(k);
-    return b;
-  }
-};
-
-// f(std::integral_constant<int, o>) for o = 0 .. n - 1, unrolled.
-template <class F, int... O>
-__device__ __forceinline__ void each_offset(F&& f,
-                                            std::integer_sequence<int, O...>) {
-  (f(std::integral_constant<int, O>{}), ...);
 }
 
 // One Jacobi sweep (project = 1) and, on the last sweep (last = 1), the
@@ -427,14 +347,9 @@ __global__ void __launch_bounds__(kTileX * kTileY) grid_xpbd_sweep_kernel(
     for (int e0 = y * TX + x; e0 < T::SB(kN); e0 += TX * TY) {
       each_offset([&](auto oc) {
         constexpr int o = decltype(oc)::value;
-        constexpr int rows = abs_c(O::di(o)) * T::NC(o);
-        constexpr int cols = abs_c(O::dj(o)) > 0 ? abs_c(O::dj(o)) : 1;
         const int e = e0 - T::SB(o);
-        if (e < 0 || e >= T::S(o)) return;
-        if (e < rows)
-          evaluate(oc, TY + e / T::NC(o), e % T::NC(o), false);
-        else
-          evaluate(oc, (e - rows) / cols, TX + (e - rows) % cols, false);
+        if (e >= 0 && e < T::S(o))
+          evaluate(oc, T::strip_row(o, e), T::strip_col(o, e), false);
       }, Seq{});
     }
     __syncthreads();
@@ -629,27 +544,25 @@ extern "C" int grid_xpbd_substep(const GridXpbdSubstep* s, const float* x,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// Launch one strain-limit sweep (grid_common.cuh::grid_strain_sweep_kernel)
-// on `stream`, and with last = 1 the XPBD epilogue: xp is the substep's
-// start, delta the Jacobi loop's result (the first sweep's positions are
-// xp + delta), x_out receives the substep's positions and v its velocity.
-// Returns the cudaError_t of the launch.  Allocates nothing and does not
-// synchronise.
+extern "C" int grid_xpbd_strain_size() {
+  return static_cast<int>(sizeof(StrainSweeps));
+}
+
+// Launch one substep's strain-limit sweeps (grid_common.cuh::
+// grid_strain_sweep_kernel, one cooperative launch) on `stream`, the last
+// running the XPBD epilogue: xp is the substep's start, delta the Jacobi
+// loop's result (the first sweep's positions are xp + delta), x_out
+// receives the substep's positions and v its velocity.  Returns the
+// cudaError_t of the launch.  Allocates nothing and does not synchronise.
 extern "C" int grid_xpbd_strain(
-    const float* base, const float* add, float* xs_out,
-    const float* inv_mass, const float* offsets, const float* limits,
-    int n_off, const float* alive, const float* scale, float stretch1,
-    float compress1, int compress_on, int project, int last, const float* xp,
-    const float* delta, unsigned char* flag, COLLIDER_PARAMS, float* x_out,
-    float* v, int ny, int nx, float dt, float mu, float keep, float shell,
-    void* stream) {
+    const StrainSweeps* s, const float* alive, const float* scale,
+    const float* xp, const float* delta, unsigned char* flag,
+    COLLIDER_PARAMS, float* x_out, float* v, float dt, float mu, float keep,
+    float shell, void* stream) {
   const Params p{dt, 0.0f, 0.0f, 0.0f, 1.0f, mu, keep, shell};
-  const XpbdStrainEpilogue epi{xp,    delta, flag,    inv_mass, COLLIDERS,
-                               x_out, v,     ny * nx, p};
-  return launch_strain_sweep(base, add, xs_out, inv_mass, offsets, limits,
-                             n_off, alive, scale,
-                             StrainParams{stretch1, compress1, compress_on},
-                             project, last, ny, nx, epi, stream);
+  const XpbdStrainEpilogue epi{xp,    delta, flag,    s->inv_mass, COLLIDERS,
+                               x_out, v,     s->ny * s->nx, p};
+  return launch_strain_sweeps(*s, xp, delta, alive, scale, epi, stream);
 }
 
 // Launch the frame-end feature update over the final positions x

@@ -112,6 +112,16 @@ FINISH_ARGTYPES = [
     *[ctypes.c_float] * 5,                               # FeatParams
     ctypes.c_int, ctypes.c_int, ctypes.c_void_p,         # ny, nx, stream
 ]
+
+
+class FeatParamsStruct(ctypes.Structure):
+    """``csrc/grid_common.cuh::FeatParams``: the feature update's scalars
+    (:attr:`CudaFeatures.scalars`), for the structs of the substep entries."""
+
+    _fields_ = [(name, ctypes.c_float) for name in (
+        "strain1", "yield_strain", "creep", "min_scale", "max_scale")]
+
+
 # the feature arguments of each substep (and XPBD predict) launch:
 # feat, alive in, out, scale in, out, tear limits, first, FeatParams
 LAUNCH_ARGTYPES = [

@@ -20,6 +20,25 @@ from ..core.topology import Topology, check_same_scene
 from .stencil import check_grid_ported
 
 
+# The grid's offset patterns (csrc/grid_common.cuh Pattern), as (di, dj) rows
+# of the offsets tables (kernels/stencil.py::_offsets and ::_xpbd_offsets
+# list them alike): structural, with shear, with bend, with both
+PATTERNS = (((0, 1), (1, 0)),
+            ((0, 1), (1, 0), (1, 1), (1, -1)),
+            ((0, 1), (1, 0), (0, 2), (2, 0)),
+            ((0, 1), (1, 0), (1, 1), (1, -1), (0, 2), (2, 0)))
+
+
+def sweep_pattern(offsets) -> int:
+    """The index in :data:`PATTERNS` of the tiled kernels compiled for the
+    offsets table's (di, dj, ...) rows; raises for a pattern none is
+    compiled for."""
+    rows = tuple((int(o[0]), int(o[1])) for o in offsets)
+    if rows not in PATTERNS:
+        raise ValueError(f"no tiled kernel is compiled for the offsets {rows}")
+    return PATTERNS.index(rows)
+
+
 def pack_plane(top: Topology) -> torch.Tensor:
     """[1, 4] row: plane height, plane surface (conveyor) velocity."""
     return torch.cat([top.plane_height.reshape(1),

@@ -3,15 +3,15 @@ wrappers (:mod:`.grid_euler`, :mod:`.grid_verlet`, :mod:`.grid_xpbd`).
 
 Counterpart of ``softbodyunity_tpu/kernels/pallas_substep.py::
 _strain_limit_planes``, which the TPU's fused Euler, Verlet and XPBD grid
-kernels run inside their substep.  Here a Jacobi sweep needs every
-neighbour's result of the sweep before, so each sweep is one launch of
-``csrc/grid_common.cuh::grid_strain_sweep_kernel`` (each grid library
-exports it as ``grid_<solver>_strain``, with that solver's epilogue), after
-the substep's integrate launch (Euler, Verlet) or Jacobi sweeps (XPBD); the
-last sweep runs the rest of the substep.  Its plain version is
+kernels run inside their substep.  Here a substep's sweeps are one
+cooperative launch of ``csrc/grid_common.cuh::grid_strain_sweep_kernel``
+(each grid library exports it as ``grid_<solver>_strain``, with that
+solver's epilogue), after the substep's integrate launch (Euler, Verlet) or
+Jacobi sweeps (XPBD): a grid barrier separates the sweeps, and the last
+runs the rest of the substep.  Its plain version is
 :func:`.stencil.strain_limit_planes`.
 
-Each sweep launch counts once here and once in its solver wrapper's count.
+Each launch counts once here and once in its solver wrapper's count.
 """
 
 from __future__ import annotations
@@ -21,13 +21,13 @@ import ctypes
 import torch
 
 from ..core.config import SimConfig
-from .grid_scene import check_launch
+from .grid_scene import check_launch, sweep_pattern
 
 _launches = 0
 
 
 def launch_count() -> int:
-    """Strain sweep launches, of every grid solver, since the last
+    """Strain launches, of every grid solver, since the last
     :func:`reset_launch_count`."""
     return _launches
 
@@ -37,23 +37,42 @@ def reset_launch_count() -> None:
     _launches = 0
 
 
+def add_launches(n: int) -> None:
+    """Count ``n`` strain launches that a solver's C entry made itself
+    (``grid_euler_substeps`` launches a substep's sweeps)."""
+    global _launches
+    _launches += n
+
+
 def sweeps(cfg: SimConfig) -> int:
-    """Sweep launches per substep: ``iterations``, at least one (with none,
-    one launch runs the epilogue alone), and 0 without the strain limit."""
-    sl = cfg.strain_limit
-    return max(sl.iterations, 1) if sl.enabled else 0
+    """Strain launches per substep: one, which runs every sweep (with
+    ``iterations = 0``, the epilogue alone), and 0 without the strain
+    limit."""
+    return int(cfg.strain_limit.enabled)
 
 
-# ctypes argument types that every grid_<solver>_strain starts with: the
-# sweep's positions (base, add, xs_out), inv_mass, the offset table, the
-# bands, n_off, the tear and plastic planes, StrainParams, project, last
-SWEEP_ARGTYPES = [
-    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-    ctypes.c_void_p, ctypes.c_void_p,
-    ctypes.c_float, ctypes.c_float, ctypes.c_int,
-    ctypes.c_int, ctypes.c_int,
-]
+def n_sweeps(cfg: SimConfig) -> int:
+    """The sweeps that one launch runs: ``iterations``, at least one."""
+    return max(cfg.strain_limit.iterations, 1)
+
+
+class StrainParamsStruct(ctypes.Structure):
+    _fields_ = [("stretch1", ctypes.c_float), ("compress1", ctypes.c_float),
+                ("compress_on", ctypes.c_int)]
+
+
+class SweepsStruct(ctypes.Structure):
+    """``csrc/grid_common.cuh::StrainSweeps`` field by field."""
+
+    _fields_ = [
+        *[(name, ctypes.c_void_p) for name in ("inv_mass", "table",
+                                               "limits")],
+        ("scratch", ctypes.c_void_p * 2),
+        ("inv_cnt", ctypes.c_void_p),
+        *[(name, ctypes.c_int) for name in (
+            "pattern", "n_sweeps", "project", "ny", "nx")],
+        ("sp", StrainParamsStruct),
+    ]
 
 
 def _ptr(t):
@@ -64,49 +83,59 @@ class CudaStrain:
     """A grid scene's strain limit on the card: the per-offset bands
     ``(rest * (1 + max_stretch), rest * (1 - max_compress) or 0)`` rounded
     once from double, as the plain version's Python floats are, the sweep
-    scalars, and two scratch position planes for the sweeps' ping-pong."""
+    scalars, the offsets' pattern, and per call the scratch planes of the
+    sweeps' ping-pong and Jacobi weights.  ``launch`` is the library's
+    ``grid_<solver>_strain``; ``size`` its ``grid_<solver>_strain_size``,
+    which must be the ctypes mirror's."""
 
     def __init__(self, cfg: SimConfig, offsets, inv_mass: torch.Tensor,
-                 launch, error_string, name: str):
+                 launch, size, error_string, name: str):
+        if size() != ctypes.sizeof(SweepsStruct):
+            raise RuntimeError(
+                f"{name}: the C StrainSweeps struct has {size()} bytes, its "
+                f"ctypes mirror {ctypes.sizeof(SweepsStruct)}")
         sl = cfg.strain_limit
         compress = sl.max_compress >= 0.0
-        self.n_sweeps = sweeps(cfg)
+        self.n_sweeps = n_sweeps(cfg)
         self.project = int(sl.iterations > 0)
-        self.n_off = len(offsets)
+        self.pattern = sweep_pattern(offsets)
         self.limits = torch.tensor(
             [(off[3] * (1.0 + sl.max_stretch),
               off[3] * (1.0 - sl.max_compress) if compress else 0.0)
              for off in offsets], dtype=torch.float32,
             device=inv_mass.device)
-        self.scalars = (1.0 + sl.max_stretch, 1.0 - sl.max_compress,
-                        int(compress))
+        self.scalars = StrainParamsStruct(1.0 + sl.max_stretch,
+                                     1.0 - sl.max_compress, int(compress))
         self.inv_mass = inv_mass
         self._launch, self._error_string, self._name = (launch, error_string,
                                                         name)
-        self.scratch = ()
+        self.args = None
 
-    def begin(self, like: torch.Tensor) -> None:
-        """Allocate the sweeps' scratch planes for a call's frames."""
+    def begin(self, like: torch.Tensor, table: torch.Tensor) -> SweepsStruct:
+        """Allocate a call's scratch planes (like the ``[3, ny, nx]``
+        ``like``), pack the struct of its launches (``table``: the offsets
+        table on the card) and return it."""
+        ny, nx = self.inv_mass.shape
+        scratch = [None, None]
+        inv_cnt = None
         if self.n_sweeps > 1:
-            self.scratch = (torch.empty_like(like), torch.empty_like(like))
+            scratch = [torch.empty_like(like), torch.empty_like(like)]
+            inv_cnt = torch.empty_like(self.inv_mass)
+        # the planes stay referenced while the call's launches may read them
+        self.planes = (scratch, inv_cnt, table)
+        self.args = SweepsStruct(
+            self.inv_mass.data_ptr(), table.data_ptr(),
+            self.limits.data_ptr(),
+            (ctypes.c_void_p * 2)(*map(_ptr, scratch)), _ptr(inv_cnt),
+            self.pattern, self.n_sweeps, self.project, ny, nx, self.scalars)
+        return self.args
 
-    def launch(self, base, add, table, alive, scale, epilogue) -> int:
-        """Launch one substep's sweeps; the first reads ``base`` (plus
-        ``add`` where it is not None), each later one its predecessor's
-        output, and the last runs the solver's epilogue, whose arguments
-        (after :data:`SWEEP_ARGTYPES`) are ``epilogue``.  ``alive`` and
-        ``scale`` are the substep's feature planes or None.  Returns the
-        number of launches."""
-        global _launches
-        for k in range(self.n_sweeps):
-            last = k == self.n_sweeps - 1
-            out = None if last else self.scratch[k % 2]
-            check_launch(self._launch(
-                _ptr(base), _ptr(add), _ptr(out), self.inv_mass.data_ptr(),
-                table.data_ptr(), self.limits.data_ptr(), self.n_off,
-                _ptr(alive), _ptr(scale), *self.scalars, self.project,
-                int(last), *epilogue), f"{self._name} strain sweep",
-                self._error_string)
-            _launches += 1
-            base, add = out, None
-        return self.n_sweeps
+    def launch(self, alive, scale, *epilogue) -> int:
+        """Launch one substep's sweeps, one C call: ``alive`` and ``scale``
+        are the substep's feature planes or None, ``epilogue`` the rest of
+        the solver's arguments.  Returns the number of launches."""
+        check_launch(self._launch(ctypes.byref(self.args), _ptr(alive),
+                                  _ptr(scale), *epilogue),
+                     f"{self._name} strain sweeps", self._error_string)
+        add_launches(1)
+        return 1

@@ -9,9 +9,9 @@ branch, :func:`.stencil.verlet_substep_grid`); :mod:`.dispatch` takes it for
 tensors on the CPU and this wrapper for tensors on a CUDA device, where it
 launches the kernel or raises.
 
-A substep is one launch, plus one per strain-limit sweep
-(:mod:`.grid_strain`); a frame is its substeps' launches and, under tearing
-or plasticity, one more, the frame-end feature update
+A substep is one launch, plus one under the strain limit, which runs every
+sweep (:mod:`.grid_strain`); a frame is its substeps' launches and, under
+tearing or plasticity, one more, the frame-end feature update
 (:mod:`.grid_features`).  Each launch counts once.
 """
 
@@ -33,7 +33,7 @@ from .grid_features import (FINISH_ARGTYPES, LAUNCH_ARGTYPES, NO_FEATURES,
 from .grid_scene import (COLLIDER_ARGTYPES, NO_CONTACT, WIND_ARGTYPES,
                          check_input, check_launch, pack_grid_scene,
                          wind_args)
-from .grid_strain import SWEEP_ARGTYPES, CudaStrain
+from .grid_strain import CudaStrain
 from .stencil import _offsets, from_planes, to_planes
 
 _launches = 0
@@ -50,7 +50,7 @@ def reset_launch_count() -> None:
 
 
 def launches_per_substep(cfg: SimConfig) -> int:
-    """The substep launch, plus one per strain-limit sweep."""
+    """The substep launch, plus the strain launch (all its sweeps)."""
     return 1 + grid_strain.sweeps(cfg)
 
 
@@ -84,18 +84,19 @@ def _launcher():
     lib.grid_verlet_features.restype = ctypes.c_int
     strain = lib.grid_verlet_strain
     strain.argtypes = [
-        *SWEEP_ARGTYPES,       # the sweep
+        ctypes.POINTER(grid_strain.SweepsStruct),   # the sweeps' struct
+        p, p,                  # alive, scale
         p, p, p,               # epilogue: x0, x_start, out
         *COLLIDER_ARGTYPES,    # the colliders
-        i, i,                  # ny, nx
         f, f, f, f,            # dt, mu, keep, shell
         p,                     # stream
     ]
     strain.restype = ctypes.c_int
+    lib.grid_verlet_strain_size.restype = ctypes.c_int
     lib.grid_verlet_error_string.argtypes = [ctypes.c_int]
     lib.grid_verlet_error_string.restype = ctypes.c_char_p
     return (fn, lib.grid_verlet_features, strain,
-            lib.grid_verlet_error_string)
+            lib.grid_verlet_strain_size, lib.grid_verlet_error_string)
 
 
 def make_cuda_step(top: Topology, cfg: SimConfig):
@@ -123,11 +124,11 @@ def make_cuda_step(top: Topology, cfg: SimConfig):
     mu = cfg.collision.friction
     gx, gy, gz = cfg.gravity
     sc_force = self_collision_planes_cuda(cfg, ny, nx, device)
-    launch, finish, strain_fn, error_string = _launcher()
+    launch, finish, strain_fn, strain_size, error_string = _launcher()
     feat = (CudaFeatures(top, cfg, offsets, finish, error_string,
                          "grid_verlet") if features_on(cfg) else None)
-    strain = (CudaStrain(cfg, offsets, sc.inv_mass, strain_fn, error_string,
-                         "grid_verlet")
+    strain = (CudaStrain(cfg, offsets, sc.inv_mass, strain_fn, strain_size,
+                         error_string, "grid_verlet")
               if cfg.strain_limit.enabled else None)
     wind = wind_args(cfg)
 
@@ -154,7 +155,7 @@ def make_cuda_step(top: Topology, cfg: SimConfig):
             if feat:
                 feat.begin(state)
             if strain:
-                strain.begin(x)
+                strain.begin(x, table)
             for k in range(n_substeps):
                 f_ext = sc_force(x) if sc_force else None
                 check_launch(launch(
@@ -171,11 +172,11 @@ def make_cuda_step(top: Topology, cfg: SimConfig):
                     # sweeps from the integrated out; the last writes the
                     # new position over xp, which nothing reads any more
                     _launches += strain.launch(
-                        out, None, table, feat.alive if feat else None,
+                        feat.alive if feat else None,
                         feat.scale if feat else None,
-                        (out.data_ptr(), x.data_ptr(), xp.data_ptr(),
-                         *colliders, ny, nx, dt, mu, 1.0 - mu,
-                         SPHERE_CONTACT_SHELL, stream))
+                        out.data_ptr(), x.data_ptr(), xp.data_ptr(),
+                        *colliders, dt, mu, 1.0 - mu, SPHERE_CONTACT_SHELL,
+                        stream)
                     x, xp = xp, x
                 else:
                     # the new position, the new history, the next output

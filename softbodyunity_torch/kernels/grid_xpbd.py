@@ -12,8 +12,9 @@ A substep is one ``ctypes`` call, ``grid_xpbd_substep``, which launches
 ``1 + max(n_iterations, 1)`` kernels: one predict pass, then one tiled
 launch per Jacobi sweep, the grid-wide barrier between sweeps (with no
 sweep, one launch runs the epilogue alone).  Under the strain limit the
-sweeps of :mod:`.grid_strain` follow the ``n_iterations`` Jacobi sweeps and
-the last of them runs the epilogue: ``1 + n_iterations + iterations``.
+one launch of :mod:`.grid_strain` (all its sweeps, from its own ``ctypes``
+call) follows the ``n_iterations`` Jacobi sweeps and runs the epilogue:
+``1 + n_iterations + 1``.
 Under tearing or plasticity the predict also updates the feature planes
 (and, under tearing, the substep's Jacobi weights), and a frame ends with
 one more launch, the frame-end feature update (:mod:`.grid_features`).
@@ -33,24 +34,16 @@ from ..core.topology import EDGE_BEND, EDGE_SHEAR, Topology
 from ..solver.collide import SPHERE_CONTACT_SHELL
 from . import grid_features, grid_strain
 from .blocks import self_collision_planes_cuda
-from .grid_features import (FINISH_ARGTYPES, CudaFeatures, _ptr,
-                            features_on)
+from .grid_features import (FINISH_ARGTYPES, CudaFeatures, FeatParamsStruct,
+                            _ptr, features_on)
 from .grid_scene import (COLLIDER_ARGTYPES, CollidersStruct, WindStruct,
-                         check_input, check_launch, pack_grid_scene)
-from .grid_strain import SWEEP_ARGTYPES, CudaStrain
+                         check_input, check_launch, pack_grid_scene,
+                         sweep_pattern)
+from .grid_strain import CudaStrain
 from .stencil import (_valid_mask, _xpbd_offsets, from_planes, jacobi_count,
                       to_planes)
 
 _launches = 0
-
-# The grid's offset patterns (csrc/grid_xpbd.cu Pattern), as (di, dj) rows of
-# the offsets table (kernels/stencil.py::_xpbd_offsets): structural, with
-# shear, with bend, with both
-PATTERNS = (((0, 1), (1, 0)),
-            ((0, 1), (1, 0), (1, 1), (1, -1)),
-            ((0, 1), (1, 0), (0, 2), (2, 0)),
-            ((0, 1), (1, 0), (1, 1), (1, -1), (0, 2), (2, 0)))
-
 
 def launch_count() -> int:
     """Kernel launches (predict and sweep) since the last
@@ -81,21 +74,6 @@ def launches_per_frame(cfg: SimConfig, n_substeps: int) -> int:
                                             launches_per_substep(cfg))
 
 
-def sweep_pattern(offsets) -> int:
-    """The index in :data:`PATTERNS` of the sweep compiled for the offsets
-    table's (di, dj, ...) rows; raises for a pattern no sweep is compiled
-    for."""
-    rows = tuple((int(o[0]), int(o[1])) for o in offsets)
-    if rows not in PATTERNS:
-        raise ValueError(f"no XPBD sweep is compiled for the offsets {rows}")
-    return PATTERNS.index(rows)
-
-
-class _FeatParams(ctypes.Structure):
-    _fields_ = [(name, ctypes.c_float) for name in (
-        "strain1", "yield_strain", "creep", "min_scale", "max_scale")]
-
-
 class _Params(ctypes.Structure):
     _fields_ = [(name, ctypes.c_float) for name in (
         "dt", "gx", "gy", "gz", "decay", "mu", "keep", "shell")]
@@ -115,7 +93,7 @@ class _Substep(ctypes.Structure):
             "n_off", "pattern", "feat", "wind_on",
             "n_sweeps", "project", "epilogue", "ny", "nx")],
         ("relaxation", ctypes.c_float),
-        ("fp", _FeatParams),
+        ("fp", FeatParamsStruct),
         ("col", CollidersStruct),
         ("wind", WindStruct),
         ("p", _Params),
@@ -146,19 +124,20 @@ def _launchers():
     lib.grid_xpbd_features.restype = i
     strain = lib.grid_xpbd_strain
     strain.argtypes = [
-        *SWEEP_ARGTYPES,       # the sweep
+        ctypes.POINTER(grid_strain.SweepsStruct),   # the sweeps' struct
+        p, p,                  # alive, scale
         p, p, p,               # epilogue: xp, delta, flag
         *COLLIDER_ARGTYPES,    # the colliders
         p, p,                  # x_out, v
-        i, i,                  # ny, nx
         f, f, f, f,            # dt, mu, keep, shell
         p,                     # stream
     ]
     strain.restype = i
+    lib.grid_xpbd_strain_size.restype = i
     lib.grid_xpbd_error_string.argtypes = [i]
     lib.grid_xpbd_error_string.restype = ctypes.c_char_p
     return (substep, lib.grid_xpbd_features, strain,
-            lib.grid_xpbd_error_string)
+            lib.grid_xpbd_strain_size, lib.grid_xpbd_error_string)
 
 
 def make_cuda_step(top: Topology, cfg: SimConfig):
@@ -198,11 +177,11 @@ def make_cuda_step(top: Topology, cfg: SimConfig):
     gx, gy, gz = cfg.gravity
     tables = {}
     sc_force = self_collision_planes_cuda(cfg, ny, nx, device)
-    substep, finish, strain_fn, error_string = _launchers()
+    substep, finish, strain_fn, strain_size, error_string = _launchers()
     feat = (CudaFeatures(top, cfg, xoffsets, finish, error_string,
                          "grid_xpbd") if features_on(cfg) else None)
-    strain = (CudaStrain(cfg, xoffsets, sc.inv_mass, strain_fn, error_string,
-                         "grid_xpbd")
+    strain = (CudaStrain(cfg, xoffsets, sc.inv_mass, strain_fn, strain_size,
+                         error_string, "grid_xpbd")
               if cfg.strain_limit.enabled else None)
     w = cfg.wind
     tearing = cfg.tear.enabled
@@ -248,7 +227,7 @@ def make_cuda_step(top: Topology, cfg: SimConfig):
                 n_off, pattern, int(feat is not None),
                 int(w.enabled), n_sweeps, int(cfg.xpbd.n_iterations > 0),
                 int(strain is None), ny, nx, cfg.xpbd.relaxation,
-                _FeatParams(*(feat.scalars if feat else (0.0,) * 5)),
+                FeatParamsStruct(*(feat.scalars if feat else (0.0,) * 5)),
                 CollidersStruct(*colliders),
                 WindStruct(*w.velocity, w.drag, w.lift),
                 _Params(dt, gx, gy, gz, 1.0 - cfg.global_damping * dt, mu,
@@ -258,7 +237,7 @@ def make_cuda_step(top: Topology, cfg: SimConfig):
             if feat:
                 feat.begin(state)
             if strain:
-                strain.begin(x)
+                strain.begin(x, table)
             for k in range(n_substeps):
                 f_ext = sc_force(x) if sc_force else None
                 err = substep(
@@ -275,11 +254,11 @@ def make_cuda_step(top: Topology, cfg: SimConfig):
                     # sweeps from xp + delta; the last projects the contact
                     # once more and runs the epilogue
                     _launches += strain.launch(
-                        x, d_last, table, feat.alive if feat else None,
+                        feat.alive if feat else None,
                         feat.scale if feat else None,
-                        (x.data_ptr(), d_last.data_ptr(), flag.data_ptr(),
-                         *colliders, x_out.data_ptr(), v.data_ptr(), ny, nx,
-                         dt, mu, 1.0 - mu, SPHERE_CONTACT_SHELL, stream))
+                        x.data_ptr(), d_last.data_ptr(), flag.data_ptr(),
+                        *colliders, x_out.data_ptr(), v.data_ptr(), dt, mu,
+                        1.0 - mu, SPHERE_CONTACT_SHELL, stream)
                 x, x_out = x_out, x
             if feat:
                 if n_substeps > 0:

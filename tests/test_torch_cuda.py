@@ -763,8 +763,8 @@ def _strain_scene(solver, feature="none"):
 # 3e-5, 2e-4 with tearing (the clamp at the boundary repeats); the masks
 # equal; the rest scales 1e-3: x's 2e-4 is 2.5e-3 of strain on these 0.08
 # edges, and the creep (0.1) integrates it into the scales (1.75e-4 was
-# measured under Verlet and XPBD); one strain-sweep launch per iteration
-# and substep
+# measured under Verlet and XPBD); one strain launch a substep, which runs
+# every sweep
 @pytest.mark.cuda
 @pytest.mark.parametrize("feature", ["none", "tear", "both"])
 @pytest.mark.parametrize("solver", list(_WRAPPERS))
@@ -780,7 +780,7 @@ def test_strain_kernel_matches_plain_on_card(cuda, solver, feature):
     torch.cuda.synchronize()
     assert (_WRAPPERS[solver].launch_count()
             == _WRAPPERS[solver].launches_per_frame(cfg, 64))
-    assert grid_strain.launch_count() == 64 * cfg.strain_limit.iterations
+    assert grid_strain.launch_count() == 64   # one launch, every sweep
     atol = 2e-4 if cfg.tear.enabled else 3e-5
     torch.testing.assert_close(got.x, want.x, atol=atol, rtol=0)
     if cfg.tear.enabled:
@@ -823,7 +823,7 @@ def test_strain_sweeps_alone_match_plain_on_card(cuda, feature):
     grid_strain.reset_launch_count()
     got = grid_euler.make_strain_correction(top, cfg)(x3, alive, scale)
     torch.cuda.synchronize()
-    assert grid_strain.launch_count() == cfg.strain_limit.iterations
+    assert grid_strain.launch_count() == 1   # one launch, every sweep
     torch.testing.assert_close(got, want, atol=1e-6, rtol=0)
     assert float((want - x3).abs().max()) > 1e-3   # the sweeps moved it
     pinned = (top.inv_mass == 0.0).reshape(ny, nx)
@@ -964,7 +964,7 @@ def test_collider_strain_kernel_matches_plain_on_card(cuda, solver):
     grid_strain.reset_launch_count()
     got = _WRAPPERS[solver].make_cuda_step(top, cfg)(s0, cfg.dt, 32)
     torch.cuda.synchronize()
-    assert grid_strain.launch_count() == 32 * 4
+    assert grid_strain.launch_count() == 32   # one launch, every sweep
     torch.testing.assert_close(got.x, want.x, atol=5e-5, rtol=0)
     _assert_pins_frozen(host, got, s0, cuda)
 
@@ -1165,6 +1165,267 @@ def test_xpbd_grid_patterns_match_plain_on_card(cuda, shear, bend, branch):
     assert torch.equal(got.x[pinned], s0.x[pinned])
 
 
+# --- grid Euler: the tiled substep and the one-launch strain sweeps ----------
+
+# the four offset patterns of the tiled kernels: structural, with shear, with
+# bend, with both
+_PATTERNS = [(False, False), (True, False), (False, True), (True, True)]
+_PATTERN_IDS = ["structural", "shear", "bend", "six"]
+
+
+def _euler_grid_scene(nx, ny, shear, bend, branch):
+    """A grid Euler scene of nx x ny vertices with the springs of one
+    offset pattern and one branch: "plain" (_scene16's springs, pinned at
+    the top corners), "features" (_feature_scene's tear and plastic planes,
+    pinned along the top row), "wind" (_wind_scene's), "force" (the
+    self-collision force plane, its radius past the rest spacing so that
+    every structural pair pushes apart) or "colliders" (_collider_scene's
+    capsule and box under a cloth lying in xz).  The hanging cloths stay
+    clear of their plane."""
+    kw = dict(pinned=("tl", "tr"), plane_height=-(0.05 * ny + 1.0),
+              orientation="xy")
+    euler = Solver.SEMI_IMPLICIT_EULER
+    host = None
+    if branch == "features":
+        _, cfg = _feature_scene(euler, "both")
+        kw["pinned"] = ("top",)
+    elif branch == "wind":
+        _, cfg = _wind_scene(euler)
+    elif branch == "colliders":
+        host, cfg = _collider_scene(euler)
+        kw = dict(pinned=("tl",), plane_height=-2.0,
+                  origin=(-0.28, 0.05, -0.28), orientation="xz")
+    else:
+        _, cfg = _scene16()
+        if branch == "force":
+            cfg = cfg.replace(self_collision=SelfCollisionParams(
+                enabled=True, method="block", radius=0.06, cell_size=0.06))
+    grid = tsb.cloth_grid(nx, ny, spacing=0.05, shear=shear, bend=bend,
+                          springs=cfg.springs, xpbd=cfg.xpbd, **kw)
+    if host is not None:
+        grid = dataclasses.replace(grid, **{
+            f: getattr(host, f) for f in (
+                "capsule_p0", "capsule_p1", "capsule_radii",
+                "capsule_velocities", "box_centers", "box_half_extents",
+                "box_rotations", "box_velocities")})
+    return grid, cfg
+
+
+# float32 kernel against float32 plain version over 32 substeps: x 5e-5
+# (the JAX kernel-vs-twin bounds of tests/test_tearing.py, test_wind.py and
+# test_colliders.py), 5e-4 with the structural springs alone (a floppy
+# cloth: test_kernel_matches_plain_on_card's bound); v 5e-2 (x's rounding
+# over dt)
+@pytest.mark.cuda
+@pytest.mark.parametrize("branch", ["plain", "features", "wind", "force",
+                                    "colliders"])
+@pytest.mark.parametrize("shear,bend", _PATTERNS, ids=_PATTERN_IDS)
+@pytest.mark.parametrize("nx,ny", [(37, 53), (5, 300)])
+def test_grid_euler_tiles_match_plain_on_card(cuda, nx, ny, shear, bend,
+                                              branch):
+    """The tiled substep, compiled for each offset pattern, on grids that no
+    tile divides (the ragged last tile in both directions; 5 columns are
+    narrower than a tile), with each branch, against the plain version;
+    the frame one C call (one a substep with the force plane)."""
+    host, cfg = _euler_grid_scene(nx, ny, shear, bend, branch)
+    top, s0 = tsb.init(host, device=cuda)
+    if branch == "features":
+        s0 = tsb.api.ensure_plastic_state(
+            top, cfg, tsb.api.ensure_tear_state(top, cfg, s0))
+    want = stencil.make_stencil_step(top, cfg)(s0, cfg.dt, 32)
+    for w in (*_WRAPPERS.values(), *_LATTICE.values()):
+        w.reset_launch_count()
+    got = grid_euler.make_cuda_step(top, cfg)(s0, cfg.dt, 32)
+    torch.cuda.synchronize()
+    assert grid_euler.launch_count() == grid_euler.launches_per_frame(cfg, 32)
+    assert sum(w.launch_count() for w in (*_WRAPPERS.values(),
+                                          *_LATTICE.values())) \
+        == grid_euler.launches_per_frame(cfg, 32)
+    atol_x = 5e-5 if shear or bend else 5e-4
+    torch.testing.assert_close(got.x, want.x, atol=atol_x, rtol=0)
+    torch.testing.assert_close(got.v, want.v, atol=5e-2, rtol=0)
+    if branch == "features":
+        assert torch.equal(got.edge_alive, want.edge_alive)
+        torch.testing.assert_close(got.rest_scale, want.rest_scale,
+                                   atol=1e-5, rtol=0)
+    assert float((want.x - s0.x).abs().max()) > 1e-4
+    pinned = torch.from_numpy(host.inv_mass == 0.0).to(cuda)
+    assert torch.equal(got.x[pinned], s0.x[pinned])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("branch", ["plain", "wind", "force", "colliders"])
+@pytest.mark.parametrize("shear,bend", [(True, True), (False, False)],
+                         ids=["six", "structural"])
+def test_grid_euler_wide_grids_match_plain_on_card(cuda, shear, bend,
+                                                   branch):
+    """A grid of 2,112 tiles, more than the card holds CTAs of the
+    substep kernel at once: its plain substeps (also with capsules and
+    boxes) take grid_euler_wide_kernel (the offsets' terms in two halves,
+    eight CTAs an SM), with wind or the force plane the substep kernel;
+    against the plain version over 16 substeps, as the tiles above."""
+    host, cfg = _euler_grid_scene(1024, 520, shear, bend, branch)
+    top, s0 = tsb.init(host, device=cuda)
+    want = stencil.make_stencil_step(top, cfg)(s0, cfg.dt, 16)
+    grid_euler.reset_launch_count()
+    got = grid_euler.make_cuda_step(top, cfg)(s0, cfg.dt, 16)
+    torch.cuda.synchronize()
+    assert grid_euler.launch_count() == 16
+    atol_x = 5e-5 if shear or bend else 5e-4
+    torch.testing.assert_close(got.x, want.x, atol=atol_x, rtol=0)
+    torch.testing.assert_close(got.v, want.v, atol=5e-2, rtol=0)
+    assert float((want.x - s0.x).abs().max()) > 1e-4
+    pinned = torch.from_numpy(host.inv_mass == 0.0).to(cuda)
+    assert torch.equal(got.x[pinned], s0.x[pinned])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_sub", [0, 1, 7])
+@pytest.mark.parametrize("feature", ["tear", "both"])
+def test_grid_euler_frame_parity_on_card(cuda, feature, n_sub):
+    """One C call runs a frame of any length: even, odd and empty frames
+    return the buffers and planes the last launch wrote, as the plain
+    version's frame; with the strain limit too (x then stays in one
+    buffer)."""
+    for strain in (False, True):
+        host, cfg = _feature_scene(Solver.SEMI_IMPLICIT_EULER, feature)
+        if strain:
+            cfg = cfg.replace(strain_limit=StrainLimitParams(
+                enabled=True, max_stretch=0.02, iterations=3))
+        top, s0 = tsb.init(host, device=cuda)
+        s0 = tsb.api.ensure_plastic_state(
+            top, cfg, tsb.api.ensure_tear_state(top, cfg, s0))
+        fn = grid_euler.make_cuda_step(top, cfg)
+        plain = stencil.make_stencil_step(top, cfg)
+        got, want = s0, s0
+        for _ in range(3):
+            got, want = fn(got, cfg.dt, n_sub), plain(want, cfg.dt, n_sub)
+        torch.cuda.synchronize()
+        # the feature and strain kernel-vs-plain bounds above
+        torch.testing.assert_close(got.x, want.x,
+                                   atol=2e-4 if strain else 5e-5, rtol=0)
+        torch.testing.assert_close(got.v, want.v, atol=5e-2, rtol=0)
+        assert torch.equal(got.edge_alive, want.edge_alive)
+        if n_sub == 0:
+            assert torch.equal(got.x, s0.x) and torch.equal(got.v, s0.v)
+
+
+def _stretched_sweeps(nx, ny, shear, bend, iterations, features, cuda,
+                      seed=5):
+    """The sweeps alone from identical positions: a cloth of nx x ny
+    vertices (at most 0.9 m across, so that float32 positions keep ulps
+    below 1e-7), stretched 15 % with noise, with random liveness and rest
+    scales under ``features``.  Returns (top, cfg, x3, alive, scale,
+    want), want the plain x3 + strain_limit_planes."""
+    spacing = 0.9 / max(nx, ny)
+    cfg = tsb.SimConfig(strain_limit=StrainLimitParams(
+        enabled=True, max_stretch=0.08, iterations=iterations),
+        tear=TearParams(enabled=features), plasticity=PlasticityParams(
+            enabled=features))
+    host = tsb.cloth_grid(nx, ny, spacing=spacing, pinned=("top",),
+                          shear=shear, bend=bend, springs=cfg.springs,
+                          xpbd=cfg.xpbd, orientation="xy")
+    top, s0 = tsb.init(host, device=cuda)
+    rng = np.random.default_rng(seed)
+    x = 1.15 * s0.x + torch.tensor(
+        0.1 * spacing * rng.standard_normal((ny * nx, 3)),
+        dtype=torch.float32, device=cuda)
+    x3 = stencil.to_planes(x, ny, nx).contiguous()
+    offsets = stencil._offsets(cfg, top.grid_spacing, shear, bend)
+    masks = [stencil._valid_mask(ny, nx, di, dj, cuda, torch.float32)
+             for di, dj, _, _ in offsets]
+    alive = scale = None
+    if features:
+        alive = torch.stack(masks) * torch.tensor(
+            rng.uniform(size=(len(offsets), ny, nx)) < 0.8,
+            dtype=torch.float32, device=cuda)
+        scale = torch.tensor(rng.uniform(0.9, 1.2, (len(offsets), ny, nx)),
+                             dtype=torch.float32, device=cuda)
+    want = x3 + stencil.strain_limit_planes(
+        x3, offsets, masks if alive is None else list(alive),
+        top.inv_mass.reshape(1, ny, nx), cfg.strain_limit, scales=scale)
+    return top, cfg, x3, alive, scale, want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("iterations,features", [(1, False), (5, True)])
+@pytest.mark.parametrize("shear,bend", _PATTERNS, ids=_PATTERN_IDS)
+@pytest.mark.parametrize("nx,ny", [(37, 53), (1024, 520)])
+def test_strain_sweeps_tiles_match_plain_on_card(cuda, nx, ny, shear, bend,
+                                                 iterations, features):
+    """One launch of the sweeps, compiled for each offset pattern, on a
+    grid no tile divides and on one of 2,112 tiles, more than the card
+    holds resident, so that each CTA loops over several tiles and the
+    grid barrier separates sweeps: x 1e-6 against the plain sweeps, FMA
+    contraction only."""
+    top, cfg, x3, alive, scale, want = _stretched_sweeps(
+        nx, ny, shear, bend, iterations, features, cuda)
+    grid_strain.reset_launch_count()
+    got = grid_euler.make_strain_correction(top, cfg)(x3, alive, scale)
+    torch.cuda.synchronize()
+    assert grid_strain.launch_count() == 1
+    torch.testing.assert_close(got, want, atol=1e-6, rtol=0)
+    assert float((want - x3).abs().max()) > 1e-5   # the sweeps moved it
+    pinned = (top.inv_mass == 0.0).reshape(ny, nx)
+    assert torch.equal(got[:, pinned], x3[:, pinned])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nx,ny", [(37, 53), (1024, 520)])
+def test_strain_sweeps_repeat_bit_equal_on_card(cuda, nx, ny):
+    """Each edge's correction comes from one thread and each vertex sums
+    its terms in a fixed order, across the grid barrier too: 24 launches
+    from one state give one result to the bit."""
+    top, cfg, x3, alive, scale, _ = _stretched_sweeps(
+        nx, ny, True, True, 5, True, cuda)
+    fn = grid_euler.make_strain_correction(top, cfg)
+    want = fn(x3, alive, scale)
+    for k in range(23):
+        assert torch.equal(fn(x3, alive, scale), want), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("branch", ["plain", "features", "wind", "force",
+                                    "colliders"])
+@pytest.mark.parametrize("nx,ny", [(37, 53), (1024, 520)])
+def test_grid_euler_tiles_repeat_bit_equal_on_card(cuda, nx, ny, branch):
+    """24 frames of 32 substeps from one state, on a grid no tile divides
+    and on one wide enough for the wide kernel, give one result to the
+    bit: no shared-memory race in the tile."""
+    host, cfg = _euler_grid_scene(nx, ny, True, True, branch)
+    top, s0 = tsb.init(host, device=cuda)
+    if branch == "features":
+        s0 = tsb.api.ensure_plastic_state(
+            top, cfg, tsb.api.ensure_tear_state(top, cfg, s0))
+    fn = grid_euler.make_cuda_step(top, cfg)
+    want = fn(s0, cfg.dt, 32)
+    for k in range(23):
+        got = fn(s0, cfg.dt, 32)
+        assert torch.equal(got.x, want.x), k
+        assert torch.equal(got.v, want.v), k
+    assert float((want.x - s0.x).abs().max()) > 1e-4
+
+
+@pytest.mark.cuda
+def test_normals_are_bit_equal_run_to_run_on_card(cuda):
+    """The vertex normals sum each vertex's faces in a fixed order, so two
+    calls on the card give the same bits (index_add_'s atomics did not),
+    and agree with the CPU's sum to float32 rounding."""
+    host, cfg = tsb.presets.build("cloth_bench_64k")
+    top, s0 = tsb.init(host, device=cuda)
+    rng = np.random.default_rng(3)
+    s = s0.replace(x=s0.x + torch.tensor(
+        0.01 * rng.standard_normal(tuple(s0.x.shape)), dtype=torch.float32,
+        device=cuda))
+    a = tsb.normals(top, s)
+    b = tsb.normals(top, s)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    cpu = tsb.normals(*tsb.init(host, device="cpu")[:1], s.replace(
+        x=s.x.cpu()))
+    torch.testing.assert_close(a.cpu(), cpu, atol=1e-5, rtol=0)
+
+
 def _tet_box(shape, spacing, springs, xpbd, plane_height, origin):
     """tet_cube's lattice on nx x ny x nz vertices: the same 5-tet cells,
     parity-alternated, their edges as springs."""
@@ -1331,6 +1592,26 @@ def _poison_runs():
             return lambda: grid_xpbd.make_cuda_step(top, cfg)(s0, cfg.dt, 32)
         return build
 
+    def euler(branch, full=True, size=(37, 53)):
+        def build():
+            host, cfg = _euler_grid_scene(*size, full, full, branch)
+            top, s0 = tsb.init(host, device="cuda")
+            if branch == "features":
+                s0 = tsb.api.ensure_plastic_state(
+                    top, cfg, tsb.api.ensure_tear_state(top, cfg, s0))
+            return lambda: grid_euler.make_cuda_step(top, cfg)(s0, cfg.dt, 32)
+        return build
+
+    def strain(solver):
+        def build():
+            host, cfg = _strain_scene(solver, "both")
+            top, s0 = tsb.init(host, device="cuda")
+            s0 = tsb.api.ensure_plastic_state(
+                top, cfg, tsb.api.ensure_tear_state(top, cfg, s0))
+            return lambda: _WRAPPERS[solver].make_cuda_step(top, cfg)(
+                s0, cfg.dt, 32)
+        return build
+
     return [
         ("lattice_euler 7^3", lattice(Solver.SEMI_IMPLICIT_EULER,
                                       lattice_euler)),
@@ -1344,6 +1625,14 @@ def _poison_runs():
         ("grid_xpbd features", grid("features")),
         ("grid_xpbd force", grid("force")),
         ("grid_xpbd colliders structural", grid("colliders", full=False)),
+        ("grid_euler features", euler("features")),
+        ("grid_euler force", euler("force")),
+        ("grid_euler wind", euler("wind")),
+        ("grid_euler colliders structural", euler("colliders", full=False)),
+        ("grid_euler wide", euler("plain", size=(1024, 520))),
+        ("grid_euler strain", strain(Solver.SEMI_IMPLICIT_EULER)),
+        ("grid_verlet strain", strain(Solver.VERLET)),
+        ("grid_xpbd strain", strain(Solver.XPBD)),
     ]
 
 

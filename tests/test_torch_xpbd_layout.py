@@ -1,6 +1,7 @@
 """What the XPBD kernel wrappers compute on the host, on the CPU: the grid
-sweep's tile geometry (the owner rectangles and strips of csrc/grid_xpbd.cu
-at its compiled tile, and kernels/grid_xpbd.py::sweep_pattern), the lattice
+sweep's tile geometry (the owner rectangles and strips of
+csrc/grid_common.cuh's Tile at its compiled tile, and
+kernels/grid_scene.py::sweep_pattern), the lattice
 launch counts (kernels/lattice_xpbd.py, lattice_euler.py, lattice_verlet.py),
 and the ctypes mirrors of the C substep structs, field by field against the
 sources.  The kernels
@@ -14,9 +15,9 @@ import pytest
 
 import softbodyunity_torch as tsb
 from softbodyunity_torch.core.config import Solver, XPBDParams
-from softbodyunity_torch.kernels import (grid_scene, grid_xpbd, lattice,
-                                         lattice_euler, lattice_verlet,
-                                         lattice_xpbd)
+from softbodyunity_torch.kernels import (grid_features, grid_scene,
+                                         grid_xpbd, lattice, lattice_euler,
+                                         lattice_verlet, lattice_xpbd)
 from softbodyunity_torch.kernels.stencil import _xpbd_offsets
 
 CSRC = Path(grid_xpbd.__file__).resolve().parent / "csrc"
@@ -26,9 +27,11 @@ _EULER_VERLET = {Solver.SEMI_IMPLICIT_EULER: lattice_euler,
 
 
 def _tile():
-    """csrc/grid_xpbd.cu's compiled tile, (columns, rows)."""
+    """csrc/grid_common.cuh's compiled tile, (columns, rows), which
+    grid_xpbd.cu's sweep uses."""
+    assert "constexpr int kTileX" not in (CSRC / "grid_xpbd.cu").read_text()
     m = re.search(r"constexpr int kTileX = (\d+), kTileY = (\d+);",
-                  (CSRC / "grid_xpbd.cu").read_text())
+                  (CSRC / "grid_common.cuh").read_text())
     return int(m.group(1)), int(m.group(2))
 
 
@@ -56,7 +59,7 @@ def test_compiled_tiles_fit_static_shared_memory():
     shared memory a kernel has without asking; 32 x 8 with all six offsets:
     432 frame vertices and 1,738 edge terms."""
     assert _tile() == (32, 8)
-    for pattern in grid_xpbd.PATTERNS:
+    for pattern in grid_scene.PATTERNS:
         halo, shared = _frame_and_terms(pattern, *_tile())
         assert halo == max(max(abs(a), abs(b)) for a, b in pattern)
         assert shared <= 48 * 1024
@@ -65,14 +68,14 @@ def test_compiled_tiles_fit_static_shared_memory():
 
 def test_sweep_pattern_names_a_compiled_pattern():
     rows = [(di, dj, 0.0, 1.0) for di, dj in SIX]
-    assert grid_xpbd.sweep_pattern(rows) == 3
-    for p, pattern in enumerate(grid_xpbd.PATTERNS):
-        assert grid_xpbd.sweep_pattern(
+    assert grid_scene.sweep_pattern(rows) == 3
+    for p, pattern in enumerate(grid_scene.PATTERNS):
+        assert grid_scene.sweep_pattern(
             [(di, dj, 1.0, 1.0) for di, dj in pattern]) == p
     with pytest.raises(ValueError, match="offsets"):
-        grid_xpbd.sweep_pattern(rows[:3])
+        grid_scene.sweep_pattern(rows[:3])
     with pytest.raises(ValueError, match="offsets"):
-        grid_xpbd.sweep_pattern(rows[1::-1])
+        grid_scene.sweep_pattern(rows[1::-1])
 
 
 def test_strips_and_own_entries_cover_each_rectangle_once():
@@ -162,7 +165,7 @@ def test_grid_offsets_of_the_presets_take_the_six_offset_sweep():
     host, cfg = tsb.presets.build("cloth_bench_64k_xpbd")
     offs = _xpbd_offsets(cfg, 0.05, True, True)
     assert [(di, dj) for di, dj, _, _ in offs] == SIX
-    assert grid_xpbd.sweep_pattern(offs) == 3
+    assert grid_scene.sweep_pattern(offs) == 3
 
 
 @pytest.mark.parametrize("n_iter,want", [(0, 2), (1, 3), (4, 9), (8, 17)])
@@ -173,7 +176,7 @@ def test_lattice_xpbd_launches_per_substep(n_iter, want):
 
 
 @pytest.mark.parametrize("n_iter,strain,want", [
-    (0, False, 2), (8, False, 9), (0, True, 1 + 4), (8, True, 1 + 8 + 4)])
+    (0, False, 2), (8, False, 9), (0, True, 1 + 1), (8, True, 1 + 8 + 1)])
 def test_grid_xpbd_launches_per_substep(n_iter, strain, want):
     cfg = tsb.SimConfig(
         solver=Solver.XPBD, xpbd=XPBDParams(n_iterations=n_iter),
@@ -221,7 +224,7 @@ def test_ctypes_structs_mirror_the_c_structs():
     pairs = [
         (common, "Colliders", grid_scene.CollidersStruct),
         (common, "Wind", grid_scene.WindStruct),
-        (common, "FeatParams", grid_xpbd._FeatParams),
+        (common, "FeatParams", grid_features.FeatParamsStruct),
         (grid, "Params", grid_xpbd._Params),
         (grid, "GridXpbdSubstep", grid_xpbd._Substep),
         (lat, "Params", lattice_xpbd._Params),
