@@ -9,6 +9,7 @@ The port's paths, one hand-written CUDA kernel each:
                                                       32 x 8 tile a CTA, each
                                                       edge once)
     Verlet  cloth_bench_64k_verlet    grid_verlet     1 launch per substep
+                                                      (the same tile)
     XPBD    cloth_bench_64k_xpbd      grid_xpbd       1 + n_iterations
     Euler   softbody_cube_64k         lattice_euler   3 (integrate, tet, gather)
     Verlet  softbody_cube_64k_verlet  lattice_verlet  3, + 1 a call (the
@@ -16,16 +17,17 @@ The port's paths, one hand-written CUDA kernel each:
     XPBD    softbody_cube_64k_xpbd    lattice_xpbd    1 + 2 n_iterations
     Euler   cloth_selfcollide_64k     block_pairs     1, then grid_euler 1
 
-The grid Euler wrapper launches a frame from one ctypes call into C (with
-self-collision, a substep); both XPBD wrappers and both lattice Euler and
-Verlet wrappers launch a substep from one; a lattice XPBD sweep is a
+The grid Euler and Verlet wrappers launch a frame from one ctypes call into
+C (with self-collision, a substep); both XPBD wrappers and both lattice
+Euler and Verlet wrappers launch a substep from one; a lattice XPBD sweep is a
 constraint pass (each edge and tet once) and a gather pass, a lattice Euler
 or Verlet volume projection a tet pass (each tet once) and a gather pass.
 
 The seventh path is self-collision on grid cloth: each substep the Morton
 sort and the partner search (PyTorch ops on the card), one block_pairs
-launch that writes the repulsion force plane, and one grid_euler launch
-that adds it to the spring forces.
+launch that writes the repulsion force plane (each warp skipping the 32 x
+32 sub-blocks out of reach, exactly), and one grid_euler launch that adds
+it to the spring forces.
 
 Then the grids past the TPU's whole-VMEM cap (its row-tiled kernels) and the
 tear and plastic planes, on the same three grid kernels (their feature
@@ -83,7 +85,9 @@ Phases, each printed as one JSON line; any failure raises and exits nonzero:
               frame of its 64k preset; block_pairs on random clouds, the
               folded sheets of tests/test_blocksparse.py (and against the
               dense rule) and the 64k self-collision preset after 24
-              substeps, where no tile pair may be dropped, and the frame
+              substeps, where no tile pair may be dropped, each with its
+              cull's kept share of sub-block pairs and its dense and culled
+              bounds, and the frame
               that follows; then one frame of the 64k curtain shrunk to
               60 % and of each grid solver with self-collision; each
               feature instantiation on the small tearing and plastic
@@ -105,8 +109,9 @@ Phases, each printed as one JSON line; any failure raises and exits nonzero:
               state in contact; then block_pairs_dual on the 64k
               self-collision preset after 24 substeps, cut into 1 and 4 row
               shards, each launch against the plain dual form (with one
-              rank, against block_pairs to the bit: printed), with its µs a
-              launch from CUDA events, bound and dropped pairs;
+              rank, against block_pairs to the bit: required), with its µs
+              a launch from CUDA events, kept share, both bounds and dropped
+              pairs;
 4. main_path  each 64k preset through init(device="cuda") and 300 frames of
               step() (the self-collision preset 60), every launch count set
               to 0 just before and read just after: the path's kernels
@@ -158,9 +163,11 @@ Phases, each printed as one JSON line; any failure raises and exits nonzero:
               plain version with CUDA events, in turns plain/kernel/kernel/
               plain; then, after all of them (a profiler session slows the
               launches that follow it), each kernel's device time per
-              launch from torch.profiler.  The lattice kernels are timed
-              from rest (the cube in free fall, the work bound_per_substep
-              counts) and again from the main path's last state (the cube
+              launch from torch.profiler, each line naming the kernel
+              instances (template symbols) that ran.  The lattice kernels
+              are timed from rest (the cube in free fall, the work
+              bound_per_substep counts) and again from the main path's last
+              state (the cube
               deformed and resting on the plane).  The self-collision
               path and its pair function alone are timed from the 64k
               preset's state after 24 substeps.  The paths past the cap and
@@ -235,8 +242,13 @@ OPS_LATTICE_XPBD_VERTEX_SWEEP = 14
 # A vertex pair of the block-sparse self-collision, counted from the plain
 # version (solver/blocksparse.py) the same way: diff 3, squared norm 5, max 1,
 # sqrt 1, k (r - d) / d 3, w diff 3, summed into the force 3 = 19 (the
-# compare and select of the radius test are not counted).
+# compare and select of the radius test are not counted).  The kernel's cull
+# (csrc/block_pairs.cu) adds, per 32-vertex slice box, the min and max of 3
+# coordinates over 5 shuffle steps, 30, and per sub-block pair's box test
+# two differences and two maxima an axis and the squares summed, 17.
 OPS_PAIR = 19
+OPS_SLICE_BOX = 30
+OPS_SLICE_TEST = 17
 # The feature update of one edge, counted from its plain version
 # (kernels/stencil.py::update_features) the same way: the length (d 3,
 # |d|^2 5, sqrt 1) 9; plastic flow (rest scale 1, max 1, strain 2, abs 1,
@@ -381,11 +393,12 @@ def events_ms(body, n):
     return start.elapsed_time(end) / n
 
 
-def profile_device(body, names):
+def profile_device(body, names, symbols=None):
     """Run ``body()`` under torch.profiler: {name: (device µs a launch,
     launches)} of each of ``names`` that the trace shows running (a name
     matches every kernel whose symbol holds it), and the device µs of every
-    kernel, memcpy and memset in the trace."""
+    kernel, memcpy and memset in the trace.  ``symbols``, a dict, receives
+    {name: the full symbols it matched} (a template kernel's instances)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -407,6 +420,8 @@ def profile_device(body, names):
             if kname in ev.key and total > 0 and ev.count > 0:
                 t, c = total_of.get(kname, (0.0, 0))
                 total_of[kname] = (t + total, c + ev.count)
+                if symbols is not None:
+                    symbols.setdefault(kname, []).append(ev.key)
     return {k: (t / c, c) for k, (t, c) in total_of.items()}, busy
 
 
@@ -515,16 +530,22 @@ def _bound(nbytes, ops):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def block_pairs_bound(n, blk, n_tiles, sum_nvalid, n_tiles_j=0):
+def block_pairs_bound(n, blk, n_tiles, sum_nvalid, n_tiles_j=0, kept=None):
     """(least ms the card could take for the pair forces of one state,
     "bytes" or "operations"): the kernel's inputs (tiles, partner counts, the
     interacting partner ids, the sort order) read once and the [3, N] force
     planes written once, against OPS_PAIR per vertex pair of the interacting
-    tile pairs this state has.  The dual form reads ``n_tiles_j`` partner
-    tiles besides the ``n_tiles`` i-tiles of its ``n`` vertices."""
+    tile pairs this state has (the dense sweep, the TPU kernel's work) or,
+    given ``kept``, of the 32 x 32 sub-block pairs the cull keeps, with the
+    slice boxes and the box tests.  The dual form reads ``n_tiles_j``
+    partner tiles besides the ``n_tiles`` i-tiles of its ``n`` vertices."""
     nbytes = (4 * 3 * (n_tiles + n_tiles_j) * blk + 8 * n_tiles
               + 8 * sum_nvalid + 8 * n + 4 * 3 * n)
-    return _bound(nbytes, OPS_PAIR * blk * blk * sum_nvalid)
+    if kept is None:
+        return _bound(nbytes, OPS_PAIR * blk * blk * sum_nvalid)
+    slices = blk // 32
+    return _bound(nbytes, OPS_PAIR * 32 * 32 * kept + sum_nvalid * (
+        OPS_SLICE_TEST * slices * slices + OPS_SLICE_BOX * slices))
 
 
 def _lattice_bound(name, top, cfg, n, e, contacts):
@@ -937,9 +958,29 @@ def main() -> int:
         dropped = int(d["dropped_pairs"])
         return dropped, int(d["candidate_pairs"]) - dropped
 
+    def cull(p, x, xall=None):
+        """block_pairs' cull on ``x`` (against ``xall``: the dual form):
+        the 32 x 32 sub-block pairs it keeps (blocks.kept_sub_blocks, plain
+        PyTorch), of how many, and the interacting tile pairs; with the
+        dense and the culled bound (block_pairs_bound) in ms."""
+        inputs = blocks.pair_inputs(p, x, xall)
+        kept = int(blocks.kept_sub_blocks(*inputs[:4], p.radius).sum())
+        sum_nvalid = int(inputs[2].sum())
+        slices = p.block_size // 32
+        blk = p.block_size
+        n_j = 0 if xall is None else -(-xall.shape[0] // blk)
+        args = (x.shape[0], blk, -(-x.shape[0] // blk), sum_nvalid, n_j)
+        return dict(kept_sub_blocks=kept,
+                    sub_block_pairs=sum_nvalid * slices * slices,
+                    kept_share=kept / max(sum_nvalid * slices * slices, 1),
+                    sum_nvalid=sum_nvalid,
+                    dense_bound=block_pairs_bound(*args),
+                    culled_bound=block_pairs_bound(*args, kept=kept))
+
     def compare_pairs(x, p, scene, want=None, tol=pair_tol,
                       why="kernel vs plain: rsqrt and another sum order"):
-        """block_pairs against its plain version (or ``want``) on ``x``."""
+        """block_pairs against its plain version (or ``want``) on ``x``,
+        with its cull's kept share and both bounds."""
         got = blocks.make_block_pairs(p, x.shape[0], cuda)(x).t()
         if want is None:
             want = blocksparse.self_collision_forces_block(x, p)
@@ -948,9 +989,15 @@ def main() -> int:
         ok = bool(torch.isfinite(got).all()
                   and (err <= tol[0] + tol[1] * want.abs()).all())
         dropped, tile_pairs = diagnostics(x, p)
+        c = cull(p, x)
         emit("compare", kernel="block_pairs", scene=scene,
              vertices=x.shape[0], block=p.block_size,
              tile_pairs=tile_pairs, dropped_pairs=dropped,
+             kept_sub_blocks=c["kept_sub_blocks"],
+             sub_block_pairs=c["sub_block_pairs"],
+             kept_share=c["kept_share"],
+             dense_bound_us=c["dense_bound"][0] * 1e3,
+             culled_bound_us=c["culled_bound"][0] * 1e3,
              max_abs_err=float(err.max()),
              max_abs_force=float(want.abs().max()), atol=tol[0],
              rtol=tol[1], why=why)
@@ -1160,24 +1207,35 @@ def main() -> int:
                 plain_ms = events_ms(
                     lambda: [blocksparse.self_collision_forces_block_dual(
                         xi, x, p) for _ in range(2)], 2)
-                bound_ms, bound_by = block_pairs_bound(
-                    ni, blk, -(-ni // blk), sum_nvalid, n_tiles_j=-(-n // blk))
+                c = cull(p, xi, x)
+                require(c["sum_nvalid"] == sum_nvalid,
+                        "block_pairs_dual: pair_inputs' partners are not "
+                        "the diagnostics'")
+                (bound_ms, bound_by), dense_ms = (c["culled_bound"],
+                                                  c["dense_bound"][0])
                 equal = bool(torch.equal(got, single)) if n_ranks == 1 else None
                 emit("compare", kernel="block_pairs_dual",
                      scene="cloth_selfcollide_64k after 24 substeps",
                      ranks=n_ranks, rank=r, vertices=ni, gathered=n,
                      sum_nvalid=sum_nvalid, dropped_pairs=dropped,
+                     kept_sub_blocks=c["kept_sub_blocks"],
+                     sub_block_pairs=c["sub_block_pairs"],
+                     kept_share=c["kept_share"],
                      max_abs_err=float(err.max()),
                      max_abs_force=float(want.abs().max()),
                      atol=pair_tol[0], rtol=pair_tol[1], card=smi,
                      us_per_launch=ms * 1e3, plain_ms=plain_ms,
                      bound_us=bound_ms * 1e3, bound_by=bound_by,
+                     dense_bound_us=dense_ms * 1e3,
                      equal_to_block_pairs=equal,
                      why="rsqrt and another sum order")
                 require(ok, f"block_pairs_dual, rank {r} of {n_ranks}: "
                         f"|err| {float(err.max()):.3e}")
+                if n_ranks == 1:
+                    require(equal, "block_pairs_dual on one rank is not "
+                            "block_pairs to the bit")
                 rows.append((float(err.max()), ms, plain_ms, bound_ms,
-                             bound_by, float(want.abs().max())))
+                             bound_by, float(want.abs().max()), dense_ms))
             # the rows by the pins touch nothing; the pile's rows do
             require(max(row[5] for row in rows) > 0.0,
                     f"block_pairs_dual, {n_ranks} ranks: no pair interacts")
@@ -1188,6 +1246,7 @@ def main() -> int:
                 dual["plain_ms"] = sum(r[2] for r in rows) / n_ranks
                 dual["bound_ms"] = sum(r[3] for r in rows) / n_ranks
                 dual["bound_by"] = rows[0][4]
+                dual["dense_bound_ms"] = sum(r[6] for r in rows) / n_ranks
 
     def halo_maker(solver):
         return {sb.Solver.SEMI_IMPLICIT_EULER: halo.make_halo_step,
@@ -2688,13 +2747,17 @@ def main() -> int:
         """Device time per launch of each named kernel over n_frames, from
         torch.profiler (absent where the trace shows no device time), and
         the device time of every kernel, memcpy and memset in the trace, in
-        µs per substep."""
+        µs per substep; and {name: the distinct symbols it matched}, which
+        each device line prints, so it names the kernel instances that
+        ran."""
         def body():
             s = s0
             for _ in range(n_frames):
                 s = fn(s, cfg.dt, cfg.n_substeps)
-        out, busy = profile_device(body, names)
-        return out, busy / (n_frames * cfg.n_substeps)
+        symbols = {}
+        out, busy = profile_device(body, names, symbols)
+        return (out, busy / (n_frames * cfg.n_substeps),
+                {k: sorted(set(v)) for k, v in symbols.items()})
 
     # every CUDA-event timing first: a torch.profiler session slows the
     # launches that follow it, so the device times are taken after
@@ -2749,15 +2812,17 @@ def main() -> int:
     dropped, tile_pairs = diagnostics(x, p)
     sc["ms"] = min(pair_ms["kernel"])
     sc["plain_ms"] = min(pair_ms["plain"])
-    sc["bound_ms"], sc["bound_by"] = block_pairs_bound(
-        x.shape[0], p.block_size, -(-x.shape[0] // p.block_size), tile_pairs)
+    c = cull(p, x)
+    sc["bound_ms"], sc["bound_by"] = c["culled_bound"]
+    sc["dense_bound_ms"] = c["dense_bound"][0]
     emit("timing", kernel="block_pairs", preset=sc["preset"], card=smi,
          start="24 substeps", ms_per_substep=path_ms,
          kernel_substeps_per_s=1e3 / min(path_ms["kernel"]),
          plain_substeps_per_s=1e3 / min(path_ms["plain"]),
          ms_per_pair_call=pair_ms, sum_nvalid=tile_pairs,
-         dropped_pairs=dropped, bound_us_per_call=sc["bound_ms"] * 1e3,
-         bound_by=sc["bound_by"])
+         dropped_pairs=dropped, kept_share=c["kept_share"],
+         bound_us_per_call=sc["bound_ms"] * 1e3, bound_by=sc["bound_by"],
+         dense_bound_us_per_call=sc["dense_bound_ms"] * 1e3)
     # the paths past the cap and with feature planes, from rest
     for label, p in large.items():
         host, cfg = p["host"], p["cfg"]
@@ -2870,8 +2935,8 @@ def main() -> int:
         if k["lattice"]:
             starts["settled"] = k["settled"]
         for label, s0 in starts.items():
-            dev, _ = device_us_per_launch(k["timing_fn"], s0, cfg, 5,
-                                          k["device_names"])
+            dev, _, sym = device_us_per_launch(k["timing_fn"], s0, cfg, 5,
+                                               k["device_names"])
             per_sub = (sum(us * count for us, count in dev.values())
                        / (5 * cfg.n_substeps)
                        if len(dev) == len(k["device_names"]) else None)
@@ -2879,21 +2944,21 @@ def main() -> int:
                  start=label or "rest",
                  device_us_per_launch={n: us for n, (us, _) in dev.items()},
                  launches={n: c for n, (_, c) in dev.items()},
-                 device_us_per_substep=per_sub,
+                 kernel_symbols=sym, device_us_per_substep=per_sub,
                  **pass_launches(dev, name, k["timing_top"], cfg, 5,
                                  f"{name} {label or 'rest'}"))
     # the self-collision substep: block_pairs, grid_euler, and the sort and
     # partner search (every other kernel of the trace)
     cfg = sc["cfg"]
     names = sc["device_names"] + kernels["grid_euler"]["device_names"]
-    dev, busy = device_us_per_launch(sc_fn, s24, cfg, 5, names)
+    dev, busy, sym = device_us_per_launch(sc_fn, s24, cfg, 5, names)
     named = (sum(us * count for us, count in dev.values())
              / (5 * cfg.n_substeps))
     emit("timing", kernel="block_pairs", profiler_frames=5,
          start="24 substeps",
          device_us_per_launch={n: us for n, (us, _) in dev.items()},
          launches={n: c for n, (_, c) in dev.items()},
-         other_device_us_per_substep=busy - named,
+         kernel_symbols=sym, other_device_us_per_substep=busy - named,
          device_us_per_substep=busy)
     # the dual form alone on the row shards (block_pairs_kernel is its
     # kernel too): device µs a launch, and of the sort and partner search
@@ -2924,13 +2989,13 @@ def main() -> int:
             names = names + ("grid_euler_wide_kernel",)
         if cfg.tear.enabled or cfg.plasticity.enabled:
             names = names + ("grid_feature_finish_kernel",)
-        dev, busy = device_us_per_launch(p["timing_fn"], p["timing_s0"], cfg,
-                                         3, names)
+        dev, busy, sym = device_us_per_launch(
+            p["timing_fn"], p["timing_s0"], cfg, 3, names)
         emit("timing", kernel=p["kernel"], path=label, profiler_frames=3,
              start="rest",
              device_us_per_launch={n: us for n, (us, _) in dev.items()},
              launches={n: c for n, (_, c) in dev.items()},
-             device_us_per_substep=busy,
+             kernel_symbols=sym, device_us_per_substep=busy,
              **pass_launches(dev, p["kernel"], p["timing_top"], cfg, 3,
                              label))
     for label, p in branches.items():
@@ -2938,34 +3003,39 @@ def main() -> int:
         names = kernels[p["kernel"]]["device_names"]
         if cfg.strain_limit.enabled:
             names = names + ("grid_strain_sweep_kernel",)
-        dev, busy = device_us_per_launch(p["timing_fn"], p["timing_s0"], cfg,
-                                         3, names)
+        dev, busy, sym = device_us_per_launch(
+            p["timing_fn"], p["timing_s0"], cfg, 3, names)
         emit("timing", kernel=p["kernel"], path=label, profiler_frames=3,
              start="rest",
              device_us_per_launch={n: us for n, (us, _) in dev.items()},
              launches={n: c for n, (_, c) in dev.items()},
-             device_us_per_substep=busy,
+             kernel_symbols=sym, device_us_per_substep=busy,
              **pass_launches(dev, p["kernel"], p["timing_top"], cfg, 3,
                              label))
     for label, p in collider_paths.items():
         cfg = p["cfg"]
-        dev, busy = device_us_per_launch(p["timing_fn"], p["timing_s0"], cfg,
-                                         3, kernels[p["kernel"]]["device_names"])
+        dev, busy, sym = device_us_per_launch(
+            p["timing_fn"], p["timing_s0"], cfg, 3,
+            kernels[p["kernel"]]["device_names"])
         emit("timing", kernel=p["kernel"], path=label, profiler_frames=3,
              start=f"{p['contact_frames']} frames",
              device_us_per_launch={n: us for n, (us, _) in dev.items()},
              launches={n: c for n, (_, c) in dev.items()},
-             device_us_per_substep=busy,
+             kernel_symbols=sym, device_us_per_substep=busy,
              **pass_launches(dev, p["kernel"], p["timing_top"], cfg, 3,
                              label))
     emit("timing", seconds=phase_seconds())
 
+    # block_pairs' bound_ms is the culled work's; dense_bound_ms the dense
+    # sweep's (the TPU kernel's work)
     line = [{
         "name": name, "route": "cuda", "source": k["source"],
         "replaces": k["replaces"], "launches": k["launches"],
         "max_abs_err": k["err64"], "ms": k["ms"], "plain_ms": k["plain_ms"],
         "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
         "library_ms": None,   # no single PyTorch call computes a substep
+        **({"dense_bound_ms": k["dense_bound_ms"]} if "dense_bound_ms" in k
+           else {}),
     } for name, k in kernels.items()]
     for name, vv in variants.items():
         p = large[vv["path"]]
@@ -3006,7 +3076,8 @@ def main() -> int:
         "replaces": dual["replaces"], "launches": dual["launches"],
         "max_abs_err": dual["err"], "ms": dual["ms"],
         "plain_ms": dual["plain_ms"], "bound_ms": dual["bound_ms"],
-        "bound_by": dual["bound_by"], "library_ms": None})
+        "bound_by": dual["bound_by"], "library_ms": None,
+        "dense_bound_ms": dual["dense_bound_ms"]})
     print(json.dumps({"kernels": line}), flush=True)
     emit("done", seconds=time.perf_counter() - t_start)
     print(smi, flush=True)

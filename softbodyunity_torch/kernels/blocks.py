@@ -33,6 +33,13 @@ from .grid_scene import check_input, check_launch
 # Partner tiles one CTA takes: a crowded tile's partners spread over
 # ceil(nvalid / CHUNK) CTAs (csrc/block_pairs.cu, "Design").
 CHUNK = 4
+# The cull's sub-blocks, 32 i-vertices (a warp) against 32 partner vertices
+# (a slice), and its margin: a sub-block pair is swept unless the squared
+# gap of its boxes exceeds r^2 (1 + CULL_MARGIN), far enough past r^2 that
+# every pair it skips has w == 0 in the kernel's float32 arithmetic
+# (csrc/block_pairs.cu, "Why the cull is exact to the bit").
+SUB_BLOCK = 32
+CULL_MARGIN = 2.0 ** -10
 
 # launches of each form; the halo paths launch the dual form from one thread
 # per rank (parallel/ring.py::LocalRing), hence the lock
@@ -70,7 +77,7 @@ def _launcher():
                                # p_stride, order
         i, i, i, i, i,         # n, n_tiles, k_budget, chunk, blk
         p, p, p,               # partial, arrivals, f_out
-        f, f, f,               # eps2, c1, c2
+        f, f, f, f,            # eps2, c1, c2, reach2
         p,                     # stream
     ]
     fn.restype = ctypes.c_int
@@ -82,17 +89,20 @@ def _launcher():
 def _pair_launch(p: SelfCollisionParams, n: int, n_j: int, device, form):
     """Check the parameters, allocate the scratch of one launch at a time
     for the tiles of ``n`` vertices against the partner tiles of ``n_j``,
-    and return ``(launch, blk, k)``: ``launch(xi_tiles, xj_tiles, nvalid,
-    partners, order) -> [3, n]`` launches the kernel once on the tensors'
-    stream."""
+    and return ``launch(xi_tiles, xj_tiles, nvalid, partners, order) ->
+    [3, n]``, which launches the kernel once on the tensors' stream (its
+    inputs: :func:`pair_inputs`)."""
     device = torch.device(device)
     if device.type != "cuda":
         raise ValueError(f"the {form} kernel runs on a CUDA device, not "
                          f"{device}")
     blk = int(p.block_size)
-    if blk % 32 != 0 or not 32 <= blk <= 1024:
+    if blk % SUB_BLOCK != 0 or not SUB_BLOCK <= blk <= 1024:
         raise ValueError(f"block_size {blk}: the kernel takes a multiple of "
                          "32 from 32 to 1024 (one thread per tile vertex)")
+    if not p.stiffness >= 0.0:
+        raise ValueError(f"stiffness {p.stiffness}: the kernel's cull takes "
+                         "stiffness >= 0 (w == 0 out of reach)")
     b, b_j = -(-n // blk), -(-n_j // blk)
     k = min(p.block_partners, b_j)
     n_chunks = -(-k // CHUNK)
@@ -102,6 +112,7 @@ def _pair_launch(p: SelfCollisionParams, n: int, n_j: int, device, form):
     eps2 = (1e-3 * p.radius) ** 2
     c1 = p.stiffness * p.radius
     c2 = p.stiffness
+    reach2 = cull_reach2(p.radius)
     fn, error_string = _launcher()
 
     def launch(xi_tiles, xj_tiles, nvalid, partners, order):
@@ -117,11 +128,12 @@ def _pair_launch(p: SelfCollisionParams, n: int, n_j: int, device, form):
                 xi_tiles.data_ptr(), xj_tiles.data_ptr(), nvalid.data_ptr(),
                 partners.data_ptr(), partners.stride(0), order.data_ptr(), n,
                 b, k, CHUNK, blk, partial.data_ptr(), arrivals.data_ptr(),
-                out.data_ptr(), eps2, c1, c2, stream), form, error_string)
+                out.data_ptr(), eps2, c1, c2, reach2, stream), form,
+                error_string)
         _count(form)
         return out
 
-    return launch, blk, k
+    return launch
 
 
 def _check_positions(name: str, x: torch.Tensor, n: int, device) -> None:
@@ -146,20 +158,85 @@ def make_block_pairs(p: SelfCollisionParams, n: int, device):
     ``x`` may be a view (the grid paths pass their ``[3, ny, nx]`` planes
     transposed).  The kernel's scratch is allocated once, here."""
     device = torch.device(device)
-    launch, blk, k = _pair_launch(p, n, n, device, "block_pairs")
+    launch = _pair_launch(p, n, n, device, "block_pairs")
 
     def fn(x: torch.Tensor) -> torch.Tensor:
         _check_positions("x", x, n, device)
-        xb, valid, order, _ = _sorted_tiles(x, p.cell_size, blk)
-        partners, pvalid, _ = _tile_partners(xb, valid, p.radius, k)
-        nvalid = pvalid.sum(dim=1)
-        # the tail of the last tile at far coordinates, in the TPU kernel's
-        # [B, 3, blk] tile layout
-        x_tiles = torch.where(valid[..., None], xb, 1e6).transpose(1, 2)
-        x_tiles = x_tiles.contiguous()
-        return launch(x_tiles, x_tiles, nvalid, partners, order)
+        return launch(*pair_inputs(p, x))
 
     return fn
+
+
+def pair_inputs(p: SelfCollisionParams, xi: torch.Tensor,
+                xall: torch.Tensor | None = None):
+    """The pair kernel's inputs for the forces on ``xi`` [ni, 3] from
+    ``xall`` [N, 3] (the single form without it): ``(xi_tiles, xj_tiles,
+    nvalid, partners, order)``, each side Morton-sorted into ``[B, 3, blk]``
+    tiles (the TPU kernel's layout) with the tail of its last tile at far
+    coordinates (+1e6; the dual form's i-tiles at -1e6), the partner tiles
+    by bbox gap within the budget, and ``xi``'s sort order.  The single
+    form's ``xj_tiles`` is ``xi_tiles``."""
+    blk = int(p.block_size)
+    xb_i, valid_i, order, _ = _sorted_tiles(xi, p.cell_size, blk)
+    if xall is None:
+        k = min(p.block_partners, xb_i.shape[0])
+        partners, pvalid, _ = _tile_partners(xb_i, valid_i, p.radius, k)
+        xi_tiles = torch.where(valid_i[..., None], xb_i, 1e6)
+        xi_tiles = xi_tiles.transpose(1, 2).contiguous()
+        return xi_tiles, xi_tiles, pvalid.sum(dim=1), partners, order
+    xb_g, valid_g, _, b_g = _sorted_tiles(xall, p.cell_size, blk)
+    partners, pvalid, _ = _tile_partners(
+        xb_i, valid_i, p.radius, min(p.block_partners, b_g), xb_j=xb_g,
+        valid_j=valid_g)
+    xi_tiles = torch.where(valid_i[..., None], xb_i, -1e6)
+    xj_tiles = torch.where(valid_g[..., None], xb_g, 1e6)
+    return (xi_tiles.transpose(1, 2).contiguous(),
+            xj_tiles.transpose(1, 2).contiguous(), pvalid.sum(dim=1),
+            partners, order)
+
+
+def cull_reach2(radius: float) -> float:
+    """The cull's squared reach, r^2 (1 + CULL_MARGIN), in double; the
+    kernel takes it rounded once to float32."""
+    return radius * radius * (1.0 + CULL_MARGIN)
+
+
+def _slice_boxes(tiles: torch.Tensor):
+    """The bounding boxes of each 32-vertex slice of ``tiles`` [B, 3, blk]:
+    ``(lo, hi)``, each [B, blk / 32, 3]; a vertex with a non-finite
+    coordinate makes its slice's box infinite, as the kernel's warp_box
+    does."""
+    b, _, blk = tiles.shape
+    t = tiles.reshape(b, 3, blk // SUB_BLOCK, SUB_BLOCK).permute(0, 2, 3, 1)
+    finite = torch.isfinite(t).all(dim=-1, keepdim=True)
+    inf = torch.tensor(float("inf"), dtype=t.dtype, device=t.device)
+    return (torch.where(finite, t, -inf).amin(dim=2),
+            torch.where(finite, t, inf).amax(dim=2))
+
+
+def kept_sub_blocks(xi_tiles: torch.Tensor, xj_tiles: torch.Tensor,
+                    nvalid: torch.Tensor, partners: torch.Tensor,
+                    radius: float) -> torch.Tensor:
+    """The 32 x 32 sub-block pairs the pair kernel sweeps (plain PyTorch,
+    for ``chip_smoke.py``'s bound and the CPU tests; the main path never
+    runs it): ``[B, K, S, S]`` bool, entry ``[i, k, a, c]`` whether warp
+    ``a`` of i-tile ``i`` sweeps slice ``c`` of its ``k``-th partner tile,
+    False for ``k >= nvalid[i]``.  The inputs are :func:`pair_inputs`'; the
+    boxes' squared gap is summed in float32 in the kernel's axis order, and
+    a sub-block is kept unless it exceeds ``cull_reach2(radius)`` rounded to
+    float32."""
+    lo_i, hi_i = _slice_boxes(xi_tiles)                   # [B, S, 3]
+    lo_j, hi_j = _slice_boxes(xj_tiles)
+    lo_p, hi_p = lo_j[partners], hi_j[partners]           # [B, K, S, 3]
+    lo_a, hi_a = lo_i[:, None, :, None], hi_i[:, None, :, None]
+    lo_c, hi_c = lo_p[:, :, None], hi_p[:, :, None]       # [B, K, 1, S, 3]
+    gap = torch.clamp_min(torch.maximum(lo_c - hi_a, lo_a - hi_c), 0.0)
+    g2 = (gap[..., 0] * gap[..., 0] + gap[..., 1] * gap[..., 1]
+          + gap[..., 2] * gap[..., 2])                    # [B, K, S, S]
+    reach2 = torch.tensor(cull_reach2(radius), dtype=torch.float32)
+    live = (torch.arange(partners.shape[1], device=partners.device)
+            < nvalid[:, None])
+    return (g2 <= reach2.to(g2.device)) & live[:, :, None, None]
 
 
 def make_block_pairs_dual(p: SelfCollisionParams, ni: int, n: int, device):
@@ -177,21 +254,12 @@ def make_block_pairs_dual(p: SelfCollisionParams, ni: int, n: int, device):
     The scratch is allocated here and serves one launch at a time: build one
     ``fn`` per rank."""
     device = torch.device(device)
-    launch, blk, k = _pair_launch(p, ni, n, device, "block_pairs_dual")
+    launch = _pair_launch(p, ni, n, device, "block_pairs_dual")
 
     def fn(xi: torch.Tensor, xall: torch.Tensor) -> torch.Tensor:
         _check_positions("xi", xi, ni, device)
         _check_positions("xall", xall, n, device)
-        xb_i, valid_i, order_i, _ = _sorted_tiles(xi, p.cell_size, blk)
-        xb_g, valid_g, _, _ = _sorted_tiles(xall, p.cell_size, blk)
-        partners, pvalid, _ = _tile_partners(xb_i, valid_i, p.radius, k,
-                                             xb_j=xb_g, valid_j=valid_g)
-        nvalid = pvalid.sum(dim=1)
-        xi_tiles = torch.where(valid_i[..., None], xb_i, -1e6)
-        xj_tiles = torch.where(valid_g[..., None], xb_g, 1e6)
-        return launch(xi_tiles.transpose(1, 2).contiguous(),
-                      xj_tiles.transpose(1, 2).contiguous(), nvalid, partners,
-                      order_i)
+        return launch(*pair_inputs(p, xi, xall))
 
     return fn
 

@@ -107,6 +107,11 @@ struct Colliders {
         n_capsules, boxes, n_boxes, rest_fric                               \
   }
 
+// The no-contact collider set, for an integrate launch under the strain
+// limit (the last sweep runs the contact).
+constexpr Colliders kNoContact = {nullptr, 0, 0, nullptr, 0, 0,
+                                  nullptr, 0, nullptr, 0, 0};
+
 // Capsule and box math (collide.py's component primitives, the JAX
 // package's collide.py:30-117): the closest point on a capsule's segment,
 // t = (x - p0) . ax / max(|ax|^2, 1e-12) clipped to [0, 1], and its
@@ -873,6 +878,155 @@ __device__ __forceinline__ void each_offset_from(
 template <class F, class Seq>
 __device__ __forceinline__ void each_offset(F&& f, Seq seq) {
   each_offset_from<0>(static_cast<F&&>(f), seq);
+}
+
+// Positions of grid vertex (a, b) from a tile's staged frame.
+template <class T>
+struct FrameAt {
+  const float4* f;
+  int i0, j0;
+  __device__ __forceinline__ Vec3 operator()(int a, int b) const {
+    const float4 p = f[(a - i0 + T::H) * T::FW + (b - j0 + T::H)];
+    return {p.x, p.y, p.z};
+  }
+};
+
+// Stage the positions x of the tile at (i0, j0) of the [ny, nx] grid and
+// its frame of T::H vertices into sx, and the rates the damper reads into
+// sv: the velocity planes r (Euler), or under kVerlet the velocity
+// estimate (x - r) / dt from the previous positions r, one IEEE divide a
+// component (velocity_estimate).  One frame cell a thread at a time; cells
+// outside the grid stay unwritten (nothing reads them).
+template <class T, bool kVerlet = false>
+__device__ __forceinline__ void stage_frame(const float* __restrict__ x,
+                                            const float* __restrict__ r,
+                                            float dt, float4* sx, float4* sv,
+                                            int i0, int j0, int ny, int nx) {
+  constexpr int NT = T::TX * T::TY;
+  const int ps = ny * nx;
+#pragma unroll
+  for (int k = 0; k < (T::FH * T::FW + NT - 1) / NT; ++k) {
+    const int c = threadIdx.y * T::TX + threadIdx.x + k * NT;
+    if (c >= T::FH * T::FW) break;
+    const int gi = i0 - T::H + c / T::FW, gj = j0 - T::H + c % T::FW;
+    if (gi < 0 || gi >= ny || gj < 0 || gj >= nx) continue;
+    const int q = gi * nx + gj;
+    const Vec3 xq = load3(x, q, ps);
+    Vec3 rq = load3(r, q, ps);
+    if (kVerlet) rq = velocity_estimate(xq, rq, dt);
+    sx[c] = make_float4(xq.x, xq.y, xq.z, 0.0f);
+    sv[c] = make_float4(rq.x, rq.y, rq.z, 0.0f);
+  }
+}
+
+// The springs of the tile at (i0, j0) of the [ny, nx] grid, each edge with
+// an endpoint in the tile evaluated once (grid_euler.cu, grid_verlet.cu),
+// from the staged frame: sx the positions, sv the rates the damper reads
+// (v, or Verlet's velocity estimate).  Rectangle entry (r, cc) of offset o
+// is (fmag, n) of the edge its owner q has there (edge_terms), or zeros (no
+// edge, or a torn one); thread (x, y) takes entry (y, x) of every
+// rectangle, and the strips, rows past TY (all NC columns) then columns
+// past TX, go one entry a thread.  Under kFeat the edge's feature update
+// (edge_features) runs once with it, and the tile writes the plane entries
+// of the edges its vertices own.  The caller puts a barrier before (the
+// staging) and after (the sums of tile_spring_force).
+template <int P, bool kFeat>
+__device__ __forceinline__ void tile_spring_terms(
+    const float4* sx, const float4* sv, float4* terms,
+    const float* __restrict__ offsets, const float* __restrict__ alive_in,
+    float* __restrict__ alive_out, const float* __restrict__ scale_in,
+    float* __restrict__ scale_out, const float* __restrict__ tear_limits,
+    int first, const FeatParams& fp, float damping, int i0, int j0, int ny,
+    int nx) {
+  using O = Offsets<P>;
+  using T = Tile<P>;
+  constexpr int TX = T::TX, TY = T::TY, NT = TX * TY;
+  constexpr int kN = O::n;
+  using Seq = std::make_integer_sequence<int, kN>;
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  const int ps = ny * nx;
+  auto in_grid = [&](int a, int b) {
+    return a >= 0 && a < ny && b >= 0 && b < nx;
+  };
+  auto cell = [&](int a, int b) {
+    return (a - i0 + T::H) * T::FW + (b - j0 + T::H);
+  };
+  auto evaluate = [&](auto oc, int r, int cc) {
+    constexpr int o = decltype(oc)::value;
+    const int qi = i0 + min0(-O::di(o)) + r;
+    const int qj = j0 + min0(-O::dj(o)) + cc;
+    const int bi = qi + O::di(o), bj = qj + O::dj(o);
+    float4 term = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    if (in_grid(qi, qj)) {
+      const int q = o * ps + qi * nx + qj;
+      const bool own =
+          kFeat && qi >= i0 && qi < i0 + TY && qj >= j0 && qj < j0 + TX;
+      if (in_grid(bi, bj)) {
+        const float4 pa = sx[cell(qi, qj)], pb = sx[cell(bi, bj)];
+        const Vec3 xa = {pa.x, pa.y, pa.z}, xb = {pb.x, pb.y, pb.z};
+        const float rest = offsets[4 * o + 3];
+        float a = 1.0f, s = 1.0f;
+        if (kFeat) {
+          edge_features(alive_in, scale_in, q, xa, xb, rest, tear_limits[o],
+                        fp, first, a, s);
+          if (own && alive_out) alive_out[q] = a;
+          if (own && scale_out) scale_out[q] = s;
+        }
+        if (a != 0.0f) {
+          const float4 va = sv[cell(qi, qj)], vb = sv[cell(bi, bj)];
+          term = edge_terms(xa, {va.x, va.y, va.z}, xb, {vb.x, vb.y, vb.z},
+                            offsets[4 * o + 2],
+                            kFeat ? scaled_rest(rest, s, scale_in) : rest,
+                            damping);
+        }
+      } else if (own) {   // no edge here: the entry is carried, unread
+        if (alive_out) alive_out[q] = alive_in[q];
+        if (scale_out) scale_out[q] = scale_in[q];
+      }
+    }
+    terms[T::B(o) + r * T::NC(o) + cc] = term;
+  };
+  each_offset([&](auto oc) { evaluate(oc, ty, tx); }, Seq{});
+#pragma unroll
+  for (int e0 = ty * TX + tx; e0 < T::SB(kN); e0 += NT) {
+    each_offset([&](auto oc) {
+      constexpr int o = decltype(oc)::value;
+      const int e = e0 - T::SB(o);
+      if (e >= 0 && e < T::S(o))
+        evaluate(oc, T::strip_row(o, e), T::strip_col(o, e));
+    }, Seq{});
+  }
+}
+
+// The spring force on tile vertex (ty, tx) from tile_spring_terms' terms:
+// per offset in table order, + fmag n of the edge it owns, then - fmag n
+// of the edge owned by p - o.  These are the products and the order of a
+// one-pass kernel that evaluates each edge at both ends (edge_force), so
+// the force is that kernel's to the bit.
+template <int P>
+__device__ __forceinline__ Vec3 tile_spring_force(const float4* terms, int ty,
+                                                  int tx) {
+  using O = Offsets<P>;
+  using T = Tile<P>;
+  using Seq = std::make_integer_sequence<int, O::n>;
+  float fx = 0.0f, fy = 0.0f, fz = 0.0f;
+  each_offset([&](auto oc) {
+    constexpr int o = decltype(oc)::value;
+    constexpr int di = O::di(o), dj = O::dj(o);
+    constexpr int r0 = min0(-di), c0 = min0(-dj);
+    // the edge this vertex owns, to (i + di, j + dj)
+    const float4 a = terms[T::B(o) + (ty - r0) * T::NC(o) + (tx - c0)];
+    fx += a.x * a.y;
+    fy += a.x * a.z;
+    fz += a.x * a.w;
+    // the reaction of the edge owned by (i - di, j - dj)
+    const float4 b =
+        terms[T::B(o) + (ty - di - r0) * T::NC(o) + (tx - dj - c0)];
+    fx -= b.x * b.y;
+    fy -= b.x * b.z;
+    fz -= b.x * b.w;
+  }, Seq{});
+  return {fx, fy, fz};
 }
 
 // --- the strain limit: a substep's sweeps in one cooperative launch --------

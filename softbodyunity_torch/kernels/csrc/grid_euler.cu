@@ -50,12 +50,14 @@
 // contact (EulerStrainEpilogue below).
 //
 // The tile.  A CTA owns a 32 x 8 tile of the grid (grid_common.cuh::Tile,
-// shared with grid_xpbd.cu and the strain sweeps), one thread a vertex, and
-// is compiled for the offsets' pattern (structural, with shear, with bend,
-// with both), so that every index is a constant.  It stages x and v of the
-// tile and a frame of H rows and columns around it (H = 2 with bend
-// springs) in shared memory, evaluates each spring with an endpoint in the
-// tile once (grid_common.cuh::edge_terms: the force's magnitude and unit
+// shared with grid_xpbd.cu and the strain sweeps; its staging and springs,
+// stage_frame, tile_spring_terms and tile_spring_force, with
+// grid_verlet.cu), one thread a vertex, and is compiled for the offsets'
+// pattern (structural, with shear, with bend, with both), so that every
+// index is a constant.  It stages x and v of the tile and a frame of H
+// rows and columns around it (H = 2 with bend springs) in shared memory,
+// evaluates each spring with an endpoint in the tile once
+// (grid_common.cuh::edge_terms: the force's magnitude and unit
 // direction into shared memory; each thread its own entry of every
 // offset's rectangle, the frame-owned rest one entry a thread), then each
 // vertex sums, per offset in table order, + fmag n of the edge it owns and
@@ -107,17 +109,6 @@ struct Params {
   float keep;           // 1 - friction
 };
 
-// Positions of grid vertex (a, b) from a tile's staged frame.
-template <class T>
-struct FrameAt {
-  const float4* f;
-  int i0, j0;
-  __device__ __forceinline__ Vec3 operator()(int a, int b) const {
-    const float4 p = f[(a - i0 + T::H) * T::FW + (b - j0 + T::H)];
-    return {p.x, p.y, p.z};
-  }
-};
-
 // The velocity and position update of vertex idx under force f, then its
 // contact, written to x_out and v_out (stencil.py::euler_substep_grid).
 __device__ __forceinline__ void euler_update(
@@ -145,25 +136,6 @@ __device__ __forceinline__ void euler_update(
   v_out[2 * ps + idx] = vz;
 }
 
-// Stage x and v of the tile at (i0, j0) and its frame into sx and sv.
-template <class T>
-__device__ __forceinline__ void stage_frame(
-    const float* __restrict__ x, const float* __restrict__ v, float4* sx,
-    float4* sv, int i0, int j0, int ny, int nx) {
-  constexpr int NT = T::TX * T::TY;
-  const int ps = ny * nx;
-#pragma unroll
-  for (int k = 0; k < (T::FH * T::FW + NT - 1) / NT; ++k) {
-    const int c = threadIdx.y * T::TX + threadIdx.x + k * NT;
-    if (c >= T::FH * T::FW) break;
-    const int gi = i0 - T::H + c / T::FW, gj = j0 - T::H + c % T::FW;
-    if (gi < 0 || gi >= ny || gj < 0 || gj >= nx) continue;
-    const int q = gi * nx + gj;
-    sx[c] = make_float4(x[q], x[ps + q], x[2 * ps + q], 0.0f);
-    sv[c] = make_float4(v[q], v[ps + q], v[2 * ps + q], 0.0f);
-  }
-}
-
 // One substep on a CTA that owns a kTileX x kTileY tile of the [ny, nx]
 // grid, one thread a vertex, compiled for the offsets' pattern P.  x, v,
 // x_out and v_out are [3, ny, nx] component planes; offsets is [n_off, 4]
@@ -185,98 +157,28 @@ __global__ void __launch_bounds__(kTileX * kTileY) grid_euler_substep_kernel(
     const float* __restrict__ scale_in, float* __restrict__ scale_out,
     const float* __restrict__ tear_limits, int first, FeatParams fp,
     Wind wind, int ny, int nx, Params p) {
-  using O = Offsets<P>;
   using T = Tile<P>;
-  constexpr int TX = T::TX, TY = T::TY, NT = TX * TY;
-  constexpr int kN = O::n;
-  using Seq = std::make_integer_sequence<int, kN>;
   __shared__ float4 sx[T::FH * T::FW];   // x of the tile and its frame
   __shared__ float4 sv[T::FH * T::FW];   // v
-  __shared__ float4 terms[T::B(kN)];     // (fmag, n) of each edge
+  __shared__ float4 terms[T::B(Offsets<P>::n)];   // (fmag, n) of each edge
   const int tx = threadIdx.x, ty = threadIdx.y;
-  const int i0 = blockIdx.y * TY, j0 = blockIdx.x * TX;
+  const int i0 = blockIdx.y * T::TY, j0 = blockIdx.x * T::TX;
   const int ps = ny * nx;
-  auto in_grid = [&](int a, int b) {
-    return a >= 0 && a < ny && b >= 0 && b < nx;
-  };
-  auto cell = [&](int a, int b) {
-    return (a - i0 + T::H) * T::FW + (b - j0 + T::H);
-  };
-  stage_frame<T>(x, v, sx, sv, i0, j0, ny, nx);
+  stage_frame<T>(x, v, 0.0f, sx, sv, i0, j0, ny, nx);
   __syncthreads();
-  // rectangle entry (r, cc) of offset o: (fmag, n) of the edge its owner q
-  // has there, or zeros (no edge, or a torn one); under kFeat the edge's
-  // feature update, written for the edges the tile's vertices own
-  auto evaluate = [&](auto oc, int r, int cc) {
-    constexpr int o = decltype(oc)::value;
-    const int qi = i0 + min0(-O::di(o)) + r;
-    const int qj = j0 + min0(-O::dj(o)) + cc;
-    const int bi = qi + O::di(o), bj = qj + O::dj(o);
-    float4 term = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-    if (in_grid(qi, qj)) {
-      const int q = o * ps + qi * nx + qj;
-      const bool own =
-          kFeat && qi >= i0 && qi < i0 + TY && qj >= j0 && qj < j0 + TX;
-      if (in_grid(bi, bj)) {
-        const float4 pa = sx[cell(qi, qj)], pb = sx[cell(bi, bj)];
-        const Vec3 xa = {pa.x, pa.y, pa.z}, xb = {pb.x, pb.y, pb.z};
-        const float rest = offsets[4 * o + 3];
-        float a = 1.0f, s = 1.0f;
-        if (kFeat) {
-          edge_features(alive_in, scale_in, q, xa, xb, rest, tear_limits[o],
-                        fp, first, a, s);
-          if (own && alive_out) alive_out[q] = a;
-          if (own && scale_out) scale_out[q] = s;
-        }
-        if (a != 0.0f) {
-          const float4 va = sv[cell(qi, qj)], vb = sv[cell(bi, bj)];
-          term = edge_terms(xa, {va.x, va.y, va.z}, xb, {vb.x, vb.y, vb.z},
-                            offsets[4 * o + 2],
-                            kFeat ? scaled_rest(rest, s, scale_in) : rest,
-                            p.damping);
-        }
-      } else if (own) {   // no edge here: the entry is carried, unread
-        if (alive_out) alive_out[q] = alive_in[q];
-        if (scale_out) scale_out[q] = scale_in[q];
-      }
-    }
-    terms[T::B(o) + r * T::NC(o) + cc] = term;
-  };
-  each_offset([&](auto oc) { evaluate(oc, ty, tx); }, Seq{});
-  // the strips, rows past TY (all NC columns) then columns past TX
-#pragma unroll
-  for (int e0 = ty * TX + tx; e0 < T::SB(kN); e0 += NT) {
-    each_offset([&](auto oc) {
-      constexpr int o = decltype(oc)::value;
-      const int e = e0 - T::SB(o);
-      if (e >= 0 && e < T::S(o))
-        evaluate(oc, T::strip_row(o, e), T::strip_col(o, e));
-    }, Seq{});
-  }
+  tile_spring_terms<P, kFeat>(sx, sv, terms, offsets, alive_in, alive_out,
+                              scale_in, scale_out, tear_limits, first, fp,
+                              p.damping, i0, j0, ny, nx);
   __syncthreads();
 
   const int i = i0 + ty, j = j0 + tx;
-  if (!in_grid(i, j)) return;
+  if (i >= ny || j >= nx) return;
   const int idx = i * nx + j;
-  const float4 xs = sx[cell(i, j)], vs = sv[cell(i, j)];
+  const int c = (ty + T::H) * T::FW + (tx + T::H);
+  const float4 xs = sx[c], vs = sv[c];
   const Vec3 xi = {xs.x, xs.y, xs.z}, vi = {vs.x, vs.y, vs.z};
-  float fx = 0.0f, fy = 0.0f, fz = 0.0f;
-  each_offset([&](auto oc) {
-    constexpr int o = decltype(oc)::value;
-    constexpr int di = O::di(o), dj = O::dj(o);
-    constexpr int r0 = min0(-di), c0 = min0(-dj);
-    // the edge this vertex owns, to (i + di, j + dj)
-    const float4 a = terms[T::B(o) + (ty - r0) * T::NC(o) + (tx - c0)];
-    fx += a.x * a.y;
-    fy += a.x * a.z;
-    fz += a.x * a.w;
-    // the reaction of the edge owned by (i - di, j - dj)
-    const float4 b =
-        terms[T::B(o) + (ty - di - r0) * T::NC(o) + (tx - dj - c0)];
-    fx -= b.x * b.y;
-    fy -= b.x * b.z;
-    fz -= b.x * b.w;
-  }, Seq{});
+  const Vec3 fs = tile_spring_force<P>(terms, ty, tx);
+  float fx = fs.x, fy = fs.y, fz = fs.z;
 
   if (kExt) {   // springs + f_ext, as total_forces sums them
     fx += f_ext[idx];
@@ -330,7 +232,7 @@ __global__ void __launch_bounds__(kTileX * kTileY, 8) grid_euler_wide_kernel(
     return (a - i0 + T::H) * T::FW + (b - j0 + T::H);
   };
   const bool mine = in_grid(i, j);
-  stage_frame<T>(x, v, sx, sv, i0, j0, ny, nx);
+  stage_frame<T>(x, v, 0.0f, sx, sv, i0, j0, ny, nx);
   __syncthreads();
   float fx = 0.0f, fy = 0.0f, fz = 0.0f;
   // offsets [A, B): each edge with an endpoint in the tile evaluated once
@@ -419,11 +321,6 @@ struct EulerStrainEpilogue {
     store3(v, idx, ps, {vx, vy, vz});
   }
 };
-
-// The no-contact collider set, for the integrate launch under the strain
-// limit (the last sweep runs the contact).
-constexpr Colliders kNoContact = {nullptr, 0, 0, nullptr, 0, 0,
-                                  nullptr, 0, nullptr, 0, 0};
 
 }  // namespace
 

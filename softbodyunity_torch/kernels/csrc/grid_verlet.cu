@@ -13,34 +13,51 @@
 // branches of the grid-cloth Verlet path: the six-offset spring stencil on
 // the velocity estimate (x - xp) / dt, the damped position update,
 // pinning, position-only plane, sphere, capsule and oriented-box contact,
-// their friction (grid_common.cuh::position_contact), and the tear-liveness and plastic rest-scale planes (the kFeat
-// instantiation, in the row-tiled kernel's launch-start form: see
-// grid_euler.cu), the wind's drag and lift at the velocity estimate (the
-// kWind instantiation), and the strain limit's sweeps, one cooperative
-// launch a substep (grid_common.cuh::grid_strain_sweep_kernel, position
-// only, the last sweep running the contact chain: VerletStrainEpilogue
-// below), with an optional
-// external force plane (the self-collision repulsion at x, block_pairs.cu)
-// added to the spring forces as solver/step.py::verlet_integrate adds it.
+// their friction (grid_common.cuh::position_contact), the tear-liveness
+// and plastic rest-scale planes (the kFeat instantiation, in the row-tiled
+// kernel's launch-start form: see grid_euler.cu), the wind's drag and lift
+// at the velocity estimate (the kWind instantiation), and the strain
+// limit's sweeps, one cooperative launch a substep
+// (grid_common.cuh::grid_strain_sweep_kernel, position only, the last
+// sweep running the contact chain: VerletStrainEpilogue below), with an
+// optional external force plane (the self-collision repulsion at x,
+// block_pairs.cu) added to the spring forces as solver/step.py::
+// verlet_integrate adds it.
 //
-// Design.  As grid_euler.cu: one launch per substep, one thread per vertex,
-// the state in L2 or device memory between launches, no vertex cap, the
-// feature planes updated at each launch's start from its input positions
-// (the frame's first launch excepted) and once more at the frame's end.
-// The damper reads each neighbour's velocity estimate, so a neighbour's xp
-// is read while the owner writes its new position: writing the new x over
-// xp would race.  The wrapper therefore rotates three buffers: read (x,
-// xp), write out, then (x, xp, out) <- (out, x, xp).  Spring forces are the
-// same gather as the Euler kernel's, from the shared
-// grid_common.cuh::edge_force (owned edge plus the recomputed reaction of
-// the edge owned by p - o), and so is the feature update of both.  Contact
-// and friction read only the vertex's own data.
+// Design.  As grid_euler.cu: one launch per substep on CTAs that own a 32 x
+// 8 tile of the grid, one thread a vertex, compiled for the offsets'
+// pattern; the state in L2 or device memory between launches, no vertex
+// cap, the feature planes updated at each launch's start from its input
+// positions (the frame's first launch excepted) and once more at the
+// frame's end; one C call (grid_verlet_substeps) runs a frame's substeps
+// from a struct built once a call (GridVerletFrame), one call a substep
+// with self-collision.  The tile stages x and the velocity estimate of the
+// tile and its frame in shared memory (grid_common.cuh::stage_frame under
+// kVerlet: the divide once a vertex, by the thread that stages it, the
+// same IEEE divide of the same operands as a per-edge estimate), evaluates
+// each spring with an endpoint in the tile once (tile_spring_terms), and
+// each vertex sums + fmag n of the edge it owns and - fmag n of the edge
+// owned by p - o, per offset in table order (tile_spring_force): the
+// products and the order of the one-pass kernel this replaced, which
+// evaluated each edge at both ends and each neighbour's estimate per edge,
+// so x and x_prev are that kernel's to the bit.  f_ext and the wind stay
+// per vertex (the wind's normal reads the 1-ring from the frame), and so do
+// the damped update, pinning and the contact chain.  The damper reads each
+// neighbour's velocity estimate, so a neighbour's xp is read while the
+// owner writes its new position: writing the new x over xp would race.
+// The frame therefore rotates three buffers, (x, xp, out) <- (out, x, xp)
+// after each substep; under the strain limit the integrate launch writes
+// out with the contact left out, and the last sweep writes the substep's
+// end over xp, so (x, xp) <- (xp, x) and out stays.  No wide form: no main
+// path runs plain Verlet on more tiles than the card holds CTAs at once
+// (grid_euler.cu's grid_euler_wide_kernel is the candidate should one).
 //
 // What bounds it.  Per vertex and substep it reads x, xp and inv_mass and
 // writes x: 40 bytes, 2.6 MB at 64k vertices, ~0.8 us at 3.35 TB/s, and
 // ~300 flops; the feature planes add 4 bytes in and out per offset and
-// plane.  As with the Euler kernel, launch overhead and the serial chain of
-// 12 neighbour gathers bound it at 64k, not bandwidth.
+// plane.  As with the Euler kernel, at 64k a launch holds two CTAs an SM
+// and is bound by its latency (staging, one sqrtf and IEEE divide an edge
+// and three divides a frame vertex, two barriers), not bandwidth.
 //
 // Rounding.  sqrtf and IEEE divides (the velocity estimate is a divide by
 // dt) in the plain version's order; FMA contraction makes the agreement one
@@ -65,82 +82,46 @@ struct Params {
   float shell;        // SPHERE_CONTACT_SHELL
 };
 
-// One thread per vertex (i, j).  x, xp, out are [3, ny, nx] planes; offsets
-// is [n_off, 4] rows of (di, dj, k, rest); col holds the collider rows
+// One substep on a CTA that owns a kTileX x kTileY tile of the [ny, nx]
+// grid, one thread a vertex, compiled for the offsets' pattern P.  x, xp
+// and out are [3, ny, nx] planes; offsets is [n_off, 4] rows of (di, dj,
+// k, rest), di and dj those of P; col holds the collider rows
 // (grid_common.cuh; its friction flags are 0 when friction is 0 or the
-// collider is off).
-// kExt: f_ext, [3, ny, nx], is added to the spring forces; the
-// instantiation without it is the kernel as it was before the plane existed.
-// kFeat: the tear and plastic planes, as grid_euler.cu's.  kWind: the wind
-// force at x and the velocity estimate, added after f_ext.
-template <bool kExt, bool kFeat, bool kWind>
-__global__ void __launch_bounds__(256) grid_verlet_substep_kernel(
+// collider is off).  kExt: f_ext, [3, ny, nx], is added to the spring
+// forces; the instantiation without it is the kernel as it was before the
+// plane existed.  kFeat: the tear and plastic planes, as grid_euler.cu's.
+// kWind: the wind force at x and the velocity estimate, added after f_ext.
+template <int P, bool kExt, bool kFeat, bool kWind>
+__global__ void __launch_bounds__(kTileX * kTileY) grid_verlet_substep_kernel(
     const float* __restrict__ x, const float* __restrict__ xp,
     float* __restrict__ out, const float* __restrict__ inv_mass,
-    const float* __restrict__ offsets, int n_off, Colliders col,
+    const float* __restrict__ offsets, Colliders col,
     const float* __restrict__ f_ext, const float* __restrict__ alive_in,
     float* __restrict__ alive_out, const float* __restrict__ scale_in,
     float* __restrict__ scale_out, const float* __restrict__ tear_limits,
     int first, FeatParams fp, Wind wind, int ny, int nx, Params p) {
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  const int i = blockIdx.y * blockDim.y + threadIdx.y;
-  if (i >= ny || j >= nx) return;
+  using T = Tile<P>;
+  __shared__ float4 sx[T::FH * T::FW];   // x of the tile and its frame
+  __shared__ float4 sv[T::FH * T::FW];   // the velocity estimate
+  __shared__ float4 terms[T::B(Offsets<P>::n)];   // (fmag, n) of each edge
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  const int i0 = blockIdx.y * T::TY, j0 = blockIdx.x * T::TX;
   const int ps = ny * nx;
-  const int idx = i * nx + j;
-  const Vec3 xi = load3(x, idx, ps);
-  const Vec3 pi = load3(xp, idx, ps);
-  const Vec3 vi = velocity_estimate(xi, pi, p.dt);
+  stage_frame<T, true>(x, xp, p.dt, sx, sv, i0, j0, ny, nx);
+  __syncthreads();
+  tile_spring_terms<P, kFeat>(sx, sv, terms, offsets, alive_in, alive_out,
+                              scale_in, scale_out, tear_limits, first, fp,
+                              p.damping, i0, j0, ny, nx);
+  __syncthreads();
 
-  float fx = 0.0f, fy = 0.0f, fz = 0.0f;
-  for (int o = 0; o < n_off; ++o) {
-    const int di = static_cast<int>(offsets[4 * o]);
-    const int dj = static_cast<int>(offsets[4 * o + 1]);
-    const float k = offsets[4 * o + 2];
-    const float rest = offsets[4 * o + 3];
-    // the edge this vertex owns, to (i + di, j + dj)
-    int ii = i + di, jj = j + dj;
-    if (ii >= 0 && ii < ny && jj >= 0 && jj < nx) {
-      const int nb = ii * nx + jj;
-      const Vec3 xn = load3(x, nb, ps);
-      float a = 1.0f, s = 1.0f;
-      if (kFeat) {
-        edge_features(alive_in, scale_in, o * ps + idx, xi, xn, rest,
-                      tear_limits[o], fp, first, a, s);
-        if (alive_out) alive_out[o * ps + idx] = a;
-        if (scale_out) scale_out[o * ps + idx] = s;
-      }
-      if (a != 0.0f) {
-        const Vec3 e = edge_force(
-            xi, vi, xn, velocity_estimate(xn, load3(xp, nb, ps), p.dt), k,
-            kFeat ? scaled_rest(rest, s, scale_in) : rest, p.damping);
-        fx += e.x;
-        fy += e.y;
-        fz += e.z;
-      }
-    } else if (kFeat) {   // no edge here: the entry is carried, unread
-      if (alive_out) alive_out[o * ps + idx] = alive_in[o * ps + idx];
-      if (scale_out) scale_out[o * ps + idx] = scale_in[o * ps + idx];
-    }
-    // the reaction of the edge owned by (i - di, j - dj)
-    ii = i - di;
-    jj = j - dj;
-    if (ii >= 0 && ii < ny && jj >= 0 && jj < nx) {
-      const int nb = ii * nx + jj;
-      const Vec3 xn = load3(x, nb, ps);
-      float a = 1.0f, s = 1.0f;
-      if (kFeat)
-        edge_features(alive_in, scale_in, o * ps + nb, xn, xi, rest,
-                      tear_limits[o], fp, first, a, s);
-      if (a != 0.0f) {
-        const Vec3 e = edge_force(
-            xn, velocity_estimate(xn, load3(xp, nb, ps), p.dt), xi, vi, k,
-            kFeat ? scaled_rest(rest, s, scale_in) : rest, p.damping);
-        fx -= e.x;
-        fy -= e.y;
-        fz -= e.z;
-      }
-    }
-  }
+  const int i = i0 + ty, j = j0 + tx;
+  if (i >= ny || j >= nx) return;
+  const int idx = i * nx + j;
+  const int c = (ty + T::H) * T::FW + (tx + T::H);
+  const float4 xs = sx[c], vs = sv[c];
+  const Vec3 xi = {xs.x, xs.y, xs.z}, vi = {vs.x, vs.y, vs.z};
+  const Vec3 fs = tile_spring_force<P>(terms, ty, tx);
+  float fx = fs.x, fy = fs.y, fz = fs.z;
 
   if (kExt) {   // springs + f_ext, as total_forces sums them
     fx += f_ext[idx];
@@ -148,7 +129,8 @@ __global__ void __launch_bounds__(256) grid_verlet_substep_kernel(
     fz += f_ext[2 * ps + idx];
   }
   if (kWind) {  // + wind, as total_forces sums them
-    const Vec3 fw = wind_force(x, i, j, ny, nx, ps, vi, wind);
+    const Vec3 fw =
+        wind_force_at(FrameAt<T>{sx, i0, j0}, i, j, ny, nx, vi, wind);
     fx += fw.x;
     fy += fw.y;
     fz += fw.z;
@@ -159,6 +141,7 @@ __global__ void __launch_bounds__(256) grid_verlet_substep_kernel(
     store3(out, idx, ps, xi);
     return;
   }
+  const Vec3 pi = load3(xp, idx, ps);
   const float ax = p.gx + fx * im, ay = p.gy + fy * im, az = p.gz + fz * im;
   Vec3 xnew = {xi.x + (xi.x - pi.x) * p.decay + ax * p.dt * p.dt,
                xi.y + (xi.y - pi.y) * p.decay + ay * p.dt * p.dt,
@@ -193,44 +176,86 @@ struct VerletStrainEpilogue {
 
 }  // namespace
 
-// Launch one substep on `stream`; returns the cudaError_t of the launch
-// (0 = cudaSuccess).  f_ext may be null (no external force plane).  The
-// feature arguments are grid_euler_substep's.  Allocates nothing and does
-// not synchronise.
-extern "C" int grid_verlet_substep(
-    const float* x, const float* xp, float* out, const float* inv_mass,
-    const float* offsets, int n_off, COLLIDER_PARAMS, const float* f_ext,
-    int feat, const float* alive_in, float* alive_out,
-    const float* scale_in, float* scale_out, const float* tear_limits,
-    int first, float strain1, float yield_strain, float creep,
-    float min_scale, float max_scale, int wind_on, float wvx, float wvy,
-    float wvz, float drag, float lift, int ny, int nx, float dt,
-    float damping, float gx, float gy, float gz, float decay, float mu,
-    float keep, float shell, void* stream) {
-  const Params p{dt, damping, gx, gy, gz, decay, mu, keep, shell};
-  const FeatParams fp{strain1, yield_strain, creep, min_scale, max_scale};
-  const Wind wind{wvx, wvy, wvz, drag, lift};
-  const dim3 block(32, 8);
-  const dim3 grid((nx + block.x - 1) / block.x, (ny + block.y - 1) / block.y);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const Colliders col = COLLIDERS;
-#define GRID_VERLET_LAUNCH(EXT, FEAT, WIND)                                 \
-  grid_verlet_substep_kernel<EXT, FEAT, WIND><<<grid, block, 0, st>>>(      \
-      x, xp, out, inv_mass, offsets, n_off, col, f_ext, alive_in,           \
-      alive_out, scale_in, scale_out, tear_limits, first, fp, wind, ny, nx, \
-      p)
+// What a frame launches with, fixed over a call of the step function:
+// softbodyunity_torch/kernels/grid_verlet.py::_Frame mirrors it field by
+// field (grid_verlet_frame_size checks the two agree).
+struct GridVerletFrame {
+  float* x[3];                // [3, ny, nx] the rotating buffers: substep k
+                              // reads x and xp and writes out, in the
+                              // buffers that verlet_buffers names
+  float* alive[2];            // [n_off, ny, nx] ping-pong tear planes, or
+                              // null (tearing off)
+  float* scale[2];            // the same for the plastic rest scales
+  const float* inv_mass;      // [ny, nx]
+  const float* offsets;       // [n_off, 4]
+  const float* tear_limits;   // [n_off] (feat)
+  void* stream;
+  int n_off;
+  int pattern;                // the offsets' Pattern
+  int feat, wind_on, strain;
+  int ny, nx;
+  FeatParams fp;
+  Colliders col;
+  Wind wind;
+  Params p;
+  StrainSweeps sweeps;        // (strain)
+};
+
+extern "C" int grid_verlet_frame_size() {
+  return static_cast<int>(sizeof(GridVerletFrame));
+}
+
+extern "C" int grid_verlet_strain_size() {
+  return static_cast<int>(sizeof(StrainSweeps));
+}
+
+namespace {
+
+// The buffers (x, xp, out) of substep k (grid_verlet.py::buffers): without
+// the strain limit the rotation (x, xp, out) <- (out, x, xp) has period 3,
+// (r, r + 1, r + 2) mod 3 with r = -k mod 3; under it (x, xp) <- (xp, x),
+// (k mod 2, 1 - k mod 2, 2).
+struct Buffers {
+  int x, xp, out;
+};
+
+Buffers verlet_buffers(int k, int strain) {
+  if (strain) return {k % 2, 1 - k % 2, 2};
+  const int r = (3 - k % 3) % 3;
+  return {r, (r + 1) % 3, (r + 2) % 3};
+}
+
+// One substep launch on pattern P from (x, xp) into out, the feature
+// planes from buffer a into the other; returns the launch's cudaError_t.
+template <int P>
+int launch_substep(const GridVerletFrame* s, cudaStream_t st, const float* x,
+                   const float* xp, float* out, int a, const float* f_ext,
+                   int first) {
+  const dim3 block(kTileX, kTileY);
+  const dim3 grid((s->nx + kTileX - 1) / kTileX,
+                  (s->ny + kTileY - 1) / kTileY);
+  const Colliders col = s->strain ? kNoContact : s->col;
+  const float* alive_in = s->alive[a];
+  float* alive_out = s->alive[1 - a];
+  const float* scale_in = s->scale[a];
+  float* scale_out = s->scale[1 - a];
+#define GRID_VERLET_LAUNCH(EXT, FEAT, WIND)                                  \
+  grid_verlet_substep_kernel<P, EXT, FEAT, WIND><<<grid, block, 0, st>>>(    \
+      x, xp, out, s->inv_mass, s->offsets, col, f_ext, alive_in, alive_out,  \
+      scale_in, scale_out, s->tear_limits, first, s->fp, s->wind, s->ny,     \
+      s->nx, s->p)
 #define GRID_VERLET_WIND(EXT, FEAT)          \
   do {                                       \
-    if (wind_on)                             \
+    if (s->wind_on)                          \
       GRID_VERLET_LAUNCH(EXT, FEAT, true);   \
     else                                     \
       GRID_VERLET_LAUNCH(EXT, FEAT, false);  \
   } while (0)
-  if (f_ext && feat)
+  if (f_ext && s->feat)
     GRID_VERLET_WIND(true, true);
   else if (f_ext)
     GRID_VERLET_WIND(true, false);
-  else if (feat)
+  else if (s->feat)
     GRID_VERLET_WIND(false, true);
   else
     GRID_VERLET_WIND(false, false);
@@ -239,24 +264,72 @@ extern "C" int grid_verlet_substep(
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int grid_verlet_strain_size() {
-  return static_cast<int>(sizeof(StrainSweeps));
-}
+}  // namespace
 
-// Launch one substep's strain-limit sweeps (grid_common.cuh::
-// grid_strain_sweep_kernel, one cooperative launch) on `stream`, the last
-// running the Verlet epilogue: x0 is the integrate launch's output, where
-// the sweeps start, x_start the substep's start, out receives the
-// substep's positions.  Returns the cudaError_t of the launch.  Allocates
-// nothing and does not synchronise.
-extern "C" int grid_verlet_strain(
-    const StrainSweeps* s, const float* alive, const float* scale,
-    const float* x0, const float* x_start, float* out, COLLIDER_PARAMS,
-    float dt, float mu, float keep, float shell, void* stream) {
-  const Params p{dt, 0.0f, 0.0f, 0.0f, 0.0f, 1.0f, mu, keep, shell};
-  const VerletStrainEpilogue epi{x0,        x_start,       out, s->inv_mass,
-                                 COLLIDERS, s->ny * s->nx, p};
-  return launch_strain_sweeps(*s, x0, nullptr, alive, scale, epi, stream);
+// Run substeps k0 .. k0 + n - 1 of a frame on s->stream.  Substep k reads
+// buffers x and xp of verlet_buffers(k) and writes out, with buffer k % 2
+// of the feature planes in and the other out; under the strain limit out
+// holds the integrated positions, with the contact left out, and the
+// strain launch (its sweeps from out, against the substep's start x)
+// writes the substep's end over xp.  The feature update at a launch's
+// start is skipped for substep 0, the frame's first.  With `finish` and
+// features, the frame-end update follows, over the final x, from buffer
+// (k0 + n) % 2 of the planes into the other.  f_ext (the self-collision
+// force plane, or null) enters every substep run: the caller that has one
+// runs one substep a call.  *launches counts the kernels launched; returns
+// the first launch's cudaError_t that is not cudaSuccess, after which it
+// launches nothing more.  Allocates nothing and does not synchronise.
+extern "C" int grid_verlet_substeps(const GridVerletFrame* s, int k0, int n,
+                                    int finish, const float* f_ext,
+                                    int* launches) {
+  const cudaStream_t st = static_cast<cudaStream_t>(s->stream);
+  const int ps = s->ny * s->nx;
+  *launches = 0;
+  for (int k = k0; k < k0 + n; ++k) {
+    const Buffers b = verlet_buffers(k, s->strain);
+    const float* x = s->x[b.x];
+    const float* xp = s->x[b.xp];
+    float* out = s->x[b.out];
+    const int a = k % 2;
+    int err;
+    switch (s->pattern) {
+      case kStructural:
+        err = launch_substep<kStructural>(s, st, x, xp, out, a, f_ext,
+                                          k == 0);
+        break;
+      case kShear:
+        err = launch_substep<kShear>(s, st, x, xp, out, a, f_ext, k == 0);
+        break;
+      case kBend:
+        err = launch_substep<kBend>(s, st, x, xp, out, a, f_ext, k == 0);
+        break;
+      case kShearBend:
+        err = launch_substep<kShearBend>(s, st, x, xp, out, a, f_ext,
+                                         k == 0);
+        break;
+      default:
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
+    ++*launches;
+    if (err) return err;
+    if (s->strain) {
+      const VerletStrainEpilogue epi{out,    x,  s->x[b.xp], s->inv_mass,
+                                     s->col, ps, s->p};
+      err = launch_strain_sweeps(s->sweeps, out, nullptr, s->alive[1 - a],
+                                 s->scale[1 - a], epi, s->stream);
+      ++*launches;
+      if (err) return err;
+    }
+  }
+  if (finish && s->feat && n > 0) {
+    const int a = (k0 + n) % 2;
+    ++*launches;
+    return launch_feature_finish(
+        s->x[verlet_buffers(k0 + n, s->strain).x], s->alive[a],
+        s->alive[1 - a], s->scale[a], s->scale[1 - a], s->offsets,
+        s->tear_limits, s->n_off, s->ny, s->nx, s->fp, s->stream);
+  }
+  return 0;
 }
 
 // Launch the frame-end feature update over the final positions x

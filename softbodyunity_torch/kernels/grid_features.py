@@ -122,16 +122,6 @@ class FeatParamsStruct(ctypes.Structure):
         "strain1", "yield_strain", "creep", "min_scale", "max_scale")]
 
 
-# the feature arguments of each substep (and XPBD predict) launch:
-# feat, alive in, out, scale in, out, tear limits, first, FeatParams
-LAUNCH_ARGTYPES = [
-    ctypes.c_int, *[ctypes.c_void_p] * 5, ctypes.c_int,
-    *[ctypes.c_float] * 5,
-]
-# those arguments for a launch without feature planes
-NO_FEATURES = (0, None, None, None, None, None, 0, 0.0, 0.0, 0.0, 0.0, 0.0)
-
-
 def _ptr(t):
     return None if t is None else t.data_ptr()
 
@@ -173,12 +163,6 @@ class CudaFeatures:
                           else torch.empty_like(self.alive))
         self.scale_out = (None if self.scale is None
                           else torch.empty_like(self.scale))
-
-    def launch_args(self, first: bool) -> tuple:
-        """The feature arguments of a substep launch (LAUNCH_ARGTYPES)."""
-        return (1, _ptr(self.alive), _ptr(self.alive_out), _ptr(self.scale),
-                _ptr(self.scale_out), self.limits.data_ptr(), int(first),
-                *self.scalars)
 
     def swap(self) -> None:
         """After a launch: its output planes are the next one's input."""

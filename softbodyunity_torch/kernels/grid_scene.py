@@ -75,13 +75,12 @@ COLLIDER_ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
                      ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
                      ctypes.c_void_p, ctypes.c_int,
                      ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
-# the collider arguments of a launch that runs no contact
-NO_CONTACT = (None, 0, 0, None, 0, 0, None, 0, None, 0, 0)
 
 
 class CollidersStruct(ctypes.Structure):
     """``csrc/grid_common.cuh::Colliders`` field by field, for the structs
-    of the substep entries (``grid_xpbd_substep``, ``lattice_xpbd_substep``);
+    of the substep entries (``grid_{euler,verlet}_substeps``,
+    ``grid_xpbd_substep``, ``lattice_xpbd_substep``);
     built from :meth:`ColliderRows.args`, whose order is the struct's."""
 
     _fields_ = [(name, t) for name, t in zip(
@@ -151,18 +150,6 @@ class GridScene:
     nx: int
     inv_mass: torch.Tensor   # [ny, nx]
     colliders: ColliderRows
-
-
-# ctypes argument types of the wind in each grid library's substep (or XPBD
-# predict) launch: wind_on, wind velocity xyz, drag, lift
-WIND_ARGTYPES = [ctypes.c_int, *[ctypes.c_float] * 5]
-
-
-def wind_args(cfg: SimConfig) -> tuple:
-    """The wind arguments of a launch (:data:`WIND_ARGTYPES`); wind_on is 0
-    without wind, which runs the launch's instantiation without it."""
-    w = cfg.wind
-    return (int(w.enabled), *w.velocity, w.drag, w.lift)
 
 
 def check_input(name: str, t: torch.Tensor, shape, device) -> None:

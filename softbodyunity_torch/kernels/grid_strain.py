@@ -5,11 +5,12 @@ Counterpart of ``softbodyunity_tpu/kernels/pallas_substep.py::
 _strain_limit_planes``, which the TPU's fused Euler, Verlet and XPBD grid
 kernels run inside their substep.  Here a substep's sweeps are one
 cooperative launch of ``csrc/grid_common.cuh::grid_strain_sweep_kernel``
-(each grid library exports it as ``grid_<solver>_strain``, with that
-solver's epilogue), after the substep's integrate launch (Euler, Verlet) or
-Jacobi sweeps (XPBD): a grid barrier separates the sweeps, and the last
-runs the rest of the substep.  Its plain version is
-:func:`.stencil.strain_limit_planes`.
+with each solver's epilogue (launched from the frame entries
+``grid_euler_substeps`` and ``grid_verlet_substeps``, and from the
+``grid_euler_strain`` and ``grid_xpbd_strain`` entries), after the
+substep's integrate launch (Euler, Verlet) or Jacobi sweeps (XPBD): a grid
+barrier separates the sweeps, and the last runs the rest of the substep.
+Its plain version is :func:`.stencil.strain_limit_planes`.
 
 Each launch counts once here and once in its solver wrapper's count.
 """
@@ -39,7 +40,8 @@ def reset_launch_count() -> None:
 
 def add_launches(n: int) -> None:
     """Count ``n`` strain launches that a solver's C entry made itself
-    (``grid_euler_substeps`` launches a substep's sweeps)."""
+    (``grid_euler_substeps`` and ``grid_verlet_substeps`` launch a
+    substep's sweeps)."""
     global _launches
     _launches += n
 
@@ -85,8 +87,9 @@ class CudaStrain:
     once from double, as the plain version's Python floats are, the sweep
     scalars, the offsets' pattern, and per call the scratch planes of the
     sweeps' ping-pong and Jacobi weights.  ``launch`` is the library's
-    ``grid_<solver>_strain``; ``size`` its ``grid_<solver>_strain_size``,
-    which must be the ctypes mirror's."""
+    ``grid_<solver>_strain`` (None where a frame entry launches the sweeps
+    itself); ``size`` its ``grid_<solver>_strain_size``, which must be the
+    ctypes mirror's."""
 
     def __init__(self, cfg: SimConfig, offsets, inv_mass: torch.Tensor,
                  launch, size, error_string, name: str):

@@ -1173,30 +1173,31 @@ _PATTERNS = [(False, False), (True, False), (False, True), (True, True)]
 _PATTERN_IDS = ["structural", "shear", "bend", "six"]
 
 
-def _euler_grid_scene(nx, ny, shear, bend, branch):
-    """A grid Euler scene of nx x ny vertices with the springs of one
-    offset pattern and one branch: "plain" (_scene16's springs, pinned at
-    the top corners), "features" (_feature_scene's tear and plastic planes,
-    pinned along the top row), "wind" (_wind_scene's), "force" (the
-    self-collision force plane, its radius past the rest spacing so that
-    every structural pair pushes apart) or "colliders" (_collider_scene's
-    capsule and box under a cloth lying in xz).  The hanging cloths stay
-    clear of their plane."""
+def _euler_grid_scene(nx, ny, shear, bend, branch,
+                      solver=Solver.SEMI_IMPLICIT_EULER):
+    """A grid Euler (or ``solver``) scene of nx x ny vertices with the
+    springs of one offset pattern and one branch: "plain" (_scene16's
+    springs, pinned at the top corners), "features" (_feature_scene's tear
+    and plastic planes, pinned along the top row), "wind" (_wind_scene's),
+    "force" (the self-collision force plane, its radius past the rest
+    spacing so that every structural pair pushes apart) or "colliders"
+    (_collider_scene's capsule and box under a cloth lying in xz).  The
+    hanging cloths stay clear of their plane."""
     kw = dict(pinned=("tl", "tr"), plane_height=-(0.05 * ny + 1.0),
               orientation="xy")
-    euler = Solver.SEMI_IMPLICIT_EULER
     host = None
     if branch == "features":
-        _, cfg = _feature_scene(euler, "both")
+        _, cfg = _feature_scene(solver, "both")
         kw["pinned"] = ("top",)
     elif branch == "wind":
-        _, cfg = _wind_scene(euler)
+        _, cfg = _wind_scene(solver)
     elif branch == "colliders":
-        host, cfg = _collider_scene(euler)
+        host, cfg = _collider_scene(solver)
         kw = dict(pinned=("tl",), plane_height=-2.0,
                   origin=(-0.28, 0.05, -0.28), orientation="xz")
     else:
         _, cfg = _scene16()
+        cfg = cfg.replace(solver=solver)
         if branch == "force":
             cfg = cfg.replace(self_collision=SelfCollisionParams(
                 enabled=True, method="block", radius=0.06, cell_size=0.06))
@@ -1251,6 +1252,78 @@ def test_grid_euler_tiles_match_plain_on_card(cuda, nx, ny, shear, bend,
     assert float((want.x - s0.x).abs().max()) > 1e-4
     pinned = torch.from_numpy(host.inv_mass == 0.0).to(cuda)
     assert torch.equal(got.x[pinned], s0.x[pinned])
+
+
+# the Verlet tile against the plain version over 32 substeps, at
+# test_solver_kernel_matches_plain_on_card's Verlet bounds (x and x_prev
+# 1e-3, v = (x - x_prev) / dt 5e-2)
+@pytest.mark.cuda
+@pytest.mark.parametrize("branch", ["plain", "features", "wind", "force",
+                                    "colliders"])
+@pytest.mark.parametrize("shear,bend", _PATTERNS, ids=_PATTERN_IDS)
+@pytest.mark.parametrize("nx,ny", [(37, 53), (5, 300)])
+def test_grid_verlet_tiles_match_plain_on_card(cuda, nx, ny, shear, bend,
+                                               branch):
+    """The tiled Verlet substep, compiled for each offset pattern, on grids
+    that no tile divides, with each branch, against the plain version; the
+    frame one C call (one a substep with the force plane), its launches
+    those of launches_per_frame."""
+    host, cfg = _euler_grid_scene(nx, ny, shear, bend, branch, Solver.VERLET)
+    top, s0 = tsb.init(host, device=cuda)
+    if branch == "features":
+        s0 = tsb.api.ensure_plastic_state(
+            top, cfg, tsb.api.ensure_tear_state(top, cfg, s0))
+    want = stencil.make_stencil_step(top, cfg)(s0, cfg.dt, 32)
+    for w in (*_WRAPPERS.values(), *_LATTICE.values()):
+        w.reset_launch_count()
+    got = grid_verlet.make_cuda_step(top, cfg)(s0, cfg.dt, 32)
+    torch.cuda.synchronize()
+    per_frame = grid_verlet.launches_per_frame(cfg, 32)
+    assert grid_verlet.launch_count() == per_frame
+    assert sum(w.launch_count() for w in (*_WRAPPERS.values(),
+                                          *_LATTICE.values())) == per_frame
+    torch.testing.assert_close(got.x, want.x, atol=1e-3, rtol=0)
+    torch.testing.assert_close(got.x_prev, want.x_prev, atol=1e-3, rtol=0)
+    torch.testing.assert_close(got.v, want.v, atol=5e-2, rtol=0)
+    if branch == "features":
+        assert torch.equal(got.edge_alive, want.edge_alive)
+        torch.testing.assert_close(got.rest_scale, want.rest_scale,
+                                   atol=1e-5, rtol=0)
+    assert float((want.x - s0.x).abs().max()) > 1e-4
+    pinned = torch.from_numpy(host.inv_mass == 0.0).to(cuda)
+    assert torch.equal(got.x[pinned], s0.x[pinned])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_sub", [0, 1, 2, 7])
+@pytest.mark.parametrize("feature", ["tear", "both"])
+def test_grid_verlet_frame_parity_on_card(cuda, feature, n_sub):
+    """One C call runs a frame of any length and rotates the three
+    position buffers itself: frames of 0, 1, 2 and 7 substeps (each
+    remainder of the period 3, and of the strain limit's period 2), three
+    in a row, return the state and planes of the plain version's frames,
+    at the Verlet bounds above; with the strain limit too."""
+    for strain in (False, True):
+        host, cfg = _feature_scene(Solver.VERLET, feature)
+        if strain:
+            cfg = cfg.replace(strain_limit=StrainLimitParams(
+                enabled=True, max_stretch=0.02, iterations=3))
+        top, s0 = tsb.init(host, device=cuda)
+        s0 = tsb.api.ensure_plastic_state(
+            top, cfg, tsb.api.ensure_tear_state(top, cfg, s0))
+        fn = grid_verlet.make_cuda_step(top, cfg)
+        plain = stencil.make_stencil_step(top, cfg)
+        got, want = s0, s0
+        for _ in range(3):
+            got, want = fn(got, cfg.dt, n_sub), plain(want, cfg.dt, n_sub)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.x, want.x, atol=1e-3, rtol=0)
+        torch.testing.assert_close(got.x_prev, want.x_prev, atol=1e-3,
+                                   rtol=0)
+        assert torch.equal(got.edge_alive, want.edge_alive)
+        if n_sub == 0:
+            assert torch.equal(got.x, s0.x)
+            assert torch.equal(got.x_prev, s0.x_prev)
 
 
 @pytest.mark.cuda
@@ -1404,6 +1477,83 @@ def test_grid_euler_tiles_repeat_bit_equal_on_card(cuda, nx, ny, branch):
         assert torch.equal(got.x, want.x), k
         assert torch.equal(got.v, want.v), k
     assert float((want.x - s0.x).abs().max()) > 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("branch", ["plain", "features", "wind", "force",
+                                    "colliders"])
+@pytest.mark.parametrize("nx,ny", [(37, 53), (1024, 520)])
+def test_grid_verlet_tiles_repeat_bit_equal_on_card(cuda, nx, ny, branch):
+    """24 frames of 32 substeps of the Verlet tile from one state, on a
+    grid no tile divides and on one of more tiles than the card holds at
+    once, give one result to the bit: no shared-memory race in the tile
+    or its staged velocity estimate, and the frame's buffer rotation reads
+    no stale buffer."""
+    host, cfg = _euler_grid_scene(nx, ny, True, True, branch, Solver.VERLET)
+    top, s0 = tsb.init(host, device=cuda)
+    if branch == "features":
+        s0 = tsb.api.ensure_plastic_state(
+            top, cfg, tsb.api.ensure_tear_state(top, cfg, s0))
+    fn = grid_verlet.make_cuda_step(top, cfg)
+    want = fn(s0, cfg.dt, 32)
+    for k in range(23):
+        got = fn(s0, cfg.dt, 32)
+        assert torch.equal(got.x, want.x), k
+        assert torch.equal(got.x_prev, want.x_prev), k
+    assert float((want.x - s0.x).abs().max()) > 1e-4
+
+
+def _pair_scenes(cuda):
+    """(name, x, params) of the culled block_pairs' card tests: a seeded
+    cloud, tests/test_blocksparse.py's 128 x 128 folded sheet at the 16k
+    preset's parameters, and cloth_selfcollide_64k after 24 substeps (the
+    pile)."""
+    rng = np.random.default_rng(7)
+    cloud = torch.tensor(rng.uniform(0, 0.5, (2048, 3)), dtype=torch.float32,
+                         device=cuda)
+    p = SelfCollisionParams(enabled=True, method="block", radius=0.05,
+                            stiffness=10.0, cell_size=0.05, block_partners=8)
+    p16 = tsb.presets.build("cloth_selfcollide_16k")[1].self_collision
+    xs, ys = np.meshgrid(np.arange(128), np.arange(128), indexing="ij")
+    layer = (ys.ravel() * 0.01 // 0.32).astype(int)
+    yy = np.where(layer % 2 == 0, ys.ravel() * 0.01 % 0.32,
+                  0.32 - ys.ravel() * 0.01 % 0.32)
+    sheet = torch.tensor(np.stack(
+        [xs.ravel() * 0.01, yy, layer * 0.75 * p16.radius], axis=1),
+        dtype=torch.float32, device=cuda)
+    host, cfg = tsb.presets.build("cloth_selfcollide_64k")
+    top, s0 = tsb.init(host, device=cuda)
+    pile = tsb.step(top, cfg, s0, n_substeps=24).x
+    return [("cloud", cloud, p), ("folded 128", sheet, p16),
+            ("64k pile", pile, cfg.self_collision)]
+
+
+@pytest.mark.cuda
+def test_block_pairs_repeats_bit_equal_on_card(cuda):
+    """The culled pair kernel, single form and dual form on 4 row shards:
+    24 launches from one state give one result to the bit (the slice boxes
+    in shared memory, the partial rows and the arrival counters), and a
+    build on fresh NaN-filled allocations (the partial rows) gives it
+    again; each scene has pairs in reach."""
+    for name, x, p in _pair_scenes(cuda):
+        n = x.shape[0]
+        fn = blocks.make_block_pairs(p, n, cuda)
+        want = fn(x)
+        for k in range(23):
+            assert torch.equal(fn(x), want), (name, k)
+        _poison_allocator(cuda)
+        assert torch.equal(blocks.make_block_pairs(p, n, cuda)(x), want), name
+        assert float(want.abs().max()) > 0.0, name
+        ni = n // 4
+        for r in range(4):
+            xi = x[r * ni:(r + 1) * ni]
+            dual = blocks.make_block_pairs_dual(p, ni, n, cuda)
+            want_r = dual(xi, x)
+            for k in range(23):
+                assert torch.equal(dual(xi, x), want_r), (name, r, k)
+            _poison_allocator(cuda)
+            assert torch.equal(
+                blocks.make_block_pairs_dual(p, ni, n, cuda)(xi, x), want_r)
 
 
 @pytest.mark.cuda
@@ -1592,14 +1742,16 @@ def _poison_runs():
             return lambda: grid_xpbd.make_cuda_step(top, cfg)(s0, cfg.dt, 32)
         return build
 
-    def euler(branch, full=True, size=(37, 53)):
+    def euler(branch, full=True, size=(37, 53),
+              solver=Solver.SEMI_IMPLICIT_EULER):
         def build():
-            host, cfg = _euler_grid_scene(*size, full, full, branch)
+            host, cfg = _euler_grid_scene(*size, full, full, branch, solver)
             top, s0 = tsb.init(host, device="cuda")
             if branch == "features":
                 s0 = tsb.api.ensure_plastic_state(
                     top, cfg, tsb.api.ensure_tear_state(top, cfg, s0))
-            return lambda: grid_euler.make_cuda_step(top, cfg)(s0, cfg.dt, 32)
+            return lambda: _WRAPPERS[solver].make_cuda_step(top, cfg)(
+                s0, cfg.dt, 32)
         return build
 
     def strain(solver):
@@ -1632,6 +1784,11 @@ def _poison_runs():
         ("grid_euler wide", euler("plain", size=(1024, 520))),
         ("grid_euler strain", strain(Solver.SEMI_IMPLICIT_EULER)),
         ("grid_verlet strain", strain(Solver.VERLET)),
+        ("grid_verlet features", euler("features", solver=Solver.VERLET)),
+        ("grid_verlet force", euler("force", solver=Solver.VERLET)),
+        ("grid_verlet wind", euler("wind", solver=Solver.VERLET)),
+        ("grid_verlet colliders structural",
+         euler("colliders", full=False, solver=Solver.VERLET)),
         ("grid_xpbd strain", strain(Solver.XPBD)),
     ]
 

@@ -1,13 +1,14 @@
-"""What the grid Euler and strain-sweep wrappers compute on the host, on the
-CPU: the shared tile of csrc/grid_common.cuh as the tiled Euler substep
-(csrc/grid_euler.cu) and the one-launch strain sweeps use it (shared
-memory, the split of each owner rectangle into the threads' own entries and
-the strips, the edges each tile evaluates), the launch counts of
-kernels/grid_euler.py, grid_verlet.py and grid_strain.py, the ctypes
-mirrors of the frame and sweep structs against the sources, and the
-deterministic vertex normals (solver/normals.py) against the JAX package
-and the ``index_add_`` sum they replace.  The kernels themselves run only
-on the card (tests/test_torch_cuda.py)."""
+"""What the grid Euler, Verlet and strain-sweep wrappers compute on the host,
+on the CPU: the shared tile of csrc/grid_common.cuh as the tiled Euler and
+Verlet substeps (csrc/grid_euler.cu, grid_verlet.cu) and the one-launch
+strain sweeps use it (shared memory, the split of each owner rectangle into
+the threads' own entries and the strips, the edges each tile evaluates),
+the launch counts of kernels/grid_euler.py, grid_verlet.py and
+grid_strain.py, the Verlet frame's buffer rotation, the ctypes mirrors of
+the frame and sweep structs against the sources, and the deterministic
+vertex normals (solver/normals.py) against the JAX package and the
+``index_add_`` sum they replace.  The kernels themselves run only on the
+card (tests/test_torch_cuda.py)."""
 
 import re
 from pathlib import Path
@@ -27,6 +28,20 @@ from softbodyunity_tpu.solver.normals import vertex_normals as j_vertex_normals
 CSRC = Path(grid_euler.__file__).resolve().parent / "csrc"
 COMMON = (CSRC / "grid_common.cuh").read_text()
 EULER = (CSRC / "grid_euler.cu").read_text()
+VERLET = (CSRC / "grid_verlet.cu").read_text()
+# the tiled substep kernels, each on Tile<P> through the shared staging and
+# spring terms of grid_common.cuh
+TILED = {"grid_euler.cu": EULER, "grid_verlet.cu": VERLET}
+
+
+def _uses_shared_tile(source: str, kernel: str) -> bool:
+    """Whether ``kernel`` in ``source`` takes its tile, staging and spring
+    terms from grid_common.cuh (the index arithmetic the tests below hold)."""
+    body = source[source.index(kernel):]
+    body = body[:body.index("\n}\n")]
+    return all(call in body for call in (
+        "using T = Tile<P>;", "stage_frame<T", "tile_spring_terms<P, kFeat>(",
+        "tile_spring_force<P>(terms, ty, tx)"))
 
 
 def _tile():
@@ -69,8 +84,9 @@ def _euler_terms(offsets, tx, ty):
 
 def test_tiles_fit_static_shared_memory():
     """Every compiled pattern's frame and rectangles fit the 48 KB of static
-    shared memory: the Euler substep stages x and v (two float4 a frame
-    vertex) and the float4 terms of every offset (grid_euler_substep_kernel)
+    shared memory: the Euler and Verlet substeps stage x and v (Verlet's
+    velocity estimate; two float4 a frame vertex) and the float4 terms of
+    every offset (grid_euler_substep_kernel, grid_verlet_substep_kernel)
     or of the larger of two groups (grid_euler_wide_kernel), the strain
     sweeps x and w (one) and every offset's terms; 32 x 8 with all six
     offsets: 432 frame vertices, 1,738 terms, 889 in the larger Euler
@@ -82,7 +98,7 @@ def test_tiles_fit_static_shared_memory():
         h = _halo(pattern)
         frame = (ty + 2 * h) * (tx + 2 * h)
         _, terms = _rects(pattern, tx, ty)
-        assert 16 * (2 * frame + terms) <= 48 * 1024   # Euler, one group
+        assert 16 * (2 * frame + terms) <= 48 * 1024   # Euler, Verlet
         assert 16 * (2 * frame + _euler_terms(pattern, tx, ty)) <= 48 * 1024
         assert 16 * (frame + terms) <= 48 * 1024       # strain sweeps
     six = grid_scene.PATTERNS[3]
@@ -93,14 +109,18 @@ def test_tiles_fit_static_shared_memory():
     assert 8 * (two + 1024) <= 228 * 1024
 
 
+@pytest.mark.parametrize("source", list(TILED))
 @pytest.mark.parametrize("pattern", range(4))
-def test_own_entries_and_strips_cover_each_rectangle_once(pattern):
+def test_own_entries_and_strips_cover_each_rectangle_once(pattern, source):
     """The split of each offset's rectangle among a tile's threads (the
-    Euler substep's, the strain sweeps' and the XPBD sweep's): thread
+    Euler and Verlet substeps', the strain sweeps' and the XPBD sweep's,
+    each substep kernel through grid_common.cuh's tile_spring_terms): thread
     (x, y) takes entry (y, x) of every rectangle, and the strip list (rows
     past ty over all columns, then columns past tx over the tile's rows,
     Tile::strip_row and strip_col) takes the rest, one entry a thread; each
     entry once."""
+    kernel = source.replace(".cu", "_substep_kernel(")
+    assert _uses_shared_tile(TILED[source], kernel)
     offsets = grid_scene.PATTERNS[pattern]
     tx, ty = _tile()
     rects, total = _rects(offsets, tx, ty)
@@ -123,16 +143,20 @@ def test_own_entries_and_strips_cover_each_rectangle_once(pattern):
     assert n_strips <= tx * ty   # at most one strip entry a thread
 
 
+@pytest.mark.parametrize("source", list(TILED))
 @pytest.mark.parametrize("ny,nx", [(53, 37), (300, 5), (16, 32), (9, 65)])
 @pytest.mark.parametrize("pattern", range(4))
 def test_tiles_evaluate_each_edge_with_an_endpoint_in_them(pattern, ny,
-                                                           nx):
-    """With the kernels' index arithmetic: every edge with an endpoint in a
+                                                           nx, source):
+    """With the kernels' index arithmetic (the Euler and Verlet substeps
+    take it from grid_common.cuh): every edge with an endpoint in a
     tile has its owner in that tile's rectangle for the offset, both ends
     inside the staged frame; the tiles write each edge's feature entries
     exactly once (the tile of its owner); and the evaluations past one an
     edge are the frame-owned edges, a fraction set by the tile's
     perimeter."""
+    assert _uses_shared_tile(TILED[source],
+                             source.replace(".cu", "_substep_kernel("))
     offsets = grid_scene.PATTERNS[pattern]
     tx, ty = _tile()
     halo = _halo(offsets)
@@ -174,16 +198,20 @@ def test_tiles_evaluate_each_edge_with_an_endpoint_in_them(pattern, ny,
     assert edges <= evaluated <= edges * (1 + 2.0 * (1 / tx + 1 / ty))
 
 
-def _cfg(solver, strain=False, iterations=4, feature=False, wind=False):
+def _cfg(solver, strain=False, iterations=4, feature=False, wind=False,
+         self_collision=False):
     return tsb.SimConfig(
         solver=solver,
         strain_limit=tsb.StrainLimitParams(enabled=strain,
                                            iterations=iterations),
         tear=tsb.TearParams(enabled=feature),
         wind=tsb.WindParams(velocity=(1.0, 0.0, 0.0), drag=0.2, lift=0.5)
-        if wind else tsb.WindParams())
+        if wind else tsb.WindParams(),
+        self_collision=tsb.SelfCollisionParams(enabled=self_collision,
+                                               method="block"))
 
 
+@pytest.mark.parametrize("calls", ["frame", "substep"])
 @pytest.mark.parametrize("wind", [False, True])
 @pytest.mark.parametrize("feature", [False, True])
 @pytest.mark.parametrize("strain,iterations,per_sub", [
@@ -191,13 +219,16 @@ def _cfg(solver, strain=False, iterations=4, feature=False, wind=False):
 @pytest.mark.parametrize("module", [grid_euler, grid_verlet],
                          ids=["euler", "verlet"])
 def test_grid_launches_per_substep_and_frame(module, strain, iterations,
-                                             per_sub, feature, wind):
+                                             per_sub, feature, wind, calls):
     """The substep launch, and under the strain limit one more, which runs
     every sweep (with none, the epilogue alone); a frame adds the
-    frame-end feature update.  The wind adds no launch."""
+    frame-end feature update.  The wind adds no launch, and neither does
+    the call form: a frame from one C call, or one call a substep (with
+    self-collision, whose block_pairs launch counts in kernels/blocks.py)."""
     solver = (Solver.SEMI_IMPLICIT_EULER if module is grid_euler
               else Solver.VERLET)
-    cfg = _cfg(solver, strain, iterations, feature, wind)
+    cfg = _cfg(solver, strain, iterations, feature, wind,
+               self_collision=calls == "substep")
     assert grid_strain.sweeps(cfg) == int(strain)
     assert grid_strain.n_sweeps(cfg) == max(iterations, 1)
     assert module.launches_per_substep(cfg) == per_sub
@@ -228,15 +259,32 @@ def _c_fields(source: str, struct: str):
 
 
 def test_ctypes_structs_mirror_the_frame_and_sweep_structs():
-    """The structs of grid_euler_substeps and of every library's
-    grid_<solver>_strain, field by field against the sources (the
-    libraries' *_size functions check the sizes on the card)."""
+    """The structs of grid_euler_substeps, grid_verlet_substeps and of the
+    strain sweeps, field by field against the sources (the libraries'
+    *_size functions check the sizes on the card)."""
     for source, name, cls in (
             (EULER, "Params", grid_euler._Params),
             (EULER, "GridEulerFrame", grid_euler._Frame),
+            (VERLET, "Params", grid_verlet._Params),
+            (VERLET, "GridVerletFrame", grid_verlet._Frame),
             (COMMON, "StrainSweeps", grid_strain.SweepsStruct),
             (COMMON, "StrainParams", grid_strain.StrainParamsStruct)):
         assert _c_fields(source, name) == [n for n, _ in cls._fields_], name
+
+
+@pytest.mark.parametrize("strain", [False, True])
+def test_verlet_frame_rotates_three_buffers(strain):
+    """grid_verlet.buffers, as grid_verlet_substeps rotates them: each
+    substep reads (x, x_prev) and writes out, three distinct buffers;
+    without the strain limit (x, xp, out) <- (out, x, xp) after it, and
+    under it the last sweep writes the new x over xp, (x, xp) <- (xp, x),
+    out staying; a frame starts from buffers 0 and 1."""
+    assert grid_verlet.buffers(0, strain)[:2] == (0, 1)
+    for k in range(12):
+        x, xp, out = grid_verlet.buffers(k, strain)
+        assert sorted((x, xp, out)) == [0, 1, 2]
+        want = (xp, x, out) if strain else (out, x, xp)
+        assert grid_verlet.buffers(k + 1, strain) == want
 
 
 def test_grid_euler_step_needs_a_cuda_device():

@@ -1,19 +1,27 @@
-"""Run the grid Euler and strain-limit paths of one checkout of the PyTorch
-port on one NVIDIA GPU, save their states to hold two checkouts to each
-other bit for bit, and time them.
+"""Run the grid Euler, Verlet and strain-limit paths and the self-collision
+pair forces of one checkout of the PyTorch port on one NVIDIA GPU, save
+their states to hold two checkouts to each other bit for bit, and time them.
 
-    python tools/torch_grid_paths.py ROOT OUT.pt [--time]   # ROOT: a checkout
+    python tools/torch_grid_paths.py ROOT OUT.pt [--time] [--only P1,P2]
     python tools/torch_grid_paths.py --compare A.pt B.pt
+
+ROOT is a checkout; --only runs the paths whose names start with one of
+the comma-separated prefixes (e.g. ``pairs_`` for the pair forces alone).
 
 The paths: cloth_bench_64k (Euler) and the same 256 x 256 cloth with each
 other offset pattern (structural, with shear, with bend), cloth_bench_262k,
 cloth_bench_1m, cloth_tearing_262k, cloth_plastic_262k, cloth_tearing_64k,
 cloth_plastic_64k, cloth_wind_64k, chip_smoke.py's cloth_colliders_64k,
 cloth_selfcollide_64k (the force plane) and cloth_strain_64k under the three
-solvers, each from rest through its wrapper's make_cuda_step, the state
-saved (x, v, x_prev and the feature fields); and the strain sweeps alone on
-cloth_strain_64k stretched 15 %, with its 4 iterations and with 1, 2 and 8
-(what one more sweep costs).  With --time, per path the kernel path's
+solvers; under Verlet cloth_bench_64k_verlet, and cloth_wind_64k,
+cloth_colliders_64k, cloth_tearing_262k and cloth_selfcollide_64k with
+``solver`` replaced; each from rest through its wrapper's make_cuda_step,
+the state saved (x, v, x_prev and the feature fields).  Then the strain
+sweeps alone on cloth_strain_64k stretched 15 %, with its 4 iterations and
+with 1, 2 and 8 (what one more sweep costs); and the pair forces alone
+(block_pairs) on cloth_selfcollide_64k after 24 substeps (the pile, saved
+too), in the single form and the dual form on 1 and 4 row shards.  With
+--time, per path the kernel path's
 ms a substep from CUDA events (three times) and each grid kernel's device
 µs a launch from torch.profiler, both read through the checkout's
 chip_smoke.py (``events_ms``, ``profile_device``: its yardstick, which
@@ -67,10 +75,39 @@ def _cases(sb, smoke):
                            (sb.Solver.XPBD, grid_xpbd)):
         out.append((f"cloth_strain_64k_{solver.value}", module, host,
                     cfg.replace(solver=solver), 10))
+    verlet = sb.Solver.VERLET
+    host, cfg = sb.presets.build("cloth_bench_64k_verlet")
+    out.append(("cloth_bench_64k_verlet", grid_verlet, host, cfg, 20))
+    for preset, frames in (("cloth_wind_64k", 20), ("cloth_tearing_262k", 4),
+                           ("cloth_selfcollide_64k", 2)):
+        host, cfg = sb.presets.build(preset)
+        out.append((f"{preset}_verlet", grid_verlet, host,
+                    cfg.replace(solver=verlet), frames))
+    host, cfg = smoke.cloth_colliders_64k(sb, verlet)
+    out.append(("cloth_colliders_64k_verlet", grid_verlet, host, cfg, 45))
     return out
 
 
-def run(root: str, out: str, timing: bool) -> None:
+def _pair_forces(sb, blocks):
+    """(name, fn, args) of the pair forces alone on cloth_selfcollide_64k
+    after 24 substeps: the single form, and the dual form on 1 and 4 row
+    shards; and that state."""
+    host, cfg = sb.presets.build("cloth_selfcollide_64k")
+    top, s0 = sb.init(host, device="cuda")
+    x = sb.step(top, cfg, s0, n_substeps=24).x
+    p, n = cfg.self_collision, x.shape[0]
+    out = [("pairs_64k_single", blocks.make_block_pairs(p, n, x.device),
+            (x,))]
+    for ranks in (1, 4):
+        ni = n // ranks
+        for r in range(ranks):
+            out.append((f"pairs_64k_dual{ranks}_rank{r}",
+                        blocks.make_block_pairs_dual(p, ni, n, x.device),
+                        (x[r * ni:(r + 1) * ni], x)))
+    return out, x
+
+
+def run(root: str, out: str, timing: bool, only=None) -> None:
     sys.path.insert(0, root)
     import torch
 
@@ -93,8 +130,13 @@ def run(root: str, out: str, timing: bool) -> None:
             launches."""
             return smoke.profile_device(body, KERNELS)[0]
 
+    def wanted(name):
+        return only is None or name.startswith(only)
+
     states, times = {}, {}
     for name, module, host, cfg, frames in _cases(sb, smoke):
+        if not wanted(name):
+            continue
         top, s0 = sb.init(host, device="cuda")
         if cfg.tear.enabled or cfg.plasticity.enabled:
             s0 = sb.api.ensure_plastic_state(
@@ -108,7 +150,7 @@ def run(root: str, out: str, timing: bool) -> None:
             "x", "v", "x_prev", "edge_alive", "rest_scale")
             if getattr(s, k) is not None}
         if timing:
-            n_f = 2 if name == "cloth_selfcollide_64k" else 10
+            n_f = 2 if name.startswith("cloth_selfcollide_64k") else 10
 
             def body(fn=fn, s0=s0, cfg=cfg, n_f=n_f):
                 s = s0
@@ -130,6 +172,8 @@ def run(root: str, out: str, timing: bool) -> None:
     for it in (cfg.strain_limit.iterations, 1, 2, 8):
         name = ("strain_sweeps_alone" if it == cfg.strain_limit.iterations
                 else f"strain_sweeps_alone_{it}")
+        if not wanted(name):
+            continue
         sweep = grid_euler.make_strain_correction(top, cfg.replace(
             strain_limit=dataclasses.replace(cfg.strain_limit,
                                              iterations=it)))
@@ -139,6 +183,21 @@ def run(root: str, out: str, timing: bool) -> None:
             body()
             times[name] = {
                 "ms_per_call": [events_ms(body, 50) for _ in range(3)],
+                "device_us_per_launch": device_us(body)}
+            print(json.dumps({"path": name, **times[name]}), flush=True)
+    from softbodyunity_torch.kernels import blocks
+
+    pairs, x24 = _pair_forces(sb, blocks)
+    states["pairs_64k_state"] = {"x": x24.cpu()}
+    for name, fn, args in pairs:
+        if not wanted(name):
+            continue
+        states[name] = {"f": fn(*args).cpu()}
+        if timing:
+            body = lambda: [fn(*args) for _ in range(20)]   # noqa: E731
+            body()
+            times[name] = {
+                "ms_per_call": [events_ms(body, 20) for _ in range(3)],
                 "device_us_per_launch": device_us(body)}
             print(json.dumps({"path": name, **times[name]}), flush=True)
     torch.save({"states": states, "times": times}, out)
@@ -165,4 +224,7 @@ if __name__ == "__main__":
     if sys.argv[1] == "--compare":
         compare(sys.argv[2], sys.argv[3])
     else:
-        run(sys.argv[1], sys.argv[2], "--time" in sys.argv[3:])
+        flags = sys.argv[3:]
+        only = (tuple(flags[flags.index("--only") + 1].split(","))
+                if "--only" in flags else None)
+        run(sys.argv[1], sys.argv[2], "--time" in flags, only)
