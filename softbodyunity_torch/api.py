@@ -25,6 +25,7 @@ from .core.state import State, make_state
 from .core.topology import HostTopology, SceneKey, Topology
 from .solver.normals import incident_faces
 from .solver.normals import vertex_normals as _vertex_normals
+from .utils import profiling
 
 
 def suggest_dt(host: HostTopology, cfg: SimConfig, *,
@@ -145,8 +146,12 @@ def _build_step(key: SceneKey, cfg: SimConfig):
 
 
 def _dispatch_step(top, cfg, state, dt, n_substeps):
+    sp = profiling.begin("api.lookup") if profiling.on else -1
+    fn = _build_step(SceneKey(top), cfg)
+    if sp >= 0:
+        profiling.end(sp)
     # the call's topology carries the collider rows the frame reads
-    return _build_step(SceneKey(top), cfg)(state, dt, n_substeps, top=top)
+    return fn(state, dt, n_substeps, top=top)
 
 
 def move_colliders(
@@ -236,11 +241,17 @@ def step(
     reads ``state.x_prev`` as its history (so a state handed over from a
     running scene keeps its motion); Euler and XPBD read ``state.v``.
     Under tearing or plasticity a state without ``edge_alive`` or
-    ``rest_scale`` starts with every edge live and unscaled."""
+    ``rest_scale`` starts with every edge live and unscaled.  While the
+    recorder is on (:mod:`.utils.profiling`) a call is the span
+    ``api.step``, the first of a new frame."""
+    sp = profiling.begin("api.step", new_frame=True) if profiling.on else -1
     dt = cfg.dt if dt is None else float(dt)
     n = cfg.n_substeps if n_substeps is None else int(n_substeps)
     state = ensure_plastic_state(top, cfg, ensure_tear_state(top, cfg, state))
-    return _dispatch_step(top, cfg, state, dt, n)
+    state = _dispatch_step(top, cfg, state, dt, n)
+    if sp >= 0:
+        profiling.end(sp)
+    return state
 
 
 def rollout(
@@ -274,6 +285,11 @@ def _normal_table(key: SceneKey) -> torch.Tensor:
 
 def normals(top: Topology, state: State) -> torch.Tensor:
     """Vertex normals for rendering (Unity RecalculateNormals analogue),
-    summed in a fixed order: the same bits on every run."""
-    return _vertex_normals(top.triangles, state.x,
-                           _normal_table(SceneKey(top)))
+    summed in a fixed order: the same bits on every run.  While the
+    recorder is on, a call is the span ``api.normals``, in the frame of the
+    last ``step``."""
+    sp = profiling.begin("api.normals") if profiling.on else -1
+    n = _vertex_normals(top.triangles, state.x, _normal_table(SceneKey(top)))
+    if sp >= 0:
+        profiling.end(sp)
+    return n

@@ -21,13 +21,13 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import threading
 
 import torch
 
 from ..core.config import SelfCollisionParams, SimConfig
 from ..solver.blocksparse import _sorted_tiles, _tile_partners
 from ..solver.forces import self_collision_planes
+from ..utils import profiling
 from .grid_scene import check_input, check_launch
 
 # Partner tiles one CTA takes: a crowded tile's partners spread over
@@ -41,28 +41,33 @@ CHUNK = 4
 SUB_BLOCK = 32
 CULL_MARGIN = 2.0 ** -10
 
-# launches of each form; the halo paths launch the dual form from one thread
-# per rank (parallel/ring.py::LocalRing), hence the lock
-_launches = {"block_pairs": 0, "block_pairs_dual": 0}
-_count_lock = threading.Lock()
+# The two forms, each counting its launches under its name; the halo paths
+# launch the dual form from one thread per rank (parallel/ring.py::
+# LocalRing), and the recorder's counters are thread-safe.
+FORMS = ("block_pairs", "block_pairs_dual")
+# What the kernel's counting instantiation adds up while the recorder is on,
+# under "<form>.<name>", in the order of csrc/block_pairs.cu's Counter: the
+# 32 x 32 sub-block pairs of the partners swept and those the cull kept,
+# the vertex pairs swept and those with w > 0 (within the radius), the
+# partner tiles swept (the sum of nvalid) and the interacting tile pairs
+# that the partner budget dropped.
+COUNTERS = ("sub_blocks", "sub_blocks_kept", "pairs_swept",
+            "pairs_in_reach", "partners_swept", "tile_pairs_dropped")
 
 
 def launch_count(form: str = "block_pairs") -> int:
     """Launches of the single (``"block_pairs"``) or the dual
     (``"block_pairs_dual"``) form since the last
     :func:`reset_launch_count`."""
-    return _launches[form]
+    return profiling.count(form)
 
 
 def reset_launch_count() -> None:
-    with _count_lock:
-        for form in _launches:
-            _launches[form] = 0
+    profiling.reset_count(*FORMS)
 
 
 def _count(form: str) -> None:
-    with _count_lock:
-        _launches[form] += 1
+    profiling.add(form)
 
 
 @functools.cache
@@ -78,6 +83,8 @@ def _launcher():
         i, i, i, i, i,         # n, n_tiles, k_budget, chunk, blk
         p, p, p,               # partial, arrivals, f_out
         f, f, f, f,            # eps2, c1, c2, reach2
+        p, p, i, i,            # counters, interact (or both null),
+                               # its row stride, partner tiles
         p,                     # stream
     ]
     fn.restype = ctypes.c_int
@@ -89,9 +96,12 @@ def _launcher():
 def _pair_launch(p: SelfCollisionParams, n: int, n_j: int, device, form):
     """Check the parameters, allocate the scratch of one launch at a time
     for the tiles of ``n`` vertices against the partner tiles of ``n_j``,
-    and return ``launch(xi_tiles, xj_tiles, nvalid, partners, order) ->
-    [3, n]``, which launches the kernel once on the tensors' stream (its
-    inputs: :func:`pair_inputs`)."""
+    and return ``launch(xi_tiles, xj_tiles, nvalid, partners, order,
+    interact) -> [3, n]``, which launches the kernel once on the tensors'
+    stream (its inputs: :func:`pair_inputs`).  While the recorder is on
+    (:mod:`softbodyunity_torch.utils.profiling`) the launch is the
+    kernel's counting instantiation, which adds :data:`COUNTERS` into a
+    buffer allocated here; the forces are the same to the bit."""
     device = torch.device(device)
     if device.type != "cuda":
         raise ValueError(f"the {form} kernel runs on a CUDA device, not "
@@ -113,14 +123,24 @@ def _pair_launch(p: SelfCollisionParams, n: int, n_j: int, device, form):
     c1 = p.stiffness * p.radius
     c2 = p.stiffness
     reach2 = cull_reach2(p.radius)
+    counters = profiling.device_counters(
+        [f"{form}.{name}" for name in COUNTERS], device)
     fn, error_string = _launcher()
 
-    def launch(xi_tiles, xj_tiles, nvalid, partners, order):
+    def launch(xi_tiles, xj_tiles, nvalid, partners, order, interact):
+        counting = profiling.on
+        sp = profiling.begin("blocks.launch") if counting else -1
         dev = xi_tiles.device
         check_input("xi_tiles", xi_tiles, (b, 3, blk), dev)
         check_input("xj_tiles", xj_tiles, (b_j, 3, blk), dev)
         if partners.stride(1) != 1 or order.stride(0) != 1:
             raise ValueError("partners and order must have unit inner stride")
+        if counting and (interact.dtype != torch.bool
+                         or tuple(interact.shape) != (b, b_j)
+                         or interact.stride(1) != 1):
+            raise ValueError(
+                f"interact: {interact.dtype} {tuple(interact.shape)}, "
+                f"expected bool {(b, b_j)} with unit inner stride")
         out = torch.empty((3, n), dtype=torch.float32, device=dev)
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
@@ -128,9 +148,13 @@ def _pair_launch(p: SelfCollisionParams, n: int, n_j: int, device, form):
                 xi_tiles.data_ptr(), xj_tiles.data_ptr(), nvalid.data_ptr(),
                 partners.data_ptr(), partners.stride(0), order.data_ptr(), n,
                 b, k, CHUNK, blk, partial.data_ptr(), arrivals.data_ptr(),
-                out.data_ptr(), eps2, c1, c2, reach2, stream), form,
-                error_string)
+                out.data_ptr(), eps2, c1, c2, reach2,
+                counters.data_ptr() if counting else None,
+                interact.data_ptr() if counting else None,
+                interact.stride(0), b_j, stream), form, error_string)
         _count(form)
+        if sp >= 0:
+            profiling.end(sp)
         return out
 
     return launch
@@ -167,32 +191,53 @@ def make_block_pairs(p: SelfCollisionParams, n: int, device):
     return fn
 
 
+def _sorted(x: torch.Tensor, cell_size: float, blk: int):
+    """:func:`.blocksparse._sorted_tiles` in the span
+    ``blocksparse.sort``."""
+    sp = profiling.begin("blocksparse.sort") if profiling.on else -1
+    tiles = _sorted_tiles(x, cell_size, blk)
+    if sp >= 0:
+        profiling.end(sp)
+    return tiles
+
+
 def pair_inputs(p: SelfCollisionParams, xi: torch.Tensor,
                 xall: torch.Tensor | None = None):
     """The pair kernel's inputs for the forces on ``xi`` [ni, 3] from
     ``xall`` [N, 3] (the single form without it): ``(xi_tiles, xj_tiles,
-    nvalid, partners, order)``, each side Morton-sorted into ``[B, 3, blk]``
-    tiles (the TPU kernel's layout) with the tail of its last tile at far
-    coordinates (+1e6; the dual form's i-tiles at -1e6), the partner tiles
-    by bbox gap within the budget, and ``xi``'s sort order.  The single
-    form's ``xj_tiles`` is ``xi_tiles``."""
+    nvalid, partners, order, interact)``, each side Morton-sorted into
+    ``[B, 3, blk]`` tiles (the TPU kernel's layout) with the tail of its
+    last tile at far coordinates (+1e6; the dual form's i-tiles at -1e6),
+    the partner tiles by bbox gap within the budget, ``xi``'s sort order,
+    and the ``[B, Bj]`` interacting tile pairs, from which the counting
+    launch counts those the budget dropped.  The single form's
+    ``xj_tiles`` is ``xi_tiles``."""
     blk = int(p.block_size)
-    xb_i, valid_i, order, _ = _sorted_tiles(xi, p.cell_size, blk)
+    xb_i, valid_i, order, _ = _sorted(xi, p.cell_size, blk)
     if xall is None:
+        sp = profiling.begin("blocksparse.partners") if profiling.on else -1
         k = min(p.block_partners, xb_i.shape[0])
-        partners, pvalid, _ = _tile_partners(xb_i, valid_i, p.radius, k)
+        partners, pvalid, interact = _tile_partners(xb_i, valid_i, p.radius,
+                                                    k)
         xi_tiles = torch.where(valid_i[..., None], xb_i, 1e6)
         xi_tiles = xi_tiles.transpose(1, 2).contiguous()
-        return xi_tiles, xi_tiles, pvalid.sum(dim=1), partners, order
-    xb_g, valid_g, _, b_g = _sorted_tiles(xall, p.cell_size, blk)
-    partners, pvalid, _ = _tile_partners(
+        nvalid = pvalid.sum(dim=1)
+        if sp >= 0:
+            profiling.end(sp)
+        return xi_tiles, xi_tiles, nvalid, partners, order, interact
+    xb_g, valid_g, _, b_g = _sorted(xall, p.cell_size, blk)
+    sp = profiling.begin("blocksparse.partners") if profiling.on else -1
+    partners, pvalid, interact = _tile_partners(
         xb_i, valid_i, p.radius, min(p.block_partners, b_g), xb_j=xb_g,
         valid_j=valid_g)
     xi_tiles = torch.where(valid_i[..., None], xb_i, -1e6)
     xj_tiles = torch.where(valid_g[..., None], xb_g, 1e6)
-    return (xi_tiles.transpose(1, 2).contiguous(),
-            xj_tiles.transpose(1, 2).contiguous(), pvalid.sum(dim=1),
-            partners, order)
+    inputs = (xi_tiles.transpose(1, 2).contiguous(),
+              xj_tiles.transpose(1, 2).contiguous(), pvalid.sum(dim=1),
+              partners, order, interact)
+    if sp >= 0:
+        profiling.end(sp)
+    return inputs
 
 
 def cull_reach2(radius: float) -> float:
@@ -296,6 +341,10 @@ def self_collision_planes_cuda(cfg: SimConfig, ny: int, nx: int, device):
     pairs = make_block_pairs(sc, ny * nx, device)
 
     def planes(x3):
-        return pairs(x3.reshape(3, -1).t()).reshape(x3.shape)
+        sp = profiling.begin("selfcollide") if profiling.on else -1
+        f = pairs(x3.reshape(3, -1).t()).reshape(x3.shape)
+        if sp >= 0:
+            profiling.end(sp)
+        return f
 
     return planes

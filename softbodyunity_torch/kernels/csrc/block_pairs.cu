@@ -90,10 +90,31 @@
 // Rounding.  rsqrtf (as the TPU kernel's lax.rsqrt) and a sum in (partner,
 // vertex) order: the plain version sums the other way and divides, so the
 // two agree to rounding (tested at atol 5e-4, rtol 1e-3).
+//
+// Counting.  The kCount instantiation, launched only while the program's
+// recorder is on (softbodyunity_torch/utils/profiling.py), also adds up
+// what the sweep met, into int64 `counters` (the order of Counter below):
+// each warp its sub-block pairs and those it kept, each lane its pairs with
+// w > 0, each CTA its partners, and CTA (i, 0) the interacting tiles of
+// row i of the partner search (`interact`) past its nvalid[i], the tile
+// pairs the partner budget dropped.  Warps add into shared memory, and
+// thread 0 of each CTA adds the CTA's sums with one atomic per counter.
+// The counts sit beside the arithmetic, never in it, so the forces are the
+// plain instantiation's to the bit; that one is the kernel as it was.
 
 #include <cuda_runtime.h>
 
 namespace {
+
+enum Counter {
+  kSubBlocks,          // 32 x 32 sub-block pairs of the partners swept
+  kSubBlocksKept,      // those the cull kept
+  kPairsSwept,         // vertex pairs swept (kept sub-blocks x 1024)
+  kPairsInReach,       // of those, pairs with w > 0: within the radius
+  kPartnersSwept,      // partner tiles swept, the sum of nvalid
+  kTilePairsDropped,   // interacting tile pairs past the partner budget
+  kCounters
+};
 
 // The bounding box of the 32 lanes' points (x, y, z), on every lane: lo
 // and hi; a point with a non-finite coordinate makes the box infinite.
@@ -126,6 +147,7 @@ __device__ __forceinline__ float box_gap2(float4 lo_a, float4 hi_a,
   return gx * gx + gy * gy + gz * gz;
 }
 
+template <bool kCount>
 __global__ void __launch_bounds__(1024) block_pairs_kernel(
     const float* __restrict__ xi_tiles,     // [B, 3, blk]: the i-tiles
     const float* __restrict__ xj_tiles,     // [Bj, 3, blk]: partner tiles
@@ -135,7 +157,10 @@ __global__ void __launch_bounds__(1024) block_pairs_kernel(
     const long long* __restrict__ order,    // [N] sorted i slot -> vertex
     int n, int n_tiles, int chunk, int blk, float* __restrict__ partial,
     int* __restrict__ arrivals, float* __restrict__ f_out,   // [3, N]
-    float eps2, float c1, float c2, float reach2) {
+    float eps2, float c1, float c2, float reach2,
+    unsigned long long* __restrict__ counters,   // kCount: [kCounters]
+    const bool* __restrict__ interact,      // kCount: [B, >= Bj] rows,
+    int i_stride, int n_j_tiles) {          //   row stride i_stride
   extern __shared__ float4 smem[];
   float4* sj = smem;                        // [blk]: the partner tile
   float4* sbox = smem + blk;                // [blk / 32][2]: slice boxes
@@ -147,6 +172,12 @@ __global__ void __launch_bounds__(1024) block_pairs_kernel(
   const int nv = static_cast<int>(nvalid[i]);
   const int n_chunks = nv > 0 ? (nv + chunk - 1) / chunk : 1;
   if (s >= n_chunks) return;                // uniform over the CTA
+  __shared__ unsigned int cnt[kCounters];   // kCount: this CTA's sums
+  unsigned int kept = 0, in_reach = 0;      // kCount: warp's, lane's
+  if constexpr (kCount) {
+    if (l < kCounters) cnt[l] = 0;
+    __syncthreads();
+  }
 
   const float* xi_tile = xi_tiles + static_cast<size_t>(i) * 3 * blk;
   const float xi0 = xi_tile[l], xi1 = xi_tile[blk + l],
@@ -179,6 +210,7 @@ __global__ void __launch_bounds__(1024) block_pairs_kernel(
     for (int c = 0; c < n_slices; ++c) {
       // warp-uniform: a slice out of reach holds only pairs with w == 0
       if (box_gap2(lo, hi, sbox[2 * c], sbox[2 * c + 1]) > reach2) continue;
+      if constexpr (kCount) ++kept;
       const float4* sc = sj + 32 * c;
 #pragma unroll 8
       for (int j = 0; j < 32; ++j) {
@@ -191,7 +223,37 @@ __global__ void __launch_bounds__(1024) block_pairs_kernel(
         ax += w * dx;
         ay += w * dy;
         az += w * dz;
+        if constexpr (kCount) in_reach += w > 0.0f;
       }
+    }
+  }
+
+  if constexpr (kCount) {
+    const unsigned int swept = k_end - s * chunk;   // this CTA's partners
+    in_reach = __reduce_add_sync(0xffffffffu, in_reach);
+    unsigned int hits = 0;                  // row i of the partner search
+    if (s == 0) {
+      for (int j = l; j < n_j_tiles; j += blk)
+        hits += interact[static_cast<size_t>(i) * i_stride + j];
+      hits = __reduce_add_sync(0xffffffffu, hits);
+    }
+    if ((l & 31) == 0) {
+      atomicAdd(&cnt[kSubBlocks], swept * n_slices);
+      atomicAdd(&cnt[kSubBlocksKept], kept);
+      atomicAdd(&cnt[kPairsInReach], in_reach);
+      atomicAdd(&cnt[kTilePairsDropped], hits);
+    }
+    __syncthreads();
+    if (l == 0) {
+      atomicAdd(&counters[kSubBlocks], cnt[kSubBlocks]);
+      atomicAdd(&counters[kSubBlocksKept], cnt[kSubBlocksKept]);
+      atomicAdd(&counters[kPairsSwept], 1024ull * cnt[kSubBlocksKept]);
+      atomicAdd(&counters[kPairsInReach], cnt[kPairsInReach]);
+      atomicAdd(&counters[kPartnersSwept], swept);
+      // nvalid[i] of the row's interacting tiles are swept; the rest dropped
+      if (s == 0)
+        atomicAdd(&counters[kTilePairsDropped],
+                  cnt[kTilePairsDropped] - static_cast<unsigned int>(nv));
     }
   }
 
@@ -234,19 +296,33 @@ __global__ void __launch_bounds__(1024) block_pairs_kernel(
 // ceil(k_budget / chunk) x n_tiles x 3 x blk floats; `arrivals` n_tiles
 // ints, zero before the first launch (each launch leaves them zero), so a
 // scratch serves one launch at a time.  reach2 is the cull's squared reach,
-// r^2 (1 + 2^-10).  Allocates nothing and does not synchronise.
+// r^2 (1 + 2^-10).  With `counters` (int64 [6], the order of Counter) and
+// `interact` (bool rows of n_j_tiles, row stride i_stride: the partner
+// search's interacting tile pairs) the launch is the counting
+// instantiation, which adds into `counters`; with both null, the plain one.
+// Allocates nothing and does not synchronise.
 extern "C" int block_pairs_dual_forces(
     const float* xi_tiles, const float* xj_tiles, const long long* nvalid,
     const long long* partners, int p_stride, const long long* order, int n,
     int n_tiles, int k_budget, int chunk, int blk, float* partial,
     int* arrivals, float* f_out, float eps2, float c1, float c2,
-    float reach2, void* stream) {
+    float reach2, long long* counters, const bool* interact, int i_stride,
+    int n_j_tiles, void* stream) {
   const dim3 grid(n_tiles, (k_budget + chunk - 1) / chunk);
   const size_t smem = (static_cast<size_t>(blk) + 2 * (blk / 32)) *
                       sizeof(float4);
-  block_pairs_kernel<<<grid, blk, smem, static_cast<cudaStream_t>(stream)>>>(
-      xi_tiles, xj_tiles, nvalid, partners, p_stride, order, n, n_tiles,
-      chunk, blk, partial, arrivals, f_out, eps2, c1, c2, reach2);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  auto* sums = reinterpret_cast<unsigned long long*>(counters);
+  if (counters != nullptr && interact != nullptr)
+    block_pairs_kernel<true><<<grid, blk, smem, st>>>(
+        xi_tiles, xj_tiles, nvalid, partners, p_stride, order, n, n_tiles,
+        chunk, blk, partial, arrivals, f_out, eps2, c1, c2, reach2, sums,
+        interact, i_stride, n_j_tiles);
+  else
+    block_pairs_kernel<false><<<grid, blk, smem, st>>>(
+        xi_tiles, xj_tiles, nvalid, partners, p_stride, order, n, n_tiles,
+        chunk, blk, partial, arrivals, f_out, eps2, c1, c2, reach2, nullptr,
+        nullptr, 0, 0);
   return static_cast<int>(cudaGetLastError());
 }
 

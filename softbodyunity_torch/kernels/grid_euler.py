@@ -27,6 +27,7 @@ import torch
 from ..core.config import SimConfig, Solver
 from ..core.state import State
 from ..core.topology import EDGE_BEND, EDGE_SHEAR, Topology
+from ..utils import profiling
 from . import grid_features, grid_strain
 from .blocks import self_collision_planes_cuda
 from .grid_features import (FINISH_ARGTYPES, CudaFeatures, FeatParamsStruct,
@@ -36,17 +37,14 @@ from .grid_scene import (CollidersStruct, WindStruct, check_input,
 from .grid_strain import CudaStrain
 from .stencil import _offsets, from_planes, to_planes
 
-_launches = 0
-
 
 def launch_count() -> int:
     """Kernel launches since the last :func:`reset_launch_count`."""
-    return _launches
+    return profiling.count("grid_euler")
 
 
 def reset_launch_count() -> None:
-    global _launches
-    _launches = 0
+    profiling.reset_count("grid_euler")
 
 
 def launches_per_substep(cfg: SimConfig) -> int:
@@ -168,9 +166,9 @@ def make_cuda_step(top: Topology, cfg: SimConfig):
     w = cfg.wind
 
     def fn(state: State, dt: float, n_substeps: int, top=None) -> State:
-        global _launches
-        colliders = sc.colliders.args(sc.colliders.built if top is None
-                                      else top)
+        # the host phases, spans while the recorder is on: planes in, the
+        # struct packed, each C call, planes out
+        sp = profiling.begin("grid_euler.planes_in") if profiling.on else -1
         check_input("state.x", state.x, (n, 3), device)
         check_input("state.v", state.v, (n, 3), device)
         dt = float(dt)
@@ -179,6 +177,11 @@ def make_cuda_step(top: Topology, cfg: SimConfig):
         x[0].copy_(to_planes(state.x, ny, nx))
         v[0].copy_(to_planes(state.v, ny, nx))
         edge_alive, rest_scale = state.edge_alive, state.rest_scale
+        if sp >= 0:
+            profiling.end(sp)
+        sp = profiling.begin("grid_euler.pack") if profiling.on else -1
+        colliders = sc.colliders.args(sc.colliders.built if top is None
+                                      else top)
         with torch.cuda.device(device):
             stream = torch.cuda.current_stream(device).cuda_stream
             if feat:
@@ -206,26 +209,35 @@ def make_cuda_step(top: Topology, cfg: SimConfig):
             # substep's start; else the frame in one call
             calls = ([(k, 1) for k in range(n_substeps)] if sc_force
                      else [(0, n_substeps)])
+            if sp >= 0:
+                profiling.end(sp)
             for k0, n_run in calls:
                 f_ext = None
                 if sc_force:
                     f_ext = sc_force(x[0] if strain else x[k0 % 2])
+                sp = profiling.begin("grid_euler.call") if profiling.on else -1
                 err = substeps(ref, k0, n_run, int(k0 + n_run == n_substeps),
                                _ptr(f_ext), count)
-                _launches += launched.value
+                profiling.add("grid_euler", launched.value)
                 check_launch(err, "grid_euler substeps", error_string)
                 if strain:   # one strain launch a substep, counted there too
                     grid_strain.add_launches(n_run)
+                if sp >= 0:
+                    profiling.end(sp)
             if feat:
                 # a buffer swap a substep, and one for the frame-end update
                 for _ in range((n_substeps + int(n_substeps > 0)) % 2):
                     feat.swap()
                 edge_alive, rest_scale = feat.end(state)
+        sp = profiling.begin("grid_euler.planes_out") if profiling.on else -1
         last = n_substeps % 2
         xf = from_planes(x[0] if strain else x[last])
         vf = from_planes(v[last])
-        return State(x=xf, v=vf, x_prev=xf - dt * vf, edge_alive=edge_alive,
-                     rest_scale=rest_scale, cluster_quat=state.cluster_quat)
+        out = State(x=xf, v=vf, x_prev=xf - dt * vf, edge_alive=edge_alive,
+                    rest_scale=rest_scale, cluster_quat=state.cluster_quat)
+        if sp >= 0:
+            profiling.end(sp)
+        return out
 
     fn.features = feat
     return fn
@@ -250,15 +262,15 @@ def make_strain_correction(top: Topology, cfg: SimConfig):
                         error_string, "grid_euler")
 
     def fn(x3: torch.Tensor, alive=None, scale=None) -> torch.Tensor:
-        global _launches
         check_input("x3", x3, (3, sc.ny, sc.nx), sc.device)
         out = torch.empty_like(x3)
         v = torch.zeros_like(x3)
         with torch.cuda.device(sc.device):
             stream = torch.cuda.current_stream(sc.device).cuda_stream
             strain.begin(x3, table)
-            _launches += strain.launch(alive, scale, x3.data_ptr(),
-                                       out.data_ptr(), v.data_ptr(), stream)
+            profiling.add("grid_euler", strain.launch(
+                alive, scale, x3.data_ptr(), out.data_ptr(), v.data_ptr(),
+                stream))
         return out
 
     return fn

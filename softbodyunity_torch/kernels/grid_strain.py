@@ -22,28 +22,25 @@ import ctypes
 import torch
 
 from ..core.config import SimConfig
+from ..utils import profiling
 from .grid_scene import check_launch, sweep_pattern
-
-_launches = 0
 
 
 def launch_count() -> int:
     """Strain launches, of every grid solver, since the last
     :func:`reset_launch_count`."""
-    return _launches
+    return profiling.count("grid_strain")
 
 
 def reset_launch_count() -> None:
-    global _launches
-    _launches = 0
+    profiling.reset_count("grid_strain")
 
 
 def add_launches(n: int) -> None:
     """Count ``n`` strain launches that a solver's C entry made itself
     (``grid_euler_substeps`` and ``grid_verlet_substeps`` launch a
     substep's sweeps)."""
-    global _launches
-    _launches += n
+    profiling.add("grid_strain", n)
 
 
 def sweeps(cfg: SimConfig) -> int:

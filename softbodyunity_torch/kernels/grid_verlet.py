@@ -30,6 +30,7 @@ from ..core.config import SimConfig, Solver
 from ..core.state import State
 from ..core.topology import EDGE_BEND, EDGE_SHEAR, Topology
 from ..solver.collide import SPHERE_CONTACT_SHELL
+from ..utils import profiling
 from . import grid_features, grid_strain
 from .blocks import self_collision_planes_cuda
 from .grid_features import (FINISH_ARGTYPES, CudaFeatures, FeatParamsStruct,
@@ -39,17 +40,14 @@ from .grid_scene import (CollidersStruct, WindStruct, check_input,
 from .grid_strain import CudaStrain
 from .stencil import _offsets, from_planes, to_planes
 
-_launches = 0
-
 
 def launch_count() -> int:
     """Kernel launches since the last :func:`reset_launch_count`."""
-    return _launches
+    return profiling.count("grid_verlet")
 
 
 def reset_launch_count() -> None:
-    global _launches
-    _launches = 0
+    profiling.reset_count("grid_verlet")
 
 
 def launches_per_substep(cfg: SimConfig) -> int:
@@ -164,7 +162,6 @@ def make_cuda_step(top: Topology, cfg: SimConfig):
     w = cfg.wind
 
     def fn(state: State, dt: float, n_substeps: int, top=None) -> State:
-        global _launches
         colliders = sc.colliders.args(sc.colliders.built if top is None
                                       else top)
         check_input("state.x", state.x, (n, 3), device)
@@ -208,7 +205,7 @@ def make_cuda_step(top: Topology, cfg: SimConfig):
                     f_ext = sc_force(x[buffers(k0, strain is not None)[0]])
                 err = substeps(ref, k0, n_run, int(k0 + n_run == n_substeps),
                                _ptr(f_ext), count)
-                _launches += launched.value
+                profiling.add("grid_verlet", launched.value)
                 check_launch(err, "grid_verlet substeps", error_string)
                 if strain:   # one strain launch a substep, counted there too
                     grid_strain.add_launches(n_run)

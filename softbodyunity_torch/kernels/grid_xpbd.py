@@ -32,6 +32,7 @@ from ..core.config import SimConfig, Solver
 from ..core.state import State
 from ..core.topology import EDGE_BEND, EDGE_SHEAR, Topology
 from ..solver.collide import SPHERE_CONTACT_SHELL
+from ..utils import profiling
 from . import grid_features, grid_strain
 from .blocks import self_collision_planes_cuda
 from .grid_features import (FINISH_ARGTYPES, CudaFeatures, FeatParamsStruct,
@@ -43,17 +44,15 @@ from .grid_strain import CudaStrain
 from .stencil import (_valid_mask, _xpbd_offsets, from_planes, jacobi_count,
                       to_planes)
 
-_launches = 0
 
 def launch_count() -> int:
     """Kernel launches (predict and sweep) since the last
     :func:`reset_launch_count`."""
-    return _launches
+    return profiling.count("grid_xpbd")
 
 
 def reset_launch_count() -> None:
-    global _launches
-    _launches = 0
+    profiling.reset_count("grid_xpbd")
 
 
 def jacobi_launches(cfg: SimConfig) -> int:
@@ -187,7 +186,6 @@ def make_cuda_step(top: Topology, cfg: SimConfig):
     tearing = cfg.tear.enabled
 
     def fn(state: State, dt: float, n_substeps: int, top=None) -> State:
-        global _launches
         colliders = sc.colliders.args(sc.colliders.built if top is None
                                       else top)
         check_input("state.x", state.x, (n, 3), device)
@@ -246,24 +244,24 @@ def make_cuda_step(top: Topology, cfg: SimConfig):
                        _ptr(feat.scale), _ptr(feat.scale_out)) if feat
                       else (None,) * 4),
                     int(k == 0), count)
-                _launches += launched.value
+                profiling.add("grid_xpbd", launched.value)
                 check_launch(err, "grid_xpbd substep", error_string)
                 if feat:
                     feat.swap()
                 if strain:
                     # sweeps from xp + delta; the last projects the contact
                     # once more and runs the epilogue
-                    _launches += strain.launch(
+                    profiling.add("grid_xpbd", strain.launch(
                         feat.alive if feat else None,
                         feat.scale if feat else None,
                         x.data_ptr(), d_last.data_ptr(), flag.data_ptr(),
                         *colliders, x_out.data_ptr(), v.data_ptr(), dt, mu,
-                        1.0 - mu, SPHERE_CONTACT_SHELL, stream)
+                        1.0 - mu, SPHERE_CONTACT_SHELL, stream))
                 x, x_out = x_out, x
             if feat:
                 if n_substeps > 0:
                     feat.launch_finish(x, table, stream)
-                    _launches += 1
+                    profiling.add("grid_xpbd", 1)
                 edge_alive, rest_scale = feat.end(state)
         x3, v3 = from_planes(x), from_planes(v)
         return State(x=x3, v=v3, x_prev=x3 - dt * v3, edge_alive=edge_alive,

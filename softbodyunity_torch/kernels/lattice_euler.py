@@ -22,22 +22,20 @@ import torch
 from ..core.config import SimConfig, Solver
 from ..core.state import State
 from ..core.topology import Topology
+from ..utils import profiling
 from .grid_scene import (CollidersStruct, WindStruct, check_input,
                          check_launch)
 from .lattice import from_planes, pack_lattice_scene, to_planes, use_volume
-
-_launches = 0
 
 
 def launch_count() -> int:
     """Kernel launches (integrate, tet and gather passes) since the last
     :func:`reset_launch_count`."""
-    return _launches
+    return profiling.count("lattice_euler")
 
 
 def reset_launch_count() -> None:
-    global _launches
-    _launches = 0
+    profiling.reset_count("lattice_euler")
 
 
 def launches_per_substep(top: Topology, cfg: SimConfig) -> int:
@@ -119,7 +117,6 @@ def make_cuda_step(top: Topology, cfg: SimConfig):
     substep, error_string = _launchers()
 
     def fn(state: State, dt: float, n_substeps: int, top=None) -> State:
-        global _launches
         contact = sc.colliders.args(sc.colliders.built if top is None
                                     else top)
         check_input("state.x", state.x, (n, 3), device)
@@ -149,7 +146,7 @@ def make_cuda_step(top: Topology, cfg: SimConfig):
                                 ctypes.byref(launched))
             for _ in range(n_substeps):
                 err = substep(ref, qref, count)
-                _launches += launched.value
+                profiling.add("lattice_euler", launched.value)
                 check_launch(err, "lattice_euler substep", error_string)
         x, v = from_planes(planes[q.x]), from_planes(planes[q.v])
         return State(x=x, v=v, x_prev=x - dt * v)

@@ -26,23 +26,21 @@ from ..core.config import SimConfig, Solver
 from ..core.state import State
 from ..core.topology import Topology
 from ..solver.collide import SPHERE_CONTACT_SHELL
+from ..utils import profiling
 from .grid_scene import (CollidersStruct, WindStruct, check_input,
                          check_launch)
 from .lattice import from_planes, pack_lattice_scene, to_planes, use_volume
-
-_launches = 0
 
 
 def launch_count() -> int:
     """Kernel launches (velocity estimate, integrate, tet and gather passes)
     since the last
     :func:`reset_launch_count`."""
-    return _launches
+    return profiling.count("lattice_verlet")
 
 
 def reset_launch_count() -> None:
-    global _launches
-    _launches = 0
+    profiling.reset_count("lattice_verlet")
 
 
 def launches_per_substep(top: Topology, cfg: SimConfig) -> int:
@@ -124,7 +122,6 @@ def make_cuda_step(top: Topology, cfg: SimConfig):
     substep, error_string = _launchers()
 
     def fn(state: State, dt: float, n_substeps: int, top=None) -> State:
-        global _launches
         contact = sc.colliders.args(sc.colliders.built if top is None
                                     else top)
         check_input("state.x", state.x, (n, 3), device)
@@ -153,7 +150,7 @@ def make_cuda_step(top: Topology, cfg: SimConfig):
                                 ctypes.byref(launched))
             for k in range(n_substeps):
                 err = substep(ref, qref, int(k == 0), count)
-                _launches += launched.value
+                profiling.add("lattice_verlet", launched.value)
                 check_launch(err, "lattice_verlet substep", error_string)
         x3, xp3 = from_planes(planes[q.x]), from_planes(planes[q.xp])
         return State(x=x3, v=(x3 - xp3) / dt, x_prev=xp3)

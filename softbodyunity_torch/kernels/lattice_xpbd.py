@@ -24,22 +24,20 @@ from ..core.config import SimConfig, Solver
 from ..core.state import State
 from ..core.topology import Topology
 from ..solver.collide import SPHERE_CONTACT_SHELL
+from ..utils import profiling
 from .grid_scene import (CollidersStruct, WindStruct, check_input,
                          check_launch)
 from .lattice import from_planes, pack_lattice_scene, to_planes
-
-_launches = 0
 
 
 def launch_count() -> int:
     """Kernel launches (predict, constraint and gather passes) since the
     last :func:`reset_launch_count`."""
-    return _launches
+    return profiling.count("lattice_xpbd")
 
 
 def reset_launch_count() -> None:
-    global _launches
-    _launches = 0
+    profiling.reset_count("lattice_xpbd")
 
 
 def launches_per_substep(top: Topology, cfg: SimConfig) -> int:
@@ -118,7 +116,6 @@ def make_cuda_step(top: Topology, cfg: SimConfig):
     substep, error_string = _launchers()
 
     def fn(state: State, dt: float, n_substeps: int, top=None) -> State:
-        global _launches
         contact = sc.colliders.args(sc.colliders.built if top is None
                                     else top)
         check_input("state.x", state.x, (n, 3), device)
@@ -157,7 +154,7 @@ def make_cuda_step(top: Topology, cfg: SimConfig):
             ref, count = ctypes.byref(args), ctypes.byref(launched)
             for _ in range(n_substeps):
                 err = substep(ref, x.data_ptr(), x_out.data_ptr(), count)
-                _launches += launched.value
+                profiling.add("lattice_xpbd", launched.value)
                 check_launch(err, "lattice_xpbd substep", error_string)
                 x, x_out = x_out, x
         x3, v3 = from_planes(x), from_planes(v)

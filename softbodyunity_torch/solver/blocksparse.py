@@ -9,7 +9,9 @@ operations in the same order:
 2. per tile, an axis-aligned bounding box;
 3. tile pairs whose bbox gap exceeds ``radius`` contain no interacting pair
    and are skipped; each tile keeps its ``block_partners`` candidate tiles
-   (a budget overflow is counted, :func:`self_collision_block_diagnostics`);
+   (a budget overflow is counted, :func:`dropped_pairs`, by
+   :func:`self_collision_block_diagnostics` and the pair kernel's counting
+   launch);
 4. each surviving (tile, partner) pair runs the repulsion rule
    ``w(d) * (xi - xj)`` on its ``blk x blk`` vertex pairs.
 
@@ -26,6 +28,7 @@ from __future__ import annotations
 import torch
 
 from ..core.config import SelfCollisionParams
+from ..utils import profiling
 
 BLOCK = 256           # default vertices per tile (SelfCollisionParams.block_size)
 _MORTON_BITS = 10     # 1024^3 virtual grid
@@ -74,13 +77,15 @@ def _sorted_tiles(x: torch.Tensor, cell_size: float, blk: int = BLOCK):
 def _tile_partners(xb, valid, radius: float, k: int, xb_j=None,
                    valid_j=None):
     """Per-tile partner tiles by bbox gap: ``([B, K] ids, [B, K] valid,
-    overflow)``.
+    [B, Bj] interact)``.
 
-    A tile pair is a candidate iff its per-axis bbox gap distance is at most
-    ``radius`` (a superset of the interacting pairs).  ``overflow`` counts
-    the candidate pairs the K budget drops (0: the force is exactly the
-    dense rule's).  With ``xb_j``/``valid_j`` the search is rectangular:
-    i-tiles from ``xb``, partners from the second tile array."""
+    A tile pair is a candidate (``interact``) iff its per-axis bbox gap
+    distance is at most ``radius`` (a superset of the interacting pairs).
+    :func:`dropped_pairs` counts the candidate pairs the K budget drops
+    (the JAX package's third result; 0: the force is exactly the dense
+    rule's), only where it is read.  With ``xb_j``/``valid_j`` the search
+    is rectangular: i-tiles from ``xb``, partners from the second tile
+    array."""
     big = 1e18
     mn = torch.amin(torch.where(valid[..., None], xb, big), dim=1)     # [B,3]
     mx = torch.amax(torch.where(valid[..., None], xb, -big), dim=1)
@@ -101,8 +106,14 @@ def _tile_partners(xb, valid, radius: float, k: int, xb_j=None,
     idx = torch.argsort((~interact).to(torch.int32), dim=1,
                         stable=True)[:, :k]                        # [B,K]
     pvalid = torch.gather(interact, 1, idx)
-    overflow = interact.sum() - pvalid.sum()
-    return idx, pvalid, overflow
+    return idx, pvalid, interact
+
+
+def dropped_pairs(interact: torch.Tensor,
+                  pvalid: torch.Tensor) -> torch.Tensor:
+    """The candidate tile pairs of :func:`_tile_partners` that the partner
+    budget left out, a 0-dim tensor on their device."""
+    return interact.sum() - pvalid.sum()
 
 
 def self_collision_forces_block(x: torch.Tensor,
@@ -123,11 +134,17 @@ def self_collision_forces_block_dual(xi: torch.Tensor, xall: torch.Tensor,
     i side, so no pad pair is ever coincident and no real vertex is within
     ``radius`` of a pad."""
     ni = xi.shape[0]
+    sp = profiling.begin("blocksparse.sort") if profiling.on else -1
     xb_i, valid_i, order_i, _ = _sorted_tiles(xi, p.cell_size, p.block_size)
     xb_g, valid_g, _, b_g = _sorted_tiles(xall, p.cell_size, p.block_size)
+    if sp >= 0:
+        profiling.end(sp)
+    sp = profiling.begin("blocksparse.partners") if profiling.on else -1
     k = min(p.block_partners, b_g)
     partners, pvalid, _ = _tile_partners(
         xb_i, valid_i, p.radius, k, xb_j=xb_g, valid_j=valid_g)
+    if sp >= 0:
+        profiling.end(sp)
     eps = 1e-3 * p.radius
     xg = torch.where(valid_g[..., None], xb_g, 1e6)
     xiv = torch.where(valid_i[..., None], xb_i, -1e6)
@@ -151,7 +168,8 @@ def self_collision_block_diagnostics(x: torch.Tensor,
     proves the force is exactly the dense rule's for this state."""
     xb, valid, _, b = _sorted_tiles(x, p.cell_size, p.block_size)
     k = min(p.block_partners, b)
-    _, pvalid, overflow = _tile_partners(xb, valid, p.radius, k)
+    _, pvalid, interact = _tile_partners(xb, valid, p.radius, k)
+    overflow = dropped_pairs(interact, pvalid)
     return {"candidate_pairs": pvalid.sum() + overflow,
             "dropped_pairs": overflow}
 
@@ -166,7 +184,8 @@ def self_collision_block_dual_diagnostics(xi: torch.Tensor,
     xb_i, valid_i, _, _ = _sorted_tiles(xi, p.cell_size, p.block_size)
     xb_g, valid_g, _, b_g = _sorted_tiles(xall, p.cell_size, p.block_size)
     k = min(p.block_partners, b_g)
-    _, pvalid, overflow = _tile_partners(xb_i, valid_i, p.radius, k,
+    _, pvalid, interact = _tile_partners(xb_i, valid_i, p.radius, k,
                                          xb_j=xb_g, valid_j=valid_g)
+    overflow = dropped_pairs(interact, pvalid)
     return {"candidate_pairs": pvalid.sum() + overflow,
             "dropped_pairs": overflow, "sum_nvalid": pvalid.sum()}

@@ -12,6 +12,7 @@ from __future__ import annotations
 import torch
 
 from ..core.config import SimConfig
+from ..utils import profiling
 from .blocksparse import self_collision_forces_block
 
 # Most bytes of the [rows, N, 3] difference tensor the dense rule forms at
@@ -69,6 +70,10 @@ def self_collision_planes(cfg: SimConfig):
             "'hash', 'dense_mxu', or 'dense'")
 
     def planes(x3):
-        return rule(x3.reshape(3, -1).t()).t().reshape(x3.shape).contiguous()
+        sp = profiling.begin("selfcollide") if profiling.on else -1
+        f = rule(x3.reshape(3, -1).t()).t().reshape(x3.shape).contiguous()
+        if sp >= 0:
+            profiling.end(sp)
+        return f
 
     return planes

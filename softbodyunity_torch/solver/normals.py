@@ -14,6 +14,8 @@ from typing import Optional
 
 import torch
 
+from ..utils import profiling
+
 
 def incident_faces(triangles: torch.Tensor, n_vertices: int) -> torch.Tensor:
     """``[N, D]`` int64: row v lists the faces that have v as a corner, in
@@ -49,13 +51,20 @@ def vertex_normals(triangles: torch.Tensor, x: torch.Tensor,
     device."""
     if table is None:
         table = incident_faces(triangles, x.shape[0])
+    sp = profiling.begin("normals.faces") if profiling.on else -1
     p0 = x[triangles[:, 0]]
     p1 = x[triangles[:, 1]]
     p2 = x[triangles[:, 2]]
     fn = torch.linalg.cross(p1 - p0, p2 - p0)  # |fn| = 2*area: area weighting
     fn = torch.cat([fn, torch.zeros_like(fn[:1])])   # the padding face
+    if sp >= 0:
+        profiling.end(sp)
+    sp = profiling.begin("normals.sum") if profiling.on else -1
     out = torch.zeros_like(x)
     for k in range(table.shape[1]):
         out = out + fn[table[:, k]]
     norm = torch.linalg.vector_norm(out, dim=1)
-    return out / torch.clamp_min(norm, 1e-12)[:, None]
+    out = out / torch.clamp_min(norm, 1e-12)[:, None]
+    if sp >= 0:
+        profiling.end(sp)
+    return out

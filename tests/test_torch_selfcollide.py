@@ -86,7 +86,8 @@ def test_sort_tiles_and_partners_bit_equal_to_jax(n, blk):
     for got, want in ((tb, jb), (tv, jv), (to, jo)):
         np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     k = min(tp.block_partners, b)
-    got = blocksparse._tile_partners(tb, tv, tp.radius, k)
+    idx, pvalid, interact = blocksparse._tile_partners(tb, tv, tp.radius, k)
+    got = (idx, pvalid, blocksparse.dropped_pairs(interact, pvalid))
     want = jblocks._tile_partners(jb, jv, jp.radius, k)
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
