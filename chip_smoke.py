@@ -23,11 +23,11 @@ Euler and Verlet wrappers launch a substep from one; a lattice XPBD sweep is a
 constraint pass (each edge and tet once) and a gather pass, a lattice Euler
 or Verlet volume projection a tet pass (each tet once) and a gather pass.
 
-The seventh path is self-collision on grid cloth: each substep the Morton
-sort and the partner search (PyTorch ops on the card), one block_pairs
-launch that writes the repulsion force plane (each warp skipping the 32 x
-32 sub-blocks out of reach, exactly), and one grid_euler launch that adds
-it to the spring forces.
+The seventh path is self-collision on grid cloth: each substep one
+ctypes call builds the Morton tiles and their partners on the card (CUDA
+kernels and CUB's radix sort) and launches block_pairs, which writes the
+repulsion force plane (each warp skipping the 32 x 32 sub-blocks out of
+reach, exactly), and one grid_euler launch adds it to the spring forces.
 
 Then the grids past the TPU's whole-VMEM cap (its row-tiled kernels) and the
 tear and plastic planes, on the same three grid kernels (their feature

@@ -2,13 +2,16 @@
 ``csrc/block_pairs.cu``, and the self-collision force plane of the grid
 paths.
 
-Counterpart of ``softbodyunity_tpu/kernels/pallas_blocks.py``: the Morton
-sort, the tiles and the partner search run as PyTorch ops on the device
-(:mod:`softbodyunity_torch.solver.blocksparse`, as they run in XLA around
-the Pallas kernel), the tail of the last tile is padded at far coordinates,
-and one launch of the pair kernel writes the forces straight into vertex
-order.  Nothing here waits for the device: the partner counts stay on it and
-the kernel reads them there.  The kernel's plain version is
+Counterpart of ``softbodyunity_tpu/kernels/pallas_blocks.py``.  Each call is
+one ``ctypes`` call, ``block_pairs_build_forces``, which launches on the
+card the Morton sort (an axis minimum, the keys, CUB's stable radix sort),
+the tiles with the tail of the last at far coordinates, their bounding
+boxes and the partner search, then the pair kernel, which writes the forces
+straight into vertex order.  Nothing here waits for the device.  What those
+kernels build is :func:`pair_inputs`' to the bit: the plain PyTorch version
+(:mod:`softbodyunity_torch.solver.blocksparse`, as it runs in XLA around
+the Pallas kernel), which the tests and ``chip_smoke.py`` read.  The pair
+kernel's plain version is
 :func:`softbodyunity_torch.solver.blocksparse.self_collision_forces_block`.
 The dual form (:func:`make_block_pairs_dual`, TPU kernel #11) takes the
 i-tiles from one rank's rows and the partner tiles from the whole gathered
@@ -21,6 +24,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import types
 
 import torch
 
@@ -28,7 +32,7 @@ from ..core.config import SelfCollisionParams, SimConfig
 from ..solver.blocksparse import _sorted_tiles, _tile_partners
 from ..solver.forces import self_collision_planes
 from ..utils import profiling
-from .grid_scene import check_input, check_launch
+from .grid_scene import check_launch
 
 # Partner tiles one CTA takes: a crowded tile's partners spread over
 # ceil(nvalid / CHUNK) CTAs (csrc/block_pairs.cu, "Design").
@@ -41,10 +45,13 @@ CHUNK = 4
 SUB_BLOCK = 32
 CULL_MARGIN = 2.0 ** -10
 
-# The two forms, each counting its launches under its name; the halo paths
-# launch the dual form from one thread per rank (parallel/ring.py::
-# LocalRing), and the recorder's counters are thread-safe.
+# The two forms, each counting its launches under its name and its on-card
+# builds of the inputs under "<form>.tiles"; the halo paths launch the dual
+# form from one thread per rank (parallel/ring.py::LocalRing), and the
+# recorder's counters are thread-safe.
 FORMS = ("block_pairs", "block_pairs_dual")
+# axis_min_kernel's CTAs at most, each a partial row (csrc/block_pairs.cu)
+MIN_CTAS = 1024
 # What the kernel's counting instantiation adds up while the recorder is on,
 # under "<form>.<name>", in the order of csrc/block_pairs.cu's Counter: the
 # 32 x 32 sub-block pairs of the partners swept and those the cull kept,
@@ -62,12 +69,38 @@ def launch_count(form: str = "block_pairs") -> int:
     return profiling.count(form)
 
 
+def build_count(form: str = "block_pairs") -> int:
+    """On-card builds of the pair kernel's inputs by ``form`` since the
+    last :func:`reset_launch_count`: one a call, as its launches."""
+    return profiling.count(f"{form}.tiles")
+
+
 def reset_launch_count() -> None:
-    profiling.reset_count(*FORMS)
+    profiling.reset_count(*FORMS, *(f"{form}.tiles" for form in FORMS))
 
 
 def _count(form: str) -> None:
     profiling.add(form)
+
+
+class _Build(ctypes.Structure):
+    """``csrc/block_pairs.cu::PairBuild`` field by field."""
+
+    _fields_ = [
+        *[(name, ctypes.c_void_p) for name in (
+            "min_partial", "min_arrivals", "origin")],
+        *[(name, ctypes.c_void_p * 2) for name in ("keys", "vals")],
+        ("sort_temp", ctypes.c_void_p),
+        ("sort_temp_bytes", ctypes.c_size_t),
+        *[(name, ctypes.c_void_p) for name in (
+            "xi_tiles", "xj_tiles", "box_i", "box_j", "partners", "nvalid",
+            "order", "partial", "arrivals")],
+        *[(name, ctypes.c_int) for name in (
+            "n", "n_j", "blk", "n_tiles", "n_j_tiles", "k_budget", "chunk",
+            "min_ctas")],
+        *[(name, ctypes.c_float) for name in (
+            "half_cell", "cell", "radius2", "eps2", "c1", "c2", "reach2")],
+    ]
 
 
 @functools.cache
@@ -75,33 +108,46 @@ def _launcher():
     from .build import load_library
 
     lib = load_library("block_pairs")
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn = lib.block_pairs_dual_forces
+    p, ll = ctypes.c_void_p, ctypes.c_longlong
+    size = lib.block_pairs_build_size
+    size.restype = ctypes.c_int
+    if size() != ctypes.sizeof(_Build):
+        raise RuntimeError(
+            f"block_pairs: the C build struct has {size()} bytes, its ctypes "
+            f"mirror {ctypes.sizeof(_Build)}")
+    fn = lib.block_pairs_build_forces
     fn.argtypes = [
-        p, p, p, p, i, p,      # xi_tiles, xj_tiles, nvalid, partners,
-                               # p_stride, order
-        i, i, i, i, i,         # n, n_tiles, k_budget, chunk, blk
-        p, p, p,               # partial, arrivals, f_out
-        f, f, f, f,            # eps2, c1, c2, reach2
-        p, p, i, i,            # counters, interact (or both null),
-                               # its row stride, partner tiles
-        p,                     # stream
+        ctypes.POINTER(_Build),   # the struct
+        p, ll, ll,                # xi, its vertex and coordinate strides
+        p, ll, ll,                # xj (null: the single form), strides
+        p,                        # f_out
+        p, p,                     # counters, interact (or both null)
+        p,                        # stream
     ]
     fn.restype = ctypes.c_int
+    lib.block_pairs_sort_bytes.argtypes = [ctypes.c_int]
+    lib.block_pairs_sort_bytes.restype = ll
     lib.block_pairs_error_string.argtypes = [ctypes.c_int]
     lib.block_pairs_error_string.restype = ctypes.c_char_p
-    return fn, lib.block_pairs_error_string
+    return fn, lib.block_pairs_sort_bytes, lib.block_pairs_error_string
 
 
-def _pair_launch(p: SelfCollisionParams, n: int, n_j: int, device, form):
-    """Check the parameters, allocate the scratch of one launch at a time
-    for the tiles of ``n`` vertices against the partner tiles of ``n_j``,
-    and return ``launch(xi_tiles, xj_tiles, nvalid, partners, order,
-    interact) -> [3, n]``, which launches the kernel once on the tensors'
-    stream (its inputs: :func:`pair_inputs`).  While the recorder is on
-    (:mod:`softbodyunity_torch.utils.profiling`) the launch is the
-    kernel's counting instantiation, which adds :data:`COUNTERS` into a
-    buffer allocated here; the forces are the same to the bit."""
+def _pair_launch(p: SelfCollisionParams, n: int, n_j: int | None, device,
+                 form):
+    """Check the parameters, allocate the scratch of one call at a time for
+    the tiles of ``n`` vertices against those of ``n_j`` (None: the single
+    form, against themselves), and return ``launch(xi, xj) -> [3, n]``,
+    which builds the inputs and launches the pair kernel from one C call on
+    the current stream (``xj`` None in the single form).  ``launch.scratch``
+    holds what the build wrote (``xi_tiles``, ``xj_tiles``, ``box_i``,
+    ``box_j``, ``partners``, ``nvalid``, ``order`` and, once a counting call
+    ran, ``interact``): :func:`pair_inputs`' tensors to the bit.
+    ``launch.sweep(pair_inputs(...))`` runs the pair kernel alone over the
+    plain build's tensors, copied into the scratch.  While the
+    recorder is on (:mod:`softbodyunity_torch.utils.profiling`) the partner
+    search and the pair kernel are their counting instantiations, which add
+    :data:`COUNTERS` into a buffer allocated here; the forces are the same
+    to the bit."""
     device = torch.device(device)
     if device.type != "cuda":
         raise ValueError(f"the {form} kernel runs on a CUDA device, not "
@@ -113,50 +159,95 @@ def _pair_launch(p: SelfCollisionParams, n: int, n_j: int, device, form):
     if not p.stiffness >= 0.0:
         raise ValueError(f"stiffness {p.stiffness}: the kernel's cull takes "
                          "stiffness >= 0 (w == 0 out of reach)")
+    dual = n_j is not None
+    n_j = n_j if dual else n
     b, b_j = -(-n // blk), -(-n_j // blk)
     k = min(p.block_partners, b_j)
-    n_chunks = -(-k // CHUNK)
-    partial = torch.empty((n_chunks, b, 3, blk), dtype=torch.float32,
-                          device=device)
-    arrivals = torch.zeros((b,), dtype=torch.int32, device=device)
-    eps2 = (1e-3 * p.radius) ** 2
-    c1 = p.stiffness * p.radius
-    c2 = p.stiffness
-    reach2 = cull_reach2(p.radius)
+    fn, sort_bytes, error_string = _launcher()
+    with torch.cuda.device(device):
+        temp = max(sort_bytes(n), sort_bytes(n_j))
+    if temp < 0:
+        raise RuntimeError(f"{form}: CUB's radix sort refused {max(n, n_j)} "
+                           "keys")
+
+    def empty(*shape, dtype=torch.float32):
+        return torch.empty(shape, dtype=dtype, device=device)
+
+    n_max = max(n, n_j)
+    s = types.SimpleNamespace(
+        xi_tiles=empty(b, 3, blk), box_i=empty(b, 6),
+        partners=empty(b, k, dtype=torch.int64),
+        nvalid=empty(b, dtype=torch.int64), order=empty(n, dtype=torch.int64),
+        interact=None,
+        # the scratch only the card reads
+        min_partial=empty(MIN_CTAS, 3),
+        min_arrivals=torch.zeros(1, dtype=torch.int32, device=device),
+        origin=empty(3),
+        keys=[empty(n_max, dtype=torch.int32) for _ in range(2)],
+        vals=[empty(n_max, dtype=torch.int32) for _ in range(2)],
+        sort_temp=empty(max(temp, 1), dtype=torch.uint8),
+        partial=empty(-(-k // CHUNK), b, 3, blk),
+        arrivals=torch.zeros(b, dtype=torch.int32, device=device))
+    s.xj_tiles = empty(b_j, 3, blk) if dual else s.xi_tiles
+    s.box_j = empty(b_j, 6) if dual else s.box_i
+    build = _Build(
+        **{name: getattr(s, name).data_ptr() for name in (
+            "min_partial", "min_arrivals", "origin", "sort_temp", "xi_tiles",
+            "xj_tiles", "box_i", "box_j", "partners", "nvalid", "order",
+            "partial", "arrivals")},
+        keys=(ctypes.c_void_p * 2)(*(t.data_ptr() for t in s.keys)),
+        vals=(ctypes.c_void_p * 2)(*(t.data_ptr() for t in s.vals)),
+        sort_temp_bytes=temp,
+        n=n, n_j=n_j, blk=blk, n_tiles=b, n_j_tiles=b_j, k_budget=k,
+        chunk=CHUNK, min_ctas=MIN_CTAS, half_cell=0.5 * p.cell_size,
+        cell=p.cell_size, radius2=p.radius * p.radius,
+        eps2=(1e-3 * p.radius) ** 2, c1=p.stiffness * p.radius,
+        c2=p.stiffness, reach2=cull_reach2(p.radius))
+    s.build = build
+    build_ref = ctypes.byref(build)
     counters = profiling.device_counters(
         [f"{form}.{name}" for name in COUNTERS], device)
-    fn, error_string = _launcher()
+    tiles = f"{form}.tiles"
 
-    def launch(xi_tiles, xj_tiles, nvalid, partners, order, interact):
+    def run(dev, xi, xj):
+        """One C call on ``dev``'s current stream: ``xi`` and ``xj`` are
+        (pointer, vertex stride, coordinate stride), a null ``xi`` pointer
+        leaving the build out."""
         counting = profiling.on
-        sp = profiling.begin("blocks.launch") if counting else -1
-        dev = xi_tiles.device
-        check_input("xi_tiles", xi_tiles, (b, 3, blk), dev)
-        check_input("xj_tiles", xj_tiles, (b_j, 3, blk), dev)
-        if partners.stride(1) != 1 or order.stride(0) != 1:
-            raise ValueError("partners and order must have unit inner stride")
-        if counting and (interact.dtype != torch.bool
-                         or tuple(interact.shape) != (b, b_j)
-                         or interact.stride(1) != 1):
-            raise ValueError(
-                f"interact: {interact.dtype} {tuple(interact.shape)}, "
-                f"expected bool {(b, b_j)} with unit inner stride")
+        if counting and s.interact is None:
+            s.interact = empty(b, b_j, dtype=torch.bool)
         out = torch.empty((3, n), dtype=torch.float32, device=dev)
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
             check_launch(fn(
-                xi_tiles.data_ptr(), xj_tiles.data_ptr(), nvalid.data_ptr(),
-                partners.data_ptr(), partners.stride(0), order.data_ptr(), n,
-                b, k, CHUNK, blk, partial.data_ptr(), arrivals.data_ptr(),
-                out.data_ptr(), eps2, c1, c2, reach2,
+                build_ref, *xi, *xj, out.data_ptr(),
                 counters.data_ptr() if counting else None,
-                interact.data_ptr() if counting else None,
-                interact.stride(0), b_j, stream), form, error_string)
+                s.interact.data_ptr() if counting else None,
+                stream), form, error_string)
+        return out
+
+    def launch(xi, xj=None):
+        sp = profiling.begin("blocks.launch") if profiling.on else -1
+        out = run(xi.device, (xi.data_ptr(), *xi.stride()),
+                  (xj.data_ptr(), *xj.stride()) if dual else (None, 0, 0))
         _count(form)
+        profiling.add(tiles)
         if sp >= 0:
             profiling.end(sp)
         return out
 
+    def sweep(inputs):
+        """The pair kernel alone over ``inputs`` (:func:`pair_inputs`'),
+        copied into the scratch: the forces of the plain build."""
+        if profiling.on and s.interact is None:
+            s.interact = empty(b, b_j, dtype=torch.bool)
+        for name, t in zip(("xi_tiles", "xj_tiles", "nvalid", "partners",
+                            "order", "interact"), inputs):
+            if getattr(s, name) is not None:
+                getattr(s, name).copy_(t)
+        return run(device, (None, 0, 0), (None, 0, 0))
+
+    launch.scratch, launch.sweep = s, sweep
     return launch
 
 
@@ -177,67 +268,55 @@ def _check_positions(name: str, x: torch.Tensor, n: int, device) -> None:
 
 
 def make_block_pairs(p: SelfCollisionParams, n: int, device):
-    """Build ``fn(x [n, 3]) -> [3, n]`` float32 force planes, one launch of
-    the pair kernel per call, for ``n`` vertices on the CUDA ``device``.
-    ``x`` may be a view (the grid paths pass their ``[3, ny, nx]`` planes
-    transposed).  The kernel's scratch is allocated once, here."""
+    """Build ``fn(x [n, 3]) -> [3, n]`` float32 force planes, one
+    ``ctypes`` call per call (the on-card build of the inputs and the pair
+    kernel), for ``n`` vertices on the CUDA ``device``.  ``x`` may be any
+    strided view (the grid paths pass their ``[3, ny, nx]`` planes
+    transposed); the kernels read it where it lies.  The scratch is
+    allocated once, here: ``fn.scratch`` holds what the last call built
+    (:func:`_pair_launch`)."""
     device = torch.device(device)
-    launch = _pair_launch(p, n, n, device, "block_pairs")
+    launch = _pair_launch(p, n, None, device, "block_pairs")
 
     def fn(x: torch.Tensor) -> torch.Tensor:
         _check_positions("x", x, n, device)
-        return launch(*pair_inputs(p, x))
+        return launch(x)
 
+    fn.scratch, fn.sweep = launch.scratch, launch.sweep
     return fn
-
-
-def _sorted(x: torch.Tensor, cell_size: float, blk: int):
-    """:func:`.blocksparse._sorted_tiles` in the span
-    ``blocksparse.sort``."""
-    sp = profiling.begin("blocksparse.sort") if profiling.on else -1
-    tiles = _sorted_tiles(x, cell_size, blk)
-    if sp >= 0:
-        profiling.end(sp)
-    return tiles
 
 
 def pair_inputs(p: SelfCollisionParams, xi: torch.Tensor,
                 xall: torch.Tensor | None = None):
     """The pair kernel's inputs for the forces on ``xi`` [ni, 3] from
-    ``xall`` [N, 3] (the single form without it): ``(xi_tiles, xj_tiles,
-    nvalid, partners, order, interact)``, each side Morton-sorted into
-    ``[B, 3, blk]`` tiles (the TPU kernel's layout) with the tail of its
-    last tile at far coordinates (+1e6; the dual form's i-tiles at -1e6),
-    the partner tiles by bbox gap within the budget, ``xi``'s sort order,
-    and the ``[B, Bj]`` interacting tile pairs, from which the counting
-    launch counts those the budget dropped.  The single form's
-    ``xj_tiles`` is ``xi_tiles``."""
+    ``xall`` [N, 3] (the single form without it), in plain PyTorch:
+    ``(xi_tiles, xj_tiles, nvalid, partners, order, interact)``, each side
+    Morton-sorted into ``[B, 3, blk]`` tiles (the TPU kernel's layout) with
+    the tail of its last tile at far coordinates (+1e6; the dual form's
+    i-tiles at -1e6), the partner tiles by bbox gap within the budget,
+    ``xi``'s sort order, and the ``[B, Bj]`` interacting tile pairs, from
+    which the counting launch counts those the budget dropped.  The single
+    form's ``xj_tiles`` is ``xi_tiles``.  What the card builds in each call
+    of :func:`make_block_pairs` (its ``fn.scratch``) is this, to the bit;
+    the tests and ``chip_smoke.py`` read it, the card path does not."""
     blk = int(p.block_size)
-    xb_i, valid_i, order, _ = _sorted(xi, p.cell_size, blk)
+    xb_i, valid_i, order, _ = _sorted_tiles(xi, p.cell_size, blk)
     if xall is None:
-        sp = profiling.begin("blocksparse.partners") if profiling.on else -1
         k = min(p.block_partners, xb_i.shape[0])
         partners, pvalid, interact = _tile_partners(xb_i, valid_i, p.radius,
                                                     k)
         xi_tiles = torch.where(valid_i[..., None], xb_i, 1e6)
         xi_tiles = xi_tiles.transpose(1, 2).contiguous()
-        nvalid = pvalid.sum(dim=1)
-        if sp >= 0:
-            profiling.end(sp)
-        return xi_tiles, xi_tiles, nvalid, partners, order, interact
-    xb_g, valid_g, _, b_g = _sorted(xall, p.cell_size, blk)
-    sp = profiling.begin("blocksparse.partners") if profiling.on else -1
+        return xi_tiles, xi_tiles, pvalid.sum(dim=1), partners, order, interact
+    xb_g, valid_g, _, b_g = _sorted_tiles(xall, p.cell_size, blk)
     partners, pvalid, interact = _tile_partners(
         xb_i, valid_i, p.radius, min(p.block_partners, b_g), xb_j=xb_g,
         valid_j=valid_g)
     xi_tiles = torch.where(valid_i[..., None], xb_i, -1e6)
     xj_tiles = torch.where(valid_g[..., None], xb_g, 1e6)
-    inputs = (xi_tiles.transpose(1, 2).contiguous(),
-              xj_tiles.transpose(1, 2).contiguous(), pvalid.sum(dim=1),
-              partners, order, interact)
-    if sp >= 0:
-        profiling.end(sp)
-    return inputs
+    return (xi_tiles.transpose(1, 2).contiguous(),
+            xj_tiles.transpose(1, 2).contiguous(), pvalid.sum(dim=1),
+            partners, order, interact)
 
 
 def cull_reach2(radius: float) -> float:
@@ -288,24 +367,25 @@ def make_block_pairs_dual(p: SelfCollisionParams, ni: int, n: int, device):
     """Build ``fn(xi [ni, 3], xall [n, 3]) -> [3, ni]``: the repulsion on
     ``xi`` (one rank's rows of a row-sharded cloth) from every vertex of
     ``xall`` (the gathered cloth, ``xi`` among them), float32 planes in
-    ``xi``'s vertex order, one launch of the pair kernel per call on the
-    CUDA ``device``.  Counterpart of ``pallas_blocks.py:201-230``
+    ``xi``'s vertex order, one ``ctypes`` call per call on the CUDA
+    ``device``.  Counterpart of ``pallas_blocks.py:201-230``
     ``self_collision_forces_block_dual_pallas``: each side is Morton-sorted
-    into its own tiles, the partner budget follows the gathered cloth's tile
-    count, and the pads of the i-tiles sit at -1e6, those of the partner
-    tiles at +1e6.  Its plain version is
-    ``softbodyunity_torch.solver.blocksparse.
+    into its own tiles on the card, the partner search runs rectangular,
+    its budget following the gathered cloth's tile count, and the pads of
+    the i-tiles sit at -1e6, those of the partner tiles at +1e6.  Its plain
+    version is ``softbodyunity_torch.solver.blocksparse.
     self_collision_forces_block_dual``.
-    The scratch is allocated here and serves one launch at a time: build one
-    ``fn`` per rank."""
+    The scratch is allocated here and serves one call at a time: build one
+    ``fn`` per rank.  ``fn.scratch`` holds what the last call built."""
     device = torch.device(device)
     launch = _pair_launch(p, ni, n, device, "block_pairs_dual")
 
     def fn(xi: torch.Tensor, xall: torch.Tensor) -> torch.Tensor:
         _check_positions("xi", xi, ni, device)
         _check_positions("xall", xall, n, device)
-        return launch(*pair_inputs(p, xi, xall))
+        return launch(xi, xall)
 
+    fn.scratch, fn.sweep = launch.scratch, launch.sweep
     return fn
 
 

@@ -16,9 +16,11 @@
 // the i-tiles are the Morton tiles of one rank's rows, the partner tiles
 // those of the whole gathered cloth, two arrays in place of one.  The
 // kernel body is the same; the single form passes one array as both.
-// The Morton sort, the bounding-box partner search and the far-coordinate
-// padding stay in PyTorch (solver/blocksparse.py), as they stay in XLA on
-// the TPU.
+// The Morton sort, the tiles and the bounding-box partner search, which
+// XLA runs around the Pallas kernel on the TPU, run here as the kernels of
+// "The build" below, launched with the pair kernel from one C call
+// (block_pairs_build_forces); their plain versions, bit for bit, are
+// solver/blocksparse.py::_sorted_tiles and ::_tile_partners.
 //
 // Design.  The TPU kernel is one program that walks all tiles in order with
 // the whole tile array in VMEM.  Here a CTA of blk threads (one per vertex of
@@ -101,8 +103,53 @@
 // thread 0 of each CTA adds the CTA's sums with one atomic per counter.
 // The counts sit beside the arithmetic, never in it, so the forces are the
 // plain instantiation's to the bit; that one is the kernel as it was.
+//
+// The build.  Each substep the pair kernel's inputs are built on the card,
+// from the positions where they lie (any strides: the grid paths pass their
+// [3, ny, nx] planes transposed), on the caller's stream and with nothing
+// synchronised, in four steps a side (the dual form sorts both):
+//   1. axis_min_kernel: the per-axis minimum, a NaN winning as in
+//      torch.amin, each CTA's from warp shuffles into a partial row and the
+//      CTA that arrives last (a counter it resets for the next launch)
+//      reducing the rows: origin = min - h, h = float(0.5 cell_size) as
+//      torch rounds the Python scalar;
+//   2. morton_keys_kernel: each vertex's 30-bit Morton key and its index,
+//      as solver/blocksparse.py::morton_ids computes them on the card: an
+//      IEEE subtract and divide (intrinsics, so no FMA forms), floorf, the
+//      float-to-int32 conversion that torch's .to(torch.int32) compiles to
+//      (cvt.rzi: saturating, NaN to 0), the clamp to [0, 1023];
+//   3. cub::DeviceRadixSort::SortPairs over the 30 key bits, stable as
+//      torch.argsort(stable=True) is, so the order is the plain one's to
+//      the bit (a 64k pile holds ~1,000 vertices a Morton cell: the tie
+//      order alone decides which share a tile);
+//   4. gather_tiles_kernel: a CTA a tile and a thread a tile vertex, x in
+//      sorted order into the [B, 3, blk] tiles with the tail at the pad
+//      (+1e6; the dual form's i-tiles -1e6), the permutation as int64, and
+//      the tile's box over its valid vertices, padded as _tile_partners
+//      pads (+-1e18); min and max are exact, so the box is the plain amin
+//      and amax but for the sign of a zero, which the gap's squares drop;
+// then, once,
+//   5. tile_partners_kernel: a CTA an i-tile, its threads over the partner
+//      tiles in chunks of up to 1,024: the box gap per axis (a NaN wins, as
+//      in torch.maximum and clamp_min), its squares summed in the plain
+//      version's order with __fmul_rn / __fadd_rn, against r^2 rounded to
+//      float32 as torch rounds the Python scalar; a CTA-wide count of the
+//      interacting tiles, then a second sweep places them first, in
+//      ascending order, then the rest: the stable argsort's row, all K
+//      columns; nvalid = min(count, K).  The counting instantiation also
+//      writes the row of interacting tiles that block_pairs_kernel<true>
+//      reads for the pairs the budget dropped;
+//   6. block_pairs_kernel, as above.
+// They are bound by their number, not their bytes: a 64k side reads its
+// 768 KB of positions twice and moves ~2 MB of keys, values and tiles,
+// under 2 us at 3.35 TB/s.  The wrapper (kernels/blocks.py::_pair_launch)
+// allocates every buffer once, CUB's temporary storage sized by
+// block_pairs_sort_bytes.
 
 #include <cuda_runtime.h>
+
+#include <algorithm>
+#include <cub/device/device_radix_sort.cuh>
 
 namespace {
 
@@ -288,41 +335,377 @@ __global__ void __launch_bounds__(1024) block_pairs_kernel(
   }
 }
 
+// ---- The build (see "The build" above) ------------------------------------
+
+constexpr int kMortonBits = 10;            // blocksparse._MORTON_BITS
+constexpr int kKeyBits = 3 * kMortonBits;
+constexpr int kMinThreads = 256;
+constexpr int kKeyThreads = 256;
+constexpr int kMaxPartnerThreads = 1024;
+constexpr float kBoxPad = 1e18f;           // _tile_partners' `big`
+
+// torch.amin / amax / maximum on the card: a NaN wins
+__device__ __forceinline__ float min_nan(float a, float b) {
+  return (a != a || a < b) ? a : b;
+}
+__device__ __forceinline__ float max_nan(float a, float b) {
+  return (a != a || a > b) ? a : b;
+}
+
+// The per-axis minimum of m over the CTA, on thread 0 (its warp's lanes
+// exchange first); sm holds a row a warp.  The caller syncs before sm is
+// written again.
+__device__ __forceinline__ void cta_min3(float (&m)[3], float (*sm)[3]) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+#pragma unroll
+    for (int c = 0; c < 3; ++c)
+      m[c] = min_nan(m[c], __shfl_xor_sync(0xffffffffu, m[c], o));
+  }
+  const int w = threadIdx.x >> 5;
+  if ((threadIdx.x & 31) == 0) {
+#pragma unroll
+    for (int c = 0; c < 3; ++c) sm[w][c] = m[c];
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    for (int q = 1; q < static_cast<int>(blockDim.x >> 5); ++q) {
+#pragma unroll
+      for (int c = 0; c < 3; ++c) m[c] = min_nan(m[c], sm[q][c]);
+    }
+  }
+}
+
+// origin[c] = min over the n vertices of x[v * sv + c * sc], less
+// half_cell.  `partial` holds a row of 3 a CTA; `arrivals` is zero before
+// the launch and after it.
+__global__ void __launch_bounds__(kMinThreads) axis_min_kernel(
+    const float* __restrict__ x, long long sv, long long sc, int n,
+    float half_cell, float* __restrict__ partial, int* __restrict__ arrivals,
+    float* __restrict__ origin) {
+  __shared__ float sm[kMinThreads / 32][3];
+  __shared__ bool last;
+  const float kInf = __int_as_float(0x7f800000);
+  float m[3] = {kInf, kInf, kInf};
+  for (long long v = blockIdx.x * static_cast<long long>(blockDim.x) +
+                     threadIdx.x;
+       v < n; v += static_cast<long long>(gridDim.x) * blockDim.x) {
+    const float* p = x + v * sv;
+#pragma unroll
+    for (int c = 0; c < 3; ++c) m[c] = min_nan(m[c], p[c * sc]);
+  }
+  cta_min3(m, sm);
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int c = 0; c < 3; ++c) partial[3 * blockIdx.x + c] = m[c];
+    __threadfence();                        // the row visible device-wide
+    last = atomicAdd(arrivals, 1) == static_cast<int>(gridDim.x) - 1;
+  }
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+#pragma unroll
+  for (int c = 0; c < 3; ++c) m[c] = kInf;
+  for (int b = threadIdx.x; b < static_cast<int>(gridDim.x);
+       b += blockDim.x) {
+#pragma unroll
+    for (int c = 0; c < 3; ++c)
+      m[c] = min_nan(m[c], __ldcg(partial + 3 * b + c));
+  }
+  cta_min3(m, sm);
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int c = 0; c < 3; ++c) origin[c] = __fsub_rn(m[c], half_cell);
+    *arrivals = 0;                          // ready for the next launch
+  }
+}
+
+// Spread the low 10 bits of v two apart (blocksparse._part1by2).
+__device__ __forceinline__ unsigned int part1by2(unsigned int v) {
+  v &= 0x3FFu;
+  v = (v | (v << 16)) & 0x30000FFu;
+  v = (v | (v << 8)) & 0x300F00Fu;
+  v = (v | (v << 4)) & 0x30C30C3u;
+  v = (v | (v << 2)) & 0x9249249u;
+  return v;
+}
+
+__global__ void __launch_bounds__(kKeyThreads) morton_keys_kernel(
+    const float* __restrict__ x, long long sv, long long sc, int n,
+    const float* __restrict__ origin, float cell,
+    unsigned int* __restrict__ keys, int* __restrict__ vals) {
+  const int v = blockIdx.x * blockDim.x + threadIdx.x;
+  if (v >= n) return;
+  const float* p = x + v * sv;
+  unsigned int key = 0;
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    const float q = __fdiv_rn(__fsub_rn(p[c * sc], origin[c]), cell);
+    const int cc = min(max(__float2int_rz(floorf(q)), 0),
+                       (1 << kMortonBits) - 1);
+    key |= part1by2(static_cast<unsigned int>(cc)) << c;
+  }
+  keys[v] = key;
+  vals[v] = v;
+}
+
+// Tile t of the sorted vertices (`sorted`: slot -> vertex) into
+// tiles[t] ([3, blk]), the tail at `pad`; its box over the valid slots
+// into boxes[t] (lo xyz, hi xyz); with kOrder the permutation into `order`.
+template <bool kOrder>
+__global__ void __launch_bounds__(1024) gather_tiles_kernel(
+    const float* __restrict__ x, long long sv, long long sc, int n, int blk,
+    const int* __restrict__ sorted, float pad, float* __restrict__ tiles,
+    float* __restrict__ boxes, long long* __restrict__ order) {
+  __shared__ float sm[32][6];
+  const int t = blockIdx.x, l = threadIdx.x;
+  const int slot = t * blk + l;
+  const bool valid = slot < n;
+  float c[3] = {pad, pad, pad};
+  if (valid) {
+    const int v = sorted[slot];
+    const float* p = x + v * sv;
+    c[0] = p[0];
+    c[1] = p[sc];
+    c[2] = p[2 * sc];
+    if constexpr (kOrder) order[slot] = v;
+  }
+  float* tile = tiles + static_cast<size_t>(t) * 3 * blk;
+  tile[l] = c[0];
+  tile[blk + l] = c[1];
+  tile[2 * blk + l] = c[2];
+  float b[6];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    b[k] = valid ? c[k] : kBoxPad;
+    b[3 + k] = valid ? c[k] : -kBoxPad;
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      b[k] = min_nan(b[k], __shfl_xor_sync(0xffffffffu, b[k], o));
+      b[3 + k] = max_nan(b[3 + k],
+                         __shfl_xor_sync(0xffffffffu, b[3 + k], o));
+    }
+  }
+  if ((l & 31) == 0) {
+#pragma unroll
+    for (int k = 0; k < 6; ++k) sm[l >> 5][k] = b[k];
+  }
+  __syncthreads();
+  if (l == 0) {
+    for (int q = 1; q < (blk >> 5); ++q) {
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        b[k] = min_nan(b[k], sm[q][k]);
+        b[3 + k] = max_nan(b[3 + k], sm[q][3 + k]);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < 6; ++k) boxes[6 * t + k] = b[k];
+  }
+}
+
+// Whether the boxes (lo_i, hi_i) and box j of `boxes` interact: their
+// squared gap, summed as _tile_partners sums it, is at most radius2.
+__device__ __forceinline__ bool tiles_interact(const float (&lo_i)[3],
+                                               const float (&hi_i)[3],
+                                               const float* __restrict__ boxes,
+                                               int j, float radius2) {
+  float g[3];
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    const float lo_j = boxes[6 * j + c], hi_j = boxes[6 * j + 3 + c];
+    g[c] = max_nan(max_nan(__fsub_rn(lo_i[c], hi_j), __fsub_rn(lo_j, hi_i[c])),
+                   0.0f);
+  }
+  const float d2 = __fadd_rn(__fadd_rn(__fmul_rn(g[0], g[0]),
+                                       __fmul_rn(g[1], g[1])),
+                             __fmul_rn(g[2], g[2]));
+  return d2 <= radius2;                     // false for a NaN
+}
+
+// Row i of the partner search: the K-column stable order of i's
+// interacting partner tiles, then the rest, into partners[i]; nvalid[i];
+// with kCount the row of interacting tiles into interact[i] ([Bj]).
+template <bool kCount>
+__global__ void __launch_bounds__(kMaxPartnerThreads) tile_partners_kernel(
+    const float* __restrict__ box_i, const float* __restrict__ box_j,
+    int n_j_tiles, int k_budget, float radius2,
+    long long* __restrict__ partners, long long* __restrict__ nvalid,
+    bool* __restrict__ interact) {
+  __shared__ int warp_hits[kMaxPartnerThreads / 32];
+  const int i = blockIdx.x, l = threadIdx.x, lane = l & 31, w = l >> 5;
+  const int n_warps = blockDim.x >> 5;
+  float lo_i[3], hi_i[3];
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    lo_i[c] = box_i[6 * i + c];
+    hi_i[c] = box_i[6 * i + 3 + c];
+  }
+  int total = 0;                            // the row's interacting tiles
+  for (int base = 0; base < n_j_tiles; base += blockDim.x) {
+    const int j = base + l;
+    total += __syncthreads_count(
+        j < n_j_tiles && tiles_interact(lo_i, hi_i, box_j, j, radius2));
+  }
+  long long* row = partners + static_cast<size_t>(i) * k_budget;
+  int before = 0;                           // interacting tiles < base
+  for (int base = 0; base < n_j_tiles; base += blockDim.x) {
+    const int j = base + l;
+    const bool in = j < n_j_tiles;
+    const bool hit = in && tiles_interact(lo_i, hi_i, box_j, j, radius2);
+    const unsigned int ballot = __ballot_sync(0xffffffffu, hit);
+    if (lane == 0) warp_hits[w] = __popc(ballot);
+    __syncthreads();
+    int below = before + __popc(ballot & ((1u << lane) - 1u));
+    int chunk_hits = 0;
+    for (int q = 0; q < n_warps; ++q) {
+      below += q < w ? warp_hits[q] : 0;
+      chunk_hits += warp_hits[q];
+    }
+    if (in) {
+      // `below` interacting tiles precede j: an interacting j sits at
+      // `below`, the others after all `total` of them, in order
+      const int pos = hit ? below : total + (j - below);
+      if (pos < k_budget) row[pos] = j;
+      if constexpr (kCount)
+        interact[static_cast<size_t>(i) * n_j_tiles + j] = hit;
+    }
+    before += chunk_hits;
+    __syncthreads();                        // warp_hits is read
+  }
+  if (l == 0) nvalid[i] = min(total, k_budget);
+}
+
 }  // namespace
 
-// Launch the pair forces on the n vertices of the i-tiles from the partner
-// tiles on `stream` (the single form: the same tiles twice, pads at +1e6);
-// returns the cudaError_t of the launch (0 = cudaSuccess).  `partial` holds
-// ceil(k_budget / chunk) x n_tiles x 3 x blk floats; `arrivals` n_tiles
-// ints, zero before the first launch (each launch leaves them zero), so a
-// scratch serves one launch at a time.  reach2 is the cull's squared reach,
-// r^2 (1 + 2^-10).  With `counters` (int64 [6], the order of Counter) and
-// `interact` (bool rows of n_j_tiles, row stride i_stride: the partner
-// search's interacting tile pairs) the launch is the counting
-// instantiation, which adds into `counters`; with both null, the plain one.
-// Allocates nothing and does not synchronise.
-extern "C" int block_pairs_dual_forces(
-    const float* xi_tiles, const float* xj_tiles, const long long* nvalid,
-    const long long* partners, int p_stride, const long long* order, int n,
-    int n_tiles, int k_budget, int chunk, int blk, float* partial,
-    int* arrivals, float* f_out, float eps2, float c1, float c2,
-    float reach2, long long* counters, const bool* interact, int i_stride,
-    int n_j_tiles, void* stream) {
-  const dim3 grid(n_tiles, (k_budget + chunk - 1) / chunk);
-  const size_t smem = (static_cast<size_t>(blk) + 2 * (blk / 32)) *
-                      sizeof(float4);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  auto* sums = reinterpret_cast<unsigned long long*>(counters);
-  if (counters != nullptr && interact != nullptr)
-    block_pairs_kernel<true><<<grid, blk, smem, st>>>(
-        xi_tiles, xj_tiles, nvalid, partners, p_stride, order, n, n_tiles,
-        chunk, blk, partial, arrivals, f_out, eps2, c1, c2, reach2, sums,
-        interact, i_stride, n_j_tiles);
+// What the build launches with, fixed over a step function's life:
+// softbodyunity_torch/kernels/blocks.py::_Build mirrors it field by field
+// (block_pairs_build_size checks the two agree).  The scratch serves one
+// call at a time; in the single form xj_tiles and box_j are xi_tiles and
+// box_i.
+struct PairBuild {
+  float* min_partial;         // [min_ctas, 3]: axis_min_kernel's rows
+  int* min_arrivals;          // [1], zero between launches
+  float* origin;              // [3]
+  unsigned int* keys[2];      // [max(n, n_j)] each: CUB's double buffers
+  int* vals[2];
+  void* sort_temp;            // CUB's temporary storage
+  size_t sort_temp_bytes;
+  float* xi_tiles;            // [n_tiles, 3, blk]
+  float* xj_tiles;            // [n_j_tiles, 3, blk]
+  float* box_i;               // [n_tiles, 6]
+  float* box_j;               // [n_j_tiles, 6]
+  long long* partners;        // [n_tiles, k_budget]
+  long long* nvalid;          // [n_tiles]
+  long long* order;           // [n]: the i side's sorted slot -> vertex
+  float* partial;             // the pair kernel's partial rows
+  int* arrivals;              // and its arrival counters
+  int n, n_j, blk, n_tiles, n_j_tiles, k_budget, chunk, min_ctas;
+  float half_cell, cell, radius2, eps2, c1, c2, reach2;
+};
+
+extern "C" int block_pairs_build_size() {
+  return static_cast<int>(sizeof(PairBuild));
+}
+
+// CUB's temporary storage for sorting n keys (bytes), or -1 on an error.
+extern "C" long long block_pairs_sort_bytes(int n) {
+  size_t bytes = 0;
+  cub::DoubleBuffer<unsigned int> keys(nullptr, nullptr);
+  cub::DoubleBuffer<int> vals(nullptr, nullptr);
+  if (cub::DeviceRadixSort::SortPairs(nullptr, bytes, keys, vals, n, 0,
+                                      kKeyBits) != cudaSuccess)
+    return -1;
+  return static_cast<long long>(bytes);
+}
+
+// Steps 1-4 of the build for one side: the n vertices of x (element
+// strides sv, sc) into `tiles` and `boxes`, the tail at `pad`, and, given
+// `order`, the permutation.
+static cudaError_t build_side(const PairBuild& b, const float* x,
+                              long long sv, long long sc, int n, int n_tiles,
+                              float pad, float* tiles, float* boxes,
+                              long long* order, cudaStream_t st) {
+  // a vertex a thread, as far as min_ctas partial rows reach
+  const int min_ctas = std::max(
+      1, std::min(b.min_ctas, (n + kMinThreads - 1) / kMinThreads));
+  axis_min_kernel<<<min_ctas, kMinThreads, 0, st>>>(
+      x, sv, sc, n, b.half_cell, b.min_partial, b.min_arrivals, b.origin);
+  morton_keys_kernel<<<(n + kKeyThreads - 1) / kKeyThreads, kKeyThreads, 0,
+                       st>>>(x, sv, sc, n, b.origin, b.cell, b.keys[0],
+                             b.vals[0]);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  cub::DoubleBuffer<unsigned int> keys(b.keys[0], b.keys[1]);
+  cub::DoubleBuffer<int> vals(b.vals[0], b.vals[1]);
+  size_t bytes = b.sort_temp_bytes;
+  err = cub::DeviceRadixSort::SortPairs(b.sort_temp, bytes, keys, vals, n, 0,
+                                        kKeyBits, st);
+  if (err != cudaSuccess) return err;
+  if (order != nullptr)
+    gather_tiles_kernel<true><<<n_tiles, b.blk, 0, st>>>(
+        x, sv, sc, n, b.blk, vals.Current(), pad, tiles, boxes, order);
   else
-    block_pairs_kernel<false><<<grid, blk, smem, st>>>(
-        xi_tiles, xj_tiles, nvalid, partners, p_stride, order, n, n_tiles,
-        chunk, blk, partial, arrivals, f_out, eps2, c1, c2, reach2, nullptr,
-        nullptr, 0, 0);
+    gather_tiles_kernel<false><<<n_tiles, b.blk, 0, st>>>(
+        x, sv, sc, n, b.blk, vals.Current(), pad, tiles, boxes, nullptr);
+  return cudaGetLastError();
+}
+
+// The repulsion on the b.n vertices of xi (element strides si_v, si_c)
+// from those of xj (the dual form: b.n_j vertices, strides sj_v, sj_c) or,
+// with xj null, from xi itself, into f_out ([3, n], vertex order): the
+// build, steps 1-5, and one launch of the pair kernel, on `stream`.  With
+// xi null the build is left out and the pair kernel sweeps the tiles,
+// partners and order the scratch holds (the tests put the plain build's
+// there).  With `counters` (int64 [6], the order of Counter) and
+// `interact` (bool [n_tiles, n_j_tiles]) the partner search and the pair
+// kernel are the counting instantiations, which add into `counters`; with
+// both null, the plain ones.  Returns the first cudaError_t (0 =
+// cudaSuccess); allocates nothing and does not synchronise.
+extern "C" int block_pairs_build_forces(
+    const PairBuild* build, const float* xi, long long si_v, long long si_c,
+    const float* xj, long long sj_v, long long sj_c, float* f_out,
+    long long* counters, bool* interact, void* stream) {
+  const PairBuild& b = *build;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool counting = counters != nullptr && interact != nullptr;
+  if (xi != nullptr) {
+    const bool dual = xj != nullptr;
+    cudaError_t err = build_side(b, xi, si_v, si_c, b.n, b.n_tiles,
+                                 dual ? -1e6f : 1e6f, b.xi_tiles, b.box_i,
+                                 b.order, st);
+    if (err == cudaSuccess && dual)
+      err = build_side(b, xj, sj_v, sj_c, b.n_j, b.n_j_tiles, 1e6f,
+                       b.xj_tiles, b.box_j, nullptr, st);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const int threads =
+        std::min(kMaxPartnerThreads, (b.n_j_tiles + 31) / 32 * 32);
+    if (counting)
+      tile_partners_kernel<true><<<b.n_tiles, threads, 0, st>>>(
+          b.box_i, b.box_j, b.n_j_tiles, b.k_budget, b.radius2, b.partners,
+          b.nvalid, interact);
+    else
+      tile_partners_kernel<false><<<b.n_tiles, threads, 0, st>>>(
+          b.box_i, b.box_j, b.n_j_tiles, b.k_budget, b.radius2, b.partners,
+          b.nvalid, nullptr);
+  }
+  const dim3 grid(b.n_tiles, (b.k_budget + b.chunk - 1) / b.chunk);
+  const size_t smem = (static_cast<size_t>(b.blk) + 2 * (b.blk / 32)) *
+                      sizeof(float4);
+  if (counting)
+    block_pairs_kernel<true><<<grid, b.blk, smem, st>>>(
+        b.xi_tiles, b.xj_tiles, b.nvalid, b.partners, b.k_budget, b.order,
+        b.n, b.n_tiles, b.chunk, b.blk, b.partial, b.arrivals, f_out, b.eps2,
+        b.c1, b.c2, b.reach2, reinterpret_cast<unsigned long long*>(counters),
+        interact, b.n_j_tiles, b.n_j_tiles);
+  else
+    block_pairs_kernel<false><<<grid, b.blk, smem, st>>>(
+        b.xi_tiles, b.xj_tiles, b.nvalid, b.partners, b.k_budget, b.order,
+        b.n, b.n_tiles, b.chunk, b.blk, b.partial, b.arrivals, f_out, b.eps2,
+        b.c1, b.c2, b.reach2, nullptr, nullptr, 0, 0);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -13,8 +13,8 @@ sweep (:mod:`.grid_strain`); a frame is its substeps' launches and, under
 tearing or plasticity, one more, the frame-end feature update
 (:mod:`.grid_features`).  A frame is one ``ctypes`` call,
 ``grid_euler_substeps``, from a struct built once a call; with
-self-collision, whose force plane PyTorch ops compute at each substep's
-start, one call a substep.  Each launch counts once.
+self-collision, whose force plane the ``block_pairs`` call builds and
+sweeps at each substep's start (:mod:`.blocks`), one call a substep.  Each launch counts once.
 """
 
 from __future__ import annotations

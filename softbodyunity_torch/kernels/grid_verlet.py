@@ -15,8 +15,8 @@ tearing or plasticity, one more, the frame-end feature update
 (:mod:`.grid_features`).  A frame is one ``ctypes`` call,
 ``grid_verlet_substeps``, from a struct built once a call, which rotates
 the three position buffers itself (:func:`buffers`); with self-collision,
-whose force plane PyTorch ops compute at each substep's start, one call a
-substep.  Each launch counts once.
+whose force plane the ``block_pairs`` call builds and sweeps at each
+substep's start (:mod:`.blocks`), one call a substep.  Each launch counts once.
 """
 
 from __future__ import annotations

@@ -15,9 +15,11 @@ operations in the same order:
 4. each surviving (tile, partner) pair runs the repulsion rule
    ``w(d) * (xi - xj)`` on its ``blk x blk`` vertex pairs.
 
-The sort and the partner search feed the hand-written CUDA pair kernel too
-(``kernels/blocks.py``); :func:`self_collision_forces_block` is that
-kernel's plain version.  Both sorts are stable, as ``jnp.argsort`` is, so
+The sort, the tiles and the partner search are the plain version of the
+hand-written CUDA kernels that build the pair kernel's inputs on the card
+(``kernels/csrc/block_pairs.cu``, "The build"; ``kernels/blocks.py``),
+bit for bit; :func:`self_collision_forces_block` is the pair kernel's plain
+version.  Both sorts are stable, as ``jnp.argsort`` is, so
 the tile assignment, the partners and the overflow count are bit-equal to
 the JAX package's (a 64k preset cell holds ~1,000 vertices, so the tie
 order alone decides which vertices share a tile).
@@ -74,6 +76,15 @@ def _sorted_tiles(x: torch.Tensor, cell_size: float, blk: int = BLOCK):
     return xs.reshape(b, blk, 3), valid, order, b
 
 
+def _tile_boxes(xb, valid):
+    """Each tile's bounding box over its valid vertices: ``(lo, hi)``,
+    [B, 3] each (a NaN coordinate makes both NaN, as amin and amax
+    propagate it)."""
+    big = 1e18
+    return (torch.amin(torch.where(valid[..., None], xb, big), dim=1),
+            torch.amax(torch.where(valid[..., None], xb, -big), dim=1))
+
+
 def _tile_partners(xb, valid, radius: float, k: int, xb_j=None,
                    valid_j=None):
     """Per-tile partner tiles by bbox gap: ``([B, K] ids, [B, K] valid,
@@ -86,14 +97,8 @@ def _tile_partners(xb, valid, radius: float, k: int, xb_j=None,
     rule's), only where it is read.  With ``xb_j``/``valid_j`` the search
     is rectangular: i-tiles from ``xb``, partners from the second tile
     array."""
-    big = 1e18
-    mn = torch.amin(torch.where(valid[..., None], xb, big), dim=1)     # [B,3]
-    mx = torch.amax(torch.where(valid[..., None], xb, -big), dim=1)
-    if xb_j is None:
-        mn_j, mx_j = mn, mx
-    else:
-        mn_j = torch.amin(torch.where(valid_j[..., None], xb_j, big), dim=1)
-        mx_j = torch.amax(torch.where(valid_j[..., None], xb_j, -big), dim=1)
+    mn, mx = _tile_boxes(xb, valid)                                   # [B,3]
+    mn_j, mx_j = (mn, mx) if xb_j is None else _tile_boxes(xb_j, valid_j)
     gap = torch.clamp_min(
         torch.maximum(mn[:, None, :] - mx_j[None, :, :],
                       mn_j[None, :, :] - mx[:, None, :]), 0.0)     # [B,Bj,3]

@@ -150,28 +150,31 @@ def test_forces_bit_equal_with_counting_on_and_off(pile, recorder, partners):
 def test_spans_of_a_card_frame(pile, recorder):
     """A frame of the pile on the card: the wrapper's phases and the force
     plane's, nested under ``api.step``, a ``selfcollide``, ``blocks.launch``
-    and ``grid_euler.call`` a substep; the step's results and launch counts
-    as with the recorder off."""
+    and ``grid_euler.call`` a substep, the build of the pair kernel's inputs
+    inside the one ``blocks.launch`` call (16 ``block_pairs.tiles`` builds,
+    no span of the plain sort or partner search); the step's results and
+    launch counts as with the recorder off."""
     top, cfg, state = pile
     grid_euler.reset_launch_count()
     blocks.reset_launch_count()
     plain = tsb.step(top, cfg, state)
-    launches = (grid_euler.launch_count(), blocks.launch_count())
+    launches = (grid_euler.launch_count(), blocks.launch_count(),
+                blocks.build_count())
     grid_euler.reset_launch_count()
     blocks.reset_launch_count()
     recorder.enable()
     traced = tsb.step(top, cfg, state)
     tsb.normals(top, traced)
     rec = recorder.read()
-    assert (grid_euler.launch_count(), blocks.launch_count()) == launches
-    assert launches == (cfg.n_substeps, cfg.n_substeps)
+    assert (grid_euler.launch_count(), blocks.launch_count(),
+            blocks.build_count()) == launches
+    assert launches == (cfg.n_substeps,) * 3
+    assert rec.counters["block_pairs.tiles"] == cfg.n_substeps
     assert torch.equal(traced.x, plain.x) and torch.equal(traced.v, plain.v)
     parents = {
         "api.lookup": "api.step", "grid_euler.planes_in": "api.step",
         "grid_euler.pack": "api.step", "selfcollide": "api.step",
         "grid_euler.call": "api.step", "grid_euler.planes_out": "api.step",
-        "blocksparse.sort": "selfcollide",
-        "blocksparse.partners": "selfcollide",
         "blocks.launch": "selfcollide", "normals.faces": "api.normals",
         "normals.sum": "api.normals", "api.step": None, "api.normals": None}
     assert set(rec.names) == set(parents)
@@ -179,7 +182,6 @@ def test_spans_of_a_card_frame(pile, recorder):
         p = rec.parent[i]
         assert (rec.names[p] if p >= 0 else None) == parents[name]
         assert rec.end_ns[i] >= rec.start_ns[i] > 0 and rec.frame[i] == 1
-    for name in ("selfcollide", "blocks.launch", "grid_euler.call",
-                 "blocksparse.sort"):
+    for name in ("selfcollide", "blocks.launch", "grid_euler.call"):
         assert rec.calls[name] == cfg.n_substeps
     assert rec.counters["block_pairs.partners_swept"] > 0

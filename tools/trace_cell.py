@@ -20,9 +20,12 @@ program's per-layer numbers (``benchmark/program_trace.py``), the share of
 the loop's ``step`` idle that falls inside spans below ``api.step``, the
 counters and what the read-out took.
 
-``kernel`` times the pair kernel's counting and plain instantiations on the
-64k pile after ``--frames`` frames, ``--reps`` launches each, interleaved,
-by their device time in ``torch.profiler``.  ``sites`` times a span site on
+``kernel`` times a call of ``make_block_pairs`` (the build's kernels and
+the pair kernel) on the 64k pile after ``--frames`` frames, ``--reps``
+calls with the recorder on (the counting instantiations) and off,
+interleaved: each op's device time a call in ``torch.profiler``, by short
+symbol, and the host's time a call with the recorder off, whole and in the
+C call alone.  ``sites`` times a span site on
 the host with the recorder off, as the program writes it (a check and a
 pair of calls) and as a context manager that returns a shared no-op
 object, and a span with the recorder on.  Run from the root of a checkout;
@@ -30,6 +33,7 @@ object, and a span with the recorder on.  Run from the root of a checkout;
 """
 
 import argparse
+import ctypes
 import json
 import os
 import sys
@@ -237,8 +241,25 @@ def kernel(frames, reps):
         fn(x)
     session.stop()
     profiling.disable()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn(x)
+    host_us = (time.perf_counter() - t0) * 1e6 / reps
+    torch.cuda.synchronize()
+    # the C call alone, with the arguments the wrapper passes
+    c_call = blocks._launcher()[0]
+    args = (ctypes.byref(fn.scratch.build), x.data_ptr(), *x.stride(),
+            None, 0, 0, torch.empty((3, x.shape[0]), device=x.device)
+            .data_ptr(), None, None, torch.cuda.current_stream().cuda_stream)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        c_call(*args)
+    c_us = (time.perf_counter() - t0) * 1e6 / reps
+    torch.cuda.synchronize()
     return {"frames": frames, "reps": reps,
-            "device_us": _device_us(session, reps, "block_pairs_kernel"),
+            "device_us": _device_us(session, reps, ""),
+            "host_us_per_call": host_us, "c_call_us": c_us,
             "counters_per_launch": {
                 k: v for k, v in counters.items()
                 if k.startswith("block_pairs.")}}
