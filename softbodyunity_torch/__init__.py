@@ -45,7 +45,7 @@ from .core.config import (
 )
 from .core.state import State, make_state
 from .core.topology import (HostTopology, Topology, add_colliders,
-                            cloth_grid, tet_cube)
+                            cloth_grid, tet_box, tet_cube)
 from .models import presets
 
 __version__ = "0.1.0"
@@ -56,6 +56,6 @@ __all__ = [
     "StrainLimitParams", "MotionConstraintParams", "CollisionParams",
     "SelfCollisionParams",
     "State", "make_state", "Topology", "HostTopology", "cloth_grid",
-    "tet_cube", "add_colliders",
+    "tet_cube", "tet_box", "add_colliders",
     "presets",
 ]

@@ -5,6 +5,8 @@ The builders (``HostTopology``, ``add_colliders``, ``cloth_grid``,
 imports jax to register its device pytree, so the port carries the NumPy
 parts itself and ``tests/test_torch_port.py`` and
 ``tests/test_torch_lattice.py`` hold the copies equal to the originals.
+``tet_box`` is the cube's builder with a size on each side; the JAX
+package has the cube alone.
 
 :class:`Topology` is the device side, built by
 :func:`softbodyunity_torch.api.device_topology`: a frozen dataclass of
@@ -651,29 +653,49 @@ def tet_cube(
     split into 5 tetrahedra; tet edges become structural springs and tets
     carry rest volumes for the volume-preservation constraint
     (BASELINE.json:10 "tet-mesh edge springs + volume-preservation
-    constraint").
+    constraint").  :func:`tet_box` with ``n`` vertices on every side.
     """
+    return tet_box(n, n, n, spacing=spacing, mass=mass, springs=springs,
+                   xpbd=xpbd, plane_height=plane_height, origin=origin)
+
+
+def tet_box(
+    nx: int,
+    ny: int,
+    nz: int,
+    *,
+    spacing: float = 0.1,
+    mass: float = 1.0,
+    springs=None,
+    xpbd=None,
+    plane_height: float = 0.0,
+    origin: Tuple[float, float, float] = (0.0, 0.5, 0.0),
+) -> HostTopology:
+    """Volumetric soft-body box: an ``nx × ny × nz`` vertex lattice, vertex
+    ``(i, j, k)`` at ``origin + spacing (i, j, k)`` with index
+    ``(i ny + j) nz + k``, built as :func:`tet_cube` builds the cube; the
+    surface triangles cover the faces ``k = 0`` and ``k = nz - 1``."""
     from .config import SpringParams, XPBDParams
 
     springs = springs or SpringParams()
     xpbd = xpbd or XPBDParams()
 
     def vid(i: int, j: int, k: int) -> int:
-        return (i * n + j) * n + k
+        return (i * ny + j) * nz + k
 
-    nv = n * n * n
+    nv = nx * ny * nz
     pos = np.zeros((nv, 3), dtype=np.float64)
-    for i in range(n):
-        for j in range(n):
-            for k in range(n):
+    for i in range(nx):
+        for j in range(ny):
+            for k in range(nz):
                 pos[vid(i, j, k)] = (i * spacing, j * spacing, k * spacing)
     pos += np.asarray(origin, dtype=np.float64)
 
     FIVE, FIVE_ALT = _FIVE, _FIVE_ALT
     tets = []
-    for i in range(n - 1):
-        for j in range(n - 1):
-            for k in range(n - 1):
+    for i in range(nx - 1):
+        for j in range(ny - 1):
+            for k in range(nz - 1):
                 pat = FIVE if (i + j + k) % 2 == 0 else FIVE_ALT
                 for t in pat:
                     tets.append(
@@ -703,12 +725,12 @@ def tet_cube(
 
     # surface triangles: boundary faces of the lattice (for normals)
     tris = []
-    for i in range(n - 1):
-        for j in range(n - 1):
-            # bottom (k=0) and top (k=n-1) faces in each axis-aligned plane
+    for i in range(nx - 1):
+        for j in range(ny - 1):
+            # bottom (k=0) and top (k=nz-1) faces in each axis-aligned plane
             tris.append((vid(i, j, 0), vid(i + 1, j, 0), vid(i, j + 1, 0)))
             tris.append((vid(i + 1, j, 0), vid(i + 1, j + 1, 0), vid(i, j + 1, 0)))
-            kk = n - 1
+            kk = nz - 1
             tris.append((vid(i, j, kk), vid(i, j + 1, kk), vid(i + 1, j, kk)))
             tris.append((vid(i + 1, j, kk), vid(i, j + 1, kk), vid(i + 1, j + 1, kk)))
     triangles = np.array(tris, dtype=np.int32) if tris else np.zeros((0, 3), np.int32)
@@ -730,5 +752,5 @@ def tet_cube(
         sphere_centers=np.zeros((0, 3), np.float64),
         sphere_radii=np.zeros((0,), np.float64),
         grid_shape=None,
-        lattice_shape=(n, n, n),
+        lattice_shape=(nx, ny, nz),
     )

@@ -117,8 +117,9 @@ def make_cuda_step(top: Topology, cfg: SimConfig):
     substep, error_string = _launchers()
 
     def fn(state: State, dt: float, n_substeps: int, top=None) -> State:
-        contact = sc.colliders.args(sc.colliders.built if top is None
-                                    else top)
+        # the host phases, spans while the recorder is on: planes in, the
+        # struct packed, each substep's C call, planes out
+        sp = profiling.begin("lattice_euler.planes_in") if profiling.on else -1
         check_input("state.x", state.x, (n, 3), device)
         check_input("state.v", state.v, (n, 3), device)
         dt = float(dt)
@@ -127,6 +128,11 @@ def make_cuda_step(top: Topology, cfg: SimConfig):
         tscr = torch.empty((3 * sc.n_tet, n, 4), dtype=torch.float32,
                            device=device)
         planes = {t.data_ptr(): t for t in (xa, va, xb, vb)}
+        if sp >= 0:
+            profiling.end(sp)
+        sp = profiling.begin("lattice_euler.pack") if profiling.on else -1
+        contact = sc.colliders.args(sc.colliders.built if top is None
+                                    else top)
         with torch.cuda.device(device):
             stream = torch.cuda.current_stream(device).cuda_stream
             args = _Substep(
@@ -144,11 +150,22 @@ def make_cuda_step(top: Topology, cfg: SimConfig):
             launched = ctypes.c_int()
             ref, qref, count = (ctypes.byref(args), ctypes.byref(q),
                                 ctypes.byref(launched))
+            if sp >= 0:
+                profiling.end(sp)
             for _ in range(n_substeps):
+                sp = (profiling.begin("lattice_euler.call") if profiling.on
+                      else -1)
                 err = substep(ref, qref, count)
                 profiling.add("lattice_euler", launched.value)
                 check_launch(err, "lattice_euler substep", error_string)
+                if sp >= 0:
+                    profiling.end(sp)
+        sp = (profiling.begin("lattice_euler.planes_out") if profiling.on
+              else -1)
         x, v = from_planes(planes[q.x]), from_planes(planes[q.v])
-        return State(x=x, v=v, x_prev=x - dt * v)
+        out = State(x=x, v=v, x_prev=x - dt * v)
+        if sp >= 0:
+            profiling.end(sp)
+        return out
 
     return fn
