@@ -75,7 +75,8 @@ Phases, each printed as one JSON line; any failure raises and exits nonzero:
 1. device     the card's name and power limit (nvidia-smi) and torch's view;
               then the host build time of each preset (tet_cube(40) is
               seconds of Python loops);
-2. build      nvcc builds the seven kernels from kernels/csrc at first use,
+2. build      nvcc builds the seven kernels and the vertex normals' kernel
+              (csrc/normals.cu) from kernels/csrc at first use,
               one nvcc per source, all started together at the script's
               start, beside the host's preset builds of phase 1; the phase
               waits for them;
@@ -119,7 +120,10 @@ Phases, each printed as one JSON line; any failure raises and exits nonzero:
               no other kernel launched; x finite, pinned rows bit-equal to
               the initial state, nothing below the plane (and the cubes
               resting on it), unit normals, the path's own peak device
-              memory from init on; then the eight paths past the cap or
+              memory from init on; the normals of every main path's last
+              state (sb.normals) one launch of the normals kernel, within
+              1e-5 of the plain version on the same card tensors; then the
+              eight paths past the cap or
               with feature planes (phase main_path_large), each checked the
               same way, the tear masks non-increasing with edges torn, the
               rest scales inside their clip with some above 1, max |v| per
@@ -174,7 +178,10 @@ Phases, each printed as one JSON line; any failure raises and exits nonzero:
               with feature planes, and the wind, strain and drag paths, are
               timed from rest, and the strain sweeps alone; the collider
               paths from their state in contact.  Each XPBD path prints
-              its launches a substep.
+              its launches a substep.  The normals of the 64k curtain
+              perturbed: a call of sb.normals (the kernel) against the
+              plain version with CUDA events, then the kernel's device
+              time a launch from torch.profiler, against its byte bound.
 
 Then a JSON line of the kernels (launches on the main path, error against
 the plain version, times, bound), the nvidia-smi line, and as the last line
@@ -593,11 +600,13 @@ def main() -> int:
 
     import softbodyunity_torch as sb
     from softbodyunity_torch import api
-    from softbodyunity_torch.core.topology import EDGE_BEND, EDGE_SHEAR
+    from softbodyunity_torch.core.topology import (EDGE_BEND, EDGE_SHEAR,
+                                                   SceneKey)
     from softbodyunity_torch.kernels import (blocks, build, grid_euler,
                                             grid_strain, grid_verlet,
                                             grid_xpbd, lattice_euler,
                                             lattice_verlet, lattice_xpbd)
+    from softbodyunity_torch.kernels import normals as normals_kernel
     from softbodyunity_torch.kernels.stencil import (_offsets, _valid_mask,
                                                     from_planes,
                                                     make_stencil_step,
@@ -607,6 +616,7 @@ def main() -> int:
     from softbodyunity_torch.parallel import DistRing, LocalRing, halo
     from softbodyunity_torch.solver import blocksparse
     from softbodyunity_torch.solver.forces import self_collision_forces_dense
+    from softbodyunity_torch.solver.normals import vertex_normals
     from softbodyunity_torch.solver.step import make_plain_step
 
     cuda = torch.device("cuda")
@@ -663,6 +673,16 @@ def main() -> int:
         k["plain"] = make_plain_step if k["lattice"] else make_stencil_step
     # the six solver kernels, each the whole substep of its own path
     steps = {n: k for n, k in kernels.items() if n != "block_pairs"}
+    # the vertex normals' kernel: no substep's, so not in ``kernels``; each
+    # main path's sb.normals call is one launch of it, held against the
+    # plain version on the same card tensors (rendered below)
+    normals_line = dict(
+        name="normals",
+        source="softbodyunity_torch/kernels/csrc/normals.cu",
+        replaces="none: softbodyunity_tpu/solver/normals.py leaves the "
+                 "normals to XLA (a segment sum)",
+        launches=0, err_of={})
+    libraries = [*kernels, normals_line["name"]]
 
     def launches_per_call(name, top, cfg, n_sub):
         """Launches of one call of kernel ``name``'s step function."""
@@ -824,6 +844,26 @@ def main() -> int:
         for k in kernels.values():
             k["module"].reset_launch_count()
         grid_strain.reset_launch_count()
+        normals_kernel.reset_launch_count()
+
+    def rendered(label, top, state):
+        """``sb.normals(top, state)`` at the end of main path ``label``: one
+        launch of the normals kernel since the path's ``reset_counts``, and
+        within 1e-5 a component of the plain version on the same card
+        tensors (the card-vs-CPU tolerance: the plain cross product may
+        contract into FMAs, and a vertex whose faces nearly cancel
+        magnifies a few ulps)."""
+        n = sb.normals(top, state)
+        launched = normals_kernel.launch_count()
+        want = vertex_normals(top.triangles, state.x)
+        err = float((n - want).abs().max())
+        normals_line["launches"] += launched
+        normals_line["err_of"][label] = err
+        require(launched == 1,
+                f"{label}: sb.normals launched the normals kernel {launched} "
+                "times, expected 1")
+        require(err <= 1e-5, f"{label}: normals kernel vs plain {err:.3e}")
+        return n
 
     def counts():
         c = {n: k["module"].launch_count() for n, k in kernels.items()}
@@ -832,12 +872,12 @@ def main() -> int:
 
     # nvcc builds the kernels in the background (one process a source) while
     # the host builds the presets below; phase 2 waits for it
-    fresh = {n: not build.library_path(n).exists() for n in kernels}
+    fresh = {n: not build.library_path(n).exists() for n in libraries}
     nvcc_pool = concurrent.futures.ThreadPoolExecutor(1)
 
     def build_all():
         t = time.perf_counter()
-        build.load_libraries(list(kernels))
+        build.load_libraries(libraries)
         return time.perf_counter() - t
 
     building = nvcc_pool.submit(build_all)
@@ -918,14 +958,14 @@ def main() -> int:
     build_s = building.result()   # raises the build's error, if any
     nvcc_pool.shutdown()
     wait_s = time.perf_counter() - t
-    for name in kernels:
+    for name in libraries:
         lib = build.library_path(name)
         log = lib.with_suffix(".log")
         ptxas = ([ln.strip() for ln in log.read_text().splitlines()
                   if "ptxas" in ln] if log.exists() else [])
         emit("build", kernel=name, fresh_build=fresh[name],
              library=os.path.relpath(lib, ROOT), ptxas=ptxas)
-    emit("build", kernels=list(kernels), nvcc_seconds=build_s,
+    emit("build", kernels=libraries, nvcc_seconds=build_s,
          waited_seconds=wait_s)
     phase_seconds()
 
@@ -1143,7 +1183,8 @@ def main() -> int:
         # the bottom rows start below the plane and are pressed flat onto
         # it, a column's vertices onto one point: a vertex all of whose
         # triangles collapsed has no normal (length 0); every other is unit
-        length = torch.linalg.vector_norm(sb.normals(top, state), dim=1)
+        length = torch.linalg.vector_norm(
+            rendered(sc["preset"], top, state), dim=1)
         flat = length == 0.0
         unit_err = float((length[~flat] - 1.0).abs().max())
         dropped, tile_pairs = diagnostics(x, cfg.self_collision)
@@ -1617,7 +1658,8 @@ def main() -> int:
             vmax = torch.stack(vmax).tolist()
             alive_sum = (torch.stack(alive_sum).tolist() if alive_sum
                          else None)
-            length = torch.linalg.vector_norm(sb.normals(top, state), dim=1)
+            length = torch.linalg.vector_norm(rendered(label, top, state),
+                                              dim=1)
             flat = length == 0.0
             unit_err = float((length[~flat] - 1.0).abs().max())
             e = host.edges.shape[0]
@@ -1836,9 +1878,9 @@ def main() -> int:
                 on = torch.zeros(x.shape[0], dtype=torch.bool, device=cuda)
                 on[top.triangles.reshape(-1)] = True
                 length = torch.linalg.vector_norm(
-                    sb.normals(top, state)[on], dim=1)
+                    rendered(label, top, state)[on], dim=1)
             else:
-                length = torch.linalg.vector_norm(sb.normals(top, state),
+                length = torch.linalg.vector_norm(rendered(label, top, state),
                                                   dim=1)
             unit_err = float((length - 1.0).abs().max())
             e = host.edges.shape[0]
@@ -2063,9 +2105,9 @@ def main() -> int:
                 on = torch.zeros(x.shape[0], dtype=torch.bool, device=cuda)
                 on[top.triangles.reshape(-1)] = True
                 length = torch.linalg.vector_norm(
-                    sb.normals(top, state)[on], dim=1)
+                    rendered(label, top, state)[on], dim=1)
             else:
-                length = torch.linalg.vector_norm(sb.normals(top, state),
+                length = torch.linalg.vector_norm(rendered(label, top, state),
                                                   dim=1)
             unit_err = float((length - 1.0).abs().max())
             x0 = state0.x
@@ -2354,7 +2396,7 @@ def main() -> int:
         # vertices they touch
         on_surface = torch.zeros(x.shape[0], dtype=torch.bool, device=cuda)
         on_surface[top.triangles.reshape(-1)] = True
-        nrm = sb.normals(top, state)[on_surface]
+        nrm = rendered(k["preset"], top, state)[on_surface]
         unit_err = float((torch.linalg.vector_norm(nrm, dim=1) - 1.0).abs().max())
         y_min = float(x[:, 1].min())
         emit("main_path", kernel=name, preset=k["preset"],
@@ -2389,6 +2431,8 @@ def main() -> int:
     main_path_branches()
     main_path_colliders()
     main_path_halo()
+    emit("main_path", kernel="normals", launches=normals_line["launches"],
+         max_abs_err_vs_plain=normals_line["err_of"])
     emit("main_path", seconds=phase_seconds())
 
     # 5. hanging cloth on a sphere ------------------------------------------
@@ -2760,7 +2804,32 @@ def main() -> int:
                 {k: sorted(set(v)) for k, v in symbols.items()})
 
     # every CUDA-event timing first: a torch.profiler session slows the
-    # launches that follow it, so the device times are taken after
+    # launches that follow it, so the device times are taken after.
+    # The normals of the 64k curtain perturbed (the card tests' scene): a
+    # call of the kernel's path against the plain version's
+    top, s0 = sb.init(kernels["grid_euler"]["host"], device="cuda")
+    x = s0.x + torch.tensor(
+        0.01 * np.random.default_rng(3).standard_normal(tuple(s0.x.shape)),
+        dtype=torch.float32, device=cuda)
+    s_nrm = s0.replace(x=x)
+    ms = in_turns({
+        "kernel": lambda: events_ms(
+            lambda: [sb.normals(top, s_nrm) for _ in range(200)], 200),
+        "plain": lambda: events_ms(
+            lambda: [vertex_normals(top.triangles, x) for _ in range(20)],
+            20)})
+    scene = api._normals_of(SceneKey(top))
+    # x read and the normals written once, the int32 triangles and table
+    # read once
+    nbytes = (2 * x.numel() * x.element_size() + 4 * scene.tris.numel()
+              + 4 * scene.table.numel())
+    normals_line.update(
+        ms=min(ms["kernel"]), plain_ms=min(ms["plain"]),
+        bound_ms=nbytes / PEAK_BYTES_PER_S * 1e3, bound_by="bytes",
+        timing=(top, s_nrm))
+    emit("timing", kernel="normals", preset=kernels["grid_euler"]["preset"],
+         card=smi, ms_per_call=ms, bytes=nbytes,
+         bound_us_per_call=normals_line["bound_ms"] * 1e3, bound_by="bytes")
     for name, k in steps.items():
         cfg = k["cfg"]
         top, s0 = sb.init(k["host"], device="cuda")
@@ -3024,6 +3093,18 @@ def main() -> int:
              kernel_symbols=sym, device_us_per_substep=busy,
              **pass_launches(dev, p["kernel"], p["timing_top"], cfg, 3,
                              label))
+    top, s_nrm = normals_line.pop("timing")
+    dev, busy = profile_device(
+        lambda: [sb.normals(top, s_nrm) for _ in range(10)],
+        ("vertex_normals_kernel",))
+    us, launched = dev["vertex_normals_kernel"]
+    normals_line["device_us"] = us
+    emit("timing", kernel="normals", preset=kernels["grid_euler"]["preset"],
+         profiler_calls=10, device_us_per_launch=us, launches=launched,
+         device_us_per_call=busy / 10)
+    require(launched == 10, f"timing normals: the trace names {launched} "
+            "launches of vertex_normals_kernel, the calls made 10")
+    del top, s_nrm
     emit("timing", seconds=phase_seconds())
 
     # block_pairs' bound_ms is the culled work's; dense_bound_ms the dense
@@ -3078,6 +3159,17 @@ def main() -> int:
         "plain_ms": dual["plain_ms"], "bound_ms": dual["bound_ms"],
         "bound_by": dual["bound_by"], "library_ms": None,
         "dense_bound_ms": dual["dense_bound_ms"]})
+    line.append({
+        "name": normals_line["name"], "route": "cuda",
+        "source": normals_line["source"],
+        "replaces": normals_line["replaces"],
+        "launches": normals_line["launches"],
+        "max_abs_err": max(normals_line["err_of"].values()),
+        "ms": normals_line["ms"], "plain_ms": normals_line["plain_ms"],
+        "device_us": normals_line["device_us"],
+        "bound_ms": normals_line["bound_ms"],
+        "bound_by": normals_line["bound_by"],
+        "library_ms": None})   # no single PyTorch call computes the normals
     print(json.dumps({"kernels": line}), flush=True)
     emit("done", seconds=time.perf_counter() - t_start)
     print(smi, flush=True)

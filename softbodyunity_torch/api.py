@@ -23,6 +23,7 @@ import torch
 from .core.config import SimConfig
 from .core.state import State, make_state
 from .core.topology import HostTopology, SceneKey, Topology
+from .kernels import normals as normals_kernel
 from .solver.normals import incident_faces
 from .solver.normals import vertex_normals as _vertex_normals
 from .utils import profiling
@@ -275,21 +276,41 @@ def rollout(
 
 
 @functools.lru_cache(maxsize=16)
-def _normal_table(key: SceneKey) -> torch.Tensor:
-    """The incident-face table of the scene's triangles, built once per
-    scene (a topology from :func:`move_colliders` shares it) and kept, as
+def _normals_of(key: SceneKey):
+    """The scene's normals as a function of ``x``: on the card its packed
+    :class:`.kernels.normals.NormalsScene` (one launch), elsewhere the
+    plain version over its incident-face table.  Built once per scene (a
+    topology from :func:`move_colliders` shares it) and kept, as
     :func:`_build_step` keeps its step functions, for the 16 scenes last
     used."""
-    return incident_faces(key.top.triangles, key.top.n_vertices)
+    top = key.top
+    if top.device.type == normals_kernel.DEVICE_TYPE:
+        return normals_kernel.NormalsScene(top)
+    tri, table = top.triangles, incident_faces(top.triangles, top.n_vertices)
+    return lambda x: _vertex_normals(tri, x, table)
+
+
+# (the topology last asked for, its normals), replaced as one tuple, so a
+# thread reads a matching pair
+_last_normals = (None, None)
 
 
 def normals(top: Topology, state: State) -> torch.Tensor:
     """Vertex normals for rendering (Unity RecalculateNormals analogue),
-    summed in a fixed order: the same bits on every run.  While the
-    recorder is on, a call is the span ``api.normals``, in the frame of the
-    last ``step``."""
+    summed in a fixed order: the same bits on every run.  A scene on the
+    card takes the hand-written kernel (:mod:`.kernels.normals`, one
+    launch, float32 or float64, no gradient), a scene elsewhere the plain
+    version.  The topology last asked for finds its scene's normals by
+    identity, others through their :class:`SceneKey`.  Each call returns a
+    new tensor.  While the recorder is on, a call is the span
+    ``api.normals``, in the frame of the last ``step``."""
+    global _last_normals
     sp = profiling.begin("api.normals") if profiling.on else -1
-    n = _vertex_normals(top.triangles, state.x, _normal_table(SceneKey(top)))
+    last, fn = _last_normals
+    if last is not top:
+        fn = _normals_of(SceneKey(top))
+        _last_normals = (top, fn)
+    n = fn(state.x)
     if sp >= 0:
         profiling.end(sp)
     return n

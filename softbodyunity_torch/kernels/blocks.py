@@ -32,7 +32,7 @@ from ..core.config import SelfCollisionParams, SimConfig
 from ..solver.blocksparse import _sorted_tiles, _tile_partners
 from ..solver.forces import self_collision_planes
 from ..utils import profiling
-from .grid_scene import check_launch
+from .build import check_launch
 
 # Partner tiles one CTA takes: a crowded tile's partners spread over
 # ceil(nvalid / CHUNK) CTAs (csrc/block_pairs.cu, "Design").

@@ -75,6 +75,13 @@ def load_library(name: str) -> ctypes.CDLL:
         return _load_library(name)
 
 
+def check_launch(err: int, what: str, error_string) -> None:
+    """Raise on a nonzero ``cudaError_t`` from a launch, with its string."""
+    if err != 0:
+        raise RuntimeError(f"{what} launch failed: cudaError {err} "
+                           f"({error_string(err).decode()})")
+
+
 @functools.cache
 def _load_library(name: str) -> ctypes.CDLL:
     out = library_path(name)

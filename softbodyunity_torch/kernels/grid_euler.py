@@ -30,10 +30,11 @@ from ..core.topology import EDGE_BEND, EDGE_SHEAR, Topology
 from ..utils import profiling
 from . import grid_features, grid_strain
 from .blocks import self_collision_planes_cuda
+from .build import check_launch
 from .grid_features import (FINISH_ARGTYPES, CudaFeatures, FeatParamsStruct,
                             _ptr, features_on)
 from .grid_scene import (CollidersStruct, WindStruct, check_input,
-                         check_launch, pack_grid_scene, sweep_pattern)
+                         pack_grid_scene, sweep_pattern)
 from .grid_strain import CudaStrain
 from .stencil import _offsets, from_planes, to_planes
 

@@ -32,7 +32,8 @@ import torch
 from ..core.config import SimConfig, Solver
 from ..core.state import State
 from ..core.topology import EDGE_BEND, EDGE_SHEAR, Topology
-from .grid_scene import check_input, check_launch
+from .build import check_launch
+from .grid_scene import check_input
 from .stencil import (_offsets, _valid_mask, _xpbd_offsets, check_ported,
                       edge_values, euler_substep_grid, from_planes,
                       jacobi_count, tear_plane_maps, to_planes,

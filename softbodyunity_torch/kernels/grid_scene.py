@@ -170,13 +170,6 @@ def check_input(name: str, t: torch.Tensor, shape, device) -> None:
             "(ROADMAP Queue 1 item 9)")
 
 
-def check_launch(err: int, what: str, error_string) -> None:
-    """Raise on a nonzero ``cudaError_t`` from a launch, with its string."""
-    if err != 0:
-        raise RuntimeError(f"{what} launch failed: cudaError {err} "
-                           f"({error_string(err).decode()})")
-
-
 def pack_grid_scene(top: Topology, cfg: SimConfig, solver: Solver,
                     kernel: str) -> GridScene:
     """Check that ``kernel``, which runs ``solver``, can run ``(top, cfg)``

@@ -23,7 +23,8 @@ import torch
 
 from ..core.config import SimConfig
 from ..utils import profiling
-from .grid_scene import check_launch, sweep_pattern
+from .build import check_launch
+from .grid_scene import sweep_pattern
 
 
 def launch_count() -> int:

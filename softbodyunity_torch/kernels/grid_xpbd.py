@@ -35,11 +35,11 @@ from ..solver.collide import SPHERE_CONTACT_SHELL
 from ..utils import profiling
 from . import grid_features, grid_strain
 from .blocks import self_collision_planes_cuda
+from .build import check_launch
 from .grid_features import (FINISH_ARGTYPES, CudaFeatures, FeatParamsStruct,
                             _ptr, features_on)
 from .grid_scene import (COLLIDER_ARGTYPES, CollidersStruct, WindStruct,
-                         check_input, check_launch, pack_grid_scene,
-                         sweep_pattern)
+                         check_input, pack_grid_scene, sweep_pattern)
 from .grid_strain import CudaStrain
 from .stencil import (_valid_mask, _xpbd_offsets, from_planes, jacobi_count,
                       to_planes)

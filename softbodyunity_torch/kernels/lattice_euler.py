@@ -23,8 +23,8 @@ from ..core.config import SimConfig, Solver
 from ..core.state import State
 from ..core.topology import Topology
 from ..utils import profiling
-from .grid_scene import (CollidersStruct, WindStruct, check_input,
-                         check_launch)
+from .build import check_launch
+from .grid_scene import CollidersStruct, WindStruct, check_input
 from .lattice import from_planes, pack_lattice_scene, to_planes, use_volume
 
 

@@ -25,8 +25,8 @@ from ..core.state import State
 from ..core.topology import Topology
 from ..solver.collide import SPHERE_CONTACT_SHELL
 from ..utils import profiling
-from .grid_scene import (CollidersStruct, WindStruct, check_input,
-                         check_launch)
+from .build import check_launch
+from .grid_scene import CollidersStruct, WindStruct, check_input
 from .lattice import from_planes, pack_lattice_scene, to_planes
 
 

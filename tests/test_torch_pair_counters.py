@@ -152,8 +152,9 @@ def test_spans_of_a_card_frame(pile, recorder):
     plane's, nested under ``api.step``, a ``selfcollide``, ``blocks.launch``
     and ``grid_euler.call`` a substep, the build of the pair kernel's inputs
     inside the one ``blocks.launch`` call (16 ``block_pairs.tiles`` builds,
-    no span of the plain sort or partner search); the step's results and
-    launch counts as with the recorder off."""
+    no span of the plain sort or partner search), the normals' kernel call
+    ``normals.call`` under ``api.normals`` (no span of the plain normals);
+    the step's results and launch counts as with the recorder off."""
     top, cfg, state = pile
     grid_euler.reset_launch_count()
     blocks.reset_launch_count()
@@ -175,8 +176,8 @@ def test_spans_of_a_card_frame(pile, recorder):
         "api.lookup": "api.step", "grid_euler.planes_in": "api.step",
         "grid_euler.pack": "api.step", "selfcollide": "api.step",
         "grid_euler.call": "api.step", "grid_euler.planes_out": "api.step",
-        "blocks.launch": "selfcollide", "normals.faces": "api.normals",
-        "normals.sum": "api.normals", "api.step": None, "api.normals": None}
+        "blocks.launch": "selfcollide", "normals.call": "api.normals",
+        "api.step": None, "api.normals": None}
     assert set(rec.names) == set(parents)
     for i, name in enumerate(rec.names):
         p = rec.parent[i]
