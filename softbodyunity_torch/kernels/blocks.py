@@ -32,7 +32,7 @@ from ..core.config import SelfCollisionParams, SimConfig
 from ..solver.blocksparse import _sorted_tiles, _tile_partners
 from ..solver.forces import self_collision_planes
 from ..utils import profiling
-from .build import check_launch
+from .build import Library
 
 # Partner tiles one CTA takes: a crowded tile's partners spread over
 # ceil(nvalid / CHUNK) CTAs (csrc/block_pairs.cu, "Design").
@@ -104,32 +104,19 @@ class _Build(ctypes.Structure):
 
 
 @functools.cache
-def _launcher():
-    from .build import load_library
-
-    lib = load_library("block_pairs")
+def _library():
+    lib = Library("block_pairs", build=_Build)
     p, ll = ctypes.c_void_p, ctypes.c_longlong
-    size = lib.block_pairs_build_size
-    size.restype = ctypes.c_int
-    if size() != ctypes.sizeof(_Build):
-        raise RuntimeError(
-            f"block_pairs: the C build struct has {size()} bytes, its ctypes "
-            f"mirror {ctypes.sizeof(_Build)}")
-    fn = lib.block_pairs_build_forces
-    fn.argtypes = [
+    lib.declare("block_pairs_build_forces", [
         ctypes.POINTER(_Build),   # the struct
         p, ll, ll,                # xi, its vertex and coordinate strides
         p, ll, ll,                # xj (null: the single form), strides
         p,                        # f_out
         p, p,                     # counters, interact (or both null)
         p,                        # stream
-    ]
-    fn.restype = ctypes.c_int
-    lib.block_pairs_sort_bytes.argtypes = [ctypes.c_int]
-    lib.block_pairs_sort_bytes.restype = ll
-    lib.block_pairs_error_string.argtypes = [ctypes.c_int]
-    lib.block_pairs_error_string.restype = ctypes.c_char_p
-    return fn, lib.block_pairs_sort_bytes, lib.block_pairs_error_string
+    ])
+    lib.declare("block_pairs_sort_bytes", [ctypes.c_int], ll)
+    return lib
 
 
 def _pair_launch(p: SelfCollisionParams, n: int, n_j: int | None, device,
@@ -163,7 +150,8 @@ def _pair_launch(p: SelfCollisionParams, n: int, n_j: int | None, device,
     n_j = n_j if dual else n
     b, b_j = -(-n // blk), -(-n_j // blk)
     k = min(p.block_partners, b_j)
-    fn, sort_bytes, error_string = _launcher()
+    lib = _library()
+    fn, sort_bytes = lib.block_pairs_build_forces, lib.block_pairs_sort_bytes
     with torch.cuda.device(device):
         temp = max(sort_bytes(n), sort_bytes(n_j))
     if temp < 0:
@@ -219,11 +207,11 @@ def _pair_launch(p: SelfCollisionParams, n: int, n_j: int | None, device,
         out = torch.empty((3, n), dtype=torch.float32, device=dev)
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
-            check_launch(fn(
+            lib.check_launch(fn(
                 build_ref, *xi, *xj, out.data_ptr(),
                 counters.data_ptr() if counting else None,
                 s.interact.data_ptr() if counting else None,
-                stream), form, error_string)
+                stream), form)
         return out
 
     def launch(xi, xj=None):

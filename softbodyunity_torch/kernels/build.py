@@ -4,7 +4,9 @@ Each ``csrc/<name>.cu`` has a plain C interface (no PyTorch headers), so it
 compiles in seconds into ``build/kernels/lib<name>_<hash>.so`` at the
 repository root.  The hash covers the sources and the flags, so a stale
 library never loads.  A missing ``nvcc`` or a failed compile raises; nothing
-falls back to another path.  The wrapper of each kernel declares the
+falls back to another path.  Each library is opened once as a
+:class:`Library`, which checks its structs' sizes against their ctypes
+mirrors and binds its error string; the wrapper of each kernel declares the
 ``argtypes`` of its functions.
 """
 
@@ -75,11 +77,38 @@ def load_library(name: str) -> ctypes.CDLL:
         return _load_library(name)
 
 
-def check_launch(err: int, what: str, error_string) -> None:
-    """Raise on a nonzero ``cudaError_t`` from a launch, with its string."""
-    if err != 0:
-        raise RuntimeError(f"{what} launch failed: cudaError {err} "
-                           f"({error_string(err).decode()})")
+class Library:
+    """One kernel library, ``csrc/<name>.cu``, loaded (:func:`load_library`),
+    each ``<name>_<struct>_size()`` compared with its ctypes mirror
+    (``structs``: struct name -> mirror) and ``<name>_error_string`` bound,
+    so that :meth:`check_launch` raises with the library's own string.
+    Its entries are attributes once :meth:`declare` has typed them."""
+
+    def __init__(self, name: str, **structs):
+        self.name = name
+        self.cdll = load_library(name)
+        for struct, mirror in structs.items():
+            size = self.declare(f"{name}_{struct}_size", [])()
+            if size != ctypes.sizeof(mirror):
+                raise RuntimeError(
+                    f"{name}: the C {struct} struct has {size} bytes, its "
+                    f"ctypes mirror {ctypes.sizeof(mirror)}")
+        self.error_string = self.declare(f"{name}_error_string",
+                                         [ctypes.c_int], ctypes.c_char_p)
+
+    def declare(self, symbol: str, argtypes, restype=ctypes.c_int):
+        """Type the C entry ``symbol``; it becomes an attribute too."""
+        fn = getattr(self.cdll, symbol)
+        fn.argtypes, fn.restype = argtypes, restype
+        setattr(self, symbol, fn)
+        return fn
+
+    def check_launch(self, err: int, what: str) -> None:
+        """Raise on a nonzero ``cudaError_t`` from a launch, with its
+        string."""
+        if err != 0:
+            raise RuntimeError(f"{what} launch failed: cudaError {err} "
+                               f"({self.error_string(err).decode()})")
 
 
 @functools.cache

@@ -57,28 +57,34 @@ dispatch.py:60-95``) and the strain limit with self-collision
 
 from __future__ import annotations
 
+import importlib
+
 from ..core.config import SimConfig, Solver
 from ..core.topology import Topology
-from .stencil import check_ported
+from .stencil import check_ported, make_stencil_step
+
+# the CUDA wrapper of each solver, a module <kind>_<solver> for each kind of
+# scene (grid, lattice); any other solver takes the Euler wrapper, which
+# refuses it
+_SOLVERS = {Solver.XPBD: "xpbd", Solver.VERLET: "verlet"}
+
+
+def _step(top: Topology, cfg: SimConfig, kind: str, make_plain_step):
+    if top.device.type == "cuda":
+        name = f"{kind}_{_SOLVERS.get(cfg.solver, 'euler')}"
+        return importlib.import_module(f"{__package__}.{name}").make_cuda_step(
+            top, cfg)
+    if top.device.type == "cpu":
+        return make_plain_step(top, cfg)
+    raise NotImplementedError(f"no step function for tensors on {top.device}")
 
 
 def _lattice_step(top: Topology, cfg: SimConfig):
+    from ..solver.step import make_plain_step
     from .lattice import lattice_gate
 
     lattice_gate(top, cfg)
-    if top.device.type == "cuda":
-        if cfg.solver == Solver.XPBD:
-            from .lattice_xpbd import make_cuda_step
-        elif cfg.solver == Solver.VERLET:
-            from .lattice_verlet import make_cuda_step
-        else:
-            from .lattice_euler import make_cuda_step
-        return make_cuda_step(top, cfg)
-    if top.device.type == "cpu":
-        from ..solver.step import make_plain_step
-
-        return make_plain_step(top, cfg)
-    raise NotImplementedError(f"no step function for tensors on {top.device}")
+    return _step(top, cfg, "lattice", make_plain_step)
 
 
 def maybe_fast_step(top: Topology, cfg: SimConfig):
@@ -98,16 +104,4 @@ def maybe_fast_step(top: Topology, cfg: SimConfig):
             "not ported to softbodyunity_torch yet: the general edge-list "
             "path for scenes that are neither grid cloth nor tet lattices "
             "(ROADMAP Queue 1 item 3)")
-    if top.device.type == "cuda":
-        if cfg.solver == Solver.XPBD:
-            from .grid_xpbd import make_cuda_step
-        elif cfg.solver == Solver.VERLET:
-            from .grid_verlet import make_cuda_step
-        else:
-            from .grid_euler import make_cuda_step
-        return make_cuda_step(top, cfg)
-    if top.device.type == "cpu":
-        from .stencil import make_stencil_step
-
-        return make_stencil_step(top, cfg)
-    raise NotImplementedError(f"no step function for tensors on {top.device}")
+    return _step(top, cfg, "grid", make_stencil_step)

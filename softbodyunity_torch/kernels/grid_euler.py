@@ -26,26 +26,20 @@ import torch
 
 from ..core.config import SimConfig, Solver
 from ..core.state import State
-from ..core.topology import EDGE_BEND, EDGE_SHEAR, Topology
+from ..core.topology import Topology
 from ..utils import profiling
 from . import grid_features, grid_strain
 from .blocks import self_collision_planes_cuda
-from .build import check_launch
-from .grid_features import (FINISH_ARGTYPES, CudaFeatures, FeatParamsStruct,
-                            _ptr, features_on)
+from .build import Library
+from .frame import FrameLoop
+from .grid_features import CudaFeatures, FeatParamsStruct, _ptr, features_on
 from .grid_scene import (CollidersStruct, WindStruct, check_input,
-                         pack_grid_scene, sweep_pattern)
+                         pack_grid_scene)
 from .grid_strain import CudaStrain
-from .stencil import _offsets, from_planes, to_planes
 
 
-def launch_count() -> int:
-    """Kernel launches since the last :func:`reset_launch_count`."""
-    return profiling.count("grid_euler")
-
-
-def reset_launch_count() -> None:
-    profiling.reset_count("grid_euler")
+# launch_count(): kernel launches since the last reset_launch_count()
+launch_count, reset_launch_count = profiling.launch_views("grid_euler")
 
 
 def launches_per_substep(cfg: SimConfig) -> int:
@@ -88,40 +82,22 @@ def _pair(a, b):
 
 
 @functools.cache
-def _launcher():
-    from .build import load_library
-
-    lib = load_library("grid_euler")
+def _library():
+    lib = Library("grid_euler", frame=_Frame, strain=grid_strain.SweepsStruct)
     p, i = ctypes.c_void_p, ctypes.c_int
-    size = lib.grid_euler_frame_size
-    size.restype = i
-    if size() != ctypes.sizeof(_Frame):
-        raise RuntimeError(
-            f"grid_euler: the C frame struct has {size()} bytes, its ctypes "
-            f"mirror {ctypes.sizeof(_Frame)}")
-    fn = lib.grid_euler_substeps
-    fn.argtypes = [
+    lib.declare("grid_euler_substeps", [
         ctypes.POINTER(_Frame),   # the struct
         i, i, i,                  # first substep, substeps, finish
         p,                        # f_ext (or null)
         ctypes.POINTER(i),        # launches out
-    ]
-    fn.restype = i
-    lib.grid_euler_features.argtypes = FINISH_ARGTYPES
-    lib.grid_euler_features.restype = i
-    strain = lib.grid_euler_strain
-    strain.argtypes = [
+    ])
+    lib.declare("grid_euler_strain", [
         ctypes.POINTER(grid_strain.SweepsStruct),   # the sweeps' struct
         p, p,                     # alive, scale
         p, p, p,                  # x0, x_out, v
         p,                        # stream
-    ]
-    strain.restype = i
-    lib.grid_euler_strain_size.restype = i
-    lib.grid_euler_error_string.argtypes = [i]
-    lib.grid_euler_error_string.restype = ctypes.c_char_p
-    return (fn, lib.grid_euler_features, strain, lib.grid_euler_strain_size,
-            lib.grid_euler_error_string)
+    ])
+    return lib
 
 
 def make_cuda_step(top: Topology, cfg: SimConfig):
@@ -146,102 +122,60 @@ def make_cuda_step(top: Topology, cfg: SimConfig):
     adds its force in the substep launch.  Under the strain limit that
     launch integrates with the contact left out, and one launch of the
     sweeps follows (:class:`.grid_strain.CudaStrain`), the last sweep
-    adding the change to the velocity and running the contact."""
+    adding the change to the velocity and running the contact.  Each frame
+    runs through :class:`.frame.FrameLoop`."""
     sc = pack_grid_scene(top, cfg, Solver.SEMI_IMPLICIT_EULER, "grid_euler")
-    ny, nx, device = sc.ny, sc.nx, sc.device
-    n = ny * nx
-    offsets = _offsets(cfg, top.grid_spacing,
-                       EDGE_SHEAR in top.edge_classes_present,
-                       EDGE_BEND in top.edge_classes_present)
-    pattern = sweep_pattern(offsets)
-    table = torch.tensor(offsets, dtype=torch.float32, device=device)
+    ny, nx, offsets = sc.ny, sc.nx, sc.offsets
+    table = torch.tensor(offsets, dtype=torch.float32, device=sc.device)
     col = cfg.collision
     gx, gy, gz = cfg.gravity
-    sc_force = self_collision_planes_cuda(cfg, ny, nx, device)
-    substeps, finish, strain_fn, strain_size, error_string = _launcher()
-    feat = (CudaFeatures(top, cfg, offsets, finish, error_string, "grid_euler")
-            if features_on(cfg) else None)
-    strain = (CudaStrain(cfg, offsets, sc.inv_mass, strain_fn, strain_size,
-                         error_string, "grid_euler")
+    lib = _library()
+    substeps = lib.grid_euler_substeps
+    feat = CudaFeatures(top, cfg, offsets, lib) if features_on(cfg) else None
+    strain = (CudaStrain(cfg, offsets, sc.inv_mass, lib)
               if cfg.strain_limit.enabled else None)
     w = cfg.wind
 
-    def fn(state: State, dt: float, n_substeps: int, top=None) -> State:
-        # the host phases, spans while the recorder is on: planes in, the
-        # struct packed, each C call, planes out
-        sp = profiling.begin("grid_euler.planes_in") if profiling.on else -1
-        check_input("state.x", state.x, (n, 3), device)
-        check_input("state.v", state.v, (n, 3), device)
-        dt = float(dt)
-        x = torch.empty((2, 3, ny, nx), dtype=torch.float32, device=device)
-        v = torch.empty_like(x)
-        x[0].copy_(to_planes(state.x, ny, nx))
-        v[0].copy_(to_planes(state.v, ny, nx))
-        edge_alive, rest_scale = state.edge_alive, state.rest_scale
-        if sp >= 0:
-            profiling.end(sp)
-        sp = profiling.begin("grid_euler.pack") if profiling.on else -1
-        colliders = sc.colliders.args(sc.colliders.built if top is None
-                                      else top)
-        with torch.cuda.device(device):
-            stream = torch.cuda.current_stream(device).cuda_stream
-            if feat:
-                feat.begin(state)
-            planes = ((feat.alive, feat.alive_out, feat.scale,
-                       feat.scale_out) if feat else (None,) * 4)
-            args = _Frame(
-                _pair(x[0], x[1]), _pair(v[0], v[1]), _pair(*planes[:2]),
-                _pair(*planes[2:]),
-                sc.inv_mass.data_ptr(), table.data_ptr(),
-                feat.limits.data_ptr() if feat else None, stream,
-                len(offsets), pattern, int(feat is not None), int(w.enabled),
-                int(strain is not None), ny, nx,
-                FeatParamsStruct(*(feat.scalars if feat else (0.0,) * 5)),
-                CollidersStruct(*colliders),
-                WindStruct(*w.velocity, w.drag, w.lift),
-                _Params(dt, cfg.springs.damping, gx, gy, gz,
-                        1.0 - cfg.global_damping * dt, col.restitution,
-                        1.0 + col.restitution, 1.0 - col.friction),
-                (strain.begin(x[0], table) if strain
-                 else grid_strain.SweepsStruct()))
-            launched = ctypes.c_int()
-            ref, count = ctypes.byref(args), ctypes.byref(launched)
-            # self-collision: one call a substep, its force plane at the
-            # substep's start; else the frame in one call
-            calls = ([(k, 1) for k in range(n_substeps)] if sc_force
-                     else [(0, n_substeps)])
-            if sp >= 0:
-                profiling.end(sp)
-            for k0, n_run in calls:
-                f_ext = None
-                if sc_force:
-                    f_ext = sc_force(x[0] if strain else x[k0 % 2])
-                sp = profiling.begin("grid_euler.call") if profiling.on else -1
-                err = substeps(ref, k0, n_run, int(k0 + n_run == n_substeps),
-                               _ptr(f_ext), count)
-                profiling.add("grid_euler", launched.value)
-                check_launch(err, "grid_euler substeps", error_string)
-                if strain:   # one strain launch a substep, counted there too
-                    grid_strain.add_launches(n_run)
-                if sp >= 0:
-                    profiling.end(sp)
-            if feat:
-                # a buffer swap a substep, and one for the frame-end update
-                for _ in range((n_substeps + int(n_substeps > 0)) % 2):
-                    feat.swap()
-                edge_alive, rest_scale = feat.end(state)
-        sp = profiling.begin("grid_euler.planes_out") if profiling.on else -1
-        last = n_substeps % 2
-        xf = from_planes(x[0] if strain else x[last])
-        vf = from_planes(v[last])
-        out = State(x=xf, v=vf, x_prev=xf - dt * vf, edge_alive=edge_alive,
-                    rest_scale=rest_scale, cluster_quat=state.cluster_quat)
-        if sp >= 0:
-            profiling.end(sp)
-        return out
+    def pack(planes, _, dt, colliders, stream):
+        # the pairs' planes once a frame, not a view a substep
+        x, v = (p.unbind() for p in planes)
+        fp = ((feat.alive, feat.alive_out, feat.scale, feat.scale_out)
+              if feat else (None,) * 4)
+        return x, v, ctypes.byref(_Frame(
+            _pair(*x), _pair(*v), _pair(*fp[:2]),
+            _pair(*fp[2:]), sc.inv_mass.data_ptr(), table.data_ptr(),
+            feat.limits.data_ptr() if feat else None, stream,
+            len(offsets), sc.pattern, int(feat is not None), int(w.enabled),
+            int(strain is not None), ny, nx,
+            FeatParamsStruct(*(feat.scalars if feat else (0.0,) * 5)),
+            CollidersStruct(*colliders),
+            WindStruct(*w.velocity, w.drag, w.lift),
+            _Params(dt, cfg.springs.damping, gx, gy, gz,
+                    1.0 - cfg.global_damping * dt, col.restitution,
+                    1.0 + col.restitution, 1.0 - col.friction),
+            (strain.begin(x[0], table) if strain
+             else grid_strain.SweepsStruct())))
 
-    fn.features = feat
-    return fn
+    def call(ctx, k0, n_run, last, f_ext, count):
+        return substeps(ctx[2], k0, n_run, int(last), f_ext, count)
+
+    def planes_at(ctx, k):
+        # under the strain limit the last sweep writes x over buffer 0
+        x, v, _ = ctx
+        return x[0] if strain else x[k % 2], v[k % 2]
+
+    def state(x, v, dt, s, edge_alive, rest_scale):
+        return State(x=x, v=v, x_prev=x - dt * v, edge_alive=edge_alive,
+                     rest_scale=rest_scale, cluster_quat=s.cluster_quat)
+
+    # one strain launch a substep, counted there too
+    after = ((lambda ctx, k0, n_run, last: grid_strain.add_launches(n_run))
+             if strain else None)
+    return FrameLoop(
+        "grid_euler", lib, sc, (("x", None), ("v", None)), pack=pack,
+        call=call, planes_at=planes_at, state=state, after=after,
+        force=self_collision_planes_cuda(cfg, ny, nx, sc.device),
+        features=feat)
 
 
 def make_strain_correction(top: Topology, cfg: SimConfig):
@@ -254,13 +188,10 @@ def make_strain_correction(top: Topology, cfg: SimConfig):
     the card tests and ``chip_smoke.py`` hold the sweeps to it alone.  Each
     launch counts here and in :mod:`.grid_strain`."""
     sc = pack_grid_scene(top, cfg, Solver.SEMI_IMPLICIT_EULER, "grid_euler")
-    offsets = _offsets(cfg, top.grid_spacing,
-                       EDGE_SHEAR in top.edge_classes_present,
-                       EDGE_BEND in top.edge_classes_present)
-    table = torch.tensor(offsets, dtype=torch.float32, device=sc.device)
-    _, _, strain_fn, strain_size, error_string = _launcher()
-    strain = CudaStrain(cfg, offsets, sc.inv_mass, strain_fn, strain_size,
-                        error_string, "grid_euler")
+    table = torch.tensor(sc.offsets, dtype=torch.float32, device=sc.device)
+    lib = _library()
+    strain = CudaStrain(cfg, sc.offsets, sc.inv_mass, lib,
+                        lib.grid_euler_strain)
 
     def fn(x3: torch.Tensor, alive=None, scale=None) -> torch.Tensor:
         check_input("x3", x3, (3, sc.ny, sc.nx), sc.device)

@@ -32,7 +32,6 @@ import torch
 from ..core.config import SimConfig, Solver
 from ..core.state import State
 from ..core.topology import EDGE_BEND, EDGE_SHEAR, Topology
-from .build import check_launch
 from .grid_scene import check_input
 from .stencil import (_offsets, _valid_mask, _xpbd_offsets, check_ported,
                       edge_values, euler_substep_grid, from_planes,
@@ -131,11 +130,10 @@ class CudaFeatures:
     """A grid kernel's feature planes on the card: the tear thresholds and
     update scalars packed once, the planes of a frame in ping-pong buffers
     (a launch reads one and writes the other: an edge's entry is read by two
-    threads), and the frame-end launch.  ``finish`` is the library's
-    ``grid_<kernel>_features``."""
+    threads), and the frame-end launch, the entry ``<name>_features`` of
+    the grid kernel's library ``lib`` (:class:`.build.Library`)."""
 
-    def __init__(self, top: Topology, cfg: SimConfig, offsets, finish,
-                 error_string, name: str):
+    def __init__(self, top: Topology, cfg: SimConfig, offsets, lib):
         self.planes = FeaturePlanes(top, cfg, offsets)
         self.n_off = len(offsets)
         self.ny, self.nx = top.grid_shape
@@ -147,8 +145,8 @@ class CudaFeatures:
         pp = cfg.plasticity
         self.scalars = (1.0 + sl, pp.yield_strain, pp.creep, pp.min_scale,
                         pp.max_scale)
-        self._finish, self._error_string, self._name = (finish, error_string,
-                                                        name)
+        self._lib = lib
+        self._finish = lib.declare(f"{lib.name}_features", FINISH_ARGTYPES)
         self.alive = self.alive_out = self.scale = self.scale_out = None
 
     def begin(self, state: State) -> None:
@@ -172,14 +170,13 @@ class CudaFeatures:
 
     def launch_finish(self, x3: torch.Tensor, table: torch.Tensor,
                       stream) -> None:
-        """The frame-end update over the final positions ``x3``, then
-        :meth:`swap`."""
-        check_launch(self._finish(
+        """The frame-end update over the final positions ``x3``, into the
+        write buffers."""
+        self._lib.check_launch(self._finish(
             x3.data_ptr(), _ptr(self.alive), _ptr(self.alive_out),
             _ptr(self.scale), _ptr(self.scale_out), table.data_ptr(),
             self.limits.data_ptr(), self.n_off, *self.scalars, self.ny,
-            self.nx, stream), f"{self._name} features", self._error_string)
-        self.swap()
+            self.nx, stream), f"{self._lib.name} features")
 
     def end(self, state: State):
         """``(edge_alive, rest_scale)`` of the next state, gathered from the
@@ -197,6 +194,7 @@ class CudaFeatures:
         with torch.cuda.device(x3.device):
             self.launch_finish(x3.contiguous(), table,
                                torch.cuda.current_stream().cuda_stream)
+        self.swap()
         return self.alive, self.scale
 
 

@@ -2,7 +2,8 @@
 inputs (:mod:`.grid_euler`, :mod:`.grid_verlet`, :mod:`.grid_xpbd`), the
 collider rows of every grid and lattice kernel, packed on the card from the
 topology of each call (:class:`ColliderRows`), the wind's launch arguments,
-the checks of each tensor handed to a kernel, and the launch-error check.
+the checks of each tensor handed to a kernel, and the check of a kernel's
+solver and device (:func:`check_card`).
 
 Counterpart of ``softbodyunity_tpu/kernels/pallas_substep.py``'s
 ``_pack_plane``/``_pack_spheres``/``_pack_capsules``/``_pack_boxes``.
@@ -16,8 +17,8 @@ import dataclasses
 import torch
 
 from ..core.config import SimConfig, Solver
-from ..core.topology import Topology, check_same_scene
-from .stencil import check_grid_ported
+from ..core.topology import EDGE_BEND, EDGE_SHEAR, Topology, check_same_scene
+from .stencil import _offsets, _xpbd_offsets, check_grid_ported
 
 
 # The grid's offset patterns (csrc/grid_common.cuh Pattern), as (di, dj) rows
@@ -150,6 +151,8 @@ class GridScene:
     nx: int
     inv_mass: torch.Tensor   # [ny, nx]
     colliders: ColliderRows
+    offsets: list            # the solver's (di, dj, k or compliance, rest)
+    pattern: int             # their index in PATTERNS
 
 
 def check_input(name: str, t: torch.Tensor, shape, device) -> None:
@@ -170,22 +173,32 @@ def check_input(name: str, t: torch.Tensor, shape, device) -> None:
             "(ROADMAP Queue 1 item 9)")
 
 
+def check_card(top: Topology, cfg: SimConfig, solver: Solver,
+               kernel: str) -> None:
+    """Raise unless ``kernel``, which runs ``solver``, is given that
+    solver's config and a topology on a CUDA device."""
+    if cfg.solver != solver:
+        raise ValueError(f"{kernel} runs the {solver.value} solver, not "
+                         f"{cfg.solver.value}")
+    if top.device.type != "cuda":
+        raise ValueError(f"make_cuda_step needs a topology on a CUDA device, "
+                         f"not {top.device}")
+
+
 def pack_grid_scene(top: Topology, cfg: SimConfig, solver: Solver,
                     kernel: str) -> GridScene:
     """Check that ``kernel``, which runs ``solver``, can run ``(top, cfg)``
     on the card, and pack the scene's inputs there."""
     check_grid_ported(cfg)
-    if cfg.solver != solver:
-        raise ValueError(f"{kernel} runs the {solver.value} solver, not "
-                         f"{cfg.solver.value}")
     if top.grid_shape is None or top.grid_spacing is None:
         raise ValueError("make_cuda_step needs a structured grid topology")
-    device = top.device
-    if device.type != "cuda":
-        raise ValueError(f"make_cuda_step needs a topology on a CUDA device, "
-                         f"not {device}")
+    check_card(top, cfg, solver, kernel)
     ny, nx = top.grid_shape
     inv_mass = top.inv_mass.reshape(ny, nx)
-    check_input("inv_mass", inv_mass, (ny, nx), device)
-    return GridScene(device=device, ny=ny, nx=nx, inv_mass=inv_mass,
-                     colliders=ColliderRows(top, cfg))
+    check_input("inv_mass", inv_mass, (ny, nx), top.device)
+    offsets = (_xpbd_offsets if solver == Solver.XPBD else _offsets)(
+        cfg, top.grid_spacing, EDGE_SHEAR in top.edge_classes_present,
+        EDGE_BEND in top.edge_classes_present)
+    return GridScene(device=top.device, ny=ny, nx=nx, inv_mass=inv_mass,
+                     colliders=ColliderRows(top, cfg), offsets=offsets,
+                     pattern=sweep_pattern(offsets))

@@ -23,18 +23,12 @@ import torch
 
 from ..core.config import SimConfig
 from ..utils import profiling
-from .build import check_launch
 from .grid_scene import sweep_pattern
 
 
-def launch_count() -> int:
-    """Strain launches, of every grid solver, since the last
-    :func:`reset_launch_count`."""
-    return profiling.count("grid_strain")
-
-
-def reset_launch_count() -> None:
-    profiling.reset_count("grid_strain")
+# launch_count(): strain launches, of every grid solver, since the last
+# reset_launch_count()
+launch_count, reset_launch_count = profiling.launch_views("grid_strain")
 
 
 def add_launches(n: int) -> None:
@@ -84,17 +78,13 @@ class CudaStrain:
     ``(rest * (1 + max_stretch), rest * (1 - max_compress) or 0)`` rounded
     once from double, as the plain version's Python floats are, the sweep
     scalars, the offsets' pattern, and per call the scratch planes of the
-    sweeps' ping-pong and Jacobi weights.  ``launch`` is the library's
-    ``grid_<solver>_strain`` (None where a frame entry launches the sweeps
-    itself); ``size`` its ``grid_<solver>_strain_size``, which must be the
-    ctypes mirror's."""
+    sweeps' ping-pong and Jacobi weights.  ``lib`` is the solver's library
+    (:class:`.build.Library`, which checks its ``strain`` struct against
+    :class:`SweepsStruct`), ``launch`` its ``grid_<solver>_strain`` (None
+    where a frame entry launches the sweeps itself)."""
 
-    def __init__(self, cfg: SimConfig, offsets, inv_mass: torch.Tensor,
-                 launch, size, error_string, name: str):
-        if size() != ctypes.sizeof(SweepsStruct):
-            raise RuntimeError(
-                f"{name}: the C StrainSweeps struct has {size()} bytes, its "
-                f"ctypes mirror {ctypes.sizeof(SweepsStruct)}")
+    def __init__(self, cfg: SimConfig, offsets, inv_mass: torch.Tensor, lib,
+                 launch=None):
         sl = cfg.strain_limit
         compress = sl.max_compress >= 0.0
         self.n_sweeps = n_sweeps(cfg)
@@ -108,8 +98,7 @@ class CudaStrain:
         self.scalars = StrainParamsStruct(1.0 + sl.max_stretch,
                                      1.0 - sl.max_compress, int(compress))
         self.inv_mass = inv_mass
-        self._launch, self._error_string, self._name = (launch, error_string,
-                                                        name)
+        self._lib, self._launch = lib, launch
         self.args = None
 
     def begin(self, like: torch.Tensor, table: torch.Tensor) -> SweepsStruct:
@@ -135,8 +124,9 @@ class CudaStrain:
         """Launch one substep's sweeps, one C call: ``alive`` and ``scale``
         are the substep's feature planes or None, ``epilogue`` the rest of
         the solver's arguments.  Returns the number of launches."""
-        check_launch(self._launch(ctypes.byref(self.args), _ptr(alive),
-                                  _ptr(scale), *epilogue),
-                     f"{self._name} strain sweeps", self._error_string)
+        self._lib.check_launch(self._launch(ctypes.byref(self.args),
+                                            _ptr(alive), _ptr(scale),
+                                            *epilogue),
+                               f"{self._lib.name} strain sweeps")
         add_launches(1)
         return 1

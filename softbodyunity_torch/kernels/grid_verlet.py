@@ -28,27 +28,20 @@ import torch
 
 from ..core.config import SimConfig, Solver
 from ..core.state import State
-from ..core.topology import EDGE_BEND, EDGE_SHEAR, Topology
+from ..core.topology import Topology
 from ..solver.collide import SPHERE_CONTACT_SHELL
 from ..utils import profiling
 from . import grid_features, grid_strain
 from .blocks import self_collision_planes_cuda
-from .build import check_launch
-from .grid_features import (FINISH_ARGTYPES, CudaFeatures, FeatParamsStruct,
-                            _ptr, features_on)
-from .grid_scene import (CollidersStruct, WindStruct, check_input,
-                         pack_grid_scene, sweep_pattern)
+from .build import Library
+from .frame import FrameLoop
+from .grid_features import CudaFeatures, FeatParamsStruct, _ptr, features_on
+from .grid_scene import CollidersStruct, WindStruct, pack_grid_scene
 from .grid_strain import CudaStrain
-from .stencil import _offsets, from_planes, to_planes
 
 
-def launch_count() -> int:
-    """Kernel launches since the last :func:`reset_launch_count`."""
-    return profiling.count("grid_verlet")
-
-
-def reset_launch_count() -> None:
-    profiling.reset_count("grid_verlet")
+# launch_count(): kernel launches since the last reset_launch_count()
+launch_count, reset_launch_count = profiling.launch_views("grid_verlet")
 
 
 def launches_per_substep(cfg: SimConfig) -> int:
@@ -97,32 +90,17 @@ class _Frame(ctypes.Structure):
 
 
 @functools.cache
-def _launcher():
-    from .build import load_library
-
-    lib = load_library("grid_verlet")
-    p, i = ctypes.c_void_p, ctypes.c_int
-    size = lib.grid_verlet_frame_size
-    size.restype = i
-    if size() != ctypes.sizeof(_Frame):
-        raise RuntimeError(
-            f"grid_verlet: the C frame struct has {size()} bytes, its "
-            f"ctypes mirror {ctypes.sizeof(_Frame)}")
-    fn = lib.grid_verlet_substeps
-    fn.argtypes = [
+def _library():
+    lib = Library("grid_verlet", frame=_Frame,
+                  strain=grid_strain.SweepsStruct)
+    i = ctypes.c_int
+    lib.declare("grid_verlet_substeps", [
         ctypes.POINTER(_Frame),   # the struct
         i, i, i,                  # first substep, substeps, finish
-        p,                        # f_ext (or null)
+        ctypes.c_void_p,          # f_ext (or null)
         ctypes.POINTER(i),        # launches out
-    ]
-    fn.restype = i
-    lib.grid_verlet_features.argtypes = FINISH_ARGTYPES
-    lib.grid_verlet_features.restype = i
-    lib.grid_verlet_strain_size.restype = i
-    lib.grid_verlet_error_string.argtypes = [i]
-    lib.grid_verlet_error_string.restype = ctypes.c_char_p
-    return (fn, lib.grid_verlet_features, lib.grid_verlet_strain_size,
-            lib.grid_verlet_error_string)
+    ])
+    return lib
 
 
 def make_cuda_step(top: Topology, cfg: SimConfig):
@@ -141,85 +119,57 @@ def make_cuda_step(top: Topology, cfg: SimConfig):
     :func:`.grid_euler.make_cuda_step` runs them (``fn.features``), and the
     wind and the strain limit too: the last sweep runs the contact and
     friction, and writes the new x over the history, which the integrate
-    launch has read."""
+    launch has read.  Each frame runs through :class:`.frame.FrameLoop`."""
     sc = pack_grid_scene(top, cfg, Solver.VERLET, "grid_verlet")
-    ny, nx, device = sc.ny, sc.nx, sc.device
-    n = ny * nx
-    offsets = _offsets(cfg, top.grid_spacing,
-                       EDGE_SHEAR in top.edge_classes_present,
-                       EDGE_BEND in top.edge_classes_present)
-    pattern = sweep_pattern(offsets)
-    table = torch.tensor(offsets, dtype=torch.float32, device=device)
+    ny, nx, offsets = sc.ny, sc.nx, sc.offsets
+    table = torch.tensor(offsets, dtype=torch.float32, device=sc.device)
     mu = cfg.collision.friction
     gx, gy, gz = cfg.gravity
-    sc_force = self_collision_planes_cuda(cfg, ny, nx, device)
-    substeps, finish, strain_size, error_string = _launcher()
-    feat = (CudaFeatures(top, cfg, offsets, finish, error_string,
-                         "grid_verlet") if features_on(cfg) else None)
+    lib = _library()
+    substeps = lib.grid_verlet_substeps
+    feat = CudaFeatures(top, cfg, offsets, lib) if features_on(cfg) else None
     # the sweeps launch from grid_verlet_substeps, never from CudaStrain
-    strain = (CudaStrain(cfg, offsets, sc.inv_mass, None, strain_size,
-                         error_string, "grid_verlet")
+    strain = (CudaStrain(cfg, offsets, sc.inv_mass, lib)
               if cfg.strain_limit.enabled else None)
     w = cfg.wind
 
-    def fn(state: State, dt: float, n_substeps: int, top=None) -> State:
-        colliders = sc.colliders.args(sc.colliders.built if top is None
-                                      else top)
-        check_input("state.x", state.x, (n, 3), device)
-        check_input("state.x_prev", state.x_prev, (n, 3), device)
-        dt = float(dt)
-        x = torch.empty((3, 3, ny, nx), dtype=torch.float32, device=device)
-        x[0].copy_(to_planes(state.x, ny, nx))
-        x[1].copy_(to_planes(state.x_prev, ny, nx))
-        edge_alive, rest_scale = state.edge_alive, state.rest_scale
-        with torch.cuda.device(device):
-            stream = torch.cuda.current_stream(device).cuda_stream
-            if feat:
-                feat.begin(state)
-            planes = ((feat.alive, feat.alive_out, feat.scale,
-                       feat.scale_out) if feat else (None,) * 4)
-            args = _Frame(
-                (ctypes.c_void_p * 3)(*(b.data_ptr() for b in x)),
-                (ctypes.c_void_p * 2)(*map(_ptr, planes[:2])),
-                (ctypes.c_void_p * 2)(*map(_ptr, planes[2:])),
-                sc.inv_mass.data_ptr(), table.data_ptr(),
-                feat.limits.data_ptr() if feat else None, stream,
-                len(offsets), pattern, int(feat is not None), int(w.enabled),
-                int(strain is not None), ny, nx,
-                FeatParamsStruct(*(feat.scalars if feat else (0.0,) * 5)),
-                CollidersStruct(*colliders),
-                WindStruct(*w.velocity, w.drag, w.lift),
-                _Params(dt, cfg.springs.damping, gx, gy, gz,
-                        1.0 - cfg.global_damping * dt, mu, 1.0 - mu,
-                        SPHERE_CONTACT_SHELL),
-                (strain.begin(x[2], table) if strain
-                 else grid_strain.SweepsStruct()))
-            launched = ctypes.c_int()
-            ref, count = ctypes.byref(args), ctypes.byref(launched)
-            # self-collision: one call a substep, its force plane at the
-            # substep's start; else the frame in one call
-            calls = ([(k, 1) for k in range(n_substeps)] if sc_force
-                     else [(0, n_substeps)])
-            for k0, n_run in calls:
-                f_ext = None
-                if sc_force:
-                    f_ext = sc_force(x[buffers(k0, strain is not None)[0]])
-                err = substeps(ref, k0, n_run, int(k0 + n_run == n_substeps),
-                               _ptr(f_ext), count)
-                profiling.add("grid_verlet", launched.value)
-                check_launch(err, "grid_verlet substeps", error_string)
-                if strain:   # one strain launch a substep, counted there too
-                    grid_strain.add_launches(n_run)
-            if feat:
-                # a buffer swap a substep, and one for the frame-end update
-                for _ in range((n_substeps + int(n_substeps > 0)) % 2):
-                    feat.swap()
-                edge_alive, rest_scale = feat.end(state)
-        last, prev, _ = buffers(n_substeps, strain is not None)
-        x3, xp3 = from_planes(x[last]), from_planes(x[prev])
-        return State(x=x3, v=(x3 - xp3) / dt, x_prev=xp3,
-                     edge_alive=edge_alive, rest_scale=rest_scale,
-                     cluster_quat=state.cluster_quat)
+    def pack(planes, _, dt, colliders, stream):
+        x = planes[0].unbind()   # the planes once a frame
+        fp = ((feat.alive, feat.alive_out, feat.scale, feat.scale_out)
+              if feat else (None,) * 4)
+        return x, ctypes.byref(_Frame(
+            (ctypes.c_void_p * 3)(*(b.data_ptr() for b in x)),
+            (ctypes.c_void_p * 2)(*map(_ptr, fp[:2])),
+            (ctypes.c_void_p * 2)(*map(_ptr, fp[2:])),
+            sc.inv_mass.data_ptr(), table.data_ptr(),
+            feat.limits.data_ptr() if feat else None, stream,
+            len(offsets), sc.pattern, int(feat is not None), int(w.enabled),
+            int(strain is not None), ny, nx,
+            FeatParamsStruct(*(feat.scalars if feat else (0.0,) * 5)),
+            CollidersStruct(*colliders),
+            WindStruct(*w.velocity, w.drag, w.lift),
+            _Params(dt, cfg.springs.damping, gx, gy, gz,
+                    1.0 - cfg.global_damping * dt, mu, 1.0 - mu,
+                    SPHERE_CONTACT_SHELL),
+            (strain.begin(x[2], table) if strain
+             else grid_strain.SweepsStruct())))
 
-    fn.features = feat
-    return fn
+    def call(ctx, k0, n_run, last, f_ext, count):
+        return substeps(ctx[1], k0, n_run, int(last), f_ext, count)
+
+    def planes_at(ctx, k):
+        b = buffers(k, strain is not None)
+        return ctx[0][b[0]], ctx[0][b[1]]
+
+    def state(x, xp, dt, s, edge_alive, rest_scale):
+        return State(x=x, v=(x - xp) / dt, x_prev=xp, edge_alive=edge_alive,
+                     rest_scale=rest_scale, cluster_quat=s.cluster_quat)
+
+    # one strain launch a substep, counted there too
+    after = ((lambda ctx, k0, n_run, last: grid_strain.add_launches(n_run))
+             if strain else None)
+    return FrameLoop(
+        "grid_verlet", lib, sc, (("x", "x_prev", None),), pack=pack,
+        call=call, planes_at=planes_at, state=state, after=after,
+        force=self_collision_planes_cuda(cfg, ny, nx, sc.device),
+        features=feat)

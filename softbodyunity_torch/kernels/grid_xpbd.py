@@ -30,29 +30,23 @@ import torch
 
 from ..core.config import SimConfig, Solver
 from ..core.state import State
-from ..core.topology import EDGE_BEND, EDGE_SHEAR, Topology
+from ..core.topology import Topology
 from ..solver.collide import SPHERE_CONTACT_SHELL
 from ..utils import profiling
 from . import grid_features, grid_strain
 from .blocks import self_collision_planes_cuda
-from .build import check_launch
-from .grid_features import (FINISH_ARGTYPES, CudaFeatures, FeatParamsStruct,
-                            _ptr, features_on)
+from .build import Library
+from .frame import FrameLoop
+from .grid_features import CudaFeatures, FeatParamsStruct, _ptr, features_on
 from .grid_scene import (COLLIDER_ARGTYPES, CollidersStruct, WindStruct,
-                         check_input, pack_grid_scene, sweep_pattern)
+                         pack_grid_scene)
 from .grid_strain import CudaStrain
-from .stencil import (_valid_mask, _xpbd_offsets, from_planes, jacobi_count,
-                      to_planes)
+from .stencil import _valid_mask, jacobi_count
 
 
-def launch_count() -> int:
-    """Kernel launches (predict and sweep) since the last
-    :func:`reset_launch_count`."""
-    return profiling.count("grid_xpbd")
-
-
-def reset_launch_count() -> None:
-    profiling.reset_count("grid_xpbd")
+# launch_count(): kernel launches (predict and sweep) since the last
+# reset_launch_count()
+launch_count, reset_launch_count = profiling.launch_views("grid_xpbd")
 
 
 def jacobi_launches(cfg: SimConfig) -> int:
@@ -100,29 +94,17 @@ class _Substep(ctypes.Structure):
 
 
 @functools.cache
-def _launchers():
-    from .build import load_library
-
-    lib = load_library("grid_xpbd")
+def _library():
+    lib = Library("grid_xpbd", substep=_Substep,
+                  strain=grid_strain.SweepsStruct)
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    size = lib.grid_xpbd_substep_size
-    size.restype = i
-    if size() != ctypes.sizeof(_Substep):
-        raise RuntimeError(
-            f"grid_xpbd: the C substep struct has {size()} bytes, its "
-            f"ctypes mirror {ctypes.sizeof(_Substep)}")
-    substep = lib.grid_xpbd_substep
-    substep.argtypes = [
+    lib.declare("grid_xpbd_substep", [
         ctypes.POINTER(_Substep), p, p,   # the struct, x, x_out
         p,                                # f_ext (or null)
         p, p, p, p,                       # alive in, out, scale in, out
         i, ctypes.POINTER(i),             # first, launches out
-    ]
-    substep.restype = i
-    lib.grid_xpbd_features.argtypes = FINISH_ARGTYPES
-    lib.grid_xpbd_features.restype = i
-    strain = lib.grid_xpbd_strain
-    strain.argtypes = [
+    ])
+    lib.declare("grid_xpbd_strain", [
         ctypes.POINTER(grid_strain.SweepsStruct),   # the sweeps' struct
         p, p,                  # alive, scale
         p, p, p,               # epilogue: xp, delta, flag
@@ -130,13 +112,8 @@ def _launchers():
         p, p,                  # x_out, v
         f, f, f, f,            # dt, mu, keep, shell
         p,                     # stream
-    ]
-    strain.restype = i
-    lib.grid_xpbd_strain_size.restype = i
-    lib.grid_xpbd_error_string.argtypes = [i]
-    lib.grid_xpbd_error_string.restype = ctypes.c_char_p
-    return (substep, lib.grid_xpbd_features, strain,
-            lib.grid_xpbd_strain_size, lib.grid_xpbd_error_string)
+    ])
+    return lib
 
 
 def make_cuda_step(top: Topology, cfg: SimConfig):
@@ -159,15 +136,11 @@ def make_cuda_step(top: Topology, cfg: SimConfig):
     the predict.  Under the strain limit every Jacobi sweep stores its
     delta, and the strain sweeps (:class:`.grid_strain.CudaStrain`) start
     from ``xp + delta``; the last projects the contact once more and runs
-    the epilogue."""
+    the epilogue.  Each frame runs through :class:`.frame.FrameLoop`,
+    the positions in two planes that the substeps alternate."""
     sc = pack_grid_scene(top, cfg, Solver.XPBD, "grid_xpbd")
-    ny, nx, device = sc.ny, sc.nx, sc.device
-    n = ny * nx
-    xoffsets = _xpbd_offsets(cfg, top.grid_spacing,
-                             EDGE_SHEAR in top.edge_classes_present,
-                             EDGE_BEND in top.edge_classes_present)
+    ny, nx, device, xoffsets = sc.ny, sc.nx, sc.device, sc.offsets
     n_off = len(xoffsets)
-    pattern = sweep_pattern(xoffsets)
     masks = [_valid_mask(ny, nx, di, dj, device, torch.float32)
              for di, dj, _, _ in xoffsets]
     inv_cnt = (cfg.xpbd.relaxation / jacobi_count(xoffsets, masks)).contiguous()
@@ -175,97 +148,84 @@ def make_cuda_step(top: Topology, cfg: SimConfig):
     n_sweeps = jacobi_launches(cfg)
     gx, gy, gz = cfg.gravity
     tables = {}
-    sc_force = self_collision_planes_cuda(cfg, ny, nx, device)
-    substep, finish, strain_fn, strain_size, error_string = _launchers()
-    feat = (CudaFeatures(top, cfg, xoffsets, finish, error_string,
-                         "grid_xpbd") if features_on(cfg) else None)
-    strain = (CudaStrain(cfg, xoffsets, sc.inv_mass, strain_fn, strain_size,
-                         error_string, "grid_xpbd")
+    lib = _library()
+    substep = lib.grid_xpbd_substep
+    feat = CudaFeatures(top, cfg, xoffsets, lib) if features_on(cfg) else None
+    strain = (CudaStrain(cfg, xoffsets, sc.inv_mass, lib,
+                         lib.grid_xpbd_strain)
               if cfg.strain_limit.enabled else None)
     w = cfg.wind
     tearing = cfg.tear.enabled
 
-    def fn(state: State, dt: float, n_substeps: int, top=None) -> State:
-        colliders = sc.colliders.args(sc.colliders.built if top is None
-                                      else top)
-        check_input("state.x", state.x, (n, 3), device)
-        check_input("state.v", state.v, (n, 3), device)
-        dt = float(dt)
+    def buffers(planes, dt):
         if dt not in tables:
             tables[dt] = torch.tensor(
                 [(di, dj, alpha / (dt * dt), rest)
                  for di, dj, alpha, rest in xoffsets],
                 dtype=torch.float32, device=device)
-        table = tables[dt]
-        x = torch.empty((3, ny, nx), dtype=torch.float32, device=device)
-        x_out = torch.empty_like(x)
-        v = torch.empty_like(x)
-        delta = torch.empty((2, 3, ny, nx), dtype=torch.float32,
-                            device=device)
         lam = torch.empty((2, n_off, ny, nx), dtype=torch.float32,
                           device=device)
         flag = torch.empty((ny, nx), dtype=torch.uint8, device=device)
-        x.copy_(to_planes(state.x, ny, nx))
-        v.copy_(to_planes(state.v, ny, nx))
-        edge_alive, rest_scale = state.edge_alive, state.rest_scale
         # under tearing the predict writes each substep's Jacobi weights
         cnt = torch.empty_like(inv_cnt) if tearing else inv_cnt
-        # the Jacobi loop's last delta, where the strain sweeps start
-        d_last = delta[n_sweeps % 2]
-        with torch.cuda.device(device):
-            stream = torch.cuda.current_stream(device).cuda_stream
-            args = _Substep(
-                v.data_ptr(),
-                (ctypes.c_void_p * 2)(delta[0].data_ptr(),
-                                      delta[1].data_ptr()),
-                (ctypes.c_void_p * 2)(lam[0].data_ptr(), lam[1].data_ptr()),
-                flag.data_ptr(), sc.inv_mass.data_ptr(), cnt.data_ptr(),
-                cnt.data_ptr() if tearing else None, table.data_ptr(),
-                feat.limits.data_ptr() if feat else None, stream,
-                n_off, pattern, int(feat is not None),
-                int(w.enabled), n_sweeps, int(cfg.xpbd.n_iterations > 0),
-                int(strain is None), ny, nx, cfg.xpbd.relaxation,
-                FeatParamsStruct(*(feat.scalars if feat else (0.0,) * 5)),
-                CollidersStruct(*colliders),
-                WindStruct(*w.velocity, w.drag, w.lift),
-                _Params(dt, gx, gy, gz, 1.0 - cfg.global_damping * dt, mu,
-                        1.0 - mu, SPHERE_CONTACT_SHELL))
-            launched = ctypes.c_int()
-            ref, count = ctypes.byref(args), ctypes.byref(launched)
-            if feat:
-                feat.begin(state)
-            if strain:
-                strain.begin(x, table)
-            for k in range(n_substeps):
-                f_ext = sc_force(x) if sc_force else None
-                err = substep(
-                    ref, x.data_ptr(), x_out.data_ptr(), _ptr(f_ext),
-                    *((_ptr(feat.alive), _ptr(feat.alive_out),
-                       _ptr(feat.scale), _ptr(feat.scale_out)) if feat
-                      else (None,) * 4),
-                    int(k == 0), count)
-                profiling.add("grid_xpbd", launched.value)
-                check_launch(err, "grid_xpbd substep", error_string)
-                if feat:
-                    feat.swap()
-                if strain:
-                    # sweeps from xp + delta; the last projects the contact
-                    # once more and runs the epilogue
-                    profiling.add("grid_xpbd", strain.launch(
-                        feat.alive if feat else None,
-                        feat.scale if feat else None,
-                        x.data_ptr(), d_last.data_ptr(), flag.data_ptr(),
-                        *colliders, x_out.data_ptr(), v.data_ptr(), dt, mu,
-                        1.0 - mu, SPHERE_CONTACT_SHELL, stream))
-                x, x_out = x_out, x
-            if feat:
-                if n_substeps > 0:
-                    feat.launch_finish(x, table, stream)
-                    profiling.add("grid_xpbd", 1)
-                edge_alive, rest_scale = feat.end(state)
-        x3, v3 = from_planes(x), from_planes(v)
-        return State(x=x3, v=v3, x_prev=x3 - dt * v3, edge_alive=edge_alive,
-                     rest_scale=rest_scale, cluster_quat=state.cluster_quat)
+        return tables[dt], lam, flag, cnt
 
-    fn.features = feat
-    return fn
+    def pack(planes, bufs, dt, colliders, stream):
+        x, x_out, v, delta = planes
+        table, lam, flag, cnt = bufs
+        x = x, x_out
+        args = _Substep(
+            v.data_ptr(),
+            (ctypes.c_void_p * 2)(delta[0].data_ptr(), delta[1].data_ptr()),
+            (ctypes.c_void_p * 2)(lam[0].data_ptr(), lam[1].data_ptr()),
+            flag.data_ptr(), sc.inv_mass.data_ptr(), cnt.data_ptr(),
+            cnt.data_ptr() if tearing else None, table.data_ptr(),
+            feat.limits.data_ptr() if feat else None, stream,
+            n_off, sc.pattern, int(feat is not None),
+            int(w.enabled), n_sweeps, int(cfg.xpbd.n_iterations > 0),
+            int(strain is None), ny, nx, cfg.xpbd.relaxation,
+            FeatParamsStruct(*(feat.scalars if feat else (0.0,) * 5)),
+            CollidersStruct(*colliders),
+            WindStruct(*w.velocity, w.drag, w.lift),
+            _Params(dt, gx, gy, gz, 1.0 - cfg.global_damping * dt, mu,
+                    1.0 - mu, SPHERE_CONTACT_SHELL))
+        if strain:
+            strain.begin(x[0], table)
+        return (x, v, ctypes.byref(args), [t.data_ptr() for t in x],
+                table, delta[n_sweeps % 2], flag, colliders, dt, stream)
+
+    def call(ctx, k0, n_run, last, f_ext, count):
+        xp = ctx[3]
+        fp = ((_ptr(feat.alive), _ptr(feat.alive_out), _ptr(feat.scale),
+               _ptr(feat.scale_out)) if feat else (None,) * 4)
+        return substep(ctx[2], xp[k0 % 2], xp[1 - k0 % 2], f_ext, *fp,
+                       int(k0 == 0), count)
+
+    def after(ctx, k0, n_run, last):
+        x, v, _, xp, table, d_last, flag, colliders, dt, stream = ctx
+        launches = 0
+        if strain:
+            # sweeps from xp + delta (the Jacobi loop's last delta); the
+            # last projects the contact once more and runs the epilogue
+            launches += strain.launch(
+                feat.alive if feat else None, feat.scale if feat else None,
+                xp[k0 % 2], d_last.data_ptr(), flag.data_ptr(), *colliders,
+                xp[1 - k0 % 2], v.data_ptr(), dt, mu, 1.0 - mu,
+                SPHERE_CONTACT_SHELL, stream)
+        if last and feat:
+            feat.launch_finish(x[1 - k0 % 2], table, stream)
+            launches += 1
+        return launches
+
+    def planes_at(ctx, k):
+        return ctx[0][k % 2], ctx[1]
+
+    def state(x, v, dt, s, edge_alive, rest_scale):
+        return State(x=x, v=v, x_prev=x - dt * v, edge_alive=edge_alive,
+                     rest_scale=rest_scale, cluster_quat=s.cluster_quat)
+
+    return FrameLoop(
+        "grid_xpbd", lib, sc, ("x", None, "v", (None, None)),
+        buffers=buffers, pack=pack, call=call, after=after,
+        planes_at=planes_at, state=state, per_substep=True,
+        force=self_collision_planes_cuda(cfg, ny, nx, device), features=feat)

@@ -22,7 +22,7 @@ import torch
 from ..core.config import SimConfig, Solver
 from ..core.topology import Topology
 from ..solver import banded
-from .grid_scene import ColliderRows, check_input
+from .grid_scene import ColliderRows, check_card, check_input
 from .stencil import _UNPORTED, check_ported
 
 # The ownership word holds the edge groups in bits 0..15 and the tet groups
@@ -150,13 +150,8 @@ def pack_lattice_scene(top: Topology, cfg: SimConfig, solver: Solver,
     """Check that ``kernel``, which runs ``solver``, can run ``(top, cfg)``
     on the card, and pack the scene's inputs there."""
     lattice_gate(top, cfg)
-    if cfg.solver != solver:
-        raise ValueError(f"{kernel} runs the {solver.value} solver, not "
-                         f"{cfg.solver.value}")
+    check_card(top, cfg, solver, kernel)
     device = top.device
-    if device.type != "cuda":
-        raise ValueError(f"make_cuda_step needs a topology on a CUDA device, "
-                         f"not {device}")
     n = top.n_vertices
     g, t = top.offset_groups, top.tet_groups
     volume = use_volume(top, cfg)
@@ -177,12 +172,3 @@ def pack_lattice_scene(top: Topology, cfg: SimConfig, solver: Solver,
         tets=torch.tensor(tets, **f32).reshape(-1, 4),
         cnt=cnt.contiguous(), colliders=ColliderRows(top, cfg))
 
-
-def to_planes(a: torch.Tensor) -> torch.Tensor:
-    """[N, 3] -> contiguous [3, N]."""
-    return a.t().contiguous()
-
-
-def from_planes(a: torch.Tensor) -> torch.Tensor:
-    """[3, N] -> contiguous [N, 3]."""
-    return a.t().contiguous()

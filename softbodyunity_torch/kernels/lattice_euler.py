@@ -23,19 +23,15 @@ from ..core.config import SimConfig, Solver
 from ..core.state import State
 from ..core.topology import Topology
 from ..utils import profiling
-from .build import check_launch
-from .grid_scene import CollidersStruct, WindStruct, check_input
-from .lattice import from_planes, pack_lattice_scene, to_planes, use_volume
+from .build import Library
+from .frame import FrameLoop
+from .grid_scene import CollidersStruct, WindStruct
+from .lattice import pack_lattice_scene, use_volume
 
 
-def launch_count() -> int:
-    """Kernel launches (integrate, tet and gather passes) since the last
-    :func:`reset_launch_count`."""
-    return profiling.count("lattice_euler")
-
-
-def reset_launch_count() -> None:
-    profiling.reset_count("lattice_euler")
+# launch_count(): kernel launches (integrate, tet and gather passes) since
+# the last reset_launch_count()
+launch_count, reset_launch_count = profiling.launch_views("lattice_euler")
 
 
 def launches_per_substep(top: Topology, cfg: SimConfig) -> int:
@@ -78,23 +74,12 @@ class _Planes(ctypes.Structure):
 
 
 @functools.cache
-def _launchers():
-    from .build import load_library
-
-    lib = load_library("lattice_euler")
-    size = lib.lattice_euler_substep_size
-    size.restype = ctypes.c_int
-    if size() != ctypes.sizeof(_Substep):
-        raise RuntimeError(
-            f"lattice_euler: the C substep struct has {size()} bytes, its "
-            f"ctypes mirror {ctypes.sizeof(_Substep)}")
-    substep = lib.lattice_euler_substep
-    substep.argtypes = [ctypes.POINTER(_Substep), ctypes.POINTER(_Planes),
-                        ctypes.POINTER(ctypes.c_int)]
-    substep.restype = ctypes.c_int
-    lib.lattice_euler_error_string.argtypes = [ctypes.c_int]
-    lib.lattice_euler_error_string.restype = ctypes.c_char_p
-    return substep, lib.lattice_euler_error_string
+def _library():
+    lib = Library("lattice_euler", substep=_Substep)
+    lib.declare("lattice_euler_substep", [
+        ctypes.POINTER(_Substep), ctypes.POINTER(_Planes),
+        ctypes.POINTER(ctypes.c_int)])
+    return lib
 
 
 def make_cuda_step(top: Topology, cfg: SimConfig):
@@ -107,65 +92,50 @@ def make_cuda_step(top: Topology, cfg: SimConfig):
     once, here, on the device; the scratch planes of the tet terms
     (csrc/lattice_common.cuh ``kTetPlanes``) once a call, on the call's
     stream, as the other buffers; the collider rows once per topology a
-    call brings (``fn(state, dt, n, top=)``, :class:`.grid_scene.ColliderRows`)."""
+    call brings (``fn(state, dt, n, top=)``, :class:`.grid_scene.ColliderRows`).
+    Each frame runs through :class:`.frame.FrameLoop`."""
     sc = pack_lattice_scene(top, cfg, Solver.SEMI_IMPLICIT_EULER,
                             "lattice_euler")
     n, device = sc.n, sc.device
     col = cfg.collision
     gx, gy, gz = cfg.gravity
     w = cfg.wind
-    substep, error_string = _launchers()
+    lib = _library()
+    substep = lib.lattice_euler_substep
 
-    def fn(state: State, dt: float, n_substeps: int, top=None) -> State:
-        # the host phases, spans while the recorder is on: planes in, the
-        # struct packed, each substep's C call, planes out
-        sp = profiling.begin("lattice_euler.planes_in") if profiling.on else -1
-        check_input("state.x", state.x, (n, 3), device)
-        check_input("state.v", state.v, (n, 3), device)
-        dt = float(dt)
-        xa, va = to_planes(state.x), to_planes(state.v)
-        xb, vb = torch.empty_like(xa), torch.empty_like(va)
-        tscr = torch.empty((3 * sc.n_tet, n, 4), dtype=torch.float32,
-                           device=device)
-        planes = {t.data_ptr(): t for t in (xa, va, xb, vb)}
-        if sp >= 0:
-            profiling.end(sp)
-        sp = profiling.begin("lattice_euler.pack") if profiling.on else -1
-        contact = sc.colliders.args(sc.colliders.built if top is None
-                                    else top)
-        with torch.cuda.device(device):
-            stream = torch.cuda.current_stream(device).cuda_stream
-            args = _Substep(
-                sc.inv_mass.data_ptr(), sc.bits.data_ptr(),
-                sc.edges.data_ptr(), sc.tets.data_ptr(), sc.cnt.data_ptr(),
-                tscr.data_ptr(), stream, sc.n_edge, sc.n_tet, n,
-                int(w.enabled), CollidersStruct(*contact),
-                WindStruct(*w.velocity, w.drag, 0.0),
-                _Params(dt, cfg.springs.damping, gx, gy, gz,
-                        1.0 - cfg.global_damping * dt, col.restitution,
-                        1.0 + col.restitution, 1.0 - col.friction,
-                        cfg.volume_stiffness))
-            q = _Planes(xa.data_ptr(), va.data_ptr(), xb.data_ptr(),
-                        vb.data_ptr())
-            launched = ctypes.c_int()
-            ref, qref, count = (ctypes.byref(args), ctypes.byref(q),
-                                ctypes.byref(launched))
-            if sp >= 0:
-                profiling.end(sp)
-            for _ in range(n_substeps):
-                sp = (profiling.begin("lattice_euler.call") if profiling.on
-                      else -1)
-                err = substep(ref, qref, count)
-                profiling.add("lattice_euler", launched.value)
-                check_launch(err, "lattice_euler substep", error_string)
-                if sp >= 0:
-                    profiling.end(sp)
-        sp = (profiling.begin("lattice_euler.planes_out") if profiling.on
-              else -1)
-        x, v = from_planes(planes[q.x]), from_planes(planes[q.v])
-        out = State(x=x, v=v, x_prev=x - dt * v)
-        if sp >= 0:
-            profiling.end(sp)
-        return out
+    def buffers(planes, dt):
+        # the planes by address: the C call rotates them in _Planes
+        return (torch.empty((3 * sc.n_tet, n, 4), dtype=torch.float32,
+                            device=device),
+                {t.data_ptr(): t for t in planes})
 
-    return fn
+    def pack(planes, bufs, dt, colliders, stream):
+        (x, v, x_out, v_out), (tscr, by_ptr) = planes, bufs
+        args = _Substep(
+            sc.inv_mass.data_ptr(), sc.bits.data_ptr(),
+            sc.edges.data_ptr(), sc.tets.data_ptr(), sc.cnt.data_ptr(),
+            tscr.data_ptr(), stream, sc.n_edge, sc.n_tet, n,
+            int(w.enabled), CollidersStruct(*colliders),
+            WindStruct(*w.velocity, w.drag, 0.0),
+            _Params(dt, cfg.springs.damping, gx, gy, gz,
+                    1.0 - cfg.global_damping * dt, col.restitution,
+                    1.0 + col.restitution, 1.0 - col.friction,
+                    cfg.volume_stiffness))
+        q = _Planes(x.data_ptr(), v.data_ptr(), x_out.data_ptr(),
+                    v_out.data_ptr())
+        return ctypes.byref(args), ctypes.byref(q), q, by_ptr
+
+    def call(ctx, k0, n_run, last, f_ext, count):
+        return substep(ctx[0], ctx[1], count)
+
+    def planes_at(ctx, k):
+        q, by_ptr = ctx[2:]
+        return by_ptr[q.x], by_ptr[q.v]
+
+    def state(x, v, dt, *_):
+        return State(x=x, v=v, x_prev=x - dt * v)
+
+    return FrameLoop(
+        "lattice_euler", lib, sc, ("x", "v", None, None),
+        buffers=buffers, pack=pack, call=call, planes_at=planes_at,
+        state=state, per_substep=True)

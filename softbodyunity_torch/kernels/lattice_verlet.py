@@ -27,20 +27,15 @@ from ..core.state import State
 from ..core.topology import Topology
 from ..solver.collide import SPHERE_CONTACT_SHELL
 from ..utils import profiling
-from .build import check_launch
-from .grid_scene import CollidersStruct, WindStruct, check_input
-from .lattice import from_planes, pack_lattice_scene, to_planes, use_volume
+from .build import Library
+from .frame import FrameLoop
+from .grid_scene import CollidersStruct, WindStruct
+from .lattice import pack_lattice_scene, use_volume
 
 
-def launch_count() -> int:
-    """Kernel launches (velocity estimate, integrate, tet and gather passes)
-    since the last
-    :func:`reset_launch_count`."""
-    return profiling.count("lattice_verlet")
-
-
-def reset_launch_count() -> None:
-    profiling.reset_count("lattice_verlet")
+# launch_count(): kernel launches (velocity estimate, integrate, tet and
+# gather passes) since the last reset_launch_count()
+launch_count, reset_launch_count = profiling.launch_views("lattice_verlet")
 
 
 def launches_per_substep(top: Topology, cfg: SimConfig) -> int:
@@ -84,23 +79,12 @@ class _Planes(ctypes.Structure):
 
 
 @functools.cache
-def _launchers():
-    from .build import load_library
-
-    lib = load_library("lattice_verlet")
-    size = lib.lattice_verlet_substep_size
-    size.restype = ctypes.c_int
-    if size() != ctypes.sizeof(_Substep):
-        raise RuntimeError(
-            f"lattice_verlet: the C substep struct has {size()} bytes, its "
-            f"ctypes mirror {ctypes.sizeof(_Substep)}")
-    substep = lib.lattice_verlet_substep
-    substep.argtypes = [ctypes.POINTER(_Substep), ctypes.POINTER(_Planes),
-                        ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
-    substep.restype = ctypes.c_int
-    lib.lattice_verlet_error_string.argtypes = [ctypes.c_int]
-    lib.lattice_verlet_error_string.restype = ctypes.c_char_p
-    return substep, lib.lattice_verlet_error_string
+def _library():
+    lib = Library("lattice_verlet", substep=_Substep)
+    lib.declare("lattice_verlet_substep", [
+        ctypes.POINTER(_Substep), ctypes.POINTER(_Planes), ctypes.c_int,
+        ctypes.POINTER(ctypes.c_int)])
+    return lib
 
 
 def make_cuda_step(top: Topology, cfg: SimConfig):
@@ -113,46 +97,49 @@ def make_cuda_step(top: Topology, cfg: SimConfig):
     the group tables and the tet counts are packed once, here, on the
     device; the scratch planes once a call, on the call's stream; the
     collider rows once per topology a call brings, as
-    :func:`.lattice_euler.make_cuda_step` packs them."""
+    :func:`.lattice_euler.make_cuda_step` packs them.  Each frame runs
+    through :class:`.frame.FrameLoop`."""
     sc = pack_lattice_scene(top, cfg, Solver.VERLET, "lattice_verlet")
     n, device = sc.n, sc.device
     mu = cfg.collision.friction
     gx, gy, gz = cfg.gravity
     w = cfg.wind
-    substep, error_string = _launchers()
+    lib = _library()
+    substep = lib.lattice_verlet_substep
 
-    def fn(state: State, dt: float, n_substeps: int, top=None) -> State:
-        contact = sc.colliders.args(sc.colliders.built if top is None
-                                    else top)
-        check_input("state.x", state.x, (n, 3), device)
-        check_input("state.x_prev", state.x_prev, (n, 3), device)
-        dt = float(dt)
-        x, xp = to_planes(state.x), to_planes(state.x_prev)
-        xs, ve, ve_out = (torch.empty_like(x) for _ in range(3))
-        tscr = torch.empty((3 * sc.n_tet, n, 4), dtype=torch.float32,
-                           device=device)
-        planes = {t.data_ptr(): t for t in (x, xp, xs)}
-        with torch.cuda.device(device):
-            stream = torch.cuda.current_stream(device).cuda_stream
-            args = _Substep(
-                sc.inv_mass.data_ptr(), sc.bits.data_ptr(),
-                sc.edges.data_ptr(), sc.tets.data_ptr(), sc.cnt.data_ptr(),
-                tscr.data_ptr(), stream, sc.n_edge, sc.n_tet, n,
-                int(w.enabled), CollidersStruct(*contact),
-                WindStruct(*w.velocity, w.drag, 0.0),
-                _Params(dt, cfg.springs.damping, gx, gy, gz,
-                        1.0 - cfg.global_damping * dt, mu, 1.0 - mu,
-                        SPHERE_CONTACT_SHELL, cfg.volume_stiffness))
-            q = _Planes(x.data_ptr(), xp.data_ptr(), xs.data_ptr(),
-                        ve.data_ptr(), ve_out.data_ptr())
-            launched = ctypes.c_int()
-            ref, qref, count = (ctypes.byref(args), ctypes.byref(q),
-                                ctypes.byref(launched))
-            for k in range(n_substeps):
-                err = substep(ref, qref, int(k == 0), count)
-                profiling.add("lattice_verlet", launched.value)
-                check_launch(err, "lattice_verlet substep", error_string)
-        x3, xp3 = from_planes(planes[q.x]), from_planes(planes[q.xp])
-        return State(x=x3, v=(x3 - xp3) / dt, x_prev=xp3)
+    def buffers(planes, dt):
+        # the tet terms' scratch, and the position planes by address: the C
+        # call rotates them in _Planes
+        return (torch.empty((3 * sc.n_tet, n, 4), dtype=torch.float32,
+                            device=device),
+                {t.data_ptr(): t for t in planes[:3]})
 
-    return fn
+    def pack(planes, bufs, dt, colliders, stream):
+        (*x, ve, ve_out), (tscr, by_ptr) = planes, bufs
+        args = _Substep(
+            sc.inv_mass.data_ptr(), sc.bits.data_ptr(),
+            sc.edges.data_ptr(), sc.tets.data_ptr(), sc.cnt.data_ptr(),
+            tscr.data_ptr(), stream, sc.n_edge, sc.n_tet, n,
+            int(w.enabled), CollidersStruct(*colliders),
+            WindStruct(*w.velocity, w.drag, 0.0),
+            _Params(dt, cfg.springs.damping, gx, gy, gz,
+                    1.0 - cfg.global_damping * dt, mu, 1.0 - mu,
+                    SPHERE_CONTACT_SHELL, cfg.volume_stiffness))
+        q = _Planes(*(t.data_ptr() for t in x), ve.data_ptr(),
+                    ve_out.data_ptr())
+        return ctypes.byref(args), ctypes.byref(q), q, by_ptr
+
+    def call(ctx, k0, n_run, last, f_ext, count):
+        return substep(ctx[0], ctx[1], int(k0 == 0), count)
+
+    def planes_at(ctx, k):
+        q, by_ptr = ctx[2:]
+        return by_ptr[q.x], by_ptr[q.xp]
+
+    def state(x, xp, dt, *_):
+        return State(x=x, v=(x - xp) / dt, x_prev=xp)
+
+    return FrameLoop(
+        "lattice_verlet", lib, sc, ("x", "x_prev", None, None, None),
+        buffers=buffers, pack=pack, call=call, planes_at=planes_at,
+        state=state, per_substep=True)

@@ -25,19 +25,15 @@ from ..core.state import State
 from ..core.topology import Topology
 from ..solver.collide import SPHERE_CONTACT_SHELL
 from ..utils import profiling
-from .build import check_launch
-from .grid_scene import CollidersStruct, WindStruct, check_input
-from .lattice import from_planes, pack_lattice_scene, to_planes
+from .build import Library
+from .frame import FrameLoop
+from .grid_scene import CollidersStruct, WindStruct
+from .lattice import pack_lattice_scene
 
 
-def launch_count() -> int:
-    """Kernel launches (predict, constraint and gather passes) since the
-    last :func:`reset_launch_count`."""
-    return profiling.count("lattice_xpbd")
-
-
-def reset_launch_count() -> None:
-    profiling.reset_count("lattice_xpbd")
+# launch_count(): kernel launches (predict, constraint and gather passes)
+# since the last reset_launch_count()
+launch_count, reset_launch_count = profiling.launch_views("lattice_xpbd")
 
 
 def launches_per_substep(top: Topology, cfg: SimConfig) -> int:
@@ -74,23 +70,12 @@ class _Substep(ctypes.Structure):
 
 
 @functools.cache
-def _launchers():
-    from .build import load_library
-
-    lib = load_library("lattice_xpbd")
-    size = lib.lattice_xpbd_substep_size
-    size.restype = ctypes.c_int
-    if size() != ctypes.sizeof(_Substep):
-        raise RuntimeError(
-            f"lattice_xpbd: the C substep struct has {size()} bytes, its "
-            f"ctypes mirror {ctypes.sizeof(_Substep)}")
-    substep = lib.lattice_xpbd_substep
-    substep.argtypes = [ctypes.POINTER(_Substep), ctypes.c_void_p,
-                        ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
-    substep.restype = ctypes.c_int
-    lib.lattice_xpbd_error_string.argtypes = [ctypes.c_int]
-    lib.lattice_xpbd_error_string.restype = ctypes.c_char_p
-    return substep, lib.lattice_xpbd_error_string
+def _library():
+    lib = Library("lattice_xpbd", substep=_Substep)
+    lib.declare("lattice_xpbd_substep", [
+        ctypes.POINTER(_Substep), ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.POINTER(ctypes.c_int)])
+    return lib
 
 
 def make_cuda_step(top: Topology, cfg: SimConfig):
@@ -105,7 +90,9 @@ def make_cuda_step(top: Topology, cfg: SimConfig):
     collider rows once per topology a call brings (as
     :func:`.lattice_euler.make_cuda_step` packs them); the edge table
     (delta, rest, compliance / dt^2) once per substep size ``dt``, by the
-    plain version's float32 divide."""
+    plain version's float32 divide.  Each frame runs through
+    :class:`.frame.FrameLoop`, the positions in two planes that the
+    substeps alternate."""
     sc = pack_lattice_scene(top, cfg, Solver.XPBD, "lattice_xpbd")
     n, device = sc.n, sc.device
     n_lam = sc.n_edge + sc.n_tet
@@ -113,51 +100,50 @@ def make_cuda_step(top: Topology, cfg: SimConfig):
     gx, gy, gz = cfg.gravity
     w = cfg.wind
     tables = {}
-    substep, error_string = _launchers()
+    lib = _library()
+    substep = lib.lattice_xpbd_substep
 
-    def fn(state: State, dt: float, n_substeps: int, top=None) -> State:
-        contact = sc.colliders.args(sc.colliders.built if top is None
-                                    else top)
-        check_input("state.x", state.x, (n, 3), device)
-        check_input("state.v", state.v, (n, 3), device)
-        dt = float(dt)
+    def buffers(planes, dt):
         if dt not in tables:
             table = sc.edges.clone()
             table[:, 2] = sc.edges[:, 2] / (dt * dt)
             tables[dt] = table
-        edges = tables[dt]
-        x, v = to_planes(state.x), to_planes(state.v)
-        x_out = torch.empty_like(x)
-        delta = torch.empty_like(x)
-        xe = torch.empty_like(x)
-        lam = torch.empty((n_lam, n), dtype=torch.float32, device=device)
-        flag = torch.empty((n,), dtype=torch.uint8, device=device)
-        # an edge group's float4 (n, dlam), a tet group's three (g_k, dlam)
-        escr = torch.empty((sc.n_edge, n, 4), dtype=torch.float32,
-                           device=device)
-        tscr = torch.empty((3 * sc.n_tet, n, 4), dtype=torch.float32,
-                           device=device)
-        with torch.cuda.device(device):
-            stream = torch.cuda.current_stream(device).cuda_stream
-            args = _Substep(
-                v.data_ptr(), delta.data_ptr(), xe.data_ptr(), lam.data_ptr(),
-                flag.data_ptr(), sc.inv_mass.data_ptr(),
-                sc.bits.data_ptr(), edges.data_ptr(), sc.tets.data_ptr(),
-                sc.cnt.data_ptr(), escr.data_ptr(), tscr.data_ptr(), stream,
-                sc.n_edge, sc.n_tet, n, cfg.xpbd.n_iterations,
-                int(w.enabled),
-                CollidersStruct(*contact), WindStruct(*w.velocity, w.drag, 0.0),
-                _Params(dt, gx, gy, gz, 1.0 - cfg.global_damping * dt, mu,
-                        1.0 - mu, SPHERE_CONTACT_SHELL, cfg.xpbd.relaxation,
-                        cfg.xpbd.compliance_volume / (dt * dt)))
-            launched = ctypes.c_int()
-            ref, count = ctypes.byref(args), ctypes.byref(launched)
-            for _ in range(n_substeps):
-                err = substep(ref, x.data_ptr(), x_out.data_ptr(), count)
-                profiling.add("lattice_xpbd", launched.value)
-                check_launch(err, "lattice_xpbd substep", error_string)
-                x, x_out = x_out, x
-        x3, v3 = from_planes(x), from_planes(v)
-        return State(x=x3, v=v3, x_prev=x3 - dt * v3)
+        f32 = dict(dtype=torch.float32, device=device)
+        # lambda, the contact flag; an edge group's float4 (n, dlam), a tet
+        # group's three (g_k, dlam)
+        return (tables[dt], torch.empty((n_lam, n), **f32),
+                torch.empty((n,), dtype=torch.uint8, device=device),
+                torch.empty((sc.n_edge, n, 4), **f32),
+                torch.empty((3 * sc.n_tet, n, 4), **f32))
 
-    return fn
+    def pack(planes, bufs, dt, colliders, stream):
+        x, v, x_out, delta, xe = planes
+        edges, lam, flag, escr, tscr = bufs
+        x = x, x_out
+        args = _Substep(
+            v.data_ptr(), delta.data_ptr(), xe.data_ptr(), lam.data_ptr(),
+            flag.data_ptr(), sc.inv_mass.data_ptr(),
+            sc.bits.data_ptr(), edges.data_ptr(), sc.tets.data_ptr(),
+            sc.cnt.data_ptr(), escr.data_ptr(), tscr.data_ptr(), stream,
+            sc.n_edge, sc.n_tet, n, cfg.xpbd.n_iterations,
+            int(w.enabled),
+            CollidersStruct(*colliders), WindStruct(*w.velocity, w.drag, 0.0),
+            _Params(dt, gx, gy, gz, 1.0 - cfg.global_damping * dt, mu,
+                    1.0 - mu, SPHERE_CONTACT_SHELL, cfg.xpbd.relaxation,
+                    cfg.xpbd.compliance_volume / (dt * dt)))
+        return x, v, ctypes.byref(args), [t.data_ptr() for t in x]
+
+    def call(ctx, k0, n_run, last, f_ext, count):
+        xp = ctx[3]
+        return substep(ctx[2], xp[k0 % 2], xp[1 - k0 % 2], count)
+
+    def planes_at(ctx, k):
+        return ctx[0][k % 2], ctx[1]
+
+    def state(x, v, dt, *_):
+        return State(x=x, v=v, x_prev=x - dt * v)
+
+    return FrameLoop(
+        "lattice_xpbd", lib, sc, ("x", "v", None, None, None),
+        buffers=buffers, pack=pack, call=call, planes_at=planes_at,
+        state=state, per_substep=True)

@@ -23,20 +23,15 @@ import torch
 from ..core.topology import Topology
 from ..solver.normals import incident_faces
 from ..utils import profiling
-from .build import check_launch
+from .build import Library
 
 # the device type the kernel runs on
 DEVICE_TYPE = "cuda"
 
 
-def launch_count() -> int:
-    """Kernel launches since the last :func:`reset_launch_count`: one a
-    call of a scene with vertices."""
-    return profiling.count("normals")
-
-
-def reset_launch_count() -> None:
-    profiling.reset_count("normals")
+# launch_count(): kernel launches since the last reset_launch_count(), one a
+# call of a scene with vertices
+launch_count, reset_launch_count = profiling.launch_views("normals")
 
 
 def face_table(triangles: torch.Tensor, n_vertices: int) -> torch.Tensor:
@@ -56,26 +51,13 @@ class _Scene(ctypes.Structure):
 
 
 @functools.cache
-def _launchers():
-    """``({dtype: its C entry}, the error-string function)``."""
-    from .build import load_library
-
-    lib = load_library("normals")
-    size = lib.normals_scene_size
-    size.restype = ctypes.c_int
-    if size() != ctypes.sizeof(_Scene):
-        raise RuntimeError(
-            f"normals: the C scene struct has {size()} bytes, its ctypes "
-            f"mirror {ctypes.sizeof(_Scene)}")
-    calls = {torch.float32: lib.vertex_normals_f32,
-             torch.float64: lib.vertex_normals_f64}
-    for call in calls.values():
-        call.argtypes = [ctypes.POINTER(_Scene), ctypes.c_void_p,
-                         ctypes.c_void_p, ctypes.c_void_p]
-        call.restype = ctypes.c_int
-    lib.normals_error_string.argtypes = [ctypes.c_int]
-    lib.normals_error_string.restype = ctypes.c_char_p
-    return calls, lib.normals_error_string
+def _library():
+    """``({dtype: its C entry}, the library)``."""
+    lib = Library("normals", scene=_Scene)
+    return {dtype: lib.declare(f"vertex_normals_{suffix}", [
+        ctypes.POINTER(_Scene), ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p]) for dtype, suffix in (
+            (torch.float32, "f32"), (torch.float64, "f64"))}, lib
 
 
 class NormalsScene:
@@ -119,13 +101,13 @@ class NormalsScene:
         x = x.contiguous()
         out = torch.empty_like(x)
         if self.n:
-            calls, error_string = _launchers()
+            calls, lib = _library()
             # the C call makes the scene's device current for the launch
             stream = torch.cuda.current_stream(self.index).cuda_stream
             err = calls[x.dtype](self._ref, x.data_ptr(), out.data_ptr(),
                                  stream)
             profiling.add("normals")
-            check_launch(err, "vertex_normals", error_string)
+            lib.check_launch(err, "vertex_normals")
         if sp >= 0:
             profiling.end(sp)
         return out

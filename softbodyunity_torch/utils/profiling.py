@@ -8,8 +8,8 @@ the host's phases and what a kernel found, on the clock the trace uses:
 * **Counters**, always on.  Each kernel wrapper counts its launches here
   under its own name (:func:`add`); its ``launch_count()`` and
   ``reset_launch_count()`` are views of :func:`count` and
-  :func:`reset_count`.  Thread-safe: the halo paths launch the pair
-  kernel's dual form from one thread per rank.
+  :func:`reset_count` (:func:`launch_views`).  Thread-safe: the halo
+  paths launch the pair kernel's dual form from one thread per rank.
 * **Spans**, only while the recorder is on (:func:`enable`).  A span has a
   name (``module.phase``), a start and an end from ``time.time_ns()`` (the
   Unix clock onto which ``torch.profiler`` puts the device's timestamps),
@@ -94,6 +94,19 @@ def reset_count(*names: str) -> None:
     with _lock:
         for name in names:
             _counts[name] = 0
+
+
+def launch_views(name: str):
+    """A kernel wrapper's ``launch_count()`` (the counter ``name``: its
+    launches since the last reset) and ``reset_launch_count()``."""
+
+    def launch_count() -> int:
+        return count(name)
+
+    def reset_launch_count() -> None:
+        reset_count(name)
+
+    return launch_count, reset_launch_count
 
 
 def device_counters(names: Sequence[str], device) -> torch.Tensor:

@@ -18,7 +18,7 @@ import torch
 
 import softbodyunity_torch as tsb
 from softbodyunity_torch import api
-from softbodyunity_torch.kernels import dispatch, lattice, lattice_euler
+from softbodyunity_torch.kernels import build, dispatch, lattice, lattice_euler
 from softbodyunity_torch.kernels.grid_scene import ColliderRows
 from softbodyunity_torch.utils import profiling
 
@@ -68,8 +68,12 @@ def wrapper_on_cpu(monkeypatch):
             tets=torch.zeros((len(top.tet_groups.deltas), 4)),
             cnt=torch.ones(n), colliders=ColliderRows(top, cfg))
 
-    monkeypatch.setattr(lattice_euler, "_launchers",
-                        lambda: (substep, None))
+    monkeypatch.setattr(build, "load_library", lambda name: types.SimpleNamespace(
+        lattice_euler_substep=substep,
+        lattice_euler_error_string=lambda err: b"stood in"))
+    lib = build.Library("lattice_euler")
+    lib.declare("lattice_euler_substep", [])
+    monkeypatch.setattr(lattice_euler, "_library", lambda: lib)
     monkeypatch.setattr(lattice_euler, "pack_lattice_scene", pack)
     monkeypatch.setattr(torch.cuda, "device",
                         lambda device: contextlib.nullcontext())

@@ -200,7 +200,8 @@ def test_dispatch_takes_each_solver_kernel_on_card(cuda, solver):
     host, cfg = _scene16_solver(solver)
     top, s0 = tsb.init(host, device=cuda)
     fn = dispatch.maybe_fast_step(top, cfg)
-    assert fn.__module__ == _WRAPPERS[solver].__name__
+    # the wrapper's frame loop (kernels/frame.py), named as its module
+    assert fn.name == _WRAPPERS[solver].__name__.rsplit(".", 1)[1]
     for w in _WRAPPERS.values():
         w.reset_launch_count()
     tsb.step(top, cfg, s0)
@@ -331,7 +332,8 @@ def test_dispatch_takes_each_lattice_kernel_on_card(cuda, solver):
     host, cfg = _lattice_scene(solver)
     top, s0 = tsb.init(host, device=cuda)
     fn = dispatch.maybe_fast_step(top, cfg)
-    assert fn.__module__ == _LATTICE[solver].__name__
+    # the wrapper's frame loop (kernels/frame.py), named as its module
+    assert fn.name == _LATTICE[solver].__name__.rsplit(".", 1)[1]
     for w in (*_WRAPPERS.values(), *_LATTICE.values()):
         w.reset_launch_count()
     tsb.step(top, cfg, s0)

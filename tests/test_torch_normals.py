@@ -23,6 +23,7 @@ import torch
 import softbodyunity_torch as tsb
 from softbodyunity_torch import api
 from softbodyunity_torch.core.topology import SceneKey
+from softbodyunity_torch.kernels import build
 from softbodyunity_torch.kernels import normals as nk
 from softbodyunity_torch.solver.normals import incident_faces, vertex_normals
 from softbodyunity_torch.utils import profiling
@@ -176,8 +177,11 @@ def kernel_on_cpu(monkeypatch, fresh_cache):
         return call
 
     monkeypatch.setattr(nk, "DEVICE_TYPE", "cpu")
-    monkeypatch.setattr(nk, "_launchers", lambda: (
-        {d: entry(d) for d in (torch.float32, torch.float64)}, None))
+    monkeypatch.setattr(build, "load_library", lambda name: types.SimpleNamespace(
+        normals_error_string=lambda err: b"stood in"))
+    lib = build.Library("normals")
+    monkeypatch.setattr(nk, "_library", lambda: (
+        {d: entry(d) for d in (torch.float32, torch.float64)}, lib))
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda device: types.SimpleNamespace(cuda_stream=0))
     yield calls

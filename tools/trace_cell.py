@@ -248,7 +248,7 @@ def kernel(frames, reps):
     host_us = (time.perf_counter() - t0) * 1e6 / reps
     torch.cuda.synchronize()
     # the C call alone, with the arguments the wrapper passes
-    c_call = blocks._launcher()[0]
+    c_call = blocks._library().block_pairs_build_forces
     args = (ctypes.byref(fn.scratch.build), x.data_ptr(), *x.stride(),
             None, 0, 0, torch.empty((3, x.shape[0]), device=x.device)
             .data_ptr(), None, None, torch.cuda.current_stream().cuda_stream)
