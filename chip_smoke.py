@@ -87,8 +87,9 @@ Phases, each printed as one JSON line; any failure raises and exits nonzero:
               folded sheets of tests/test_blocksparse.py (and against the
               dense rule) and the 64k self-collision preset after 24
               substeps, where no tile pair may be dropped, each with its
-              cull's kept share of sub-block pairs and its dense and culled
-              bounds, and the frame
+              cull's kept shares of sub-block pairs and of their partner
+              vertices, its dense and culled bounds and its dense
+              instantiation's forces (to the bit), and the frame
               that follows; then one frame of the 64k curtain shrunk to
               60 % and of each grid solver with self-collision; each
               feature instantiation on the small tearing and plastic
@@ -250,12 +251,18 @@ OPS_LATTICE_XPBD_VERTEX_SWEEP = 14
 # version (solver/blocksparse.py) the same way: diff 3, squared norm 5, max 1,
 # sqrt 1, k (r - d) / d 3, w diff 3, summed into the force 3 = 19 (the
 # compare and select of the radius test are not counted).  The kernel's cull
-# (csrc/block_pairs.cu) adds, per 32-vertex slice box, the min and max of 3
-# coordinates over 5 shuffle steps, 30, and per sub-block pair's box test
-# two differences and two maxima an axis and the squares summed, 17.
+# (csrc/block_pairs.cu, "The cull") adds, per 32-vertex slice box, the min
+# and max of 3 coordinates over 5 shuffle steps, 30, per sub-block pair's
+# box test two differences and two maxima an axis and the squares summed,
+# 17, and per partner vertex of a kept sub-block pair its point test against
+# the warp's box, the same 17; then it takes the squared distance of each
+# pair of a kept vertex, diff 3 and squared norm 5, 8, and the full pair
+# only for those within reach (~1 % of them on the 64k pile, not counted).
 OPS_PAIR = 19
 OPS_SLICE_BOX = 30
 OPS_SLICE_TEST = 17
+OPS_POINT_TEST = 17
+OPS_PAIR_TEST = 8
 # The feature update of one edge, counted from its plain version
 # (kernels/stencil.py::update_features) the same way: the length (d 3,
 # |d|^2 5, sqrt 1) 9; plastic flow (rest scale 1, max 1, strain 2, abs 1,
@@ -537,22 +544,28 @@ def _bound(nbytes, ops):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def block_pairs_bound(n, blk, n_tiles, sum_nvalid, n_tiles_j=0, kept=None):
+def block_pairs_bound(n, blk, n_tiles, sum_nvalid, n_tiles_j=0, kept=None,
+                      kept_vertices=None):
     """(least ms the card could take for the pair forces of one state,
     "bytes" or "operations"): the kernel's inputs (tiles, partner counts, the
     interacting partner ids, the sort order) read once and the [3, N] force
     planes written once, against OPS_PAIR per vertex pair of the interacting
     tile pairs this state has (the dense sweep, the TPU kernel's work) or,
-    given ``kept``, of the 32 x 32 sub-block pairs the cull keeps, with the
-    slice boxes and the box tests.  The dual form reads ``n_tiles_j``
-    partner tiles besides the ``n_tiles`` i-tiles of its ``n`` vertices."""
+    given the ``kept`` 32 x 32 sub-block pairs and the ``kept_vertices``
+    partner vertices the cull keeps in them, OPS_PAIR_TEST per pair of
+    those vertices, 32 each, with the slice boxes, the box tests and the
+    point tests.  The
+    dual form reads ``n_tiles_j`` partner tiles besides the ``n_tiles``
+    i-tiles of its ``n`` vertices."""
     nbytes = (4 * 3 * (n_tiles + n_tiles_j) * blk + 8 * n_tiles
               + 8 * sum_nvalid + 8 * n + 4 * 3 * n)
     if kept is None:
         return _bound(nbytes, OPS_PAIR * blk * blk * sum_nvalid)
     slices = blk // 32
-    return _bound(nbytes, OPS_PAIR * 32 * 32 * kept + sum_nvalid * (
-        OPS_SLICE_TEST * slices * slices + OPS_SLICE_BOX * slices))
+    return _bound(nbytes, OPS_PAIR_TEST * 32 * kept_vertices
+                  + OPS_POINT_TEST * 32 * kept + sum_nvalid * (
+                      OPS_SLICE_TEST * slices * slices
+                      + OPS_SLICE_BOX * slices))
 
 
 def _lattice_bound(name, top, cfg, n, e, contacts):
@@ -1001,10 +1014,13 @@ def main() -> int:
     def cull(p, x, xall=None):
         """block_pairs' cull on ``x`` (against ``xall``: the dual form):
         the 32 x 32 sub-block pairs it keeps (blocks.kept_sub_blocks, plain
-        PyTorch), of how many, and the interacting tile pairs; with the
-        dense and the culled bound (block_pairs_bound) in ms."""
+        PyTorch), of how many, the partner vertices it keeps in them
+        (blocks.kept_partner_vertices), and the interacting tile pairs;
+        with the dense and the culled bound (block_pairs_bound) in ms."""
         inputs = blocks.pair_inputs(p, x, xall)
         kept = int(blocks.kept_sub_blocks(*inputs[:4], p.radius).sum())
+        kept_v = int(blocks.kept_partner_vertices(*inputs[:4],
+                                                  p.radius).sum())
         sum_nvalid = int(inputs[2].sum())
         slices = p.block_size // 32
         blk = p.block_size
@@ -1013,15 +1029,22 @@ def main() -> int:
         return dict(kept_sub_blocks=kept,
                     sub_block_pairs=sum_nvalid * slices * slices,
                     kept_share=kept / max(sum_nvalid * slices * slices, 1),
+                    kept_vertex_share=kept_v / max(32 * kept, 1),
                     sum_nvalid=sum_nvalid,
                     dense_bound=block_pairs_bound(*args),
-                    culled_bound=block_pairs_bound(*args, kept=kept))
+                    culled_bound=block_pairs_bound(
+                        *args, kept=kept, kept_vertices=kept_v))
 
     def compare_pairs(x, p, scene, want=None, tol=pair_tol,
                       why="kernel vs plain: rsqrt and another sum order"):
         """block_pairs against its plain version (or ``want``) on ``x``,
-        with its cull's kept share and both bounds."""
-        got = blocks.make_block_pairs(p, x.shape[0], cuda)(x).t()
+        with its cull's kept shares and both bounds, and against its dense
+        instantiation over the plain build to the bit."""
+        fn = blocks.make_block_pairs(p, x.shape[0], cuda)
+        got = fn(x).t()
+        dense = fn.sweep(blocks.pair_inputs(p, x), dense=True).t()
+        equal_dense = bool(torch.equal(got.view(torch.int32),
+                                       dense.view(torch.int32)))
         if want is None:
             want = blocksparse.self_collision_forces_block(x, p)
         torch.cuda.synchronize()
@@ -1036,12 +1059,15 @@ def main() -> int:
              kept_sub_blocks=c["kept_sub_blocks"],
              sub_block_pairs=c["sub_block_pairs"],
              kept_share=c["kept_share"],
+             kept_vertex_share=c["kept_vertex_share"],
              dense_bound_us=c["dense_bound"][0] * 1e3,
              culled_bound_us=c["culled_bound"][0] * 1e3,
              max_abs_err=float(err.max()),
              max_abs_force=float(want.abs().max()), atol=tol[0],
-             rtol=tol[1], why=why)
+             rtol=tol[1], equal_to_dense=equal_dense, why=why)
         require(ok, f"block_pairs {scene}: |err| {float(err.max()):.3e}")
+        require(equal_dense, f"block_pairs {scene}: the culled forces are "
+                "not the dense sweep's to the bit")
         require(float(want.abs().max()) > 0.0,
                 f"block_pairs {scene}: no pair interacts")
         return float(err.max())
@@ -1262,6 +1288,7 @@ def main() -> int:
                      kept_sub_blocks=c["kept_sub_blocks"],
                      sub_block_pairs=c["sub_block_pairs"],
                      kept_share=c["kept_share"],
+                     kept_vertex_share=c["kept_vertex_share"],
                      max_abs_err=float(err.max()),
                      max_abs_force=float(want.abs().max()),
                      atol=pair_tol[0], rtol=pair_tol[1], card=smi,
@@ -2890,6 +2917,7 @@ def main() -> int:
          plain_substeps_per_s=1e3 / min(path_ms["plain"]),
          ms_per_pair_call=pair_ms, sum_nvalid=tile_pairs,
          dropped_pairs=dropped, kept_share=c["kept_share"],
+         kept_vertex_share=c["kept_vertex_share"],
          bound_us_per_call=sc["bound_ms"] * 1e3, bound_by=sc["bound_by"],
          dense_bound_us_per_call=sc["dense_bound_ms"] * 1e3)
     # the paths past the cap and with feature planes, from rest

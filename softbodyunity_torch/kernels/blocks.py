@@ -34,16 +34,23 @@ from ..solver.forces import self_collision_planes
 from ..utils import profiling
 from .build import Library
 
-# Partner tiles one CTA takes: a crowded tile's partners spread over
-# ceil(nvalid / CHUNK) CTAs (csrc/block_pairs.cu, "Design").
+# Partner tiles one CTA stages and sweeps: a crowded tile's partners spread
+# over ceil(nvalid / CHUNK) CTAs (csrc/block_pairs.cu, "Design"; at most its
+# kMaxChunk).
 CHUNK = 4
 # The cull's sub-blocks, 32 i-vertices (a warp) against 32 partner vertices
-# (a slice), and its margin: a sub-block pair is swept unless the squared
-# gap of its boxes exceeds r^2 (1 + CULL_MARGIN), far enough past r^2 that
-# every pair it skips has w == 0 in the kernel's float32 arithmetic
-# (csrc/block_pairs.cu, "Why the cull is exact to the bit").
+# (a slice), and its margin: a sub-block pair is kept unless the squared
+# gap of its boxes exceeds r^2 (1 + CULL_MARGIN), in a kept one a partner
+# vertex unless its squared gap to the warp's box does, and of a kept
+# vertex a pair unless its d2 does: far enough past r^2 that every pair the
+# kernel skips has w == 0 in its float32 arithmetic (csrc/block_pairs.cu,
+# "The cull" and "Why the cull is exact to the bit").
 SUB_BLOCK = 32
 CULL_MARGIN = 2.0 ** -10
+# A coordinate at least this large in magnitude, or not finite, is far: the
+# kernel never skips a far partner vertex of a kept slice, nor any vertex
+# of it for a warp that holds a far one (csrc/block_pairs.cu, kFar).
+FAR = 2.0 ** 126
 
 # The two forms, each counting its launches under its name and its on-card
 # builds of the inputs under "<form>.tiles"; the halo paths launch the dual
@@ -54,12 +61,14 @@ FORMS = ("block_pairs", "block_pairs_dual")
 MIN_CTAS = 1024
 # What the kernel's counting instantiation adds up while the recorder is on,
 # under "<form>.<name>", in the order of csrc/block_pairs.cu's Counter: the
-# 32 x 32 sub-block pairs of the partners swept and those the cull kept,
-# the vertex pairs swept and those with w > 0 (within the radius), the
-# partner tiles swept (the sum of nvalid) and the interacting tile pairs
-# that the partner budget dropped.
+# 32 x 32 sub-block pairs of the partners swept and those the slice test
+# kept, the vertex pairs swept (32 for each partner vertex kept) and those
+# with w > 0 (within the radius), the partner tiles swept (the sum of
+# nvalid), the interacting tile pairs that the partner budget dropped, and
+# the partner vertices the point test kept, counted once for each warp.
 COUNTERS = ("sub_blocks", "sub_blocks_kept", "pairs_swept",
-            "pairs_in_reach", "partners_swept", "tile_pairs_dropped")
+            "pairs_in_reach", "partners_swept", "tile_pairs_dropped",
+            "partner_vertices_kept")
 
 
 def launch_count(form: str = "block_pairs") -> int:
@@ -115,6 +124,13 @@ def _library():
         p, p,                     # counters, interact (or both null)
         p,                        # stream
     ])
+    lib.declare("block_pairs_sweep", [
+        ctypes.POINTER(_Build),   # the struct
+        ctypes.c_int,             # dense: every pair, no cull
+        p,                        # f_out
+        p, p,                     # counters, interact (or both null)
+        p,                        # stream
+    ])
     lib.declare("block_pairs_sort_bytes", [ctypes.c_int], ll)
     return lib
 
@@ -130,7 +146,9 @@ def _pair_launch(p: SelfCollisionParams, n: int, n_j: int | None, device,
     ``box_j``, ``partners``, ``nvalid``, ``order`` and, once a counting call
     ran, ``interact``): :func:`pair_inputs`' tensors to the bit.
     ``launch.sweep(pair_inputs(...))`` runs the pair kernel alone over the
-    plain build's tensors, copied into the scratch.  While the
+    plain build's tensors, copied into the scratch; with ``dense=True`` its
+    instantiation without the cull, which sweeps every pair (for the tests
+    and ``chip_smoke.py``; the main path never launches it).  While the
     recorder is on (:mod:`softbodyunity_torch.utils.profiling`) the partner
     search and the pair kernel are their counting instantiations, which add
     :data:`COUNTERS` into a buffer allocated here; the forces are the same
@@ -152,6 +170,7 @@ def _pair_launch(p: SelfCollisionParams, n: int, n_j: int | None, device,
     k = min(p.block_partners, b_j)
     lib = _library()
     fn, sort_bytes = lib.block_pairs_build_forces, lib.block_pairs_sort_bytes
+    sweep_fn = lib.block_pairs_sweep
     with torch.cuda.device(device):
         temp = max(sort_bytes(n), sort_bytes(n_j))
     if temp < 0:
@@ -197,18 +216,17 @@ def _pair_launch(p: SelfCollisionParams, n: int, n_j: int | None, device,
         [f"{form}.{name}" for name in COUNTERS], device)
     tiles = f"{form}.tiles"
 
-    def run(dev, xi, xj):
-        """One C call on ``dev``'s current stream: ``xi`` and ``xj`` are
-        (pointer, vertex stride, coordinate stride), a null ``xi`` pointer
-        leaving the build out."""
+    def run(dev, call, *args):
+        """One C call on ``dev``'s current stream into a new [3, n] plane:
+        ``call(build, *args, f_out, counters, interact, stream)``."""
         counting = profiling.on
         if counting and s.interact is None:
             s.interact = empty(b, b_j, dtype=torch.bool)
         out = torch.empty((3, n), dtype=torch.float32, device=dev)
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
-            lib.check_launch(fn(
-                build_ref, *xi, *xj, out.data_ptr(),
+            lib.check_launch(call(
+                build_ref, *args, out.data_ptr(),
                 counters.data_ptr() if counting else None,
                 s.interact.data_ptr() if counting else None,
                 stream), form)
@@ -216,24 +234,25 @@ def _pair_launch(p: SelfCollisionParams, n: int, n_j: int | None, device,
 
     def launch(xi, xj=None):
         sp = profiling.begin("blocks.launch") if profiling.on else -1
-        out = run(xi.device, (xi.data_ptr(), *xi.stride()),
-                  (xj.data_ptr(), *xj.stride()) if dual else (None, 0, 0))
+        out = run(xi.device, fn, xi.data_ptr(), *xi.stride(),
+                  *((xj.data_ptr(), *xj.stride()) if dual else (None, 0, 0)))
         _count(form)
         profiling.add(tiles)
         if sp >= 0:
             profiling.end(sp)
         return out
 
-    def sweep(inputs):
+    def sweep(inputs, dense=False):
         """The pair kernel alone over ``inputs`` (:func:`pair_inputs`'),
-        copied into the scratch: the forces of the plain build."""
+        copied into the scratch: the forces of the plain build; with
+        ``dense`` every pair swept, without the cull."""
         if profiling.on and s.interact is None:
             s.interact = empty(b, b_j, dtype=torch.bool)
         for name, t in zip(("xi_tiles", "xj_tiles", "nvalid", "partners",
                             "order", "interact"), inputs):
             if getattr(s, name) is not None:
                 getattr(s, name).copy_(t)
-        return run(device, (None, 0, 0), (None, 0, 0))
+        return run(device, sweep_fn, int(dense))
 
     launch.scratch, launch.sweep = s, sweep
     return launch
@@ -329,10 +348,10 @@ def _slice_boxes(tiles: torch.Tensor):
 def kept_sub_blocks(xi_tiles: torch.Tensor, xj_tiles: torch.Tensor,
                     nvalid: torch.Tensor, partners: torch.Tensor,
                     radius: float) -> torch.Tensor:
-    """The 32 x 32 sub-block pairs the pair kernel sweeps (plain PyTorch,
-    for ``chip_smoke.py``'s bound and the CPU tests; the main path never
-    runs it): ``[B, K, S, S]`` bool, entry ``[i, k, a, c]`` whether warp
-    ``a`` of i-tile ``i`` sweeps slice ``c`` of its ``k``-th partner tile,
+    """The 32 x 32 sub-block pairs the pair kernel's slice test keeps (plain
+    PyTorch, for ``chip_smoke.py``'s bound and the tests; the main path
+    never runs it): ``[B, K, S, S]`` bool, entry ``[i, k, a, c]`` whether
+    warp ``a`` of i-tile ``i`` keeps slice ``c`` of its ``k``-th partner tile,
     False for ``k >= nvalid[i]``.  The inputs are :func:`pair_inputs`'; the
     boxes' squared gap is summed in float32 in the kernel's axis order, and
     a sub-block is kept unless it exceeds ``cull_reach2(radius)`` rounded to
@@ -349,6 +368,44 @@ def kept_sub_blocks(xi_tiles: torch.Tensor, xj_tiles: torch.Tensor,
     live = (torch.arange(partners.shape[1], device=partners.device)
             < nvalid[:, None])
     return (g2 <= reach2.to(g2.device)) & live[:, :, None, None]
+
+
+def _far(t: torch.Tensor) -> torch.Tensor:
+    """Whether each point of ``t`` [..., 3] is far (:data:`FAR`)."""
+    return ~(t.abs() < FAR).all(dim=-1)
+
+
+def kept_partner_vertices(xi_tiles: torch.Tensor, xj_tiles: torch.Tensor,
+                          nvalid: torch.Tensor, partners: torch.Tensor,
+                          radius: float) -> torch.Tensor:
+    """The partner vertices the pair kernel's point test keeps (plain
+    PyTorch, for ``chip_smoke.py``'s bound and the tests; the main path
+    never runs it): ``[B, K, S, blk]`` bool, entry ``[i, k, a, j]`` whether
+    warp ``a`` of i-tile ``i`` keeps vertex ``j`` of its ``k``-th partner
+    tile, whose 32 pairs with the warp's vertices it then tests one by one.
+    That is, the vertex's slice is kept
+    (:func:`kept_sub_blocks`) and the vertex is far, or the warp holds a far
+    vertex, or the squared gap of the point to the warp's box, summed in
+    float32 in the kernel's axis order, is at most ``cull_reach2(radius)``
+    rounded to float32."""
+    kept = kept_sub_blocks(xi_tiles, xj_tiles, nvalid, partners, radius)
+    b, _, blk = xi_tiles.shape
+    s = blk // SUB_BLOCK
+    lo, hi = (t[:, :, None] for t in _slice_boxes(xi_tiles))  # [B, S, 1, 3]
+    far_warp = _far(xi_tiles.reshape(b, 3, s, SUB_BLOCK).permute(
+        0, 2, 3, 1)).any(dim=2)[:, :, None]                 # [B, S, 1]
+    reach2 = torch.tensor(cull_reach2(radius), dtype=torch.float32,
+                          device=xi_tiles.device)
+    out = torch.zeros((*partners.shape, s, blk), dtype=torch.bool,
+                      device=xi_tiles.device)
+    for k in range(partners.shape[1]):
+        q = xj_tiles[partners[:, k]].transpose(1, 2)[:, None]  # [B, 1, blk, 3]
+        gap = torch.clamp_min(torch.maximum(q - hi, lo - q), 0.0)
+        g2 = (gap[..., 0] * gap[..., 0] + gap[..., 1] * gap[..., 1]
+              + gap[..., 2] * gap[..., 2])                  # [B, S, blk]
+        point = (g2 <= reach2) | _far(q) | far_warp
+        out[:, k] = point & kept[:, k].repeat_interleave(SUB_BLOCK, dim=-1)
+    return out
 
 
 def make_block_pairs_dual(p: SelfCollisionParams, ni: int, n: int, device):

@@ -24,44 +24,61 @@
 //
 // Design.  The TPU kernel is one program that walks all tiles in order with
 // the whole tile array in VMEM.  Here a CTA of blk threads (one per vertex of
-// tile i) takes a chunk of `chunk` consecutive partners of tile i: grid
-// (B, ceil(K / chunk)), where K is the partner budget.  Per partner it stages
-// the partner tile in shared memory as float4 (x, y, z, 0), one broadcast
-// 16-byte load a pair, and every thread sweeps its partner vertices,
-// accumulating w dx in registers.  CTAs whose chunk starts at or past
+// tile i) takes a chunk of `chunk` (at most kMaxChunk) consecutive partners
+// of tile i: grid (B, ceil(K / chunk)), where K is the partner budget.  It
+// stages the whole chunk once, each partner tile in shared memory as float4
+// (x, y, z, far), one broadcast 16-byte load a pair, with the box of each
+// 32-vertex slice, and then passes one barrier; after it each warp sweeps
+// the chunk on its own, accumulating w dx in registers, and no warp waits
+// at any partner for the busiest one.  CTAs whose chunk starts at or past
 // nvalid[i] exit at once, so the work follows the sum of the interacting
 // partners, not B x K.  Splitting a tile's partners over CTAs spreads a
-// crowded tile (a 64k pile has tiles with ~70 partners against a mean of
-// ~8) over many SMs.  Each thread loads its vertex of the next partner
-// tile into registers before it sweeps the current one, so the load is in
-// flight during the sweep (67 against 85 us on the 64k pile on an H100,
-// PERF.md §6).
+// crowded tile (a 64k pile has tiles with ~80 partners against a median of
+// ~25) over many SMs.  The chunk's 4 x 256 vertices are 16 KB.
 //
-// The cull.  Only a few percent of the pairs of two interacting tiles lie
-// within the radius, and a pair out of reach costs as much as one in it.
-// So each warp (32 i-vertices) takes the bounding box of its vertices once
-// (warp_box: __shfl_xor_sync min and max), and when a partner tile is
-// staged each warp reduces the box of the 32-vertex slice it staged into
-// shared memory; a warp then sweeps only the slices whose box gap to its
-// own, squared, is at most reach2 = r^2 (1 + 2^-10).  The test is one per
-// warp and slice, taken by the warp's 32 lanes together, against 32 x 32
-// pair evaluations.  A box takes in the tiles' pads (+-1e6), so a warp or
-// slice with a pad in it is swept as before; a non-finite coordinate makes
-// its box infinite, so such a warp or slice never skips (the dense sweep's
-// NaN stays).
+// The cull.  Only a few tenths of a percent of the pairs of two interacting
+// tiles lie within the radius, and a pair out of reach costs as much as one
+// in it.  So each warp (32 i-vertices) takes the bounding box of its
+// vertices once (warp_box: __shfl_xor_sync min and max) and narrows what
+// it sweeps in three steps, each under reach2 = r^2 (1 + 2^-10):
+//   1. the slices: lane b tests the box of slice b of the chunk (32
+//      vertices of a partner tile; (partner, slice) order, 32 at a time)
+//      against the warp's box, and __ballot_sync gives the slices kept;
+//   2. in a kept slice, its vertices: lane t tests partner vertex t of the
+//      slice as a point against the warp's box (point_gap2), and a ballot
+//      gives the vertices kept, `m`;
+//   3. the pairs: each lane takes the squared distance from its own vertex
+//      to the vertices kept (all 32 in straight-line code where more than
+//      kDenseSlice are kept, else only the kept ones), a bit for each at
+//      most reach2, and then adds the full pair term of its set bits alone,
+//      in ascending order (__ffs, then the lowest bit cleared), with the
+//      dense sweep's code.
+// The warp walks the kept slices of all its partners in order, so a warp
+// that reaches little is done early.  Most kept pairs are out of reach: in
+// the 64k pile a step-3 test costs about half a full pair term and no
+// rsqrtf.  A partner vertex with a coordinate that is not finite or is at
+// least 2^126 in magnitude (flagged `far` in the staged float4) is never
+// skipped in a kept slice, and a lane whose own vertex is far sweeps every
+// vertex step 2 kept (its warp keeps every vertex of its kept slices):
+// every difference the sweep leaves out is then finite.  A box takes in
+// the tiles' pads (+-1e6), so a warp or slice with a pad in it is tested as
+// any other.  The dense instantiation (kCull false; launched only by
+// block_pairs_sweep, for the tests and chip_smoke.py) sweeps every pair.
 //
 // Why the cull is exact to the bit.  Rounding is monotone, so a pair (a, b)
-// of two boxes has |fl(a_x - b_x)| >= the box gap fl(lo - hi) on every axis,
-// and its d2 is at least the gap's squared sum to within a few float32
-// roundings (well under 2^-20 relative); reach2 is 2^-10 above r^2, so a
-// skipped pair has d2 > r^2 (1 + 2^-11).  There w == 0 exactly: c1
+// drawn from two boxes (or a box and a point, a degenerate box) has
+// |fl(a_x - b_x)| >= the gap fl(lo - hi) on every axis, and its d2 is at
+// least the gap's squared sum to within a few float32 roundings (well under
+// 2^-20 relative); step 3 forms d2 itself.  reach2 is 2^-10 above r^2, so
+// a skipped pair has d2 > r^2 (1 + 2^-11).  There w == 0 exactly: c1
 // rsqrtf(d2) - c2 = k (r rsqrtf(d2) - 1) up to the rounding of c1, c2 and
 // rsqrtf's 2 ulps (~2^-21 relative), which is negative, so the max gives
-// +0.  A skipped term w dx is then +0 or -0, and the running sum, which
-// starts at +0 and under round-to-nearest is never -0, is unchanged by it:
-// dropping those terms from an otherwise unchanged (partner, j) order
-// leaves every output bit as the dense sweep's.  That needs stiffness >= 0
-// (the wrapper refuses less).
+// +0.  A skipped term w dx, dx finite, is then +0 or -0, and the running
+// sum, which starts at +0 and under round-to-nearest is never -0, is
+// unchanged by it: dropping those terms from an otherwise unchanged
+// (chunk, partner, slice, j) order leaves every output bit as the dense
+// sweep's, and as those of the slice test alone.  That needs stiffness >=
+// 0 (the wrapper refuses less).
 //
 // Determinism without atomics on the data: a tile with one chunk writes its
 // forces directly; otherwise each chunk writes its partial sums to a scratch
@@ -83,11 +100,16 @@
 //
 // What bounds it.  A pair costs ~16 operations (3 differences, the squared
 // norm, max, rsqrt, w, three multiply-adds), so the dense sweep needs about
-// 16 x 256^2 x sum(nvalid) operations: ~2.2 G at the 64k preset's ~2,100
-// interacting tile pairs, ~33 us at the float32 peak, and it reads each
+// 16 x 256^2 x sum(nvalid) operations: ~7 G at the 64k pile's ~6,600
+// interacting tile pairs, ~100 us at the float32 peak, and it reads each
 // tile once (0.8 MB at 64k): bound by operations.  After the cull the
-// operations are those of the kept 32 x 32 sub-blocks
-// (kernels/blocks.py::kept_sub_blocks counts them), plus the box tests.
+// operations are step 3's squared distances, 32 for each partner vertex a
+// warp keeps (kernels/blocks.py::kept_partner_vertices counts them), the
+// full terms of the pairs within reach2 (~1 % of those), the slice boxes,
+// the slice tests and a point test per vertex of each kept slice.  What
+// holds it above that is the crowded chunks: a chunk whose four partners
+// overlap its tile keeps nearly every slice and vertex, and its CTA runs
+// several times the median's length.
 //
 // Rounding.  rsqrtf (as the TPU kernel's lax.rsqrt) and a sum in (partner,
 // vertex) order: the plain version sums the other way and divides, so the
@@ -96,13 +118,14 @@
 // Counting.  The kCount instantiation, launched only while the program's
 // recorder is on (softbodyunity_torch/utils/profiling.py), also adds up
 // what the sweep met, into int64 `counters` (the order of Counter below):
-// each warp its sub-block pairs and those it kept, each lane its pairs with
-// w > 0, each CTA its partners, and CTA (i, 0) the interacting tiles of
-// row i of the partner search (`interact`) past its nvalid[i], the tile
-// pairs the partner budget dropped.  Warps add into shared memory, and
-// thread 0 of each CTA adds the CTA's sums with one atomic per counter.
-// The counts sit beside the arithmetic, never in it, so the forces are the
-// plain instantiation's to the bit; that one is the kernel as it was.
+// each warp its sub-block pairs, those it kept and the partner vertices it
+// kept in them (32 pairs to step 3 each), each lane its pairs with w > 0, each
+// CTA its partners, and CTA (i, 0) the interacting tiles of row i of the
+// partner search (`interact`) past its nvalid[i], the tile pairs the
+// partner budget dropped.  Warps add into shared memory, and thread 0 of
+// each CTA adds the CTA's sums with one atomic per counter.  The counts sit
+// beside the arithmetic, never in it, so the forces are the plain
+// instantiation's to the bit.
 //
 // The build.  Each substep the pair kernel's inputs are built on the card,
 // from the positions where they lie (any strides: the grid paths pass their
@@ -137,9 +160,9 @@
 //      interacting tiles, then a second sweep places them first, in
 //      ascending order, then the rest: the stable argsort's row, all K
 //      columns; nvalid = min(count, K).  The counting instantiation also
-//      writes the row of interacting tiles that block_pairs_kernel<true>
-//      reads for the pairs the budget dropped;
-//   6. block_pairs_kernel, as above.
+//      writes the row of interacting tiles that the counting
+//      block_pairs_kernel reads for the pairs the budget dropped;
+//   6. block_pairs_kernel, as above (block_pairs_sweep launches it alone).
 // They are bound by their number, not their bytes: a 64k side reads its
 // 768 KB of positions twice and moves ~2 MB of keys, values and tiles,
 // under 2 us at 3.35 TB/s.  The wrapper (kernels/blocks.py::_pair_launch)
@@ -155,13 +178,27 @@ namespace {
 
 enum Counter {
   kSubBlocks,          // 32 x 32 sub-block pairs of the partners swept
-  kSubBlocksKept,      // those the cull kept
-  kPairsSwept,         // vertex pairs swept (kept sub-blocks x 1024)
+  kSubBlocksKept,      // those the slice test kept
+  kPairsSwept,         // vertex pairs swept (kept partner vertices x 32)
   kPairsInReach,       // of those, pairs with w > 0: within the radius
   kPartnersSwept,      // partner tiles swept, the sum of nvalid
   kTilePairsDropped,   // interacting tile pairs past the partner budget
+  kPartnerVerticesKept,  // partner vertices the point test kept, a warp each
   kCounters
 };
+
+// Partner tiles a CTA stages at most (kernels/blocks.py::CHUNK).
+constexpr int kMaxChunk = 4;
+// A kept slice with more kept vertices than this has each lane test all 32
+// in straight-line code; one with fewer, only the kept ones.
+constexpr int kDenseSlice = 12;
+// A coordinate at least this large in magnitude, or not finite, is `far`:
+// a difference of two coordinates below it is finite.
+constexpr float kFar = 0x1p126f;
+
+__device__ __forceinline__ bool far_point(float x, float y, float z) {
+  return !(fabsf(x) < kFar && fabsf(y) < kFar && fabsf(z) < kFar);
+}
 
 // The bounding box of the 32 lanes' points (x, y, z), on every lane: lo
 // and hi; a point with a non-finite coordinate makes the box infinite.
@@ -194,7 +231,18 @@ __device__ __forceinline__ float box_gap2(float4 lo_a, float4 hi_a,
   return gx * gx + gy * gy + gz * gz;
 }
 
-template <bool kCount>
+// box_gap2 of the box (lo, hi) and the point q, each product and sum
+// rounded on its own (no FMA), as kernels/blocks.py::kept_partner_vertices
+// computes it.
+__device__ __forceinline__ float point_gap2(float4 lo, float4 hi, float4 q) {
+  const float gx = fmaxf(fmaxf(q.x - hi.x, lo.x - q.x), 0.0f);
+  const float gy = fmaxf(fmaxf(q.y - hi.y, lo.y - q.y), 0.0f);
+  const float gz = fmaxf(fmaxf(q.z - hi.z, lo.z - q.z), 0.0f);
+  return __fadd_rn(__fadd_rn(__fmul_rn(gx, gx), __fmul_rn(gy, gy)),
+                   __fmul_rn(gz, gz));
+}
+
+template <bool kCount, bool kCull>
 __global__ void __launch_bounds__(1024) block_pairs_kernel(
     const float* __restrict__ xi_tiles,     // [B, 3, blk]: the i-tiles
     const float* __restrict__ xj_tiles,     // [Bj, 3, blk]: partner tiles
@@ -209,21 +257,21 @@ __global__ void __launch_bounds__(1024) block_pairs_kernel(
     const bool* __restrict__ interact,      // kCount: [B, >= Bj] rows,
     int i_stride, int n_j_tiles) {          //   row stride i_stride
   extern __shared__ float4 smem[];
-  float4* sj = smem;                        // [blk]: the partner tile
-  float4* sbox = smem + blk;                // [blk / 32][2]: slice boxes
+  const int n_slices = blk >> 5;
+  float4* sj = smem;                        // [chunk, blk]: partner tiles
+  float4* sbox = smem + chunk * blk;        // [chunk, blk / 32, 2]: boxes
   __shared__ bool last;
   const int i = blockIdx.x;
   const int s = blockIdx.y;
   const int l = threadIdx.x;
-  const int warp = l >> 5, n_slices = blk >> 5;
+  const int lane = l & 31, warp = l >> 5;
   const int nv = static_cast<int>(nvalid[i]);
   const int n_chunks = nv > 0 ? (nv + chunk - 1) / chunk : 1;
   if (s >= n_chunks) return;                // uniform over the CTA
   __shared__ unsigned int cnt[kCounters];   // kCount: this CTA's sums
-  unsigned int kept = 0, in_reach = 0;      // kCount: warp's, lane's
+  unsigned int kept = 0, kept_v = 0, in_reach = 0;  // kCount: warp's, lane's
   if constexpr (kCount) {
-    if (l < kCounters) cnt[l] = 0;
-    __syncthreads();
+    if (l < kCounters) cnt[l] = 0;          // before the staging barrier
   }
 
   const float* xi_tile = xi_tiles + static_cast<size_t>(i) * 3 * blk;
@@ -231,52 +279,119 @@ __global__ void __launch_bounds__(1024) block_pairs_kernel(
               xi2 = xi_tile[2 * blk + l];
   float4 lo, hi;                            // this warp's box
   warp_box(xi0, xi1, xi2, lo, hi);
-  float ax = 0.0f, ay = 0.0f, az = 0.0f;
-  const int k_end = min(s * chunk + chunk, nv);
-  // vertex l of partner k into (x0, x1, x2)
-  float x0 = 0.0f, x1 = 0.0f, x2 = 0.0f;
-  auto fetch = [&](int k) {
-    const long long pk = partners[static_cast<size_t>(i) * p_stride + k];
-    const float* xp = xj_tiles + static_cast<size_t>(pk) * 3 * blk;
-    x0 = xp[l];
-    x1 = xp[blk + l];
-    x2 = xp[2 * blk + l];
-  };
-  if (s * chunk < k_end) fetch(s * chunk);
-  for (int k = s * chunk; k < k_end; ++k) {
-    __syncthreads();                        // the last sweep is done with sj
-    sj[l] = make_float4(x0, x1, x2, 0.0f);
-    float4 slo, shi;                        // the box of this warp's slice
-    warp_box(x0, x1, x2, slo, shi);
-    if ((l & 31) == 0) {
-      sbox[2 * warp] = slo;
-      sbox[2 * warp + 1] = shi;
+  // a warp with a far vertex keeps every vertex of the slices it keeps,
+  // and its far lanes sweep them all
+  const bool far_i = far_point(xi0, xi1, xi2);
+  const bool far_warp = __any_sync(0xffffffffu, far_i);
+
+  // Stage the chunk: vertex l of each of its n_k partner tiles, all loads
+  // issued before the first is used, then each warp's slice boxes.
+  const int k0 = s * chunk, n_k = min(chunk, nv - k0);
+  float xp[kMaxChunk][3];
+#pragma unroll
+  for (int t = 0; t < kMaxChunk; ++t) {
+    if (t < n_k) {
+      const long long pk = partners[static_cast<size_t>(i) * p_stride + k0 + t];
+      const float* src = xj_tiles + static_cast<size_t>(pk) * 3 * blk;
+      xp[t][0] = src[l];
+      xp[t][1] = src[blk + l];
+      xp[t][2] = src[2 * blk + l];
     }
-    __syncthreads();
-    if (k + 1 < k_end) fetch(k + 1);        // in flight during the sweep
-    for (int c = 0; c < n_slices; ++c) {
-      // warp-uniform: a slice out of reach holds only pairs with w == 0
-      if (box_gap2(lo, hi, sbox[2 * c], sbox[2 * c + 1]) > reach2) continue;
-      if constexpr (kCount) ++kept;
-      const float4* sc = sj + 32 * c;
+  }
+#pragma unroll
+  for (int t = 0; t < kMaxChunk; ++t) {
+    if (t < n_k) {                          // uniform over the CTA
+      sj[t * blk + l] = make_float4(
+          xp[t][0], xp[t][1], xp[t][2],
+          far_point(xp[t][0], xp[t][1], xp[t][2]) ? 1.0f : 0.0f);
+      if constexpr (kCull) {
+        float4 slo, shi;                    // the box of this warp's slice
+        warp_box(xp[t][0], xp[t][1], xp[t][2], slo, shi);
+        if (lane == 0) {
+          sbox[2 * (t * n_slices + warp)] = slo;
+          sbox[2 * (t * n_slices + warp) + 1] = shi;
+        }
+      }
+    }
+  }
+  __syncthreads();                          // the sweep's only barrier
+
+  float ax = 0.0f, ay = 0.0f, az = 0.0f;
+  auto pair = [&](const float4 q) {
+    const float dx = xi0 - q.x;
+    const float dy = xi1 - q.y;
+    const float dz = xi2 - q.z;
+    const float d2 = dx * dx + dy * dy + dz * dz;
+    const float w = fmaxf(c1 * rsqrtf(fmaxf(d2, eps2)) - c2, 0.0f);
+    ax += w * dx;
+    ay += w * dy;
+    az += w * dz;
+    if constexpr (kCount) in_reach += w > 0.0f;
+  };
+  // whether the pair with q may have w != 0: its d2 is at most reach2
+  auto within = [&](const float4 q) {
+    const float dx = xi0 - q.x;
+    const float dy = xi1 - q.y;
+    const float dz = xi2 - q.z;
+    return dx * dx + dy * dy + dz * dz <= reach2;
+  };
+  // The chunk's slices in (partner, slice) order, 32 at a time: lane b
+  // tests slice base + b's box against the warp's, and the warp sweeps the
+  // slices kept, in order.  A slice out of reach holds only pairs with
+  // w == 0.
+  const int n_boxes = n_k * n_slices;
+  for (int base = 0; base < n_boxes; base += 32) {
+    const int own = base + lane;
+    bool keep = own < n_boxes;
+    if constexpr (kCull) {
+      keep = keep && !(box_gap2(lo, hi, sbox[2 * own], sbox[2 * own + 1]) >
+                       reach2);
+    }
+    unsigned int slices = __ballot_sync(0xffffffffu, keep);
+    if constexpr (kCount) kept += __popc(slices);
+    while (slices != 0) {                   // warp-uniform, ascending
+      const float4* sc = sj + 32 * (base + __ffs(slices) - 1);
+      slices &= slices - 1;
+      if constexpr (kCull) {
+        // and so does a vertex out of reach of the warp's box
+        const float4 mine = sc[lane];
+        const unsigned int m = __ballot_sync(
+            0xffffffffu, far_warp || mine.w != 0.0f ||
+                             point_gap2(lo, hi, mine) <= reach2);
+        const unsigned int far_m = __ballot_sync(0xffffffffu, mine.w != 0.0f);
+        const int n_q = __popc(m);
+        if constexpr (kCount) kept_v += n_q;
+        // of the kept vertices, those within reach2 of this lane's own
+        unsigned int near = 0;
+        if (n_q > kDenseSlice) {
+#pragma unroll
+          for (int j = 0; j < 32; ++j)
+            near |= static_cast<unsigned int>(within(sc[j])) << j;
+        } else {
+          unsigned int rest = m;
+#pragma unroll 4
+          for (int u = 0; u < n_q; ++u) {   // the set bits, ascending
+            const int j = __ffs(rest) - 1;
+            rest &= rest - 1;
+            near |= static_cast<unsigned int>(within(sc[j])) << j;
+          }
+        }
+        near = far_i ? m : (near & m) | far_m;
+        while (near != 0) {                 // this lane's, ascending
+          const int j = __ffs(near) - 1;
+          near &= near - 1;
+          pair(sc[j]);
+        }
+      } else {
+        if constexpr (kCount) kept_v += 32;
 #pragma unroll 8
-      for (int j = 0; j < 32; ++j) {
-        const float4 q = sc[j];
-        const float dx = xi0 - q.x;
-        const float dy = xi1 - q.y;
-        const float dz = xi2 - q.z;
-        const float d2 = dx * dx + dy * dy + dz * dz;
-        const float w = fmaxf(c1 * rsqrtf(fmaxf(d2, eps2)) - c2, 0.0f);
-        ax += w * dx;
-        ay += w * dy;
-        az += w * dz;
-        if constexpr (kCount) in_reach += w > 0.0f;
+        for (int j = 0; j < 32; ++j) pair(sc[j]);
       }
     }
   }
 
   if constexpr (kCount) {
-    const unsigned int swept = k_end - s * chunk;   // this CTA's partners
+    const unsigned int swept = n_k;         // this CTA's partners
     in_reach = __reduce_add_sync(0xffffffffu, in_reach);
     unsigned int hits = 0;                  // row i of the partner search
     if (s == 0) {
@@ -284,9 +399,10 @@ __global__ void __launch_bounds__(1024) block_pairs_kernel(
         hits += interact[static_cast<size_t>(i) * i_stride + j];
       hits = __reduce_add_sync(0xffffffffu, hits);
     }
-    if ((l & 31) == 0) {
+    if (lane == 0) {
       atomicAdd(&cnt[kSubBlocks], swept * n_slices);
       atomicAdd(&cnt[kSubBlocksKept], kept);
+      atomicAdd(&cnt[kPartnerVerticesKept], kept_v);
       atomicAdd(&cnt[kPairsInReach], in_reach);
       atomicAdd(&cnt[kTilePairsDropped], hits);
     }
@@ -294,7 +410,8 @@ __global__ void __launch_bounds__(1024) block_pairs_kernel(
     if (l == 0) {
       atomicAdd(&counters[kSubBlocks], cnt[kSubBlocks]);
       atomicAdd(&counters[kSubBlocksKept], cnt[kSubBlocksKept]);
-      atomicAdd(&counters[kPairsSwept], 1024ull * cnt[kSubBlocksKept]);
+      atomicAdd(&counters[kPartnerVerticesKept], cnt[kPartnerVerticesKept]);
+      atomicAdd(&counters[kPairsSwept], 32ull * cnt[kPartnerVerticesKept]);
       atomicAdd(&counters[kPairsInReach], cnt[kPairsInReach]);
       atomicAdd(&counters[kPartnersSwept], swept);
       // nvalid[i] of the row's interacting tiles are swept; the rest dropped
@@ -654,17 +771,42 @@ static cudaError_t build_side(const PairBuild& b, const float* x,
   return cudaGetLastError();
 }
 
+// One launch of the pair kernel over the tiles, partners and order that
+// b's scratch holds, into f_out; with `counters` the counting
+// instantiation.
+template <bool kCull>
+static cudaError_t launch_pairs(const PairBuild& b, float* f_out,
+                                long long* counters, const bool* interact,
+                                cudaStream_t st) {
+  if (b.chunk < 1 || b.chunk > kMaxChunk) return cudaErrorInvalidValue;
+  const dim3 grid(b.n_tiles, (b.k_budget + b.chunk - 1) / b.chunk);
+  const size_t smem = static_cast<size_t>(b.chunk) *
+                      (b.blk + 2 * (b.blk / 32)) * sizeof(float4);
+  auto kernel = counters != nullptr ? block_pairs_kernel<true, kCull>
+                                    : block_pairs_kernel<false, kCull>;
+  if (smem > 48 * 1024) {                   // block_size 736 and up
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  kernel<<<grid, b.blk, smem, st>>>(
+      b.xi_tiles, b.xj_tiles, b.nvalid, b.partners, b.k_budget, b.order, b.n,
+      b.n_tiles, b.chunk, b.blk, b.partial, b.arrivals, f_out, b.eps2, b.c1,
+      b.c2, b.reach2, reinterpret_cast<unsigned long long*>(counters),
+      interact, b.n_j_tiles, b.n_j_tiles);
+  return cudaGetLastError();
+}
+
 // The repulsion on the b.n vertices of xi (element strides si_v, si_c)
 // from those of xj (the dual form: b.n_j vertices, strides sj_v, sj_c) or,
 // with xj null, from xi itself, into f_out ([3, n], vertex order): the
-// build, steps 1-5, and one launch of the pair kernel, on `stream`.  With
-// xi null the build is left out and the pair kernel sweeps the tiles,
-// partners and order the scratch holds (the tests put the plain build's
-// there).  With `counters` (int64 [6], the order of Counter) and
-// `interact` (bool [n_tiles, n_j_tiles]) the partner search and the pair
-// kernel are the counting instantiations, which add into `counters`; with
-// both null, the plain ones.  Returns the first cudaError_t (0 =
-// cudaSuccess); allocates nothing and does not synchronise.
+// build, steps 1-5, and one launch of the culled pair kernel, on `stream`.
+// With `counters` (int64 [7], the order of Counter) and `interact` (bool
+// [n_tiles, n_j_tiles]) the partner search and the pair kernel are the
+// counting instantiations, which add into `counters`; with both null, the
+// plain ones.  Returns the first cudaError_t (0 = cudaSuccess); allocates
+// nothing and does not synchronise.
 extern "C" int block_pairs_build_forces(
     const PairBuild* build, const float* xi, long long si_v, long long si_c,
     const float* xj, long long sj_v, long long sj_c, float* f_out,
@@ -672,41 +814,41 @@ extern "C" int block_pairs_build_forces(
   const PairBuild& b = *build;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool counting = counters != nullptr && interact != nullptr;
-  if (xi != nullptr) {
-    const bool dual = xj != nullptr;
-    cudaError_t err = build_side(b, xi, si_v, si_c, b.n, b.n_tiles,
-                                 dual ? -1e6f : 1e6f, b.xi_tiles, b.box_i,
-                                 b.order, st);
-    if (err == cudaSuccess && dual)
-      err = build_side(b, xj, sj_v, sj_c, b.n_j, b.n_j_tiles, 1e6f,
-                       b.xj_tiles, b.box_j, nullptr, st);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    const int threads =
-        std::min(kMaxPartnerThreads, (b.n_j_tiles + 31) / 32 * 32);
-    if (counting)
-      tile_partners_kernel<true><<<b.n_tiles, threads, 0, st>>>(
-          b.box_i, b.box_j, b.n_j_tiles, b.k_budget, b.radius2, b.partners,
-          b.nvalid, interact);
-    else
-      tile_partners_kernel<false><<<b.n_tiles, threads, 0, st>>>(
-          b.box_i, b.box_j, b.n_j_tiles, b.k_budget, b.radius2, b.partners,
-          b.nvalid, nullptr);
-  }
-  const dim3 grid(b.n_tiles, (b.k_budget + b.chunk - 1) / b.chunk);
-  const size_t smem = (static_cast<size_t>(b.blk) + 2 * (b.blk / 32)) *
-                      sizeof(float4);
+  const bool dual = xj != nullptr;
+  cudaError_t err = build_side(b, xi, si_v, si_c, b.n, b.n_tiles,
+                               dual ? -1e6f : 1e6f, b.xi_tiles, b.box_i,
+                               b.order, st);
+  if (err == cudaSuccess && dual)
+    err = build_side(b, xj, sj_v, sj_c, b.n_j, b.n_j_tiles, 1e6f, b.xj_tiles,
+                     b.box_j, nullptr, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int threads =
+      std::min(kMaxPartnerThreads, (b.n_j_tiles + 31) / 32 * 32);
   if (counting)
-    block_pairs_kernel<true><<<grid, b.blk, smem, st>>>(
-        b.xi_tiles, b.xj_tiles, b.nvalid, b.partners, b.k_budget, b.order,
-        b.n, b.n_tiles, b.chunk, b.blk, b.partial, b.arrivals, f_out, b.eps2,
-        b.c1, b.c2, b.reach2, reinterpret_cast<unsigned long long*>(counters),
-        interact, b.n_j_tiles, b.n_j_tiles);
+    tile_partners_kernel<true><<<b.n_tiles, threads, 0, st>>>(
+        b.box_i, b.box_j, b.n_j_tiles, b.k_budget, b.radius2, b.partners,
+        b.nvalid, interact);
   else
-    block_pairs_kernel<false><<<grid, b.blk, smem, st>>>(
-        b.xi_tiles, b.xj_tiles, b.nvalid, b.partners, b.k_budget, b.order,
-        b.n, b.n_tiles, b.chunk, b.blk, b.partial, b.arrivals, f_out, b.eps2,
-        b.c1, b.c2, b.reach2, nullptr, nullptr, 0, 0);
-  return static_cast<int>(cudaGetLastError());
+    tile_partners_kernel<false><<<b.n_tiles, threads, 0, st>>>(
+        b.box_i, b.box_j, b.n_j_tiles, b.k_budget, b.radius2, b.partners,
+        b.nvalid, nullptr);
+  return static_cast<int>(launch_pairs<true>(
+      b, f_out, counting ? counters : nullptr, interact, st));
+}
+
+// The pair kernel alone, over the tiles, partners and order the scratch
+// holds (the tests put the plain build's there): culled, or with `dense`
+// every pair of every partner tile swept.  `counters` and `interact` as in
+// block_pairs_build_forces.
+extern "C" int block_pairs_sweep(const PairBuild* build, int dense,
+                                 float* f_out, long long* counters,
+                                 bool* interact, void* stream) {
+  const PairBuild& b = *build;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (counters == nullptr || interact == nullptr) counters = nullptr;
+  return static_cast<int>(
+      dense ? launch_pairs<false>(b, f_out, counters, interact, st)
+            : launch_pairs<true>(b, f_out, counters, interact, st));
 }
 
 extern "C" const char* block_pairs_error_string(int err) {

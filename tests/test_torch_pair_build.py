@@ -8,8 +8,11 @@ dropped; on seeded clouds, a starved budget, vertices with non-finite
 coordinates, the 64k pile and the dual form on 1, 2 and 4 row shards.  The
 forces and a pile frame's state are those of the plain build swept by the
 same pair kernel, and stay so over repeated calls from NaN-filled
-allocations.  These tests skip without a CUDA device; the file imports no
-jax, so on the card:
+allocations.  The culled pair kernel's forces are its dense
+instantiation's (every pair swept in the same order) to the bit, on the
+seeded clouds and the pile after 0, 40 and 100 frames, in both forms.
+These tests skip without a CUDA device; the file imports no jax, so on the
+card:
 
     python -m pytest --noconftest -p no:cacheprovider \\
         tests/test_torch_pair_build.py
@@ -33,6 +36,7 @@ from softbodyunity_torch.utils import profiling
 CLOUDS = [(100, 256), (500, 256), (1000, 256), (2048, 256), (100, 128),
           (500, 128), (1000, 128), (2048, 128)]
 PILE_FRAMES = (0, 40, 110)
+DENSE_FRAMES = (0, 40, 100)
 
 
 @pytest.fixture
@@ -45,16 +49,16 @@ def cuda():
 
 @pytest.fixture(scope="module")
 def pile():
-    """``{frame: state}`` of cloth_selfcollide_64k at PILE_FRAMES, and its
-    ``(top, cfg)``."""
+    """``{frame: state}`` of cloth_selfcollide_64k at PILE_FRAMES and
+    DENSE_FRAMES, and its ``(top, cfg)``."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the CUDA kernels run only on the "
                     "card")
     host, cfg = tsb.presets.build("cloth_selfcollide_64k")
     top, state = tsb.init(host, device="cuda")
     states = {}
-    for frame in range(max(PILE_FRAMES) + 1):
-        if frame in PILE_FRAMES:
+    for frame in range(max(PILE_FRAMES + DENSE_FRAMES) + 1):
+        if frame in PILE_FRAMES + DENSE_FRAMES:
             states[frame] = state
         state = tsb.step(top, cfg, state)
     return states, top, cfg
@@ -281,3 +285,57 @@ def test_pile_frame_bit_equal_to_the_plain_build(pile, monkeypatch):
     for name in ("x", "v"):
         _assert_bits_equal(getattr(got, name), getattr(want, name), name)
     assert not torch.equal(got.x, s40.x)
+
+
+def _check_dense(fn, p, xi, xall=None):
+    """The forces of ``fn``'s culled call on ``xi`` (and ``xall``: the dual
+    form) against the dense instantiation's over the plain build, bit for
+    bit, and the culled sweep's over it; returns the forces."""
+    args = (xi,) if xall is None else (xi, xall)
+    forces = fn(*args)
+    inputs = blocks.pair_inputs(p, xi, xall)
+    _assert_bits_equal(forces, fn.sweep(inputs, dense=True), "dense sweep")
+    _assert_bits_equal(forces, fn.sweep(inputs), "culled sweep")
+    return forces
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["single", "dual"])
+@pytest.mark.parametrize("n,blk", CLOUDS)
+def test_culled_forces_bit_equal_to_the_dense_sweep_on_clouds(
+        cuda, recorder, n, blk, form):
+    """The seeded clouds; the dual form on 2 row shards against the
+    whole cloud."""
+    p = _params(block_size=blk, block_partners=min(8, -(-n // blk)))
+    x = _cloud(n, cuda)
+    if form == "single":
+        forces = _check_dense(blocks.make_block_pairs(p, n, cuda), p, x)
+        assert float(forces.abs().max()) > 0.0
+        return
+    ni = n // 2
+    for r in range(2):
+        xi = x[r * ni:(r + 1) * ni]
+        _check_dense(blocks.make_block_pairs_dual(p, ni, n, cuda), p, xi, x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("frame", DENSE_FRAMES)
+@pytest.mark.parametrize("form", ["single", "dual"])
+def test_culled_forces_bit_equal_to_the_dense_sweep_on_the_pile(
+        pile, recorder, frame, form):
+    """cloth_selfcollide_64k after 0, 40 and 100 frames, from [3, n] planes
+    transposed; the dual form on each of 4 row shards against the whole
+    cloth."""
+    states, _, cfg = pile
+    p = cfg.self_collision
+    x = states[frame].x.t().contiguous().t()
+    n = x.shape[0]
+    if form == "single":
+        forces = _check_dense(blocks.make_block_pairs(p, n, x.device), p, x)
+        assert (float(forces.abs().max()) > 0.0) == (frame > 0)
+        return
+    ni = n // 4
+    for r in range(4):
+        xi = x[r * ni:(r + 1) * ni]
+        _check_dense(blocks.make_block_pairs_dual(p, ni, n, x.device), p,
+                     xi, x)

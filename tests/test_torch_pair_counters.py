@@ -81,7 +81,8 @@ def _in_reach(inputs, radius):
 @pytest.mark.cuda
 @pytest.mark.parametrize("partners", [None, 8])
 def test_counts_equal_the_plain_counts(pile, recorder, partners):
-    """Sub-blocks considered and kept (``kept_sub_blocks``), pairs swept,
+    """Sub-blocks considered and kept (``kept_sub_blocks``), partner
+    vertices kept (``kept_partner_vertices``) and pairs swept, 32 for each,
     pairs within the radius (a dense count), partners swept (the sum of
     nvalid) and tile pairs dropped (the diagnostics): at the preset's
     budget of 96 partners and a starved one of 8."""
@@ -97,7 +98,10 @@ def test_counts_equal_the_plain_counts(pile, recorder, partners):
     assert c["block_pairs.partners_swept"] == swept
     assert c["block_pairs.sub_blocks"] == swept * s * s
     assert c["block_pairs.sub_blocks_kept"] == int(kept.sum())
-    assert c["block_pairs.pairs_swept"] == 1024 * int(kept.sum())
+    kept_v = int(blocks.kept_partner_vertices(*inputs[:4], p.radius).sum())
+    assert c["block_pairs.partner_vertices_kept"] == kept_v
+    assert c["block_pairs.pairs_swept"] == 32 * kept_v
+    assert kept_v < 32 * int(kept.sum())
     lo, hi = _in_reach(inputs, p.radius)
     assert lo <= c["block_pairs.pairs_in_reach"] <= hi
     assert c["block_pairs.pairs_in_reach"] > x.shape[0]   # beyond self
@@ -105,6 +109,31 @@ def test_counts_equal_the_plain_counts(pile, recorder, partners):
     assert c["block_pairs.tile_pairs_dropped"] == int(d["dropped_pairs"])
     if partners == 8:
         assert c["block_pairs.tile_pairs_dropped"] > 0
+
+
+@pytest.mark.cuda
+def test_dense_sweep_counts_every_pair(pile, recorder):
+    """The dense instantiation (``fn.sweep(..., dense=True)``) keeps every
+    sub-block and partner vertex, sweeps blk^2 pairs a partner tile, and
+    meets the same pairs within the radius as the culled one, with the same
+    forces to the bit."""
+    top, cfg, state = pile
+    p = cfg.self_collision
+    x = state.x
+    fn = blocks.make_block_pairs(p, x.shape[0], x.device)
+    culled, c = _counted(fn, x)
+    inputs = blocks.pair_inputs(p, x)
+    dense, d = _counted(lambda: fn.sweep(inputs, dense=True))
+    assert torch.equal(dense, culled)
+    blk = p.block_size
+    swept = int(inputs[2].sum())
+    assert d["block_pairs.sub_blocks_kept"] == d["block_pairs.sub_blocks"]
+    assert d["block_pairs.partner_vertices_kept"] == swept * blk * blk // 32
+    assert d["block_pairs.pairs_swept"] == swept * blk * blk
+    for name in ("sub_blocks", "pairs_in_reach", "partners_swept",
+                 "tile_pairs_dropped"):
+        assert d[f"block_pairs.{name}"] == c[f"block_pairs.{name}"], name
+    assert c["block_pairs.pairs_swept"] < d["block_pairs.pairs_swept"]
 
 
 @pytest.mark.cuda

@@ -263,3 +263,160 @@ def test_non_finite_coordinates_are_never_skipped():
     p, _ = _params(radius=0.05)
     kept = blocks.kept_sub_blocks(*_pair_tiles(a, b), p.radius)[:, 0, 0, 0]
     assert kept.tolist() == [True, True, False]
+
+
+# --- the point test: each partner vertex of a kept slice against the warp's
+# box (csrc/block_pairs.cu, "The cull") --------------------------------------
+
+def _check_point_cull(p, xi_tiles, xj_tiles, nvalid, partners):
+    """Every pair of a partner vertex that ``kept_partner_vertices`` drops
+    for a warp has w == 0 and d2 > r^2 (1 + 2^-11); every pair with w > 0
+    is swept; the kept vertices lie in kept slices.  Returns (kept
+    vertices, vertices of the kept slices, pairs with w > 0)."""
+    kept = blocks.kept_sub_blocks(xi_tiles, xj_tiles, nvalid, partners,
+                                  p.radius)
+    kv = blocks.kept_partner_vertices(xi_tiles, xj_tiles, nvalid, partners,
+                                      p.radius)
+    blk = xi_tiles.shape[2]
+    s = blk // blocks.SUB_BLOCK
+    assert kv.shape == (*partners.shape, s, blk)
+    in_slices = kept.repeat_interleave(blocks.SUB_BLOCK, dim=-1)
+    assert not bool((kv & ~in_slices).any())
+    ii, kk = torch.nonzero(torch.arange(partners.shape[1])[None, :]
+                           < nvalid[:, None], as_tuple=True)
+    positive = 0
+    for c in range(0, ii.numel(), 32):
+        i, k = ii[c:c + 32], kk[c:c + 32]
+        w, d2 = _weights(p, xi_tiles[i], xj_tiles[partners[i, k]])
+        m = i.numel()
+        # [m, S, blk] -> each pair (warp a's lane, partner vertex j)
+        keep = kv[i, k][:, :, None, :].expand(m, s, 32, blk).reshape(
+            m, blk, blk)
+        assert bool((w[~keep] == 0.0).all())
+        if bool((~keep).any()):
+            assert float(d2[~keep].min()) > p.radius ** 2 * (
+                1.0 + 2.0 ** -11)
+        assert bool(keep[w > 0.0].all())
+        positive += int((w > 0.0).sum())
+    return int(kv.sum()), int(in_slices.sum()), positive
+
+
+@pytest.mark.parametrize("scene", SCENES)
+def test_point_cull_drops_only_pairs_out_of_reach(scene):
+    """The single form, on every scene of the slice cull's test: the point
+    test keeps fewer partner vertices than the kept slices hold, and drops
+    only pairs with w == 0."""
+    x, (tp, _) = _scene(scene)
+    inputs = blocks.pair_inputs(tp, torch.from_numpy(x))
+    kept, in_slices, positive = _check_point_cull(tp, *inputs[:4])
+    assert positive > 0
+    assert 0 < kept < in_slices
+
+
+@pytest.mark.parametrize("n_ranks", [2, 4])
+@pytest.mark.parametrize("scene", ["cloud 2048 256", "folded 128",
+                                   "cloth_selfcollide_16k"])
+def test_dual_point_cull_drops_only_pairs_out_of_reach(scene, n_ranks):
+    """The dual form on row shards, the i-tiles' pads at -1e6."""
+    x, (tp, _) = _scene(scene)
+    ni = x.shape[0] // n_ranks
+    kept_all = in_slices_all = 0
+    for r in range(n_ranks):
+        xi = torch.from_numpy(x[r * ni:(r + 1) * ni])
+        inputs = blocks.pair_inputs(tp, xi, torch.from_numpy(x))
+        kept, in_slices, _ = _check_point_cull(tp, *inputs[:4])
+        kept_all, in_slices_all = kept_all + kept, in_slices_all + in_slices
+    assert 0 < kept_all < in_slices_all
+
+
+@pytest.mark.parametrize("radius,stiffness", [
+    (0.05, 10.0), (0.008, 60.0), (0.006, 10.0), (0.0123, 0.5), (1.0, 1e4),
+    (3.0, 1e-3)])
+@pytest.mark.parametrize("warp", ["point", "box"])
+def test_point_margin_holds_at_the_radius(radius, stiffness, warp):
+    """A partner vertex at distances d from r (1 - 2^-9) to r (1 + 2^-9)
+    past the warp's nearest vertex, along an axis and a diagonal, with the
+    warp's 32 vertices on one point or spread into a box behind it: the
+    vertex at float32 d = r is kept, every pair with w > 0 is swept, and
+    every skipped pair has w == 0 under the kernel's formula in float32,
+    with d2 formed in one rounding (the card's FMAs) and rsqrt 2 ulps high
+    (the card's rsqrtf), and d2 > r^2 (1 + 2^-11)."""
+    p, _ = _params(radius=radius, stiffness=stiffness)
+    r = np.float32(radius)
+    t = np.linspace(-2.0 ** -9, 2.0 ** -9, 2049)
+    d = (np.float64(r) * (1.0 + t)).astype(np.float32)
+    d = np.unique(np.concatenate([d, [r]]))
+    m = d.shape[0]
+    base = np.float32(0.25)
+    # the warp: lane 0 at base, the others up to 4 r behind it on -x, -y
+    back = (np.arange(32, dtype=np.float32) / np.float32(31) * np.float32(
+        4.0) * r) if warp == "box" else np.zeros(32, dtype=np.float32)
+    a = np.stack([base - back, base - back, np.full(32, base)], axis=1)
+    c1 = float(np.float32(p.stiffness * p.radius))
+    c2 = float(np.float32(p.stiffness))
+    for ux, uy in ((1.0, 0.0), (0.6, 0.8)):
+        b = np.stack([base + d * np.float32(ux), base + d * np.float32(uy),
+                      np.full(m, base)], axis=1).astype(np.float32)
+        xi = torch.from_numpy(a.T.copy())[None].expand(m, 3, 32).contiguous()
+        # partner vertex 0 at b, the rest of its slice on b too
+        xj = torch.from_numpy(b)[:, :, None].expand(m, 3, 32).contiguous()
+        nvalid = torch.ones(m, dtype=torch.int64)
+        partners = torch.arange(m, dtype=torch.int64)[:, None]
+        kv = blocks.kept_partner_vertices(xi, xj, nvalid, partners,
+                                          p.radius)[:, 0, 0, 0]
+        w, d2 = _weights(p, xi, xj)
+        w, d2 = w[:, :, 0], d2[:, :, 0]                   # [m, 32 lanes]
+        assert bool(kv[torch.from_numpy(d == r)].all())
+        assert bool(kv[(w > 0.0).any(dim=1)].all())
+        skipped = ~kv
+        assert bool(skipped.any()) and bool(kv.any())
+        assert bool((w[skipped] == 0.0).all())
+        diff = (a.astype(np.float32)[None].astype(np.float64)
+                - b.astype(np.float64)[:, None])          # [m, 32, 3]
+        diff = diff.astype(np.float32).astype(np.float64)
+        d2_fma = torch.from_numpy(
+            (diff * diff).sum(axis=2).astype(np.float32).astype(np.float64))
+        rs_hi = torch.rsqrt(d2_fma) * (1.0 + 2.0 ** -21)
+        assert bool((c1 * rs_hi[skipped] - c2 <= 0.0).all())
+        for dd in (d2[skipped].double(), d2_fma[skipped]):
+            assert float(dd.min()) > p.radius ** 2 * (1.0 + 2.0 ** -11)
+
+
+FAR_VALUES = [float("inf"), float("-inf"), float("nan"), 1.5 * 2.0 ** 126,
+              -1.5 * 2.0 ** 126]
+
+
+def _far_slice(value, axis, in_warp):
+    """A warp of 32 vertices at the origin and a partner slice whose vertex
+    0 is in reach (0.5 r along x), vertex 1 at 5 but for ``value`` on
+    ``axis``, and the rest at 5 on every axis; with ``in_warp`` the far
+    value sits in the warp's lane 7 instead, vertex 1 at 5."""
+    xi = torch.zeros(1, 3, 32)
+    xj = torch.full((1, 3, 32), 5.0)
+    xj[0, :, 0] = torch.tensor([0.025, 0.0, 0.0])
+    (xi[0, axis, 7] if in_warp else xj[0, axis, 1]).fill_(value)
+    return (xi, xj, torch.ones(1, dtype=torch.int64),
+            torch.zeros((1, 1), dtype=torch.int64))
+
+
+@pytest.mark.parametrize("value", FAR_VALUES)
+@pytest.mark.parametrize("axis", [0, 2])
+def test_far_partner_vertices_are_never_skipped(value, axis):
+    """A partner vertex with a coordinate not finite or past 2^126 in a
+    kept slice is swept, as the dense sweep meets it (a NaN or an infinity
+    makes its pairs NaN, and two such finite coordinates of opposite sign
+    an infinite difference); the other far vertices of the slice are
+    dropped."""
+    p, _ = _params(radius=0.05)
+    kv = blocks.kept_partner_vertices(*_far_slice(value, axis, False),
+                                      p.radius)[0, 0, 0]
+    assert kv.tolist() == [True, True] + [False] * 30
+
+
+@pytest.mark.parametrize("value", FAR_VALUES)
+def test_a_warp_with_a_far_vertex_keeps_its_kept_slices_whole(value):
+    p, _ = _params(radius=0.05)
+    inputs = _far_slice(value, 1, True)
+    assert bool(blocks.kept_sub_blocks(*inputs, p.radius).all())
+    kv = blocks.kept_partner_vertices(*inputs, p.radius)[0, 0, 0]
+    assert bool(kv.all())
