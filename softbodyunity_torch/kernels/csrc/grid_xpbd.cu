@@ -105,12 +105,30 @@
 // relaxation make the agreement one of rounding, except in the feature
 // update, rounded as the plain version rounds it (grid_common.cuh).  Pinned
 // vertices keep x bit for bit (their delta is masked to 0 and xp + 0 == xp).
+//
+// Counting.  The kCount instantiation of the sweep, launched only for a
+// substep's last Jacobi sweep and only while the program's recorder is on
+// (softbodyunity_torch/utils/profiling.py), also counts, into int64
+// `counters` (the order of Counter below), the live constraints it
+// evaluates and, of those, the ones unmet by more than a thousandth of
+// their rest length, |C| > 1e-3 rest, at its evaluation point: what the
+// sweeps before it leave for it to do.  A CTA counts the constraints its
+// tile owns (each is evaluated once, by the tile of its owner), each warp
+// adds its lanes' counts into shared memory, and thread 0 adds the CTA's
+// sums with one atomic per counter.  The counts sit beside the arithmetic,
+// never in it, so the positions are the plain instantiation's to the bit.
 
 #include <cuda_runtime.h>
 
 #include "grid_common.cuh"
 
 namespace {
+
+enum Counter {
+  kEdgesChecked,   // live constraints the last sweep evaluated
+  kEdgesUnmet,     // of those, |C| > 1e-3 rest at its evaluation point
+  kCounters
+};
 
 // Scalars of one substep, computed by the wrapper in double from SimConfig
 // and rounded once to float, as the plain version's Python scalars are.
@@ -240,7 +258,7 @@ __device__ __forceinline__ void finish(Vec3 dl, Vec3 xpi, int idx, int ps,
 // would cost about as much as recomputing every edge from both ends, so
 // the strips are spread one entry a thread, and the lambdas of each
 // thread's own entries load before the first barrier.
-template <int P, bool kFeat>
+template <int P, bool kFeat, bool kCount>
 __global__ void __launch_bounds__(kTileX * kTileY) grid_xpbd_sweep_kernel(
     const float* __restrict__ xp, const float* __restrict__ delta_in,
     float* __restrict__ delta_out, const float* __restrict__ lam_in,
@@ -249,7 +267,7 @@ __global__ void __launch_bounds__(kTileX * kTileY) grid_xpbd_sweep_kernel(
     const float* __restrict__ offsets, Colliders col, int project, int last,
     float* __restrict__ x_out, float* __restrict__ v,
     const float* __restrict__ alive, const float* __restrict__ scale,
-    int ny, int nx, Params p) {
+    unsigned long long* __restrict__ counters, int ny, int nx, Params p) {
   using O = Offsets<P>;
   using T = Tile<P>;
   constexpr int TX = T::TX, TY = T::TY;
@@ -257,7 +275,9 @@ __global__ void __launch_bounds__(kTileX * kTileY) grid_xpbd_sweep_kernel(
   using Seq = std::make_integer_sequence<int, kN>;
   __shared__ float4 frame[T::FH * T::FW];   // xe, w
   __shared__ float4 terms[T::B(kN)];        // dlam, n
+  __shared__ unsigned int cnt[kCounters];   // kCount: this CTA's sums
   const int x = threadIdx.x, y = threadIdx.y;
+  unsigned int checked = 0, unmet = 0;      // kCount: this thread's
   const int i0 = blockIdx.y * TY, j0 = blockIdx.x * TX;
   const int i = i0 + y, j = j0 + x;
   const int ps = ny * nx;
@@ -277,6 +297,9 @@ __global__ void __launch_bounds__(kTileX * kTileY) grid_xpbd_sweep_kernel(
   }
 
   if (project) {
+    if constexpr (kCount) {
+      if (y == 0 && x < kCounters) cnt[x] = 0;   // before the staging barrier
+    }
     // the owner of rectangle entry (r, cc) of offset o, in the grid
     auto owner = [&](auto oc, int r, int cc, int& qi, int& qj) {
       constexpr int o = decltype(oc)::value;
@@ -335,6 +358,15 @@ __global__ void __launch_bounds__(kTileX * kTileY) grid_xpbd_sweep_kernel(
                         offsets[4 * o + 2], rr, lam, nrm);
           lam += dlam;
           term = make_float4(dlam, nrm.x, nrm.y, nrm.z);
+          if constexpr (kCount) {
+            // |C| as xpbd_dlam forms it, for the tile's own constraints
+            if (qi >= i0 && qi < i0 + TY && qj >= j0 && qj < j0 + TX) {
+              const Vec3 d = {pb.x - pa.x, pb.y - pa.y, pb.z - pa.z};
+              const float c = sqrtf(dot3(d, d)) - rr;
+              ++checked;
+              unmet += fabsf(c) > 1e-3f * rr;
+            }
+          }
         }
         if (qi >= i0 && qi < i0 + TY && qj >= j0 && qj < j0 + TX)
           lam_out[q] = lam;
@@ -352,7 +384,22 @@ __global__ void __launch_bounds__(kTileX * kTileY) grid_xpbd_sweep_kernel(
           evaluate(oc, T::strip_row(o, e), T::strip_col(o, e), false);
       }, Seq{});
     }
+    if constexpr (kCount) {
+      // a warp is one row of the tile: its lanes' sums, then the CTA's
+      checked = __reduce_add_sync(0xffffffffu, checked);
+      unmet = __reduce_add_sync(0xffffffffu, unmet);
+      if (x == 0) {
+        atomicAdd(&cnt[kEdgesChecked], checked);
+        atomicAdd(&cnt[kEdgesUnmet], unmet);
+      }
+    }
     __syncthreads();
+    if constexpr (kCount) {
+      if (x == 0 && y == 0) {
+        atomicAdd(&counters[kEdgesChecked], cnt[kEdgesChecked]);
+        atomicAdd(&counters[kEdgesUnmet], cnt[kEdgesUnmet]);
+      }
+    }
     if (!mine) return;
     float dx = 0.0f, dy = 0.0f, dz = 0.0f;
     each_offset([&](auto oc) {
@@ -439,6 +486,8 @@ struct GridXpbdSubstep {
   int epilogue;               // the last sweep runs the epilogue (else the
                               // strain sweeps that follow do)
   int ny, nx;
+  long long* counters;        // int64 [kCounters]: the last sweep counts
+                              // (the kCount instantiation), else null
   float relaxation;
   FeatParams fp;
   Colliders col;
@@ -452,7 +501,8 @@ extern "C" int grid_xpbd_substep_size() {
 
 // The sweeps of one substep on pattern P: s->n_sweeps launches from
 // delta[0] and lam[0], ping-pong; the last runs the epilogue unless the
-// strain sweeps follow.
+// strain sweeps follow, and with s->counters it is the kCount
+// instantiation.
 template <int P>
 int launch_sweeps(const GridXpbdSubstep* s, cudaStream_t st, const float* x,
                   float* x_out, const float* alive, const float* scale,
@@ -462,15 +512,23 @@ int launch_sweeps(const GridXpbdSubstep* s, cudaStream_t st, const float* x,
   for (int it = 0; it < s->n_sweeps; ++it) {
     const int a = it % 2, b = 1 - a;
     const int last = s->epilogue && it == s->n_sweeps - 1;
-#define GRID_XPBD_SWEEP(FEAT)                                             \
-  grid_xpbd_sweep_kernel<P, FEAT><<<grid, block, 0, st>>>(                \
+    unsigned long long* counters =
+        it == s->n_sweeps - 1
+            ? reinterpret_cast<unsigned long long*>(s->counters)
+            : nullptr;
+#define GRID_XPBD_SWEEP(FEAT, COUNT)                                      \
+  grid_xpbd_sweep_kernel<P, FEAT, COUNT><<<grid, block, 0, st>>>(         \
       x, s->delta[a], s->delta[b], s->lam[a], s->lam[b], s->flag,         \
       s->inv_mass, s->inv_cnt, s->offsets, s->col, s->project, last,      \
-      x_out, s->v, alive, scale, s->ny, s->nx, s->p)
-    if (s->feat)
-      GRID_XPBD_SWEEP(true);
+      x_out, s->v, alive, scale, counters, s->ny, s->nx, s->p)
+    if (s->feat && counters)
+      GRID_XPBD_SWEEP(true, true);
+    else if (s->feat)
+      GRID_XPBD_SWEEP(true, false);
+    else if (counters)
+      GRID_XPBD_SWEEP(false, true);
     else
-      GRID_XPBD_SWEEP(false);
+      GRID_XPBD_SWEEP(false, false);
 #undef GRID_XPBD_SWEEP
     ++*launches;
     if (int err = static_cast<int>(cudaGetLastError())) return err;

@@ -19,6 +19,13 @@ Under tearing or plasticity the predict also updates the feature planes
 (and, under tearing, the substep's Jacobi weights), and a frame ends with
 one more launch, the frame-end feature update (:mod:`.grid_features`).
 Each launch counts once.
+
+While the recorder is on (:mod:`softbodyunity_torch.utils.profiling`) each
+substep's last Jacobi sweep is the kernel's counting instantiation, with
+the same launches: it adds the live constraints it evaluates
+(``grid_xpbd.edges_checked``) and those unmet by more than a thousandth
+of their rest length at its evaluation point (``grid_xpbd.edges_unmet``)
+into the recorder's device counters.
 """
 
 from __future__ import annotations
@@ -47,6 +54,9 @@ from .stencil import _valid_mask, jacobi_count
 # launch_count(): kernel launches (predict and sweep) since the last
 # reset_launch_count()
 launch_count, reset_launch_count = profiling.launch_views("grid_xpbd")
+
+# the device counters of the counting sweep, in csrc/grid_xpbd.cu's order
+COUNTERS = ("edges_checked", "edges_unmet")
 
 
 def jacobi_launches(cfg: SimConfig) -> int:
@@ -85,6 +95,7 @@ class _Substep(ctypes.Structure):
         *[(name, ctypes.c_int) for name in (
             "n_off", "pattern", "feat", "wind_on",
             "n_sweeps", "project", "epilogue", "ny", "nx")],
+        ("counters", ctypes.c_void_p),
         ("relaxation", ctypes.c_float),
         ("fp", FeatParamsStruct),
         ("col", CollidersStruct),
@@ -136,8 +147,10 @@ def make_cuda_step(top: Topology, cfg: SimConfig):
     the predict.  Under the strain limit every Jacobi sweep stores its
     delta, and the strain sweeps (:class:`.grid_strain.CudaStrain`) start
     from ``xp + delta``; the last projects the contact once more and runs
-    the epilogue.  Each frame runs through :class:`.frame.FrameLoop`,
-    the positions in two planes that the substeps alternate."""
+    the epilogue.  With the recorder on, each substep's last sweep counts
+    into ``counters`` (allocated here, once).  Each frame runs through
+    :class:`.frame.FrameLoop`, the positions in two planes that the
+    substeps alternate."""
     sc = pack_grid_scene(top, cfg, Solver.XPBD, "grid_xpbd")
     ny, nx, device, xoffsets = sc.ny, sc.nx, sc.device, sc.offsets
     n_off = len(xoffsets)
@@ -156,6 +169,8 @@ def make_cuda_step(top: Topology, cfg: SimConfig):
               if cfg.strain_limit.enabled else None)
     w = cfg.wind
     tearing = cfg.tear.enabled
+    counters = profiling.device_counters(
+        [f"grid_xpbd.{name}" for name in COUNTERS], device)
 
     def buffers(planes, dt):
         if dt not in tables:
@@ -183,7 +198,9 @@ def make_cuda_step(top: Topology, cfg: SimConfig):
             feat.limits.data_ptr() if feat else None, stream,
             n_off, sc.pattern, int(feat is not None),
             int(w.enabled), n_sweeps, int(cfg.xpbd.n_iterations > 0),
-            int(strain is None), ny, nx, cfg.xpbd.relaxation,
+            int(strain is None), ny, nx,
+            counters.data_ptr() if profiling.on else None,
+            cfg.xpbd.relaxation,
             FeatParamsStruct(*(feat.scalars if feat else (0.0,) * 5)),
             CollidersStruct(*colliders),
             WindStruct(*w.velocity, w.drag, w.lift),

@@ -366,3 +366,25 @@ def test_grid_force_plane_from_the_wrappers_module(wrapper_on_cpu,
                     else grid_verlet.buffers(k, False)[0])
             assert (ptr, args[4]) == (x[slot], f.data_ptr())
             assert args[1:4] == (k, 1, int(k == cfg.n_substeps - 1))
+
+
+def test_grid_xpbd_hands_its_counters_only_while_recording(wrapper_on_cpu,
+                                                           recorder):
+    """The XPBD wrapper's struct carries the device counters' pointer (the
+    last sweep's counting instantiation, ``csrc/grid_xpbd.cu``) while the
+    recorder is on and null while it is off; the calls are the same."""
+    calls = wrapper_on_cpu(grid_xpbd, "grid_xpbd_substep")
+    top, cfg, s = _wrapper_scene("grid", Solver.XPBD)
+    tsb.step(top, cfg, s)
+    off = [args[0]._obj.counters for args in calls]
+    calls.clear()
+    recorder.enable()
+    tsb.step(top, cfg, s)
+    on = [args[0]._obj.counters for args in calls]
+    recorder.disable()
+    names = tuple(f"grid_xpbd.{n}" for n in grid_xpbd.COUNTERS)
+    bufs = [buf for found, buf in profiling._live_buffers() if found == names]
+    assert off == [None] * cfg.n_substeps
+    assert len(on) == cfg.n_substeps and on[0] in {
+        b.data_ptr() for b in bufs}
+    assert len(set(on)) == 1

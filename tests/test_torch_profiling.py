@@ -318,3 +318,37 @@ def test_trace_tool_on_a_shrunk_cell(tmp_path, monkeypatch):
     assert ab["frames"] >= 2
     assert ab["step_host_us"]["on"] > 0 and ab["step_host_us"]["off"] > 0
     profiling.disable()
+
+
+def test_trace_tool_on_the_xpbd_cell(tmp_path, monkeypatch):
+    """``tools/trace_cell.py trace`` on a 16 x 16 copy of the XPBD curtain,
+    the program on the CPU under a made-up device trace: the cell's readers
+    and ``xpbd_unmet_pct`` find no kernel there; ``xpbd_unmet_pct`` is the
+    sweep's unmet constraints over those it evaluated."""
+    import json
+    import os
+    import runpy
+
+    from benchmark import trace
+    from benchmark.tests import small
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    tool = runpy.run_path(os.path.join(root, "tools", "trace_cell.py"))
+    monkeypatch.setattr(trace, "Session", _MadeUpTrace)
+    bench, base = small.tree(tmp_path, n=16, episode_frames=2)
+    path = os.path.join(base, "traffic", "render.json")
+    with open(path) as f:
+        mix = json.load(f)
+    mix["profile_seconds"] = 0.1
+    with open(path, "w") as f:
+        json.dump(mix, f)
+    out = tool["trace"]("cloth64k_xpbd.render", 2**31 + 13, 1.5, True,
+                        device="cpu", base=base, bench=bench)
+    profiling.disable()
+    assert out["frames"] > 0 and out["spans"] > 0
+    assert out["xpbd_unmet_pct"] is None        # no kernel on the CPU
+    assert out["grid_xpbd_roofline"] is None and out["xpbd_sweep_us"] is None
+    pct = tool["xpbd_unmet_pct"]
+    assert pct({}) is None
+    assert pct({"grid_xpbd.edges_checked": 400,
+                "grid_xpbd.edges_unmet": 30}) == pytest.approx(7.5)

@@ -1,6 +1,6 @@
 """Trace one cell of the benchmark with the program's recorder on: where the
 device idles inside the program's step and normals, what the pair kernel
-counts, and what the recorder costs.
+and the XPBD sweep count, and what the recorder costs.
 
     python3 tools/trace_cell.py trace --workload selfcollide64k.render \\
         --seed 7 --seconds 20 [--recorder 0|1]
@@ -16,8 +16,10 @@ reference.  It prints one JSON line: the cell's per-layer numbers as the
 benchmark's readers read them, its ``idle_gaps``, the block_pairs kernel's
 device time a profiled substep by instantiation, the markers' lag behind
 the host's notes, and with the recorder ``idle_by_program_span``, the
-program's per-layer numbers (``benchmark/program_trace.py``), the share of
-the loop's ``step`` idle that falls inside spans below ``api.step``, the
+program's per-layer numbers (``benchmark/program_trace.py``),
+``xpbd_unmet_pct`` (the constraints that each substep's last XPBD sweep
+found unmet over those it evaluated, from its counters), the share of the
+loop's ``step`` idle that falls inside spans below ``api.step``, the
 counters and what the read-out took.
 
 ``kernel`` times a call of ``make_block_pairs`` (the build's kernels and
@@ -109,6 +111,14 @@ def _clock_dump(session, path):
                    "launch": [launches.get(m[1]) for m in marks]}, f)
 
 
+def xpbd_unmet_pct(counters):
+    """The constraints that the XPBD sweep's counting instantiation found
+    unmet over those it evaluated, in %; None where it evaluated none."""
+    checked = counters.get("grid_xpbd.edges_checked", 0)
+    return (100.0 * counters.get("grid_xpbd.edges_unmet", 0) / checked
+            if checked else None)
+
+
 def trace(workload, seed, seconds, recorder, device="cuda", base=None,
           bench=None, alternate=False, dump=None):
     """The ``trace`` line; ``base`` and ``bench``: another benchmark folder
@@ -197,6 +207,7 @@ def trace(workload, seed, seconds, recorder, device="cuda", base=None,
             rec, by_span, by_loop)
         out.update(pt.program_metrics(rec, by_span, profiled, dev.substeps,
                                       frames))
+        out["xpbd_unmet_pct"] = xpbd_unmet_pct(rec.counters)
         below = (pt.under(rec, by_span, "api.step")
                  - pt.by_name(rec, by_span).get("api.step", 0))
         step_idle = dev.idle_s.get("step", 0.0)
