@@ -10,7 +10,11 @@ The port's paths, one hand-written CUDA kernel each:
                                                       edge once)
     Verlet  cloth_bench_64k_verlet    grid_verlet     1 launch per substep
                                                       (the same tile)
-    XPBD    cloth_bench_64k_xpbd      grid_xpbd       1 + n_iterations
+    XPBD    cloth_bench_64k_xpbd      grid_xpbd       1 (resident: the
+                                                      predict, the sweeps
+                                                      and the epilogue; past
+                                                      the card's resident
+                                                      tiles 1 + n_iterations)
     Euler   softbody_cube_64k         lattice_euler   3 (integrate, tet, gather)
     Verlet  softbody_cube_64k_verlet  lattice_verlet  3, + 1 a call (the
                                                       velocity estimate)
@@ -701,8 +705,17 @@ def main() -> int:
         """Launches of one call of kernel ``name``'s step function."""
         if kernels[name]["lattice"]:
             return kernels[name]["module"].launches_per_call(top, cfg, n_sub)
-        return n_sub * (grid_xpbd.launches_per_substep(cfg)
+        return n_sub * (grid_xpbd.launches_per_substep(cfg, top.grid_shape)
                         if name == "grid_xpbd" else 1)
+
+    def grid_launches_per_frame(module, top, cfg):
+        """A grid kernel's launches a frame of ``cfg.n_substeps``; grid
+        XPBD's follow its plan on the grid's shape (one resident launch a
+        substep where the tiles fit the card)."""
+        if module is grid_xpbd:
+            return grid_xpbd.launches_per_frame(cfg, cfg.n_substeps,
+                                                top.grid_shape)
+        return module.launches_per_frame(cfg, cfg.n_substeps)
 
     # the grids past the TPU's whole-VMEM cap and the tear and plastic
     # planes: each path's preset (its solver replaced where named), the
@@ -1668,7 +1681,7 @@ def main() -> int:
             torch.cuda.reset_peak_memory_stats()
             top, state0 = sb.init(host, device="cuda")
             pinned = torch.from_numpy(host.inv_mass == 0.0).to(cuda)
-            expected = frames_ * module.launches_per_frame(cfg, cfg.n_substeps)
+            expected = frames_ * grid_launches_per_frame(module, top, cfg)
             reset_counts()
             t = time.perf_counter()
             state, vmax, alive_sum = state0, [], []
@@ -1884,7 +1897,7 @@ def main() -> int:
             top, state0 = sb.init(host, device="cuda")
             pinned = torch.from_numpy(host.inv_mass == 0.0).to(cuda)
             expected = frames_ * (
-                module.launches_per_frame(cfg, cfg.n_substeps) if not lattice
+                grid_launches_per_frame(module, top, cfg) if not lattice
                 else module.launches_per_call(top, cfg, cfg.n_substeps))
             sweeps = frames_ * cfg.n_substeps * grid_strain.sweeps(cfg)
             reset_counts()
@@ -2095,7 +2108,7 @@ def main() -> int:
             top, state0 = sb.init(host, device="cuda")
             pinned = torch.from_numpy(host.inv_mass == 0.0).to(cuda)
             expected = frames_ * (
-                module.launches_per_frame(cfg, cfg.n_substeps) if not lattice
+                grid_launches_per_frame(module, top, cfg) if not lattice
                 else module.launches_per_call(top, cfg, cfg.n_substeps))
             frame_dt = cfg.dt * cfg.n_substeps
             lift = torch.tensor([0.0, 0.05, 0.0], device=cuda)
@@ -2807,7 +2820,7 @@ def main() -> int:
         module = kernels[kernel]["module"]
         per_call = (module.launches_per_call(top, cfg, cfg.n_substeps)
                     if kernels[kernel]["lattice"]
-                    else module.launches_per_frame(cfg, cfg.n_substeps))
+                    else grid_launches_per_frame(module, top, cfg))
         n = sum(c for _, c in dev.values())
         require(n == n_frames * per_call,
                 f"timing {what}: the trace names {n} launches of "

@@ -8,13 +8,23 @@ branch, :func:`.stencil.xpbd_substep_grid`); :mod:`.dispatch` takes it for
 tensors on the CPU and this wrapper for tensors on a CUDA device, where it
 launches the kernels or raises.
 
-A substep is one ``ctypes`` call, ``grid_xpbd_substep``, which launches
-``1 + max(n_iterations, 1)`` kernels: one predict pass, then one tiled
-launch per Jacobi sweep, the grid-wide barrier between sweeps (with no
-sweep, one launch runs the epilogue alone).  Under the strain limit the
-one launch of :mod:`.grid_strain` (all its sweeps, from its own ``ctypes``
-call) follows the ``n_iterations`` Jacobi sweeps and runs the epilogue:
-``1 + n_iterations + 1``.
+A substep is one ``ctypes`` call, ``grid_xpbd_substep``, on one of two
+schedules of the same work, bit for bit (:func:`plan` picks it from the
+grid's shape and the card's occupancy):
+
+- resident, where every 32 x 8 tile of the grid fits on the card at once
+  (:func:`resident_slots`) and ``n_iterations > 0``: one cooperative
+  launch, each CTA a tile through the predict, the Jacobi sweeps and the
+  epilogue, its state kept on the SM, ordered by its neighbours' stage
+  flags (``flags``, one int a tile, allocated once);
+- per sweep otherwise: ``1 + max(n_iterations, 1)`` launches, one predict
+  pass, then one tiled launch per Jacobi sweep, the grid-wide barrier
+  between sweeps (with no sweep, one launch runs the epilogue alone).
+
+Under the strain limit the one launch of :mod:`.grid_strain` (all its
+sweeps, from its own ``ctypes`` call) follows the ``n_iterations`` Jacobi
+sweeps and runs the epilogue: ``1 + 1`` resident, ``1 + n_iterations + 1``
+per sweep.
 Under tearing or plasticity the predict also updates the feature planes
 (and, under tearing, the substep's Jacobi weights), and a frame ends with
 one more launch, the frame-end feature update (:mod:`.grid_features`).
@@ -25,7 +35,10 @@ substep's last Jacobi sweep is the kernel's counting instantiation, with
 the same launches: it adds the live constraints it evaluates
 (``grid_xpbd.edges_checked``) and those unmet by more than a thousandth
 of their rest length at its evaluation point (``grid_xpbd.edges_unmet``)
-into the recorder's device counters.
+into the recorder's device counters; the resident launch also adds the
+polls of its neighbours' flags that found one not ready
+(``grid_xpbd.flag_polls``).  Always on, beside the launches: the
+substeps the resident schedule ran (``grid_xpbd.resident_substeps``).
 """
 
 from __future__ import annotations
@@ -51,30 +64,76 @@ from .grid_strain import CudaStrain
 from .stencil import _valid_mask, jacobi_count
 
 
-# launch_count(): kernel launches (predict and sweep) since the last
-# reset_launch_count()
-launch_count, reset_launch_count = profiling.launch_views("grid_xpbd")
+# launch_count(): kernel launches (predict and sweep, or resident) since
+# the last reset_launch_count()
+launch_count = profiling.launch_views("grid_xpbd")[0]
+RESIDENT = "grid_xpbd.resident_substeps"
+
+
+def resident_substep_count() -> int:
+    """Substeps that ran as one resident launch since the last
+    :func:`reset_launch_count`."""
+    return profiling.count(RESIDENT)
+
+
+def reset_launch_count() -> None:
+    """Zero the launch count and the resident substeps' count."""
+    profiling.reset_count("grid_xpbd", RESIDENT)
+
 
 # the device counters of the counting sweep, in csrc/grid_xpbd.cu's order
-COUNTERS = ("edges_checked", "edges_unmet")
+COUNTERS = ("edges_checked", "edges_unmet", "flag_polls")
+
+# the sweep's tile, csrc/grid_common.cuh's kTileX x kTileY
+TILE = (8, 32)
 
 
 def jacobi_launches(cfg: SimConfig) -> int:
-    """The Jacobi sweep launches of a substep: one per iteration, at least
-    one (for the epilogue) unless the strain sweeps run it."""
+    """The Jacobi sweep launches of a per-sweep substep: one per
+    iteration, at least one (for the epilogue) unless the strain sweeps
+    run it."""
     it = cfg.xpbd.n_iterations
     return it if cfg.strain_limit.enabled else max(it, 1)
 
 
-def launches_per_substep(cfg: SimConfig) -> int:
-    """Predict, the Jacobi sweeps and the strain-limit sweeps."""
-    return 1 + jacobi_launches(cfg) + grid_strain.sweeps(cfg)
+def tiles(shape) -> int:
+    """The 32 x 8 tiles of a ``(ny, nx)`` grid, one CTA each."""
+    ny, nx = shape
+    return -(-ny // TILE[0]) * -(-nx // TILE[1])
 
 
-def launches_per_frame(cfg: SimConfig, n_substeps: int) -> int:
+def plan(cfg: SimConfig, shape, slots: int) -> bool:
+    """Whether a substep of ``cfg`` on a ``(ny, nx)`` grid runs as one
+    resident launch: it has Jacobi sweeps, and the card holds every tile's
+    CTA at once (``slots``, :func:`resident_slots`)."""
+    return cfg.xpbd.n_iterations > 0 and tiles(shape) <= slots
+
+
+def resident_slots() -> int:
+    """The CTAs of the resident kernel that the current card holds at
+    once, the fewest of any of its instantiations (the C side asks the
+    occupancy once a process)."""
+    lib = _library()
+    slots = ctypes.c_int()
+    lib.check_launch(lib.grid_xpbd_resident_slots(ctypes.byref(slots)),
+                     "grid_xpbd_resident_slots")
+    return slots.value
+
+
+def launches_per_substep(cfg: SimConfig, shape, slots=None) -> int:
+    """The predict and the Jacobi sweeps (one resident launch where
+    :func:`plan` says so, ``slots`` by default the card's), and the
+    strain-limit sweeps."""
+    slots = resident_slots() if slots is None else slots
+    sweeps = 0 if plan(cfg, shape, slots) else jacobi_launches(cfg)
+    return 1 + sweeps + grid_strain.sweeps(cfg)
+
+
+def launches_per_frame(cfg: SimConfig, n_substeps: int, shape,
+                       slots=None) -> int:
     """Each substep's launches, plus the frame-end feature update."""
-    return grid_features.launches_per_frame(cfg, n_substeps,
-                                            launches_per_substep(cfg))
+    return grid_features.launches_per_frame(
+        cfg, n_substeps, launches_per_substep(cfg, shape, slots))
 
 
 class _Params(ctypes.Structure):
@@ -96,6 +155,9 @@ class _Substep(ctypes.Structure):
             "n_off", "pattern", "feat", "wind_on",
             "n_sweeps", "project", "epilogue", "ny", "nx")],
         ("counters", ctypes.c_void_p),
+        ("resident", ctypes.c_int),
+        ("flags", ctypes.c_void_p),
+        ("epoch", ctypes.c_void_p),
         ("relaxation", ctypes.c_float),
         ("fp", FeatParamsStruct),
         ("col", CollidersStruct),
@@ -124,13 +186,16 @@ def _library():
         f, f, f, f,            # dt, mu, keep, shell
         p,                     # stream
     ])
+    lib.declare("grid_xpbd_resident_slots", [ctypes.POINTER(i)])
     return lib
 
 
 def make_cuda_step(top: Topology, cfg: SimConfig):
     """Build ``fn(state, dt, n_substeps) -> state`` that runs each substep as
-    one ``grid_xpbd_substep`` call (a predict launch and one launch per
-    Jacobi sweep, on CTAs that own a 32 x 8 tile of the grid).  The result
+    one ``grid_xpbd_substep`` call on CTAs that own a 32 x 8 tile of the
+    grid: one resident launch where :func:`plan` says so
+    (``fn.resident``; its stage flags ``fn.flags``, zeroed once here),
+    else a predict launch and one launch per Jacobi sweep.  The result
     carries ``x_prev = x - dt * v``, as the plain version's.
 
     ``inv_cnt = relaxation / max(count, 1)`` is packed once, here, the
@@ -171,6 +236,9 @@ def make_cuda_step(top: Topology, cfg: SimConfig):
     tearing = cfg.tear.enabled
     counters = profiling.device_counters(
         [f"grid_xpbd.{name}" for name in COUNTERS], device)
+    resident = plan(cfg, (ny, nx), resident_slots())
+    flags = torch.zeros(tiles((ny, nx)), dtype=torch.int32, device=device)
+    epoch = ctypes.c_uint(0)   # the C side advances it every resident launch
 
     def buffers(planes, dt):
         if dt not in tables:
@@ -200,6 +268,7 @@ def make_cuda_step(top: Topology, cfg: SimConfig):
             int(w.enabled), n_sweeps, int(cfg.xpbd.n_iterations > 0),
             int(strain is None), ny, nx,
             counters.data_ptr() if profiling.on else None,
+            int(resident), flags.data_ptr(), ctypes.addressof(epoch),
             cfg.xpbd.relaxation,
             FeatParamsStruct(*(feat.scalars if feat else (0.0,) * 5)),
             CollidersStruct(*colliders),
@@ -232,6 +301,8 @@ def make_cuda_step(top: Topology, cfg: SimConfig):
         if last and feat:
             feat.launch_finish(x[1 - k0 % 2], table, stream)
             launches += 1
+        if last and resident:
+            profiling.add(RESIDENT, k0 + n_run)
         return launches
 
     def planes_at(ctx, k):
@@ -241,8 +312,10 @@ def make_cuda_step(top: Topology, cfg: SimConfig):
         return State(x=x, v=v, x_prev=x - dt * v, edge_alive=edge_alive,
                      rest_scale=rest_scale, cluster_quat=s.cluster_quat)
 
-    return FrameLoop(
+    fn = FrameLoop(
         "grid_xpbd", lib, sc, ("x", None, "v", (None, None)),
         buffers=buffers, pack=pack, call=call, after=after,
         planes_at=planes_at, state=state, per_substep=True,
         force=self_collision_planes_cuda(cfg, ny, nx, device), features=feat)
+    fn.resident, fn.flags = resident, flags
+    return fn

@@ -127,6 +127,31 @@ _WRAPPERS = {Solver.SEMI_IMPLICIT_EULER: grid_euler,
              Solver.VERLET: grid_verlet, Solver.XPBD: grid_xpbd}
 
 
+def _launches_per_substep(module, cfg, top):
+    """A grid wrapper's launches a substep; grid XPBD's follow its plan on
+    the grid's shape (one resident launch where the tiles fit the card)."""
+    if module is grid_xpbd:
+        return grid_xpbd.launches_per_substep(cfg, top.grid_shape)
+    return module.launches_per_substep(cfg)
+
+
+def _launches_per_frame(module, cfg, n_substeps, top):
+    """A grid wrapper's launches a frame, as _launches_per_substep."""
+    if module is grid_xpbd:
+        return grid_xpbd.launches_per_frame(cfg, n_substeps, top.grid_shape)
+    return module.launches_per_frame(cfg, n_substeps)
+
+
+@pytest.fixture(params=["resident", "sweeps"])
+def schedule(request, monkeypatch):
+    """The grid XPBD substep's schedule: its plan (one resident launch where
+    the tiles fit the card), or the per-sweep launches, forced through the
+    plan (no resident CTA)."""
+    if request.param == "sweeps":
+        monkeypatch.setattr(grid_xpbd, "resident_slots", lambda: 0)
+    return request.param
+
+
 # tests/test_pallas.py's kernel-vs-twin tolerances on x; v = position
 # change / dt carries x rounding ~1e3-fold, and the Verlet drape flips the
 # discrete plane-friction mask on a few vertices
@@ -148,8 +173,8 @@ def test_solver_kernel_matches_plain_on_card(cuda, solver, center,
         w.reset_launch_count()
     got = wrapper.make_cuda_step(top, cfg)(s0, cfg.dt, n_sub)
     torch.cuda.synchronize()
-    per_sub = (grid_xpbd.launches_per_substep(cfg) if solver == Solver.XPBD
-               else 1)
+    per_sub = (grid_xpbd.launches_per_substep(cfg, top.grid_shape)
+               if solver == Solver.XPBD else 1)
     assert wrapper.launch_count() == n_sub * per_sub
     assert sum(w.launch_count() for w in _WRAPPERS.values()) == n_sub * per_sub
     torch.testing.assert_close(got.x, want.x, atol=atol_x, rtol=0)
@@ -527,8 +552,8 @@ def test_self_collision_rollout_launches_on_card(cuda, solver, method):
         s = tsb.step(top, cfg, s)
     torch.cuda.synchronize()
     subs = frames * cfg.n_substeps
-    per_sub = (grid_xpbd.launches_per_substep(cfg) if solver == Solver.XPBD
-               else 1)
+    per_sub = (grid_xpbd.launches_per_substep(cfg, top.grid_shape)
+               if solver == Solver.XPBD else 1)
     assert _WRAPPERS[solver].launch_count() == subs * per_sub
     assert blocks.launch_count() == (subs if method == "block" else 0)
     assert sum(w.launch_count() for w in (*_WRAPPERS.values(),
@@ -621,7 +646,7 @@ def test_feature_kernel_matches_plain_on_card(cuda, solver, feature):
     got = _WRAPPERS[solver].make_cuda_step(top, cfg)(s0, cfg.dt, 64)
     torch.cuda.synchronize()
     assert (_WRAPPERS[solver].launch_count()
-            == _WRAPPERS[solver].launches_per_frame(cfg, 64))
+            == _launches_per_frame(_WRAPPERS[solver], cfg, 64, top))
     torch.testing.assert_close(got.x, want.x, atol=5e-5, rtol=0)
     torch.testing.assert_close(got.v, want.v, atol=5e-2, rtol=0)
     if cfg.tear.enabled:
@@ -683,8 +708,9 @@ def test_feature_rollout_launch_counts(cuda, solver):
     frames = 3
     s_roll, _ = tsb.rollout(top, cfg, s0, frames)
     torch.cuda.synchronize()
-    per_frame = (cfg.n_substeps * (1 + cfg.xpbd.n_iterations) + 1
-                 if solver == Solver.XPBD else cfg.n_substeps + 1)
+    per_frame = (cfg.n_substeps * grid_xpbd.launches_per_substep(
+        cfg, top.grid_shape) + 1 if solver == Solver.XPBD
+        else cfg.n_substeps + 1)
     assert _WRAPPERS[solver].launch_count() == frames * per_frame
     assert sum(w.launch_count() for w in (*_WRAPPERS.values(),
                                           *_LATTICE.values(), blocks)) \
@@ -730,8 +756,8 @@ def test_wind_kernel_matches_plain_on_card(cuda, solver, size):
         w.reset_launch_count()
     got = _WRAPPERS[solver].make_cuda_step(top, cfg)(s0, cfg.dt, 64)
     torch.cuda.synchronize()
-    per_sub = (grid_xpbd.launches_per_substep(cfg) if solver == Solver.XPBD
-               else 1)
+    per_sub = (grid_xpbd.launches_per_substep(cfg, top.grid_shape)
+               if solver == Solver.XPBD else 1)
     assert _WRAPPERS[solver].launch_count() == 64 * per_sub
     torch.testing.assert_close(got.x, want.x, atol=5e-5, rtol=0)
     torch.testing.assert_close(got.v, want.v, atol=5e-2, rtol=0)
@@ -781,7 +807,7 @@ def test_strain_kernel_matches_plain_on_card(cuda, solver, feature):
     got = _WRAPPERS[solver].make_cuda_step(top, cfg)(s0, cfg.dt, 64)
     torch.cuda.synchronize()
     assert (_WRAPPERS[solver].launch_count()
-            == _WRAPPERS[solver].launches_per_frame(cfg, 64))
+            == _launches_per_frame(_WRAPPERS[solver], cfg, 64, top))
     assert grid_strain.launch_count() == 64   # one launch, every sweep
     atol = 2e-4 if cfg.tear.enabled else 3e-5
     torch.testing.assert_close(got.x, want.x, atol=atol, rtol=0)
@@ -944,7 +970,7 @@ def test_collider_kernel_matches_plain_on_card(cuda, solver, kind):
     got = module.make_cuda_step(top, cfg)(s0, cfg.dt, 48)
     torch.cuda.synchronize()
     launches = (module.launches_per_call(top, cfg, 48) if kind == "lattice"
-                else 48 * module.launches_per_substep(cfg))
+                else 48 * _launches_per_substep(module, cfg, top))
     assert module.launch_count() == launches
     torch.testing.assert_close(got.x, want.x, atol=5e-5, rtol=0)
     torch.testing.assert_close(got.v, want.v, atol=5e-2, rtol=0)
@@ -1044,7 +1070,8 @@ def test_move_colliders_rollout_launch_counts(cuda, solver, kind):
     torch.cuda.synchronize()
     per_call = (module.launches_per_call(top, cfg, cfg.n_substeps)
                 if kind == "lattice"
-                else cfg.n_substeps * module.launches_per_substep(cfg))
+                else cfg.n_substeps * _launches_per_substep(module, cfg,
+                                                            top))
     # the fresh step functions launched as many again
     assert module.launch_count() == 2 * frames * per_call
     assert sum(w.launch_count() for w in (*_WRAPPERS.values(),
@@ -1111,8 +1138,8 @@ def _xpbd_grid_scene(nx, ny, full, n_iter, branch, shear=None, bend=None):
 @pytest.mark.parametrize("n_iter", [0, 1, 8])
 @pytest.mark.parametrize("full", [True, False], ids=["six", "structural"])
 @pytest.mark.parametrize("nx,ny", [(37, 53), (19, 130)])
-def test_xpbd_grid_tiles_match_plain_on_card(cuda, nx, ny, full, n_iter,
-                                             branch):
+def test_xpbd_grid_tiles_match_plain_on_card(cuda, schedule, nx, ny, full,
+                                             n_iter, branch):
     """The tiled sweep on grids that no tile shape divides (the ragged last
     tile in both directions; 19 columns are narrower than a tile), with
     every offset (a halo of 2) and the structural two (a halo of 1),
@@ -1127,10 +1154,11 @@ def test_xpbd_grid_tiles_match_plain_on_card(cuda, nx, ny, full, n_iter,
         w.reset_launch_count()
     got = grid_xpbd.make_cuda_step(top, cfg)(s0, cfg.dt, 32)
     torch.cuda.synchronize()
-    assert grid_xpbd.launch_count() == grid_xpbd.launches_per_frame(cfg, 32)
+    assert grid_xpbd.launch_count() == grid_xpbd.launches_per_frame(
+        cfg, 32, top.grid_shape)
     assert sum(w.launch_count() for w in (*_WRAPPERS.values(),
                                           *_LATTICE.values())) \
-        == grid_xpbd.launches_per_frame(cfg, 32)
+        == grid_xpbd.launches_per_frame(cfg, 32, top.grid_shape)
     atol_x, atol_v = _XPBD_GRID_TOL[branch]
     torch.testing.assert_close(got.x, want.x, atol=atol_x, rtol=0)
     torch.testing.assert_close(got.v, want.v, atol=atol_v, rtol=0)
@@ -1147,7 +1175,8 @@ def test_xpbd_grid_tiles_match_plain_on_card(cuda, nx, ny, full, n_iter,
 @pytest.mark.parametrize("branch", ["plain", "features", "colliders"])
 @pytest.mark.parametrize("shear,bend", [(True, False), (False, True)],
                          ids=["shear", "bend"])
-def test_xpbd_grid_patterns_match_plain_on_card(cuda, shear, bend, branch):
+def test_xpbd_grid_patterns_match_plain_on_card(cuda, schedule, shear, bend,
+                                                branch):
     """The two offset patterns the test above does not take (structural
     with shear, structural with bend: a frame of one and of two), each a
     sweep of its own, against the plain version over 32 substeps."""
@@ -1157,7 +1186,8 @@ def test_xpbd_grid_patterns_match_plain_on_card(cuda, shear, bend, branch):
     grid_xpbd.reset_launch_count()
     got = grid_xpbd.make_cuda_step(top, cfg)(s0, cfg.dt, 32)
     torch.cuda.synchronize()
-    assert grid_xpbd.launch_count() == grid_xpbd.launches_per_frame(cfg, 32)
+    assert grid_xpbd.launch_count() == grid_xpbd.launches_per_frame(
+        cfg, 32, top.grid_shape)
     atol_x, atol_v = _XPBD_GRID_TOL[branch]
     torch.testing.assert_close(got.x, want.x, atol=atol_x, rtol=0)
     torch.testing.assert_close(got.v, want.v, atol=atol_v, rtol=0)
@@ -1818,7 +1848,8 @@ def test_kernels_read_no_unwritten_memory_on_card(cuda, name):
 @pytest.mark.cuda
 @pytest.mark.parametrize("branch", list(_XPBD_GRID_TOL))
 @pytest.mark.parametrize("nx,ny", [(37, 53), (19, 130)])
-def test_xpbd_grid_sweep_repeats_bit_equal_on_card(cuda, nx, ny, branch):
+def test_xpbd_grid_sweep_repeats_bit_equal_on_card(cuda, schedule, nx, ny,
+                                                   branch):
     """Each edge is evaluated from the same staged values and each vertex
     sums its terms in a fixed order, so 24 runs of 32 substeps from one
     state, on grids no tile divides, give one result to the bit; a

@@ -74,6 +74,14 @@ def _entry(calls, launches=1, err=0):
     return entry
 
 
+def _slots(n):
+    """A stand-in for ``grid_xpbd_resident_slots``: ``n`` resident CTAs."""
+    def entry(out):
+        out._obj.value = n
+        return 0
+    return entry
+
+
 def _scene(shape):
     """What the loop reads of a packed scene."""
     return types.SimpleNamespace(
@@ -276,15 +284,18 @@ def wrapper_on_cpu(no_card, monkeypatch):
     """``sb.step`` on a CPU scene routed to a wrapper's ``make_cuda_step``,
     its scene packed as on the card (the device check stood in for) and
     its C entry stood in for by one that records its calls, reports one
-    launch and writes nothing.  Returns ``route(module, entry)`` -> the
-    list of the calls."""
+    launch and writes nothing (grid XPBD's occupancy query by the H100's
+    264 resident CTAs, or ``slots``).  Returns ``route(module, entry)`` ->
+    the list of the calls."""
     monkeypatch.setattr(grid_scene, "check_card", lambda *a: None)
     monkeypatch.setattr(lattice, "check_card", lambda *a: None)
 
-    def route(module, entry):
+    def route(module, entry, slots=264):
         calls = []
-        lib = no_card(module.__name__.rsplit(".", 1)[1],
-                      **{entry: _entry(calls)})
+        entries = {entry: _entry(calls)}
+        if module is grid_xpbd:
+            entries["grid_xpbd_resident_slots"] = _slots(slots)
+        lib = no_card(module.__name__.rsplit(".", 1)[1], **entries)
         monkeypatch.setattr(module, "_library", lambda: lib)
         monkeypatch.setattr(dispatch, "maybe_fast_step",
                             lambda top, cfg: module.make_cuda_step(top, cfg))
@@ -388,3 +399,31 @@ def test_grid_xpbd_hands_its_counters_only_while_recording(wrapper_on_cpu,
     assert len(on) == cfg.n_substeps and on[0] in {
         b.data_ptr() for b in bufs}
     assert len(set(on)) == 1
+
+
+@pytest.mark.parametrize("slots,resident", [(264, 1), (0, 0)],
+                         ids=["resident", "sweeps"])
+def test_grid_xpbd_hands_its_plan_and_flags(wrapper_on_cpu, slots,
+                                            resident):
+    """The XPBD wrapper's struct carries its plan (resident where the
+    grid's tiles fit the card's resident CTAs), and the same stage flags
+    and host epoch in every call of every frame: one int a tile, zeroed
+    once with the step function.  The resident substeps count once a
+    frame, all of them or none."""
+    calls = wrapper_on_cpu(grid_xpbd, "grid_xpbd_substep", slots)
+    top, cfg, s = _wrapper_scene("grid", Solver.XPBD)
+    grid_xpbd.reset_launch_count()
+    s = tsb.step(top, cfg, tsb.step(top, cfg, s))
+    structs = [args[0]._obj for args in calls]
+    assert len(structs) == 2 * cfg.n_substeps
+    assert {st.resident for st in structs} == {resident}
+    assert len({st.flags for st in structs}) == 1
+    assert len({st.epoch for st in structs}) == 1
+    fn = api._build_step(api.SceneKey(top), cfg)
+    assert fn.resident is bool(resident)
+    assert fn.flags.data_ptr() == structs[0].flags
+    assert fn.flags.dtype == torch.int32 and not bool(fn.flags.any())
+    assert fn.flags.numel() == grid_xpbd.tiles(top.grid_shape) == 1
+    assert grid_xpbd.resident_substep_count() == (
+        2 * cfg.n_substeps * resident)
+    assert grid_xpbd.launch_count() == 2 * cfg.n_substeps

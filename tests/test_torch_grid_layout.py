@@ -236,11 +236,15 @@ def test_grid_launches_per_substep_and_frame(module, strain, iterations,
     assert module.launches_per_frame(cfg, 0) == 0
 
 
+@pytest.mark.parametrize("slots", [0, 264], ids=["sweeps", "resident"])
 @pytest.mark.parametrize("strain", [False, True])
-def test_grid_xpbd_strain_is_one_launch(strain):
+def test_grid_xpbd_strain_is_one_launch(strain, slots):
+    """The strain sweeps add one launch to either schedule: the predict and
+    8 sweeps, or the resident launch (256 tiles on 264 CTAs)."""
     cfg = _cfg(Solver.XPBD, strain, 4).replace(
         xpbd=tsb.XPBDParams(n_iterations=8))
-    assert grid_xpbd.launches_per_substep(cfg) == 1 + 8 + int(strain)
+    assert grid_xpbd.launches_per_substep(cfg, (256, 256), slots) == (
+        (1 if slots else 1 + 8) + int(strain))
 
 
 def _c_fields(source: str, struct: str):

@@ -348,7 +348,34 @@ def test_trace_tool_on_the_xpbd_cell(tmp_path, monkeypatch):
     assert out["frames"] > 0 and out["spans"] > 0
     assert out["xpbd_unmet_pct"] is None        # no kernel on the CPU
     assert out["grid_xpbd_roofline"] is None and out["xpbd_sweep_us"] is None
+    assert out["xpbd_resident_pct"] is None
+    assert out["xpbd_flag_polls_per_stage"] is None
     pct = tool["xpbd_unmet_pct"]
     assert pct({}) is None
     assert pct({"grid_xpbd.edges_checked": 400,
                 "grid_xpbd.edges_unmet": 30}) == pytest.approx(7.5)
+
+
+def test_trace_tool_xpbd_resident_readings():
+    """``xpbd_resident_pct``: the resident substeps over the window's; and
+    ``xpbd_flag_polls_per_stage``: the failed flag polls per tile (256 on
+    the 64k curtain) and Jacobi stage (8) of the resident substeps."""
+    import os
+    import runpy
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    tool = runpy.run_path(os.path.join(root, "tools", "trace_cell.py"))
+    share = tool["xpbd_resident_pct"]
+    assert share(0, 0, 160) is None           # no XPBD launch
+    assert share(160, 160, 160) == pytest.approx(100.0)
+    assert share(9 * 160, 0, 160) == pytest.approx(0.0)
+    config = {"scene": {"ny": 256, "nx": 256},
+              "sim": {"xpbd": {"n_iterations": 8}}}
+    polls = tool["xpbd_flag_polls_per_stage"]
+    assert polls({}, 16, config) is None      # the recorder counted nothing
+    assert polls({"grid_xpbd.flag_polls": 0}, 0, config) is None
+    assert polls({"grid_xpbd.flag_polls": 16 * 8 * 256 * 3}, 16,
+                 config) == pytest.approx(3.0)
+    assert polls({"grid_xpbd.flag_polls": 5}, 16,
+                 {"scene": {"ny": 256, "nx": 256},
+                  "sim": {"xpbd": None}}) is None

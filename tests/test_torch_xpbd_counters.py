@@ -105,7 +105,8 @@ def test_positions_the_same_bits_with_the_recorder_on(cuda, recorder):
     launches = grid_xpbd.launch_count()
     grid_xpbd.reset_launch_count()
     on, counters = _frames(top, cfg, s0, 3, True)
-    assert grid_xpbd.launch_count() == launches == 3 * 16 * 9
+    assert grid_xpbd.launch_count() == launches == (
+        3 * grid_xpbd.launches_per_frame(cfg, 16, top.grid_shape))
     assert torch.equal(on.x, off.x) and torch.equal(on.v, off.v)
     assert counters["grid_xpbd.edges_checked"] > 0
 
@@ -151,7 +152,8 @@ def test_the_counters_zeroed_by_enable(cuda, recorder):
 def test_no_counter_without_a_sweep_to_count(recorder):
     """The counters' names, and on the CPU (the plain path) nothing
     counted: the counting lives in the kernel."""
-    assert grid_xpbd.COUNTERS == ("edges_checked", "edges_unmet")
+    assert grid_xpbd.COUNTERS == ("edges_checked", "edges_unmet",
+                                  "flag_polls")
     top, cfg, s0 = _curtain("cpu", n=8, n_substeps=2)
     assert cfg.solver == Solver.XPBD
     profiling.enable()

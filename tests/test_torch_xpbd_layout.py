@@ -175,13 +175,20 @@ def test_lattice_xpbd_launches_per_substep(n_iter, want):
     assert lattice_xpbd.launches_per_substep(None, cfg) == want
 
 
-@pytest.mark.parametrize("n_iter,strain,want", [
-    (0, False, 2), (8, False, 9), (0, True, 1 + 1), (8, True, 1 + 8 + 1)])
-def test_grid_xpbd_launches_per_substep(n_iter, strain, want):
+@pytest.mark.parametrize("slots", [0, 264], ids=["sweeps", "resident"])
+@pytest.mark.parametrize("n_iter,strain,want,want_resident", [
+    (0, False, 2, 2), (8, False, 9, 1), (0, True, 1 + 1, 1 + 1),
+    (8, True, 1 + 8 + 1, 1 + 1)])
+def test_grid_xpbd_launches_per_substep(n_iter, strain, want, want_resident,
+                                        slots):
+    """Per sweep (no resident CTA): the predict, the sweeps and the strain
+    launch; resident (the 64k curtain's 256 tiles on 264 CTAs): one launch
+    and the strain launch, where there are sweeps."""
     cfg = tsb.SimConfig(
         solver=Solver.XPBD, xpbd=XPBDParams(n_iterations=n_iter),
         strain_limit=tsb.StrainLimitParams(enabled=strain, iterations=4))
-    assert grid_xpbd.launches_per_substep(cfg) == want
+    assert grid_xpbd.launches_per_substep(cfg, (256, 256), slots) == (
+        want_resident if slots else want)
 
 
 def test_lattice_xpbd_step_needs_a_cuda_device():

@@ -1,6 +1,7 @@
-"""Run the grid Euler, Verlet and strain-limit paths and the self-collision
-pair forces of one checkout of the PyTorch port on one NVIDIA GPU, save
-their states to hold two checkouts to each other bit for bit, and time them.
+"""Run the grid Euler, Verlet, XPBD and strain-limit paths and the
+self-collision pair forces of one checkout of the PyTorch port on one
+NVIDIA GPU, save their states to hold two checkouts to each other bit for
+bit, and time them.
 
     python tools/torch_grid_paths.py ROOT OUT.pt [--time] [--only P1,P2]
     python tools/torch_grid_paths.py --compare A.pt B.pt
@@ -15,8 +16,13 @@ cloth_plastic_64k, cloth_wind_64k, chip_smoke.py's cloth_colliders_64k,
 cloth_selfcollide_64k (the force plane) and cloth_strain_64k under the three
 solvers; under Verlet cloth_bench_64k_verlet, and cloth_wind_64k,
 cloth_colliders_64k, cloth_tearing_262k and cloth_selfcollide_64k with
-``solver`` replaced; each from rest through its wrapper's make_cuda_step,
-the state saved (x, v, x_prev and the feature fields).  Then the strain
+``solver`` replaced; under XPBD cloth_bench_64k_xpbd, and cloth_wind_64k,
+cloth_tearing_64k, cloth_plastic_64k, cloth_colliders_64k,
+cloth_selfcollide_64k and cloth_tearing_262k with ``solver`` replaced; each
+from rest through its wrapper's make_cuda_step, the state saved (x, v,
+x_prev and the feature fields).  The XPBD curtain also from a seeded start
+velocity, x and v saved after frames 1, 10 and 30, with the program's
+recorder off and on (its counting sweep).  Then the strain
 sweeps alone on cloth_strain_64k stretched 15 %, with its 4 iterations and
 with 1, 2 and 8 (what one more sweep costs); and the pair forces alone
 (block_pairs) on cloth_selfcollide_64k after 24 substeps (the pile, saved
@@ -41,6 +47,8 @@ KERNELS = ("grid_euler_substep_kernel", "grid_euler_wide_kernel",
            "grid_feature_finish_kernel", "grid_strain_sweep_kernel",
            "grid_verlet_substep_kernel", "grid_xpbd_predict_kernel",
            "grid_xpbd_sweep_kernel", "block_pairs_kernel")
+# the XPBD curtain's seeded start, and the frames whose states are saved
+XPBD_SEED, XPBD_FRAMES = 2**31 + 21, (1, 10, 30)
 
 
 def _cases(sb, smoke):
@@ -85,6 +93,40 @@ def _cases(sb, smoke):
                     cfg.replace(solver=verlet), frames))
     host, cfg = smoke.cloth_colliders_64k(sb, verlet)
     out.append(("cloth_colliders_64k_verlet", grid_verlet, host, cfg, 45))
+    xpbd = sb.Solver.XPBD
+    host, cfg = sb.presets.build("cloth_bench_64k_xpbd")
+    out.append(("cloth_bench_64k_xpbd", grid_xpbd, host, cfg, 20))
+    for preset, frames in (("cloth_wind_64k", 20), ("cloth_tearing_64k", 10),
+                           ("cloth_plastic_64k", 10),
+                           ("cloth_selfcollide_64k", 2),
+                           ("cloth_tearing_262k", 4)):
+        host, cfg = sb.presets.build(preset)
+        out.append((f"{preset}_xpbd", grid_xpbd, host,
+                    cfg.replace(solver=xpbd), frames))
+    host, cfg = smoke.cloth_colliders_64k(sb, xpbd)
+    out.append(("cloth_colliders_64k_xpbd", grid_xpbd, host, cfg, 45))
+    return out
+
+
+def _xpbd_frames(sb, profiling, record):
+    """x and v of the XPBD curtain after each of XPBD_FRAMES frames from a
+    seeded start velocity, with the recorder off or on."""
+    import torch
+
+    host, cfg = sb.presets.build("cloth_bench_64k_xpbd")
+    top, s = sb.init(host, device="cuda")
+    g = torch.Generator().manual_seed(XPBD_SEED)
+    v = 0.5 * torch.rand(tuple(s.x.shape), generator=g) - 0.25
+    v = torch.where(top.inv_mass[:, None].cpu() > 0, v, 0.0).to(s.x.device)
+    s = s.replace(v=v, x_prev=s.x - cfg.dt * v)
+    if record:
+        profiling.enable()
+    out = {}
+    for f in range(1, max(XPBD_FRAMES) + 1):
+        s = sb.step(top, cfg, s)
+        if f in XPBD_FRAMES:
+            out[f"x{f}"], out[f"v{f}"] = s.x.cpu(), s.v.cpu()
+    profiling.disable()
     return out
 
 
@@ -164,6 +206,12 @@ def run(root: str, out: str, timing: bool, only=None) -> None:
                            "substeps": 3 * cfg.n_substeps}
             print(json.dumps({"path": name, **times[name]}), flush=True)
         del top, fn
+    from softbodyunity_torch.utils import profiling
+
+    for record in (False, True):
+        name = f"xpbd_64k_frames_recorder{int(record)}"
+        if wanted(name):
+            states[name] = _xpbd_frames(sb, profiling, record)
     # the sweeps alone, from the 64k banner stretched 15 % after a frame
     host, cfg = sb.presets.build("cloth_strain_64k")
     top, s0 = sb.init(host, device="cuda")
@@ -207,16 +255,22 @@ def compare(a: str, b: str) -> None:
     import torch
 
     sa, sb_ = torch.load(a)["states"], torch.load(b)["states"]
-    differ = []
+    differ, values = [], {}
     n = 0
     for name in sorted(set(sa) & set(sb_)):
+        count = [0, 0]   # the values compared, and those that differ
         for field in sorted(set(sa[name]) & set(sb_[name])):
             n += 1
             x, y = sa[name][field], sb_[name][field]
+            count[0] += x.numel()
             if not torch.equal(x, y):
+                count[1] += int((x != y).sum()) if x.shape == y.shape \
+                    else x.numel()
                 differ.append((name, field,
                                float((x.double() - y.double()).abs().max())))
+        values[name] = count
     print(json.dumps({"compared": n, "differ": differ,
+                      "values_compared_differ": values,
                       "only_in_one": sorted(set(sa) ^ set(sb_))}))
 
 

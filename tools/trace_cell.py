@@ -18,9 +18,14 @@ device time a profiled substep by instantiation, the markers' lag behind
 the host's notes, and with the recorder ``idle_by_program_span``, the
 program's per-layer numbers (``benchmark/program_trace.py``),
 ``xpbd_unmet_pct`` (the constraints that each substep's last XPBD sweep
-found unmet over those it evaluated, from its counters), the share of the
+found unmet over those it evaluated, from its counters),
+``xpbd_flag_polls_per_stage`` (the resident XPBD launch's polls of its
+neighbours' flags that found one not ready, per tile and Jacobi stage),
+the share of the
 loop's ``step`` idle that falls inside spans below ``api.step``, the
-counters and what the read-out took.
+counters and what the read-out took; with or without it,
+``xpbd_resident_pct`` (the window's substeps that ran as one resident XPBD
+launch, of all its substeps; None where no XPBD grid ran).
 
 ``kernel`` times a call of ``make_block_pairs`` (the build's kernels and
 the pair kernel) on the 64k pile after ``--frames`` frames, ``--reps``
@@ -119,6 +124,25 @@ def xpbd_unmet_pct(counters):
             if checked else None)
 
 
+def xpbd_resident_pct(launches, resident, substeps):
+    """The substeps that ran as one resident XPBD launch, in % of the
+    window's ``substeps``; None where the XPBD wrapper launched nothing."""
+    return 100.0 * resident / substeps if launches and substeps else None
+
+
+def xpbd_flag_polls_per_stage(counters, resident, config):
+    """The resident XPBD launch's flag polls that found a neighbour not
+    ready, per tile and Jacobi stage (``config``'s grid and sweeps); None
+    where no substep ran resident."""
+    from softbodyunity_torch.kernels import grid_xpbd
+
+    scene = config["scene"]
+    stages = (config["sim"].get("xpbd") or {}).get("n_iterations", 0)
+    n = resident * stages * grid_xpbd.tiles((scene["ny"], scene["nx"]))
+    return (counters.get("grid_xpbd.flag_polls", 0) / n
+            if n and "grid_xpbd.flag_polls" in counters else None)
+
+
 def trace(workload, seed, seconds, recorder, device="cuda", base=None,
           bench=None, alternate=False, dump=None):
     """The ``trace`` line; ``base`` and ``bench``: another benchmark folder
@@ -129,6 +153,7 @@ def trace(workload, seed, seconds, recorder, device="cuda", base=None,
     from benchmark import harness
     from benchmark import program_trace as pt
     from benchmark import trace as tr
+    from softbodyunity_torch.kernels import grid_xpbd
     from softbodyunity_torch.utils import profiling
 
     class Noted(tr.Session):
@@ -185,6 +210,9 @@ def trace(workload, seed, seconds, recorder, device="cuda", base=None,
     out["marker_lag"] = pt.lag_summary(lags)
     out["markers_before_note"] = sum(lag < 0 for lag in lags)
     out["counters"] = prog.counters()
+    resident = grid_xpbd.resident_substep_count()
+    out["xpbd_resident_pct"] = xpbd_resident_pct(
+        grid_xpbd.launch_count(), resident, run.substeps)
     if alternate:
         on = prog.sb.on
         spans = run.spans
@@ -208,6 +236,8 @@ def trace(workload, seed, seconds, recorder, device="cuda", base=None,
         out.update(pt.program_metrics(rec, by_span, profiled, dev.substeps,
                                       frames))
         out["xpbd_unmet_pct"] = xpbd_unmet_pct(rec.counters)
+        out["xpbd_flag_polls_per_stage"] = xpbd_flag_polls_per_stage(
+            rec.counters, resident, cell.config)
         below = (pt.under(rec, by_span, "api.step")
                  - pt.by_name(rec, by_span).get("api.step", 0))
         step_idle = dev.idle_s.get("step", 0.0)
